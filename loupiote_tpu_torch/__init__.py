@@ -1,0 +1,18 @@
+"""loupiote_tpu_torch: the PyTorch / CUDA port of loupiote_tpu.
+
+Runs the path tracer on an NVIDIA H100: plain torch for the wavefront
+stages, hand-written CUDA for the BVH traversal (``csrc/``). Imports torch
+and numpy only; never jax or the ``loupiote_tpu`` package, which stays
+beside it as the reference.
+"""
+
+from .config import BlitMode, RenderConfig
+from .render import Renderer, trace_paths
+from .scene import (Scene, SceneBuffers, arch_camera, build_arch_scene,
+                    build_scene_buffers, from_reference)
+
+__all__ = [
+    "BlitMode", "RenderConfig", "Renderer", "trace_paths",
+    "Scene", "SceneBuffers", "arch_camera", "build_arch_scene",
+    "build_scene_buffers", "from_reference",
+]

@@ -1,0 +1,264 @@
+"""Wide-BVH traversal: kernel K1 (``csrc/wide_traverse.cu``) and its plain
+torch twin.
+
+Counterpart of ``loupiote_tpu/ops/pallas_wide.py`` (``intersect_wide``,
+``occluded_wide``). ``wide_trace`` launches the CUDA kernel for CUDA
+tensors and runs ``wide_trace_plain`` for CPU tensors; there is no
+fallback from one to the other. Both visit rows in the same order
+(nearest child next, the other hit children pushed far-to-near by
+``slot ^ octant(ray direction)``), so they return the same hits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..accel.wide import LEAF_MASK, LEAF_TAG
+from .intersect import T_FAR, T_MIN, Hit, moller_trumbore, recompute_uv
+
+STACK_MAX = 64  # csrc/wide_traverse.cu: kStackMax
+
+# Launches of K1 by mode: each wrapper call that launches the kernel adds
+# one. chip_smoke.py zeroes them before the main path and reads them after.
+launches_closest = 0
+launches_anyhit = 0
+
+# Per-device int32 counters of rays stopped by the step bound.
+_capped: dict = {}
+
+
+def _capped_counter(device: torch.device) -> torch.Tensor:
+    key = str(device)
+    if key not in _capped:
+        _capped[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _capped[key]
+
+
+def capped_rays(device) -> int:
+    """Rays that reached the step bound ``4 * wide_end + 64`` on ``device``
+    since the last ``reset_counters()``; 0 on a well-formed table."""
+    return int(_capped_counter(torch.device(device)).item())
+
+
+def reset_counters() -> None:
+    global launches_closest, launches_anyhit
+    launches_closest = 0
+    launches_anyhit = 0
+    for c in _capped.values():
+        c.zero_()
+
+
+def max_steps(wide_end: int) -> int:
+    """The reference kernel's step bound (row visits per ray)."""
+    return 4 * int(wide_end) + 64
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.where(d.abs() > 1e-20, d,
+                             torch.where(d >= 0, 1e-20, -1e-20))
+
+
+def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
+                     rd: torch.Tensor, tmax: torch.Tensor,
+                     active: torch.Tensor, any_hit: bool, wide_end: int,
+                     wide_stack: int):
+    """Plain torch traversal of the wide table, vectorised over rays.
+
+    Each live ray visits one row per step: a leaf row runs the 14-triangle
+    Moller-Trumbore test; an internal row box-tests its 8 children, makes
+    the nearest hit child the next row and pushes the others far-to-near
+    onto the ray's own stack (R, wide_stack). Returns ``(t, tri)``:
+    closest-hit gives the nearest hit's t (``tmax`` on a miss) and triangle
+    (-1 on a miss); any-hit gives ``tmax`` and 1 where blocked, else 0.
+    """
+    dev = ro.device
+    R = ro.shape[0]
+    rows_i = trav_rows.view(torch.int32)
+    t_best = tmax.clone()
+    tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    blocked = torch.zeros(R, dtype=torch.bool, device=dev)
+    ox, oy, oz = ro[:, 0], ro[:, 1], ro[:, 2]
+    dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
+    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    octant = ((dx < 0).to(torch.int64) | ((dy < 0).to(torch.int64) << 1)
+              | ((dz < 0).to(torch.int64) << 2))
+    # Column wide_stack is a dump slot for the scatter of unpushed children.
+    stack = torch.zeros((R, wide_stack + 1), dtype=torch.int32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    cur = torch.zeros(R, dtype=torch.int32, device=dev)
+    slots = torch.arange(8, device=dev)
+    k14 = torch.arange(14, device=dev)
+    live = torch.nonzero(active).flatten()
+    for _ in range(max_steps(wide_end)):
+        if live.numel() == 0:
+            break
+        c = cur[live]
+        leaf = (c & LEAF_TAG) != 0
+        row = (c & LEAF_MASK).to(torch.int64)
+        nxt = torch.full_like(c, -1)
+
+        # Leaf rows: Moller-Trumbore against up to 14 triangles.
+        if bool(leaf.any()):
+            li, lrow = live[leaf], row[leaf]
+            tr = trav_rows[lrow, :126].reshape(-1, 14, 9)
+            fc = rows_i[lrow, 126]
+            first, count = fc >> 4, fc & 15
+            o = (ox[li, None], oy[li, None], oz[li, None])
+            d = (dx[li, None], dy[li, None], dz[li, None])
+            u, v, t = moller_trumbore(o, d, tuple(tr[:, :, j]
+                                                  for j in range(9)))
+            ok = ((k14[None, :] < count[:, None]) & (u >= 0.0) & (v >= 0.0)
+                  & (u + v <= 1.0) & (t > T_MIN)
+                  & (t < t_best[li, None]))
+            if any_hit:
+                blocked[li] = ok.any(dim=1)
+            else:
+                cand = torch.where(ok, t, float("inf"))
+                k = torch.argmin(cand, dim=1)  # first minimum: earlier tri
+                ct = cand.gather(1, k[:, None])[:, 0]
+                upd = ct < t_best[li]
+                t_best[li] = torch.where(upd, ct, t_best[li])
+                tri[li] = torch.where(upd, (first + k).to(torch.int32),
+                                      tri[li])
+
+        # Internal rows: box-test 8 children, descend nearest, push rest.
+        inner = ~leaf
+        if bool(inner.any()):
+            ni, nrow = live[inner], row[inner]
+            box = trav_rows[nrow].reshape(-1, 8, 16)
+            ptr = rows_i[nrow].reshape(-1, 8, 16)[:, :, 6]
+            o = (ox[ni, None], oy[ni, None], oz[ni, None])
+            inv = (ix[ni, None], iy[ni, None], iz[ni, None])
+            t1 = [(box[:, :, a] - o[a]) * inv[a] for a in range(3)]
+            t2 = [(box[:, :, a + 3] - o[a]) * inv[a] for a in range(3)]
+            tn = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                             torch.minimum(t1[1], t2[1])),
+                               torch.minimum(t1[2], t2[2]))
+            tf = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                             torch.maximum(t1[1], t2[1])),
+                               torch.maximum(t1[2], t2[2]))
+            bound = (tmax if any_hit else t_best)[ni, None]
+            hit = ((ptr != -1) & (tf >= torch.clamp_min(tn, 0.0))
+                   & (tn < bound))
+            # Reorder children by priority p: child (p ^ octant).
+            by_p = slots[None, :] ^ octant[ni, None]
+            hit_p = hit.gather(1, by_p)
+            ptr_p = ptr.gather(1, by_p)
+            nh = hit_p.sum(dim=1)
+            rank = torch.cumsum(hit_p.to(torch.int64), dim=1) - 1
+            pos = sp[ni, None] + (nh[:, None] - 1 - rank)
+            push = hit_p & (rank >= 1)
+            stack[ni[:, None], torch.where(push, pos, wide_stack)] = ptr_p
+            nearest = torch.where(hit_p & (rank == 0), ptr_p, -1).amax(dim=1)
+            sp[ni] += torch.clamp_min(nh - 1, 0)
+            nxt[inner] = nearest.to(torch.int32)
+
+        # Next row: the nearest hit child, else the stack top, else done.
+        descend = nxt >= 0
+        can_pop = ~descend & (sp[live] > 0)
+        if any_hit:
+            finished = blocked[live]
+            descend &= ~finished
+            can_pop &= ~finished
+        pi = live[can_pop]
+        sp[pi] -= 1
+        cur[pi] = stack[pi, sp[pi]]
+        cur[live[descend]] = nxt[descend]
+        live = live[descend | can_pop]
+    else:
+        if live.numel():
+            _capped_counter(dev).add_(live.numel())
+    if any_hit:
+        return t_best, blocked.to(torch.int32)
+    return t_best, tri
+
+
+def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
+    dev = ro.device
+    R = ro.shape[0]
+    if wide_stack > STACK_MAX:
+        raise ValueError(f"scene needs a traversal stack of {wide_stack} "
+                         f"entries; the kernel holds {STACK_MAX}")
+    for name, x, dtype, shape in (
+            ("trav_rows", trav_rows, torch.float32, None),
+            ("ro", ro, torch.float32, (R, 3)),
+            ("rd", rd, torch.float32, (R, 3)),
+            ("tmax", tmax, torch.float32, (R,)),
+            ("active", active, torch.bool, (R,))):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                             f"{dev}, got {x.dtype} on {x.device}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name}: need shape {shape}, got "
+                             f"{tuple(x.shape)}")
+    if trav_rows.dim() != 2 or trav_rows.shape[1] != 128:
+        raise ValueError("trav_rows: need shape (rows, 128)")
+    lib = _build.load("wide_traverse")
+    fn = lib.wide_traverse
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    tri = torch.empty(R, dtype=torch.int32, device=dev)
+    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
+             _capped_counter(dev).data_ptr(), R, max_steps(wide_end),
+             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
+    global launches_closest, launches_anyhit
+    if any_hit:
+        launches_anyhit += 1
+    else:
+        launches_closest += 1
+    return t, tri
+
+
+def wide_trace(trav_rows, ro, rd, tmax, active, any_hit: bool,
+               wide_end: int, wide_stack: int):
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    if ro.device.type == "cpu":
+        return wide_trace_plain(trav_rows, ro, rd, tmax, active, any_hit,
+                                wide_end, wide_stack)
+    if ro.device.type != "cuda":
+        raise ValueError(f"no traversal for device {ro.device}")
+    return _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end,
+                   wide_stack)
+
+
+def intersect_wide(scene, ro, rd, tmax=None, active=None,
+                   any_hit: bool = False) -> Hit:
+    """Hit record from the wide traversal (``pallas_wide.intersect_wide``).
+
+    A miss returns ``(tmax or T_FAR, -1)``; inactive rays return tri -1;
+    u, v of the winning triangle come from ``recompute_uv``.
+    """
+    R = ro.shape[0]
+    dev = ro.device
+    t0 = (torch.full((R,), T_FAR, dtype=torch.float32, device=dev)
+          if tmax is None else tmax.contiguous())
+    act = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
+           else active.contiguous())
+    ro, rd = ro.contiguous(), rd.contiguous()
+    t, tri = wide_trace(scene.trav_rows, ro, rd, t0, act, any_hit,
+                        scene.wide_end, scene.wide_stack)
+    if any_hit:
+        tri = torch.where(tri > 0, tri, -1)
+        u = v = torch.zeros(R, dtype=torch.float32, device=dev)
+    else:
+        u, v = recompute_uv(scene, ro, rd, tri)
+    if active is not None:
+        tri = torch.where(active, tri, -1)
+    return Hit(t, tri, u, v)
+
+
+def occluded_wide(scene, ro, rd, tmax, active=None) -> torch.Tensor:
+    """(R,) bool: segment [T_MIN, tmax) blocked (any-hit mode)."""
+    out = intersect_wide(scene, ro, rd, tmax=tmax, active=active,
+                         any_hit=True).tri > 0
+    if active is not None:
+        out = out & active
+    return out

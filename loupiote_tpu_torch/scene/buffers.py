@@ -1,0 +1,262 @@
+"""Device-side scene tables (counterpart of ``loupiote_tpu/scene/buffers.py``).
+
+Holds only what the port's frame reads. Two ways in:
+``build_scene_buffers`` is the port's own host path (flatten instances,
+build the BVH2, collapse it to the wide table), and ``from_reference``
+carries a reference ``SceneBuffers`` across without importing jax.
+Ints stored bitcast in float32 tables (``tri_shade`` columns 15-16,
+``mat_pack`` columns 9-10, the ``trav_rows`` pointer lanes) are read back
+with ``.view(torch.int32)``, never with a value cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..accel.bvh import LEAF_MAX, build_bvh
+from ..accel.wide import collapse_wide
+from .types import INVALID_INDEX, Scene, pad_rows
+
+_PAD = 128
+
+
+def _ceil_to(n: int, m: int = _PAD) -> int:
+    return max(((n + m - 1) // m) * m, m)
+
+
+@dataclass
+class SceneBuffers:
+    """Flat float32 tables on one device."""
+
+    # Wide traversal table (accel/wide.py layout), padded past wide_end
+    # with empty internal rows.
+    trav_rows: torch.Tensor  # (rows, 128)
+    # [p0.xyz, e1.xyz, e2.xyz] per triangle, in BVH leaf order.
+    tri_pack: torch.Tensor  # (T, 9)
+    # [n0, n1, n2, uv0, uv1, uv2, mat (bitcast), inst (bitcast), geo normal]
+    tri_shade: torch.Tensor  # (T, 20)
+    # [color(4), roughness, metallic, emission(3), albedo_tex, mra_tex]
+    mat_pack: torch.Tensor  # (M, 11)
+    light_origin: torch.Tensor  # (L, 3)
+    light_eu: torch.Tensor  # (L, 3)
+    light_ev: torch.Tensor  # (L, 3)
+    light_emission: torch.Tensor  # (L, 3), premultiplied by intensity
+    # BVH2 node bounds; row 0 is the scene box (sort keys, scene exit).
+    node_min: torch.Tensor  # (N, 3)
+    node_max: torch.Tensor  # (N, 3)
+    wide_end: int
+    wide_stack: int
+    leaf_cap: int
+    num_nodes: int
+    num_lights: int
+    has_probe: bool = False
+    has_textures: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.trav_rows.device
+
+    def to(self, device) -> "SceneBuffers":
+        """A copy with every table on ``device``."""
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(device) for name in _TENSOR_FIELDS})
+
+
+def build_scene_buffers(scene: Scene, device="cpu",
+                        use_native: bool = True) -> SceneBuffers:
+    """Flatten the scene's instances, build its BVH and upload the tables.
+
+    ``use_native``: build the BVH2 with the C++ builder (the shipped
+    default); False selects the numpy builder, whose tree differs.
+    """
+    p0s, p1s, p2s = [], [], []
+    n0s, n1s, n2s = [], [], []
+    uv0s, uv1s, uv2s = [], [], []
+    mats, insts = [], []
+    for inst_id, inst in enumerate(scene.instances):
+        mesh = scene.meshes[inst.mesh_index]
+        m = inst.model_to_world
+        pos = mesh.positions @ m[:3, :3].T + m[:3, 3]
+        idx = mesh.indices.reshape(-1, 3).astype(np.int64)
+        a, b, c = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+        p0s.append(a)
+        p1s.append(b)
+        p2s.append(c)
+        if mesh.normals is None:
+            # Facet normals when the mesh has none.
+            fn = np.cross(b - a, c - a)
+            fn = fn / np.maximum(np.linalg.norm(fn, axis=1, keepdims=True),
+                                 1e-20)
+            nrm3 = (fn, fn, fn)
+        else:
+            nrm = mesh.normals @ np.linalg.inv(m[:3, :3])
+            nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True),
+                                   1e-20)
+            nrm3 = (nrm[idx[:, 0]], nrm[idx[:, 1]], nrm[idx[:, 2]])
+        for out, x in zip((n0s, n1s, n2s), nrm3):
+            out.append(x)
+        if mesh.texcoords is None:
+            z = np.zeros((len(idx), 2), np.float32)
+            uv3 = (z, z, z)
+        else:
+            uv = mesh.texcoords
+            uv3 = (uv[idx[:, 0]], uv[idx[:, 1]], uv[idx[:, 2]])
+        for out, x in zip((uv0s, uv1s, uv2s), uv3):
+            out.append(x)
+        mat_id = inst.material_index
+        if mat_id == int(INVALID_INDEX) or mat_id >= len(scene.materials):
+            mat_id = 0
+        mats.append(np.full(len(idx), mat_id, np.int32))
+        insts.append(np.full(len(idx), inst_id, np.int32))
+    if not p0s:
+        raise ValueError("scene has no instances to render")
+
+    p0 = np.concatenate(p0s).astype(np.float32)
+    p1 = np.concatenate(p1s).astype(np.float32)
+    p2 = np.concatenate(p2s).astype(np.float32)
+    bvh = build_bvh(p0, p1, p2, leaf_max=LEAF_MAX, use_native=use_native)
+    order = bvh.tri_order
+
+    def cat(parts):
+        return np.concatenate(parts).astype(np.float32)[order]
+
+    p0, p1, p2 = p0[order], p1[order], p2[order]
+    n0, n1, n2 = cat(n0s), cat(n1s), cat(n2s)
+    uv0, uv1, uv2 = cat(uv0s), cat(uv1s), cat(uv2s)
+    tri_mat = np.concatenate(mats)[order]
+    tri_inst = np.concatenate(insts)[order]
+
+    T = p0.shape[0]
+    Tp = _ceil_to(T)
+    N = bvh.num_nodes
+    Np = _ceil_to(N)
+
+    def padt(a, fill=0.0):
+        return pad_rows(a, Tp, fill)
+
+    M = max(len(scene.materials), 1)
+    Mp = _ceil_to(M, 8)
+    mat_color = np.ones((Mp, 4), np.float32)
+    mat_roughness = np.ones(Mp, np.float32)
+    mat_metallic = np.zeros(Mp, np.float32)
+    mat_albedo_tex = np.full(Mp, -1, np.int32)
+    mat_mra_tex = np.full(Mp, -1, np.int32)
+    mat_emission = np.zeros((Mp, 3), np.float32)
+    for i, mt in enumerate(scene.materials):
+        mat_color[i] = mt.color
+        mat_roughness[i] = mt.roughness
+        mat_metallic[i] = mt.reflectivity
+        mat_albedo_tex[i] = (-1 if mt.albedo_texture == int(INVALID_INDEX)
+                             else mt.albedo_texture)
+        mat_mra_tex[i] = (-1 if mt.mra_texture == int(INVALID_INDEX)
+                          else mt.mra_texture)
+        mat_emission[i] = mt.emission
+
+    Lp = _ceil_to(max(len(scene.lights), 1), 8)
+    light_origin = np.zeros((Lp, 3), np.float32)
+    light_eu = np.zeros((Lp, 3), np.float32)
+    light_ev = np.zeros((Lp, 3), np.float32)
+    light_emission = np.zeros((Lp, 3), np.float32)
+    for i, lt in enumerate(scene.lights):
+        light_origin[i] = lt.origin
+        light_eu[i] = lt.edge_u
+        light_ev[i] = lt.edge_v
+        light_emission[i] = lt.emission * lt.intensity
+
+    e1 = (p1 - p0).astype(np.float32)
+    e2 = (p2 - p0).astype(np.float32)
+    tri_pack = np.concatenate([padt(p0, 1e30), padt(e1), padt(e2)], axis=1)
+    tri9 = np.concatenate([p0, e1, e2], axis=1)
+
+    def i32col(v):
+        return v.astype(np.int32).view(np.float32)[:, None]
+
+    geo_n = np.cross(p1 - p0, p2 - p0)
+    geo_n = geo_n / np.maximum(np.linalg.norm(geo_n, axis=1, keepdims=True),
+                               1e-20)
+    tri_shade = np.concatenate([
+        padt(n0), padt(n1), padt(n2),
+        pad_rows(uv0, Tp), pad_rows(uv1, Tp), pad_rows(uv2, Tp),
+        i32col(pad_rows(tri_mat, Tp, 0)),
+        i32col(pad_rows(tri_inst, Tp, -1)),
+        padt(geo_n.astype(np.float32)),
+    ], axis=1).astype(np.float32)
+    mat_pack = np.concatenate([
+        mat_color, mat_roughness[:, None], mat_metallic[:, None],
+        mat_emission,
+        mat_albedo_tex.view(np.float32)[:, None],
+        mat_mra_tex.view(np.float32)[:, None],
+    ], axis=1).astype(np.float32)
+
+    wide = collapse_wide(bvh, tri9)
+    # +2 rows, as the reference pads; padded rows read as internal nodes
+    # with all-empty children.
+    trav = pad_rows(wide.trav_rows, _ceil_to(wide.trav_rows.shape[0] + 2, 8),
+                    0.0)
+    for c in range(8):
+        trav[wide.end_index:, 16 * c:16 * c + 3] = 1e30
+        trav[wide.end_index:, 16 * c + 3:16 * c + 6] = -1e30
+        trav[wide.end_index:, 16 * c + 6] = np.int32(-1).view(np.float32)
+    wide_stack = 16
+    while wide_stack < wide.stack_need:
+        wide_stack *= 2
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return SceneBuffers(
+        trav_rows=dev(trav),
+        tri_pack=dev(tri_pack),
+        tri_shade=dev(tri_shade),
+        mat_pack=dev(mat_pack),
+        light_origin=dev(light_origin),
+        light_eu=dev(light_eu),
+        light_ev=dev(light_ev),
+        light_emission=dev(light_emission),
+        node_min=dev(pad_rows(bvh.node_min, Np, 1e30)),
+        node_max=dev(pad_rows(bvh.node_max, Np, -1e30)),
+        wide_end=int(wide.end_index),
+        wide_stack=int(wide_stack),
+        leaf_cap=int(max(bvh.count.max(), wide.leaf_row_max)),
+        num_nodes=N,
+        num_lights=len(scene.lights),
+        has_probe=False,
+        has_textures=len(scene.images) > 0,
+    )
+
+
+_TENSOR_FIELDS = ("trav_rows", "tri_pack", "tri_shade", "mat_pack",
+                  "light_origin", "light_eu", "light_ev", "light_emission",
+                  "node_min", "node_max")
+
+
+def from_reference(ref, device="cpu") -> SceneBuffers:
+    """The port's buffers from a reference (JAX) ``SceneBuffers``.
+
+    Each field is read with ``np.asarray``, so this needs no jax import.
+    Instanced scenes and the width-16 / multi-row-leaf tables are not
+    ported and raise.
+    """
+    if getattr(ref, "inst_w2o", None) is not None:
+        raise NotImplementedError(
+            "two-level instanced scenes come with the instancing slice of "
+            "the port")
+    if int(ref.wide_width) != 8 or int(ref.wide_leaf_rows) != 1:
+        raise NotImplementedError(
+            "the port traverses only the 8-wide, one-row-leaf table")
+    tensors = {name: torch.from_numpy(np.array(np.asarray(getattr(ref, name))))
+               .to(device) for name in _TENSOR_FIELDS}
+    return SceneBuffers(
+        **tensors,
+        wide_end=int(ref.wide_end),
+        wide_stack=int(ref.wide_stack),
+        leaf_cap=int(ref.leaf_cap),
+        num_nodes=int(ref.num_nodes),
+        num_lights=int(ref.num_lights),
+        has_probe=bool(ref.has_probe),
+        has_textures=bool(ref.has_textures),
+    )

@@ -1,0 +1,122 @@
+"""The port's host plane (loupiote_tpu_torch: scene model, procedural
+scene, BVH builders, wide collapse, scene tables) against the reference's.
+
+The port copies the reference's numpy host code because importing any
+loupiote_tpu module imports jax; these tests hold the copies to the
+reference's tables byte for byte.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import loupiote_tpu.scene.types as ref_types
+import loupiote_tpu_torch.scene.types as port_types
+from loupiote_tpu.accel.bvh import build_bvh as ref_build_bvh
+from loupiote_tpu.accel.bvh import bvh_max_depth as ref_bvh_max_depth
+from loupiote_tpu.scene import build_scene_buffers as ref_buffers
+from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch
+from loupiote_tpu_torch import build_arch_scene as port_arch
+from loupiote_tpu_torch import build_scene_buffers, from_reference
+from loupiote_tpu_torch.accel import native
+from loupiote_tpu_torch.accel.bvh import build_bvh, bvh_max_depth
+from loupiote_tpu_torch.ops.wide import wide_trace_plain
+from torch_port_helpers import (numpy_bvh, random_rays, random_tris,
+                                soup_scene, t_of, ulp_diff)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TABLES = ("trav_rows", "tri_shade", "mat_pack", "tri_pack", "light_origin",
+          "light_eu", "light_ev", "light_emission", "node_min", "node_max")
+INTS = ("wide_end", "wide_stack", "num_nodes", "leaf_cap", "num_lights",
+        "has_probe", "has_textures")
+
+
+def _scenes(name):
+    if name == "random500":
+        tris = random_tris()
+        return soup_scene(ref_types, *tris), soup_scene(port_types, *tris)
+    return ref_arch(8_000), port_arch(8_000)
+
+
+@pytest.mark.parametrize("name", ["random500", "arch8k"])
+def test_tables_byte_equal(name):
+    """Same scene, numpy BVH builder on both sides: identical tables."""
+    ref_scene, port_scene = _scenes(name)
+    with numpy_bvh():
+        ref = ref_buffers(ref_scene)
+    port = build_scene_buffers(port_scene, use_native=False)
+    for f in TABLES:
+        a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        assert a.tobytes() == b.tobytes(), f
+    for f in INTS:
+        assert getattr(ref, f) == getattr(port, f), f
+
+
+def test_from_reference_round_trips_every_field():
+    with numpy_bvh():
+        ref = ref_buffers(ref_arch(8_000))
+    port = from_reference(ref)
+    for f in TABLES:
+        t = getattr(port, f)
+        assert t.dtype == torch.float32 and t.is_contiguous(), f
+        assert t.numpy().tobytes() == np.asarray(getattr(ref, f)).tobytes(), f
+    for f in INTS:
+        assert getattr(port, f) == getattr(ref, f), f
+    # Bitcast ints survive: material ids and -1 child pointers.
+    mats = port.tri_shade.view(torch.int32)[:, 15].numpy()
+    assert (mats == np.asarray(ref.tri_shade).view(np.int32)[:, 15]).all()
+    ptr = port.trav_rows.view(torch.int32)[:port.wide_end, 6::16]
+    assert (ptr == -1).any() and ((ptr & (1 << 30)) != 0).any()
+
+
+def test_bvh_max_depth_matches_reference():
+    v0, v1, v2 = random_tris(seed=11, n=777, spread=5.0, size=0.3)
+    with numpy_bvh():
+        ref = ref_build_bvh(v0, v1, v2)
+    port = build_bvh(v0, v1, v2, use_native=False)
+    assert (port.miss == ref.miss).all() and (port.count == ref.count).all()
+    assert (bvh_max_depth(port.count, port.miss)
+            == ref_bvh_max_depth(ref.count, ref.miss))
+
+
+def test_native_builder_gives_a_valid_tree():
+    """The port's C++ build (its own library, built without -march=native)
+    traverses to the brute-force closest hit. Its tree may differ from the
+    reference's."""
+    tris = random_tris(seed=5, n=2000, spread=10.0, size=0.8)
+    bufs = build_scene_buffers(soup_scene(port_types, *tris))
+    lib = [p for p in os.listdir(native.BUILD_DIR) if p.startswith("libbvh")]
+    assert lib and native.BUILD_DIR.startswith(
+        os.path.join(REPO, "loupiote_tpu_torch"))
+    ro, rd = random_rays(tris, 512, seed=6)
+    R = len(ro)
+    t, tri = wide_trace_plain(bufs.trav_rows, torch.from_numpy(ro),
+                              torch.from_numpy(rd), torch.full((R,), 1e30),
+                              torch.ones(R, dtype=torch.bool), False,
+                              bufs.wide_end, bufs.wide_stack)
+    # Brute force over every triangle, in the port's triangle order.
+    tp = bufs.tri_pack.numpy()
+    T = len(tris[0])
+    best_t = np.full(R, np.inf, np.float32)
+    for k in range(T):
+        u, v, tt = t_of(tp, ro, rd, np.full(R, k))
+        ok = (u >= 0) & (v >= 0) & (u + v <= 1) & (tt > 1e-4)
+        best_t = np.where(ok & (tt < best_t), tt, best_t)
+    hit = np.isfinite(best_t)
+    assert (tri.numpy() >= 0).tolist() == hit.tolist()
+    assert (ulp_diff(t.numpy()[hit], best_t[hit]) == 0).all()
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, loupiote_tpu_torch; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'loupiote_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
