@@ -1,18 +1,21 @@
 """loupiote_tpu_torch: the PyTorch / CUDA port of loupiote_tpu.
 
 Runs the path tracer on an NVIDIA H100: plain torch for the wavefront
-stages, hand-written CUDA for the BVH traversal (``csrc/``). Imports torch
-and numpy only; never jax or the ``loupiote_tpu`` package, which stays
-beside it as the reference.
+stages and the A-SVGF denoiser, hand-written CUDA for the BVH traversals
+(``csrc/``). Entry points put their tensors on the card unless the caller
+names another device. Imports torch and numpy only; never jax or the
+``loupiote_tpu`` package, which stays beside it as the reference.
 """
 
 from .config import BlitMode, RenderConfig
-from .render import Renderer, trace_paths
+from .denoise import denoise
+from .render import Camera, Renderer, trace_paths
 from .scene import (Scene, SceneBuffers, arch_camera, build_arch_scene,
                     build_scene_buffers, from_reference)
 
 __all__ = [
-    "BlitMode", "RenderConfig", "Renderer", "trace_paths",
+    "BlitMode", "Camera", "RenderConfig", "Renderer", "denoise",
+    "trace_paths",
     "Scene", "SceneBuffers", "arch_camera", "build_arch_scene",
     "build_scene_buffers", "from_reference",
 ]

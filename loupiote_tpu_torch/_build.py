@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "--fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: dict = {}  # one lock per source: builds of two run in parallel
 _libs: dict = {}
 # name -> {"seconds": float, "log": str}: how long the build took and
 # what ptxas said (registers, spills), for chip_smoke.py to print.
@@ -45,8 +46,11 @@ def nvcc_path() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
+    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure.
+    Threads that load different sources build them at the same time."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_compile(name))

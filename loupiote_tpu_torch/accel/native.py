@@ -1,10 +1,11 @@
 """ctypes bridge to the C++ binned-SAH builder.
 
-The source is the reference package's
-``loupiote_tpu/accel/cpp/bvh_builder.cpp``, read in place so the two
-packages build from one source. It is compiled with ``g++ -O3 -shared
--fPIC`` (no ``-march=native``, so the library runs on any x86-64 host)
-into the port's build directory, ``loupiote_tpu_torch/_build/``.
+The source is the port's own copy,
+``loupiote_tpu_torch/csrc/bvh_builder.cpp`` (a test holds it byte-equal
+to the reference package's builder). It is
+compiled with ``g++ -O3 -shared -fPIC`` (no ``-march=native``, so the
+library runs on any x86-64 host) into the port's build directory,
+``loupiote_tpu_torch/_build/``.
 A failed compile or load raises: the numpy builder gives a different tree,
 so the port never swaps one for the other silently.
 """
@@ -23,8 +24,7 @@ import numpy as np
 from .bvh import FlatBVH
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "loupiote_tpu", "accel", "cpp",
-                      "bvh_builder.cpp")
+SOURCE = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # Insertion-optimizer rounds: the reference's shipped default.
 OPT_ROUNDS = 50

@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 
 class BlitMode(enum.Enum):
-    """Display mode switch. The port renders only ``PATHTRACE`` so far."""
+    """Display mode switch."""
 
     PATHTRACE = "pathtrace"
     DENOISED_PATHTRACE = "denoised_pathtrace"

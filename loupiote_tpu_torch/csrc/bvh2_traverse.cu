@@ -1,0 +1,287 @@
+// K2 and K3: BVH2 ray traversal.
+//
+// K2 (bvh2_trace) replaces the TPU kernel
+// loupiote_tpu/ops/pallas_intersect.py::_traverse_kernel (launched by
+// _pallas_trace, wrapped by intersect_pallas): closest hit (t, u, v, tri),
+// or any-hit, with a stack. K3 (bvh2_occluded) replaces
+// loupiote_tpu/ops/pallas_intersect.py::_anyhit_kernel (launched by
+// _pallas_anyhit, wrapped by occluded_pallas): one blocked bit per ray,
+// stackless over the threaded miss links. Both compute what those kernels
+// compute, not how: one thread per ray, no 128-ray sub-packets. K2 picks
+// the near child by the ray's own direction sign along the split axis
+// (the TPU kernel takes a sub-packet's majority sign); order moves only
+// step counts and which of two triangles at the same t wins. K3 retires
+// each ray on its own. The plain torch twins are
+// loupiote_tpu_torch/ops/bvh2.py::bvh2_trace_plain and
+// ::bvh2_occluded_plain; they follow the same visit order and arithmetic,
+// so a kernel and its twin agree bit for bit.
+//
+// Tables (loupiote_tpu_torch/scene/buffers.py): node_rows (N, 16) floats:
+// min.xyz, max.xyz, then bitcast ints count (0 = internal), miss,
+// right child (internal) or leaf row (leaf), split axis (internal) or
+// first triangle (leaf). leaf_rows (L, 128): up to 14 triangles as
+// p0/e1/e2, empty slots at p0 = 1e30; only the first `count` are tested.
+// The left child of internal node n is n + 1. Ints are read with
+// __float_as_int only: a -1 is a NaN bit pattern.
+//
+// What bounds it on an H100: each step is a dependent load of one 64-byte
+// node row (and, at a leaf, one 512-byte leaf row), then a few dozen
+// flops. The tables of a small scene are small (arch-40k: about 0.5 MB of
+// nodes and 2 MB of leaves) and stay in the 50 MB L2; a 960x540 wave is
+// about 15 MB of ray input, read once. So the kernel is bound by load
+// latency and warp divergence, not by bytes or flops. One thread per ray
+// answers latency with occupancy (128 threads a block), and threads of a
+// warp whose rays share a pixel tile read the same rows, which L1 serves
+// once. A fast design (coherent-warp scheduling, nodes in shared memory,
+// cp.async) is later work.
+//
+// Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
+// (loupiote_tpu_torch/_build.py). --fmad=false keeps every product
+// separately rounded as in the reference, so t, u, v and every edge
+// decision match the twins.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStackMax = 128;  // ops/bvh2.py raises for a deeper scene
+constexpr int kLeafCap = 14;
+constexpr float kTMin = 1e-4f;
+
+__device__ __forceinline__ float safe_inv(float d) {
+  const float s = fabsf(d) > 1e-20f ? d : (d >= 0.0f ? 1e-20f : -1e-20f);
+  return 1.0f / s;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* ro, const float* rd,
+                                        int i) {
+  Ray r;
+  r.ox = ro[3 * i];
+  r.oy = ro[3 * i + 1];
+  r.oz = ro[3 * i + 2];
+  r.dx = rd[3 * i];
+  r.dy = rd[3 * i + 1];
+  r.dz = rd[3 * i + 2];
+  r.ix = safe_inv(r.dx);
+  r.iy = safe_inv(r.dy);
+  r.iz = safe_inv(r.dz);
+  return r;
+}
+
+// Slab test of the node's box, the reference's order of products and
+// min/max. Fills the node's four int columns.
+__device__ __forceinline__ bool slab(const float* __restrict__ node_rows,
+                                     int node, const Ray& r, float bound,
+                                     int4* ints) {
+  const float4* row = reinterpret_cast<const float4*>(node_rows) + 4 * node;
+  const float4 a = __ldg(row);      // min.xyz, max.x
+  const float4 b = __ldg(row + 1);  // max.yz, count, miss
+  const float4 c = __ldg(row + 2);  // slot8, slot9, pad, pad
+  *ints = make_int4(__float_as_int(b.z), __float_as_int(b.w),
+                    __float_as_int(c.x), __float_as_int(c.y));
+  const float t1x = (a.x - r.ox) * r.ix, t2x = (a.w - r.ox) * r.ix;
+  const float t1y = (a.y - r.oy) * r.iy, t2y = (b.x - r.oy) * r.iy;
+  const float t1z = (a.z - r.oz) * r.iz, t2z = (b.y - r.oz) * r.iz;
+  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                         fminf(t1z, t2z));
+  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                         fmaxf(t1z, t2z));
+  return tf >= fmaxf(tn, 0.0f) && tn < bound;
+}
+
+// Moller-Trumbore of triangle k of a leaf row, products in the reference's
+// order. Returns true where it is a hit in (kTMin, bound).
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
+                                        const Ray& r, float bound, float* uo,
+                                        float* vo, float* to) {
+  const float p0x = __ldg(tr + 0), p0y = __ldg(tr + 1), p0z = __ldg(tr + 2);
+  const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
+  const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - p0x, tvy = r.oy - p0y, tvz = r.oz - p0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  *uo = u;
+  *vo = v;
+  *to = t;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(128)
+    bvh2_trace_kernel(const float* __restrict__ node_rows,
+                      const float* __restrict__ leaf_rows,
+                      const float* __restrict__ ro,
+                      const float* __restrict__ rd,
+                      const float* __restrict__ tmax,
+                      const uint8_t* __restrict__ active,
+                      float* __restrict__ t_out, float* __restrict__ u_out,
+                      float* __restrict__ v_out,
+                      int32_t* __restrict__ tri_out,
+                      int32_t* __restrict__ capped, int n_rays,
+                      int max_steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  float best = tmax[i], best_u = 0.0f, best_v = 0.0f;
+  int best_tri = -1;
+  if (active[i]) {
+    const Ray r = load_ray(ro, rd, i);
+    int stack[kStackMax];
+    int sp = 0;
+    int node = 0;
+    for (int steps = 0;; ++steps) {
+      if (steps == max_steps) {  // the reference's silent step bound
+        atomicAdd(capped, 1);
+        break;
+      }
+      int4 ints;  // count, miss, slot8, slot9
+      const bool hit = slab(node_rows, node, r, best, &ints);
+      int next = -1;  // -1: pop the stack
+      bool done = false;
+      if (hit && ints.x > 0) {
+        // Leaf: the strict t < best keeps the earlier of two triangles
+        // at the same t, as the reference's fold does.
+        const float* leaf = leaf_rows + static_cast<size_t>(ints.z) * 128;
+        for (int k = 0; k < ints.x && k < kLeafCap; ++k) {
+          float u, v, t;
+          if (tri_hit(leaf + 9 * k, r, best, &u, &v, &t)) {
+            best = t;
+            best_u = u;
+            best_v = v;
+            best_tri = ints.w + k;
+            done = kAnyHit;
+          }
+        }
+      } else if (hit) {
+        // Internal: near child first by the direction sign on the split
+        // axis; the far one waits on the stack.
+        const float dax = ints.w == 0 ? r.dx : (ints.w == 1 ? r.dy : r.dz);
+        const int left = node + 1, right = ints.z;
+        const bool pos = dax >= 0.0f;
+        stack[sp++] = pos ? right : left;
+        next = pos ? left : right;
+      }
+      if (done) break;
+      if (next < 0) {
+        if (sp == 0) break;
+        next = stack[--sp];
+      }
+      node = next;
+    }
+  }
+  t_out[i] = best;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+  tri_out[i] = best_tri;
+}
+
+__global__ void __launch_bounds__(128)
+    bvh2_occluded_kernel(const float* __restrict__ node_rows,
+                         const float* __restrict__ leaf_rows,
+                         const float* __restrict__ ro,
+                         const float* __restrict__ rd,
+                         const float* __restrict__ tmax,
+                         const uint8_t* __restrict__ active,
+                         int32_t* __restrict__ blocked_out,
+                         int32_t* __restrict__ capped, int n_rays,
+                         int max_steps, int end_index) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  int blocked = 0;
+  if (active[i]) {
+    const Ray r = load_ray(ro, rd, i);
+    const float t0 = tmax[i];
+    int node = 0;
+    for (int steps = 0;; ++steps) {
+      if (steps == max_steps) {
+        atomicAdd(capped, 1);
+        break;
+      }
+      int4 ints;  // count, miss, slot8, slot9
+      const bool hit = slab(node_rows, node, r, t0, &ints);
+      if (hit && ints.x > 0) {
+        const float* leaf = leaf_rows + static_cast<size_t>(ints.z) * 128;
+        for (int k = 0; k < ints.x && k < kLeafCap; ++k) {
+          float u, v, t;
+          if (tri_hit(leaf + 9 * k, r, t0, &u, &v, &t)) {
+            blocked = 1;
+            break;
+          }
+        }
+        if (blocked) break;
+      }
+      const int next = (hit && ints.x == 0) ? node + 1 : ints.y;
+      if (next >= end_index) break;
+      node = next;
+    }
+  }
+  blocked_out[i] = blocked;
+}
+
+}  // namespace
+
+// C entry points (ctypes). Pointers come from tensor.data_ptr(); the
+// stream is torch.cuda.current_stream().cuda_stream. Each returns
+// cudaGetLastError() after its launch; allocates nothing, does not sync.
+extern "C" int bvh2_trace(const void* node_rows, const void* leaf_rows,
+                          const void* ro, const void* rd, const void* tmax,
+                          const void* active, void* t_out, void* u_out,
+                          void* v_out, void* tri_out, void* capped,
+                          int n_rays, int max_steps, int any_hit,
+                          void* stream) {
+  if (n_rays <= 0) return 0;
+  const dim3 block(128);
+  const dim3 grid((n_rays + 127) / 128);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* nr = static_cast<const float*>(node_rows);
+  auto* lr = static_cast<const float*>(leaf_rows);
+  auto* o = static_cast<const float*>(ro);
+  auto* d = static_cast<const float*>(rd);
+  auto* tm = static_cast<const float*>(tmax);
+  auto* act = static_cast<const uint8_t*>(active);
+  auto* t = static_cast<float*>(t_out);
+  auto* u = static_cast<float*>(u_out);
+  auto* v = static_cast<float*>(v_out);
+  auto* tri = static_cast<int32_t*>(tri_out);
+  auto* cap = static_cast<int32_t*>(capped);
+  if (any_hit) {
+    bvh2_trace_kernel<true><<<grid, block, 0, s>>>(
+        nr, lr, o, d, tm, act, t, u, v, tri, cap, n_rays, max_steps);
+  } else {
+    bvh2_trace_kernel<false><<<grid, block, 0, s>>>(
+        nr, lr, o, d, tm, act, t, u, v, tri, cap, n_rays, max_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh2_occluded(const void* node_rows, const void* leaf_rows,
+                             const void* ro, const void* rd, const void* tmax,
+                             const void* active, void* blocked_out,
+                             void* capped, int n_rays, int max_steps,
+                             int end_index, void* stream) {
+  if (n_rays <= 0) return 0;
+  const dim3 block(128);
+  const dim3 grid((n_rays + 127) / 128);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bvh2_occluded_kernel<<<grid, block, 0, s>>>(
+      static_cast<const float*>(node_rows),
+      static_cast<const float*>(leaf_rows), static_cast<const float*>(ro),
+      static_cast<const float*>(rd), static_cast<const float*>(tmax),
+      static_cast<const uint8_t*>(active),
+      static_cast<int32_t*>(blocked_out), static_cast<int32_t*>(capped),
+      n_rays, max_steps, end_index);
+  return static_cast<int>(cudaGetLastError());
+}

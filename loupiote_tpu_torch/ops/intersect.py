@@ -1,11 +1,13 @@
 """Intersection contract and dispatch (counterpart of
 ``loupiote_tpu/ops/intersect.py``).
 
-Every scene the port builds carries the wide table, and every closest-hit
-and shadow wave goes to the wide traversal (``ops/wide.py``): kernel K1 on
-CUDA, its plain twin on CPU. That includes scenes under
-``_WIDE_MIN_NODES`` BVH2 nodes, which the reference sends to its BVH2
-kernels; those kernels are not ported yet.
+Scenes under ``_WIDE_MIN_NODES`` BVH2 nodes go to the BVH2 kernels
+(``ops/bvh2.py``): K2 for closest-hit and any-hit waves, K3 for shadow
+waves. Larger scenes go to the wide traversal (``ops/wide.py``, K1). Each
+runs its CUDA kernel on CUDA tensors and its plain twin on CPU tensors,
+for any ray count: the reference's padding to 1024-ray packets, its SIMT
+path for tiny batches and its ``_WIDE_MAX_BYTES`` VMEM ceiling are TPU
+matters and are not ported.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ T_MIN = 1e-4
 T_FAR = 1e30
 
 # The reference's node count below which its BVH2 kernels beat the wide
-# kernel on a TPU. The port routes those scenes to K1 until the BVH2
-# kernels are ported; this threshold is to be re-measured on the H100 then.
+# kernel on a TPU. Kept as it is; chip_smoke.py times K1 against K2/K3 on
+# the same arch-40k waves so that the threshold can be re-measured.
 _WIDE_MIN_NODES = 8192
 
 
@@ -70,9 +72,53 @@ def recompute_uv(scene, ro, rd, tri):
     return torch.where(miss, 0.0, u), torch.where(miss, 0.0, v)
 
 
+def on_card(ro: torch.Tensor) -> bool:
+    """True where a traversal wrapper launches its CUDA kernel (a CUDA
+    tensor), False where it runs its plain twin (a CPU tensor); raises for
+    any other device."""
+    if ro.device.type == "cpu":
+        return False
+    if ro.device.type != "cuda":
+        raise ValueError(f"no traversal for device {ro.device}")
+    return True
+
+
+def check_args(dev, specs) -> None:
+    """Raise unless each (name, tensor, dtype, shape or None) is a
+    contiguous tensor of that dtype and shape on ``dev``: what a kernel
+    launch reads through raw pointers."""
+    for name, x, dtype, shape in specs:
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                             f"{dev}, got {x.dtype} on {x.device}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name}: need shape {shape}, got "
+                             f"{tuple(x.shape)}")
+
+
+def ray_args(ro, rd, tmax, active):
+    """Contiguous (ro, rd, tmax, active) with the defaults filled in:
+    tmax T_FAR, every ray active."""
+    R = ro.shape[0]
+    t0 = (torch.full((R,), T_FAR, dtype=torch.float32, device=ro.device)
+          if tmax is None else tmax.contiguous())
+    act = (torch.ones(R, dtype=torch.bool, device=ro.device)
+           if active is None else active.contiguous())
+    return ro.contiguous(), rd.contiguous(), t0, act
+
+
+def _bvh2(scene) -> bool:
+    return scene.num_nodes < _WIDE_MIN_NODES
+
+
 def intersect_any(scene, ro, rd, tmax=None, active=None,
                   any_hit: bool = False) -> Hit:
     """Trace (R,) rays against the scene; ``active`` False rays miss."""
+    if _bvh2(scene):
+        from .bvh2 import intersect_bvh2
+
+        return intersect_bvh2(scene, ro, rd, tmax=tmax, active=active,
+                              any_hit=any_hit)
     from .wide import intersect_wide
 
     return intersect_wide(scene, ro, rd, tmax=tmax, active=active,
@@ -81,6 +127,11 @@ def intersect_any(scene, ro, rd, tmax=None, active=None,
 
 def occluded(scene, ro, rd, dist, active=None) -> torch.Tensor:
     """Shadow query: True where the segment [T_MIN, dist) is blocked."""
+    tmax = dist * (1.0 - 1e-3)
+    if _bvh2(scene):
+        from .bvh2 import occluded_bvh2
+
+        return occluded_bvh2(scene, ro, rd, tmax, active=active)
     from .wide import occluded_wide
 
-    return occluded_wide(scene, ro, rd, dist * (1.0 - 1e-3), active=active)
+    return occluded_wide(scene, ro, rd, tmax, active=active)

@@ -40,6 +40,7 @@ class Surface:
     roughness: torch.Tensor  # (R,)
     metallic: torch.Tensor  # (R,)
     emission: torch.Tensor  # (R,3)
+    inst_id: torch.Tensor  # (R,) int32 instance id
 
 
 @dataclass
@@ -67,8 +68,10 @@ def decode_surface(scene, ro, rd, hit: Hit) -> Surface:
 
     srow = scene.tri_shade[tri]  # (R, 20)
     n0, n1, n2 = srow[:, 0:3], srow[:, 3:6], srow[:, 6:9]
-    # The material id is an int bitcast into column 15: read the bits.
-    mat = scene.tri_shade.view(torch.int32)[tri, 15].to(torch.int64)
+    # Material and instance ids are ints bitcast into columns 15-16:
+    # read the bits.
+    ids = scene.tri_shade.view(torch.int32)[tri, 15:17]
+    mat = ids[:, 0].to(torch.int64)
     ng = srow[:, 17:20]
 
     n = n0 * b[0] + n1 * b[1] + n2 * b[2]
@@ -82,7 +85,7 @@ def decode_surface(scene, ro, rd, hit: Hit) -> Surface:
     pos = ro + rd * hit.t[:, None]
     return Surface(pos=pos, n_geom=ng, n_shade=n, albedo=mrow[:, 0:3],
                    roughness=mrow[:, 4], metallic=mrow[:, 5],
-                   emission=mrow[:, 6:9])
+                   emission=mrow[:, 6:9], inst_id=ids[:, 1])
 
 
 def _spec_select_prob(surf: Surface, n_dot_o):

@@ -17,7 +17,8 @@ import torch
 
 from .. import _build
 from ..accel.wide import LEAF_MASK, LEAF_TAG
-from .intersect import T_FAR, T_MIN, Hit, moller_trumbore, recompute_uv
+from .intersect import (T_MIN, Hit, check_args, moller_trumbore, on_card,
+                        ray_args, recompute_uv)
 
 STACK_MAX = 64  # csrc/wide_traverse.cu: kStackMax
 
@@ -64,7 +65,7 @@ def _safe_inv(d: torch.Tensor) -> torch.Tensor:
 def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
                      rd: torch.Tensor, tmax: torch.Tensor,
                      active: torch.Tensor, any_hit: bool, wide_end: int,
-                     wide_stack: int):
+                     wide_stack: int, stats: dict | None = None):
     """Plain torch traversal of the wide table, vectorised over rays.
 
     Each live ray visits one row per step: a leaf row runs the 14-triangle
@@ -73,6 +74,10 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
     onto the ray's own stack (R, wide_stack). Returns ``(t, tri)``:
     closest-hit gives the nearest hit's t (``tmax`` on a miss) and triangle
     (-1 on a miss); any-hit gives ``tmax`` and 1 where blocked, else 0.
+
+    ``stats``: when a dict, receives ``box_tests`` (8 per internal row
+    visit) and ``tri_tests`` (triangles tested) summed over the rays, the
+    work count that bounds the kernel's operations.
     """
     dev = ro.device
     R = ro.shape[0]
@@ -92,6 +97,7 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
     slots = torch.arange(8, device=dev)
     k14 = torch.arange(14, device=dev)
     live = torch.nonzero(active).flatten()
+    box_tests = tri_tests = 0
     for _ in range(max_steps(wide_end)):
         if live.numel() == 0:
             break
@@ -99,6 +105,7 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
         leaf = (c & LEAF_TAG) != 0
         row = (c & LEAF_MASK).to(torch.int64)
         nxt = torch.full_like(c, -1)
+        box_tests += 8 * int((~leaf).sum())
 
         # Leaf rows: Moller-Trumbore against up to 14 triangles.
         if bool(leaf.any()):
@@ -106,6 +113,7 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
             tr = trav_rows[lrow, :126].reshape(-1, 14, 9)
             fc = rows_i[lrow, 126]
             first, count = fc >> 4, fc & 15
+            tri_tests += int(count.sum())
             o = (ox[li, None], oy[li, None], oz[li, None])
             d = (dx[li, None], dy[li, None], dz[li, None])
             u, v, t = moller_trumbore(o, d, tuple(tr[:, :, j]
@@ -171,6 +179,9 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
     else:
         if live.numel():
             _capped_counter(dev).add_(live.numel())
+    if stats is not None:
+        stats["box_tests"] = box_tests
+        stats["tri_tests"] = tri_tests
     if any_hit:
         return t_best, blocked.to(torch.int32)
     return t_best, tri
@@ -182,18 +193,11 @@ def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
     if wide_stack > STACK_MAX:
         raise ValueError(f"scene needs a traversal stack of {wide_stack} "
                          f"entries; the kernel holds {STACK_MAX}")
-    for name, x, dtype, shape in (
-            ("trav_rows", trav_rows, torch.float32, None),
-            ("ro", ro, torch.float32, (R, 3)),
-            ("rd", rd, torch.float32, (R, 3)),
-            ("tmax", tmax, torch.float32, (R,)),
-            ("active", active, torch.bool, (R,))):
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{dev}, got {x.dtype} on {x.device}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name}: need shape {shape}, got "
-                             f"{tuple(x.shape)}")
+    check_args(dev, (("trav_rows", trav_rows, torch.float32, None),
+                     ("ro", ro, torch.float32, (R, 3)),
+                     ("rd", rd, torch.float32, (R, 3)),
+                     ("tmax", tmax, torch.float32, (R,)),
+                     ("active", active, torch.bool, (R,))))
     if trav_rows.dim() != 2 or trav_rows.shape[1] != 128:
         raise ValueError("trav_rows: need shape (rows, 128)")
     lib = _build.load("wide_traverse")
@@ -220,13 +224,8 @@ def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
 def wide_trace(trav_rows, ro, rd, tmax, active, any_hit: bool,
                wide_end: int, wide_stack: int):
     """K1 on CUDA tensors, the plain version on CPU tensors."""
-    if ro.device.type == "cpu":
-        return wide_trace_plain(trav_rows, ro, rd, tmax, active, any_hit,
-                                wide_end, wide_stack)
-    if ro.device.type != "cuda":
-        raise ValueError(f"no traversal for device {ro.device}")
-    return _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end,
-                   wide_stack)
+    fn = _launch if on_card(ro) else wide_trace_plain
+    return fn(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack)
 
 
 def intersect_wide(scene, ro, rd, tmax=None, active=None,
@@ -236,18 +235,12 @@ def intersect_wide(scene, ro, rd, tmax=None, active=None,
     A miss returns ``(tmax or T_FAR, -1)``; inactive rays return tri -1;
     u, v of the winning triangle come from ``recompute_uv``.
     """
-    R = ro.shape[0]
-    dev = ro.device
-    t0 = (torch.full((R,), T_FAR, dtype=torch.float32, device=dev)
-          if tmax is None else tmax.contiguous())
-    act = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
-           else active.contiguous())
-    ro, rd = ro.contiguous(), rd.contiguous()
+    ro, rd, t0, act = ray_args(ro, rd, tmax, active)
     t, tri = wide_trace(scene.trav_rows, ro, rd, t0, act, any_hit,
                         scene.wide_end, scene.wide_stack)
     if any_hit:
         tri = torch.where(tri > 0, tri, -1)
-        u = v = torch.zeros(R, dtype=torch.float32, device=dev)
+        u = v = torch.zeros_like(t)
     else:
         u, v = recompute_uv(scene, ro, rd, tri)
     if active is not None:

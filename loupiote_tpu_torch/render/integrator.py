@@ -10,13 +10,14 @@ do to replay the reference's ``jax.random`` streams.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from ..ops.intersect import intersect_any
 from ..ops.raygen import generate_rays
-from ..ops.shade import SORT_MIN_NODES, BounceState, shade_step
+from ..ops.shade import (SORT_MIN_NODES, BounceState, decode_surface,
+                         shade_step)
 from ..ops.sort import ray_sort_key, sort_order
 
 # Pixel tile that groups rays into spatially coherent runs: 8 rows x 128.
@@ -38,6 +39,16 @@ def from_tile_order(x: torch.Tensor, width: int, rows: int) -> torch.Tensor:
     lead = x.shape[1:]
     x = x.reshape(rows // TILE_H, width // TILE_W, TILE_H, TILE_W, *lead)
     return x.transpose(1, 2).reshape(rows * width, *lead)
+
+
+class GBuffer(NamedTuple):
+    """First-bounce aux output, pixel order (the reference's GBuffer)."""
+
+    normal: torch.Tensor  # (R,3) shading normal (0 on a miss)
+    depth: torch.Tensor  # (R,) hit distance (T_FAR on a miss)
+    mesh_id: torch.Tensor  # (R,) int32 instance id (-1 on a miss)
+    albedo: torch.Tensor  # (R,3) surface albedo (1 on a miss)
+    world_pos: torch.Tensor  # (R,3) hit position, for motion vectors
 
 
 @dataclass
@@ -109,8 +120,9 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
                 generator: Optional[torch.Generator] = None,
                 bounces: int = 3, vfov: float = 0.7853982, nee: bool = True,
                 sort_rays: bool = True,
-                uniforms: Optional[FrameUniforms] = None) -> torch.Tensor:
-    """Trace one sample per pixel. Returns radiance (height * width, 3),
+                uniforms: Optional[FrameUniforms] = None):
+    """Trace one sample per pixel. Returns ``(radiance, gbuffer)``:
+    radiance (height * width, 3) and the bounce-0 ``GBuffer``, both
     pixel-major.
 
     ``sort_rays``: between bounces, permute the whole bounce state into
@@ -151,6 +163,15 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             key = ray_sort_key(state.ro, state.rd, state.alive, lo, hi)
             state, pid = _permute_packed(state, pid, sort_order(key))
         hit = intersect_any(scene, state.ro, state.rd, active=state.alive)
+        if bounce == 0:
+            surf = decode_surface(scene, state.ro, state.rd, hit)
+            missed = hit.tri < 0
+            gbuffer = GBuffer(
+                normal=torch.where(missed[:, None], 0.0, surf.n_shade),
+                depth=hit.t,
+                mesh_id=torch.where(missed, -1, surf.inst_id),
+                albedo=torch.where(missed[:, None], 1.0, surf.albedo),
+                world_pos=surf.pos)
         u = uniforms.bounces[bounce]
         state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u.u1_l,
                            u2_l=u.u2_l, u_lobe=u.u_lobe, u1=u.u1, u2=u.u2,
@@ -163,7 +184,9 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
         radiance = out
     if tiled:
         radiance = from_tile_order(radiance, width, height)
-    return radiance
+        gbuffer = GBuffer(*(from_tile_order(f, width, height)
+                            for f in gbuffer))
+    return radiance, gbuffer
 
 
 def accumulate(accum: torch.Tensor, sample: torch.Tensor,

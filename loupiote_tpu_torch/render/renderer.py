@@ -1,20 +1,22 @@
 """Renderer: owns frame state and runs the frame (counterpart of
-``loupiote_tpu/render/renderer.py``, pathtrace mode).
+``loupiote_tpu/render/renderer.py``).
 
-    r = Renderer((1920, 1080), RenderConfig(downsample_factor=1.0,
-                                            denoise=False))
-    r.set_resources(build_scene_buffers(scene, device="cuda"))
-    r.accumulate = True
-    r.raytrace(cam_to_world)   # one progressive frame
-    rgb = r.blit()             # (H, W, 3) uint8
+    r = Renderer((1920, 1080), RenderConfig())        # on the card
+    r.set_resources(build_scene_buffers(scene))
+    r.set_blit_mode(BlitMode.DENOISED_PATHTRACE)
+    r.raytrace(cam_to_world)   # one frame: trace, G-buffer, motion, A-SVGF
+    rgb = r.blit()             # (H, W, 3) uint8 at the window size
 
-State lives on the scene's device: the running average, the frame count
+State lives on the renderer's device (the card unless the caller names
+another): the running average and frame count, the previous frame's
+world-to-screen matrix, the G-buffer, motion vectors, the A-SVGF history
 and a ``torch.Generator`` seeded from ``seed``.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -22,20 +24,129 @@ import torch
 import torch.nn.functional as F
 
 from ..config import BlitMode, RenderConfig, clamp_size, downsampled_size
+from ..denoise.asvgf import denoise, demodulate, modulate, temporal_reproject
 from ..ops.tonemap import to_display
+from .camera import Camera
 from .integrator import accumulate, trace_paths
 
 
-def render_frame(scene, accum: torch.Tensor, frame_count: int,
-                 cam_to_world: torch.Tensor, accumulate_flag: bool, *,
+@dataclass
+class RenderState:
+    """Per-session frame state (the reference's RenderState, without its
+    completion probe and blue-noise texture)."""
+
+    accum: torch.Tensor  # (H, W, 3) running average
+    frame_count: int
+    prev_world_to_screen: torch.Tensor  # (4, 4)
+    gb_normal: torch.Tensor  # (H, W, 3) first-bounce G-buffer
+    gb_depth: torch.Tensor  # (H, W)
+    gb_mesh: torch.Tensor  # (H, W) int32
+    gb_albedo: torch.Tensor  # (H, W, 3)
+    motion: torch.Tensor  # (H, W, 2) uv motion vectors
+    asvgf_illum: torch.Tensor  # (H, W, 3) integrated illumination
+    asvgf_moments: torch.Tensor  # (H, W, 2)
+    asvgf_history: torch.Tensor  # (H, W)
+    denoised: torch.Tensor  # (H, W, 3) last denoiser output
+    temporal_rgb: torch.Tensor  # (H, W, 3) temporal pass output
+
+
+def init_state(width: int, height: int, device) -> RenderState:
+    h, w = height, width
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return RenderState(
+        accum=z(h, w, 3), frame_count=1,
+        prev_world_to_screen=torch.eye(4, dtype=torch.float32,
+                                       device=device),
+        gb_normal=z(h, w, 3), gb_depth=z(h, w),
+        gb_mesh=torch.full((h, w), -1, dtype=torch.int32, device=device),
+        gb_albedo=torch.ones((h, w, 3), dtype=torch.float32, device=device),
+        motion=z(h, w, 2), asvgf_illum=z(h, w, 3), asvgf_moments=z(h, w, 2),
+        asvgf_history=z(h, w), denoised=z(h, w, 3), temporal_rgb=z(h, w, 3))
+
+
+def project_uv(world_to_screen: torch.Tensor, pos: torch.Tensor):
+    """World (R,3) -> screen uv in [0,1] (y down) and clip w. The (R,4) x
+    (4,4) product is written out term by term, so no matrix-product path
+    (and no TF32, whatever ``torch.backends.cuda.matmul.allow_tf32`` says)
+    is involved."""
+    m = world_to_screen
+
+    def row(j):
+        return (pos[:, 0] * m[j, 0] + pos[:, 1] * m[j, 1]
+                + pos[:, 2] * m[j, 2] + m[j, 3])
+
+    w = row(3)
+    safe_w = torch.where(w.abs() > 1e-9, w, 1e-9)
+    ndc_x, ndc_y = row(0) / safe_w, row(1) / safe_w
+    uv = torch.stack([(ndc_x + 1.0) * 0.5, (1.0 - ndc_y) * 0.5], dim=1)
+    return uv, w
+
+
+def motion_vectors(prev_world_to_screen: torch.Tensor, gbuffer,
+                   width: int, height: int) -> torch.Tensor:
+    """(H, W, 2): previous-frame screen uv minus this pixel's uv, where
+    the pixel has a hit in front of the previous camera; else 0."""
+    uv_prev, w_prev = project_uv(prev_world_to_screen, gbuffer.world_pos)
+    dev = uv_prev.device
+    yy, xx = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
+    uv_curr = torch.stack([(xx.reshape(-1) + 0.5) / width,
+                           (yy.reshape(-1) + 0.5) / height], dim=1)
+    valid = (gbuffer.mesh_id >= 0) & (w_prev > 0)
+    return torch.where(valid[:, None], uv_prev - uv_curr,
+                       0.0).reshape(height, width, 2)
+
+
+def render_frame(scene, state: RenderState, cam_to_world: torch.Tensor,
+                 world_to_screen: torch.Tensor, accumulate_flag: bool, *,
                  width: int, height: int, bounces: int, nee: bool,
-                 vfov: float, generator: torch.Generator):
-    """One progressive pathtrace frame. Returns (accum, frame_count)."""
-    sample = trace_paths(scene, cam_to_world, width, height, generator,
-                         bounces=bounces, vfov=vfov, nee=nee)
+                 vfov: float, mode: str = "pathtrace",
+                 atrous_iterations: int = 4,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms=None) -> RenderState:
+    """One frame. Returns the new state.
+
+    ``mode``: 'pathtrace' accumulates; 'denoised' runs the whole A-SVGF
+    chain; 'temporal' only its temporal pass; 'none' neither (the debug
+    blit modes). Every mode writes the G-buffer and motion vectors.
+    ``uniforms``: the frame's random numbers (drawn from ``generator``
+    when None).
+    """
+    sample, gb = trace_paths(scene, cam_to_world, width, height, generator,
+                             bounces=bounces, vfov=vfov, nee=nee,
+                             uniforms=uniforms)
     img = sample.reshape(height, width, 3)
-    new_accum = accumulate(accum, img, frame_count)
-    return new_accum, (frame_count + 1 if accumulate_flag else 1)
+    motion = motion_vectors(state.prev_world_to_screen, gb, width, height)
+    normal = gb.normal.reshape(height, width, 3)
+    depth = gb.depth.reshape(height, width)
+    mesh = gb.mesh_id.reshape(height, width)
+    albedo = gb.albedo.reshape(height, width, 3)
+    new = dict(prev_world_to_screen=world_to_screen, gb_normal=normal,
+               gb_depth=depth, gb_mesh=mesh, gb_albedo=albedo, motion=motion)
+    prev = (state.gb_normal, state.gb_depth, state.gb_mesh,
+            state.asvgf_illum, state.asvgf_moments, state.asvgf_history)
+    if mode == "pathtrace":
+        new["accum"] = accumulate(state.accum, img, state.frame_count)
+        new["frame_count"] = (state.frame_count + 1 if accumulate_flag
+                              else 1)
+    elif mode == "denoised":
+        out, t = denoise(img, albedo, motion, normal, depth, mesh, *prev,
+                         iterations=atrous_iterations)
+        new["denoised"] = out
+    elif mode == "temporal":
+        t = temporal_reproject(demodulate(img, albedo), motion, normal,
+                               depth, mesh, *prev)
+    elif mode != "none":
+        raise ValueError(f"unknown frame mode {mode!r}")
+    if mode in ("denoised", "temporal"):
+        new.update(asvgf_illum=t.illum, asvgf_moments=t.moments,
+                   asvgf_history=t.history,
+                   temporal_rgb=modulate(t.illum, albedo))
+    return replace(state, **new)
 
 
 def _blit_rgb(img: torch.Tensor, out_hw, tonemap: str) -> torch.Tensor:
@@ -48,89 +159,149 @@ def _blit_rgb(img: torch.Tensor, out_hw, tonemap: str) -> torch.Tensor:
     return to_display(img, tonemap)
 
 
+_FRAME_MODE = {
+    BlitMode.PATHTRACE: "pathtrace",
+    BlitMode.DENOISED_PATHTRACE: "denoised",
+    BlitMode.TEMPORAL: "temporal",
+    BlitMode.GBUFFER: "none",
+    BlitMode.MOTION_VECTOR: "none",
+}
+
+
 class Renderer:
-    """Stateful facade over the frame (pathtrace blit mode only)."""
+    """Stateful facade over the frame."""
 
     def __init__(self, size: tuple, config: Optional[RenderConfig] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device="cuda"):
         self.config = config or RenderConfig()
-        if self.config.denoise:
-            raise NotImplementedError(
-                "A-SVGF denoising comes with the denoiser slice of the port; "
-                "use RenderConfig(denoise=False)")
         if self.config.samples_per_frame > 1:
             raise NotImplementedError(
                 "samples_per_frame > 1 comes with the spp-batching slice of "
                 "the port")
-        self.device = torch.device(device) if device is not None else None
+        # An empty tensor names the device in full ("cuda" -> "cuda:0")
+        # and raises at once where there is no such device.
+        self.device = torch.empty(0, device=device).device
         self._seed = seed
         self.accumulate = False
         self.mode = BlitMode.PATHTRACE
         self.scene = None
         self._set_size(size)
 
+    # -- sizing ----------------------------------------------------------
     def _set_size(self, size: tuple) -> None:
         w, h = clamp_size(size[0], size[1], self.config)
         self.window_size = (max(w, 1), max(h, 1))
         w, h = downsampled_size(w, h, self.config.downsample_factor)
         self.size = (max(w, 1), max(h, 1))
-        self._reset_state()
-
-    def _reset_state(self) -> None:
-        dev = self.device or torch.device("cpu")
-        w, h = self.size
-        self.accum = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-        self.frame_count = 1
-        self.generator = torch.Generator(device=dev)
+        self.state = init_state(self.size[0], self.size[1], self.device)
+        self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self._seed)
 
+    def resize(self, size: tuple) -> None:
+        """Reallocate the frame state for a new window size."""
+        self._set_size(size)
+
+    def get_size(self) -> tuple:
+        """Internal render size (width, height)."""
+        return self.size
+
+    # -- resources -------------------------------------------------------
     def set_resources(self, scene) -> None:
-        """Bind a scene (its device becomes the renderer's); resets
-        accumulation."""
+        """Bind a scene on the renderer's device; resets accumulation."""
         if scene.has_probe or scene.has_textures:
             raise NotImplementedError(
                 "probe and textured scenes come with a later slice of the "
                 "port")
+        if scene.device != self.device:
+            raise ValueError(f"the scene is on {scene.device}, the renderer "
+                             f"on {self.device}")
         self.scene = scene
-        if self.device != scene.device:
-            self.device = scene.device
-            self._reset_state()
-        self.frame_count = 1
+        self.state = replace(self.state, frame_count=1)
+
+    def upload_noise_texture(self, data) -> None:
+        raise NotImplementedError(
+            "blue-noise sampling comes with a later slice of the port")
+
+    def use_noise_texture(self, flag: bool) -> None:
+        raise NotImplementedError(
+            "blue-noise sampling comes with a later slice of the port")
 
     def set_blit_mode(self, mode: BlitMode) -> None:
-        if mode != BlitMode.PATHTRACE:
-            raise NotImplementedError(
-                f"blit mode {mode.value} comes with the denoiser / G-buffer "
-                "slice of the port")
-        self.mode = mode
+        self.mode = BlitMode(mode)
 
     def reset_accumulation(self) -> None:
         """frame_count = 1: restart the running average."""
-        self.frame_count = 1
+        self.state = replace(self.state, frame_count=1)
 
+    @property
+    def frame_count(self) -> int:
+        return self.state.frame_count
+
+    @property
+    def accum(self) -> torch.Tensor:
+        return self.state.accum
+
+    # -- frame -----------------------------------------------------------
     def raytrace(self, view_transform: np.ndarray) -> None:
-        """Render one progressive frame with the given camera-to-world."""
+        """Render one frame with the given camera-to-world."""
         if self.scene is None:
             return  # no scene bound: nothing to do
-        cam = torch.as_tensor(np.asarray(view_transform, np.float32),
-                              device=self.device)
+        cam = Camera(np.asarray(view_transform, np.float32), self.size,
+                     math.radians(self.config.vfov_deg))
+        w2s = cam.world_to_screen(self.config.near, self.config.far)
         bounces = (self.config.bounces_static if self.accumulate
                    else self.config.bounces_moving)
-        self.accum, self.frame_count = render_frame(
-            self.scene, self.accum, self.frame_count, cam, self.accumulate,
+        self.state = render_frame(
+            self.scene, self.state,
+            torch.as_tensor(cam.transform, device=self.device),
+            torch.as_tensor(w2s, device=self.device), self.accumulate,
             width=self.size[0], height=self.size[1], bounces=bounces,
             nee=self.config.nee, vfov=math.radians(self.config.vfov_deg),
+            mode=_FRAME_MODE[self.mode],
+            atrous_iterations=self.config.atrous_iterations,
             generator=self.generator)
 
+    def measure_passes(self, view_transform, queries=None,
+                       method: str = "auto") -> dict:
+        raise NotImplementedError(
+            "per-pass timing comes with the app-layer slice of the port")
+
+    def reload_shaders(self) -> None:
+        raise NotImplementedError(
+            "kernel hot-reload comes with the app-layer slice of the port")
+
+    # -- display ---------------------------------------------------------
     def blit(self, display_size: bool = True) -> np.ndarray:
-        """(H, W, 3) uint8 display image at the window resolution
-        (``display_size=False``: at the internal resolution)."""
-        hw = None
-        if display_size:
-            hw = (self.window_size[1], self.window_size[0])
-            if hw == (self.size[1], self.size[0]):
-                hw = None
-        return _blit_rgb(self.accum, hw, self.config.tonemap).cpu().numpy()
+        """(H, W, 3) uint8 display image of the current mode at the window
+        resolution (``display_size=False``: at the internal resolution)."""
+        s = self.state
+        hw = self._display_hw(display_size)
+        rgb = {BlitMode.PATHTRACE: s.accum,
+               BlitMode.DENOISED_PATHTRACE: s.denoised,
+               BlitMode.TEMPORAL: s.temporal_rgb}.get(self.mode)
+        if rgb is not None:
+            return _blit_rgb(rgb, hw, self.config.tonemap).cpu().numpy()
+        if self.mode == BlitMode.GBUFFER:
+            vis = s.gb_normal.cpu().numpy() * 0.5 + 0.5
+            vis[s.gb_mesh.cpu().numpy() < 0] = 0.0
+        else:
+            mv = s.motion.cpu().numpy()
+            vis = np.zeros(mv.shape[:2] + (3,), np.float32)
+            vis[..., :2] = np.clip(np.abs(mv) * 20.0, 0, 1)
+        if hw is not None:
+            # Debug views upscale nearest: they show raw buffer texels.
+            yy = np.minimum((np.arange(hw[0]) * vis.shape[0]) // hw[0],
+                            vis.shape[0] - 1)
+            xx = np.minimum((np.arange(hw[1]) * vis.shape[1]) // hw[1],
+                            vis.shape[1] - 1)
+            vis = vis[yy[:, None], xx[None, :]]
+        return (vis * 255).astype(np.uint8)
+
+    def _display_hw(self, display_size: bool):
+        if not display_size:
+            return None
+        hw = (self.window_size[1], self.window_size[0])
+        return None if hw == (self.size[1], self.size[0]) else hw
 
     def read_pixels(self) -> bytes:
         """RGBA8 bytes of the displayed image at window resolution."""

@@ -2,11 +2,13 @@
 
 Holds only what the port's frame reads. Two ways in:
 ``build_scene_buffers`` is the port's own host path (flatten instances,
-build the BVH2, collapse it to the wide table), and ``from_reference``
-carries a reference ``SceneBuffers`` across without importing jax.
-Ints stored bitcast in float32 tables (``tri_shade`` columns 15-16,
-``mat_pack`` columns 9-10, the ``trav_rows`` pointer lanes) are read back
-with ``.view(torch.int32)``, never with a value cast.
+build the BVH2, lay out its row tables, collapse it to the wide table),
+and ``from_reference`` carries a reference ``SceneBuffers`` across without
+importing jax. Both put the tables on the card unless the caller names
+another device. Ints stored bitcast in float32 tables (``tri_shade``
+columns 15-16, ``mat_pack`` columns 9-10, ``node_rows`` columns 6-9, the
+``trav_rows`` pointer lanes) are read back with ``.view(torch.int32)``,
+never with a value cast.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..accel.bvh import LEAF_MAX, build_bvh
+from ..accel.bvh import LEAF_MAX, build_bvh, bvh_max_depth
 from ..accel.wide import collapse_wide
 from .types import INVALID_INDEX, Scene, pad_rows
 
@@ -35,6 +37,13 @@ class SceneBuffers:
     # Wide traversal table (accel/wide.py layout), padded past wide_end
     # with empty internal rows.
     trav_rows: torch.Tensor  # (rows, 128)
+    # BVH2 rows: [min(3), max(3), count, miss, right | leaf row,
+    # axis | first triangle, 0 x 6], ints bitcast; padded past end_index
+    # with empty boxes (min 1e30 > max -1e30).
+    node_rows: torch.Tensor  # (Np, 16)
+    # One row per BVH2 leaf: up to 14 triangles x [p0, e1, e2]; empty
+    # slots have p0 = 1e30.
+    leaf_rows: torch.Tensor  # (L, 128)
     # [p0.xyz, e1.xyz, e2.xyz] per triangle, in BVH leaf order.
     tri_pack: torch.Tensor  # (T, 9)
     # [n0, n1, n2, uv0, uv1, uv2, mat (bitcast), inst (bitcast), geo normal]
@@ -52,6 +61,8 @@ class SceneBuffers:
     wide_stack: int
     leaf_cap: int
     num_nodes: int
+    end_index: int  # = num_nodes: the BVH2 traversal ends at this node
+    stack_depth: int  # BVH2 stack entries: power of two >= 64, >= depth + 2
     num_lights: int
     has_probe: bool = False
     has_textures: bool = False
@@ -66,7 +77,7 @@ class SceneBuffers:
             name: getattr(self, name).to(device) for name in _TENSOR_FIELDS})
 
 
-def build_scene_buffers(scene: Scene, device="cpu",
+def build_scene_buffers(scene: Scene, device="cuda",
                         use_native: bool = True) -> SceneBuffers:
     """Flatten the scene's instances, build its BVH and upload the tables.
 
@@ -192,6 +203,28 @@ def build_scene_buffers(scene: Scene, device="cpu",
         mat_mra_tex.view(np.float32)[:, None],
     ], axis=1).astype(np.float32)
 
+    # BVH2 row tables (the reference's layout, byte for byte).
+    is_leaf = bvh.count > 0
+    leaf_ids = np.nonzero(is_leaf)[0]
+    leaf_rows = np.zeros((max(len(leaf_ids), 1), 128), np.float32)
+    for li, nd in enumerate(leaf_ids):
+        f, c = int(bvh.first[nd]), min(int(bvh.count[nd]), LEAF_MAX)
+        leaf_rows[li, :9 * c] = tri9[f:f + c].reshape(-1)
+        for k in range(c, LEAF_MAX):
+            leaf_rows[li, 9 * k:9 * k + 3] = 1e30
+    slot8 = np.where(is_leaf, np.cumsum(is_leaf) - 1, bvh.right)
+    slot9 = np.where(is_leaf, bvh.first, bvh.axis)
+    node_rows = np.concatenate([
+        bvh.node_min, bvh.node_max, i32col(bvh.count), i32col(bvh.miss),
+        i32col(slot8), i32col(slot9), np.zeros((N, 6), np.float32),
+    ], axis=1).astype(np.float32)
+    node_rows = pad_rows(node_rows, Np, 0.0)
+    node_rows[N:, 0:3] = 1e30
+    node_rows[N:, 3:6] = -1e30
+    stack_depth = 64
+    while stack_depth < bvh_max_depth(bvh.count, bvh.miss) + 2:
+        stack_depth *= 2
+
     wide = collapse_wide(bvh, tri9)
     # +2 rows, as the reference pads; padded rows read as internal nodes
     # with all-empty children.
@@ -210,6 +243,8 @@ def build_scene_buffers(scene: Scene, device="cpu",
 
     return SceneBuffers(
         trav_rows=dev(trav),
+        node_rows=dev(node_rows),
+        leaf_rows=dev(leaf_rows),
         tri_pack=dev(tri_pack),
         tri_shade=dev(tri_shade),
         mat_pack=dev(mat_pack),
@@ -223,21 +258,24 @@ def build_scene_buffers(scene: Scene, device="cpu",
         wide_stack=int(wide_stack),
         leaf_cap=int(max(bvh.count.max(), wide.leaf_row_max)),
         num_nodes=N,
+        end_index=N,
+        stack_depth=stack_depth,
         num_lights=len(scene.lights),
         has_probe=False,
         has_textures=len(scene.images) > 0,
     )
 
 
-_TENSOR_FIELDS = ("trav_rows", "tri_pack", "tri_shade", "mat_pack",
-                  "light_origin", "light_eu", "light_ev", "light_emission",
-                  "node_min", "node_max")
+_TENSOR_FIELDS = ("trav_rows", "node_rows", "leaf_rows", "tri_pack",
+                  "tri_shade", "mat_pack", "light_origin", "light_eu",
+                  "light_ev", "light_emission", "node_min", "node_max")
 
 
-def from_reference(ref, device="cpu") -> SceneBuffers:
+def from_reference(ref, device="cuda") -> SceneBuffers:
     """The port's buffers from a reference (JAX) ``SceneBuffers``.
 
-    Each field is read with ``np.asarray``, so this needs no jax import.
+    Each field's bytes are copied with ``np.asarray``, so this needs no
+    jax import and bitcast ints (a -1 ``miss`` is a NaN pattern) survive.
     Instanced scenes and the width-16 / multi-row-leaf tables are not
     ported and raise.
     """
@@ -256,6 +294,8 @@ def from_reference(ref, device="cpu") -> SceneBuffers:
         wide_stack=int(ref.wide_stack),
         leaf_cap=int(ref.leaf_cap),
         num_nodes=int(ref.num_nodes),
+        end_index=int(ref.end_index),
+        stack_depth=int(ref.stack_depth),
         num_lights=int(ref.num_lights),
         has_probe=bool(ref.has_probe),
         has_textures=bool(ref.has_textures),

@@ -1,0 +1,240 @@
+"""The port's BVH2 traversal (loupiote_tpu_torch/ops/bvh2.py; on the CPU its
+plain twins bvh2_trace_plain and bvh2_occluded_plain) against the
+reference's Pallas kernels K2 and K3 in interpret mode, on the same tables.
+
+Tolerances. tri: equal on every ray whose best t is not tied within 2 ulp
+between two triangles (the port orders children by each ray's own
+direction sign, the reference by a 128-ray sub-packet's majority sign).
+Against the unfused Moller-Trumbore in numpy float32, t, u and v are
+exact. Against the JAX outputs, t is held to 1e-5 relative and u, v to
+5e-5 absolute: XLA:CPU contracts multiply-adds in the reference kernel.
+Blocked bits (K3, K2's any-hit mode) are equal.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import loupiote_tpu.scene.types as ref_types
+from loupiote_tpu.ops.pallas_intersect import (intersect_pallas,
+                                               occluded_pallas)
+from loupiote_tpu.ops.raygen import generate_rays as ref_generate_rays
+from loupiote_tpu.scene import build_scene_buffers as ref_buffers
+from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
+from loupiote_tpu_torch import from_reference
+from loupiote_tpu_torch.ops import bvh2, intersect, wide
+from torch_port_helpers import (assert_same_hits, numpy_bvh, random_rays,
+                                random_tris, soup_scene, t_of)
+
+R = 1024
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """The 300-triangle soup of tests/test_pallas_intersect.py."""
+    tris = random_tris(seed=1234, n=300)
+    with numpy_bvh():
+        ref = ref_buffers(soup_scene(ref_types, *tris))
+    return ref, from_reference(ref, device="cpu"), tris
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+def _check_closest(ref, ref_hit, port_hit, ro, rd):
+    tp = np.asarray(ref.tri_pack)
+    tri = port_hit.tri.numpy()
+    same = assert_same_hits(tp, ro, rd, np.asarray(ref_hit.tri), tri)
+    hit = same & (tri >= 0)
+    u, v, t_exact = t_of(tp, ro, rd, tri)
+    np.testing.assert_array_equal(port_hit.t.numpy()[hit], t_exact[hit])
+    np.testing.assert_array_equal(port_hit.u.numpy()[hit], u[hit])
+    np.testing.assert_array_equal(port_hit.v.numpy()[hit], v[hit])
+    np.testing.assert_allclose(port_hit.t.numpy()[same],
+                               np.asarray(ref_hit.t)[same], rtol=1e-5)
+    np.testing.assert_allclose(port_hit.u.numpy()[same],
+                               np.asarray(ref_hit.u)[same], atol=5e-5)
+    np.testing.assert_allclose(port_hit.v.numpy()[same],
+                               np.asarray(ref_hit.v)[same], atol=5e-5)
+    return hit.mean()
+
+
+def test_closest_matches_pallas_kernel(soup):
+    ref, port, tris = soup
+    ro, rd = random_rays(tris, R)
+    ref_hit = intersect_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                               interpret=True, sub=8)
+    port_hit = bvh2.intersect_bvh2(port, _t(ro), _t(rd))
+    assert _check_closest(ref, ref_hit, port_hit, ro, rd) > 0.05
+
+
+def test_closest_matches_pallas_kernel_with_tmax_and_mask(soup):
+    ref, port, tris = soup
+    ro, rd = random_rays(tris, R, seed=78)
+    rng = np.random.default_rng(79)
+    tmax = np.where(rng.random(R) < 0.5, 1e30,
+                    rng.random(R) * 20).astype(np.float32)
+    active = rng.random(R) < 0.8
+    ref_hit = intersect_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                               tmax=jnp.asarray(tmax),
+                               active=jnp.asarray(active), interpret=True,
+                               sub=8)
+    port_hit = bvh2.intersect_bvh2(port, _t(ro), _t(rd), tmax=_t(tmax),
+                                   active=_t(active))
+    assert (port_hit.tri.numpy()[~active] == -1).all()
+    np.testing.assert_array_equal(port_hit.t.numpy()[~active], tmax[~active])
+    assert _check_closest(ref, ref_hit, port_hit, ro, rd) > 0.03
+
+
+@pytest.mark.parametrize("dist", [3.0, 1e30])
+def test_anyhit_mode_matches_pallas_kernel(soup, dist):
+    ref, port, tris = soup
+    ro, rd = random_rays(tris, R, seed=80)
+    active = np.random.default_rng(81).random(R) < 0.9
+    tmax = np.full(R, dist, np.float32)
+    ref_b = np.asarray(intersect_pallas(
+        ref, jnp.asarray(ro), jnp.asarray(rd), tmax=jnp.asarray(tmax),
+        active=jnp.asarray(active), any_hit=True, interpret=True,
+        sub=8).tri) >= 0
+    port_b = bvh2.intersect_bvh2(port, _t(ro), _t(rd), tmax=_t(tmax),
+                                 active=_t(active), any_hit=True).tri >= 0
+    np.testing.assert_array_equal(port_b.numpy(), ref_b)
+    assert 0 < ref_b.mean() < 1
+
+
+@pytest.mark.parametrize("dist", [3.0, 1e30], ids=["bounded", "unbounded"])
+def test_occluded_matches_pallas_kernel(soup, dist):
+    """The rays of the any-hit test above. (Some seeds aim a ray exactly
+    at a triangle's edge, v = 0 unfused; XLA:CPU's contracted products put
+    v just below 0 there and the reference misses. The brute-force test
+    below holds the port to the unfused formula on such rays.)"""
+    ref, port, tris = soup
+    ro, rd = random_rays(tris, R, seed=80)
+    active = np.random.default_rng(81).random(R) < 0.9
+    tmax = np.full(R, dist, np.float32)
+    ref_b = np.asarray(occluded_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                                       jnp.asarray(tmax),
+                                       active=jnp.asarray(active),
+                                       interpret=True, sub=8))
+    port_b = bvh2.occluded_bvh2(port, _t(ro), _t(rd), _t(tmax),
+                                active=_t(active)).numpy()
+    np.testing.assert_array_equal(port_b, ref_b)
+    assert 0 < port_b.mean() < 1
+    assert not port_b[~active].any()
+
+
+def test_arch8k_primary_rays():
+    with numpy_bvh():
+        ref = ref_buffers(build_arch_scene(8_000))
+    port = from_reference(ref, device="cpu")
+    assert port.num_nodes < intersect._WIDE_MIN_NODES
+    jitter = np.random.default_rng(3).random((32 * 32, 2)).astype(np.float32)
+    ro, rd = (np.asarray(x) for x in ref_generate_rays(
+        jnp.asarray(arch_camera()), 32, 32, 0.7853982, jnp.asarray(jitter)))
+    ref_hit = intersect_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                               interpret=True, sub=8)
+    port_hit = bvh2.intersect_bvh2(port, _t(ro), _t(rd))
+    assert _check_closest(ref, ref_hit, port_hit, ro, rd) > 0.9
+
+
+def test_twins_match_the_unfused_formula_by_brute_force(soup):
+    """Closest hits and blocked bits against every triangle tested in
+    numpy float32, one product at a time: exact."""
+    _, port, tris = soup
+    ro, rd = random_rays(tris, 512, seed=84)
+    n = 512
+    tmax = np.where(np.arange(n) % 2 == 0, 4.0, 1e30).astype(np.float32)
+    tp = port.tri_pack.numpy()
+    best_t = np.full(n, np.inf, np.float32)
+    best_tri = np.full(n, -1)
+    blocked = np.zeros(n, bool)
+    for k in range(len(tris[0])):
+        u, v, t = t_of(tp, ro, rd, np.full(n, k))
+        ok = (u >= 0) & (v >= 0) & (u + v <= 1) & (t > np.float32(1e-4))
+        blocked |= ok & (t < tmax)
+        better = ok & (t < best_t)
+        best_t = np.where(better, t, best_t)
+        best_tri = np.where(better, k, best_tri)
+    hit = bvh2.intersect_bvh2(port, _t(ro), _t(rd))
+    same = assert_same_hits(tp, ro, rd, best_tri, hit.tri.numpy())
+    found = best_tri >= 0
+    assert (hit.tri.numpy() >= 0).tolist() == found.tolist()
+    np.testing.assert_array_equal(hit.t.numpy()[found & same],
+                                  best_t[found & same])
+    occ = bvh2.occluded_bvh2(port, _t(ro), _t(rd), _t(tmax)).numpy()
+    np.testing.assert_array_equal(occ, blocked)
+    anyhit = bvh2.intersect_bvh2(port, _t(ro), _t(rd), tmax=_t(tmax),
+                                 any_hit=True).tri.numpy() >= 0
+    np.testing.assert_array_equal(anyhit, blocked)
+
+
+def test_dispatch_routes_by_node_count(soup, monkeypatch):
+    """Under 8192 BVH2 nodes: K2 for closest-hit waves, K3 for shadow
+    waves; at or past it: K1, in both modes."""
+    _, port, tris = soup
+    ro, rd = (_t(x) for x in random_rays(tris, 64, seed=85))
+    dist = torch.full((64,), 5.0)
+    calls = []
+    for mod, name in ((bvh2, "bvh2_trace_plain"),
+                      (bvh2, "bvh2_occluded_plain"),
+                      (wide, "wide_trace_plain")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real, **k:
+                            calls.append(_n) or _f(*a, **k))
+    intersect.intersect_any(port, ro, rd)
+    intersect.occluded(port, ro, rd, dist)
+    assert calls == ["bvh2_trace_plain", "bvh2_occluded_plain"]
+    calls.clear()
+    big = dataclasses.replace(port, num_nodes=intersect._WIDE_MIN_NODES)
+    intersect.intersect_any(big, ro, rd)
+    intersect.occluded(big, ro, rd, dist)
+    assert calls == ["wide_trace_plain", "wide_trace_plain"]
+
+
+def test_plain_twins_run_for_cpu_tensors_only(soup):
+    _, port, _ = soup
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no traversal"):
+        bvh2.bvh2_trace(port.node_rows, port.leaf_rows, meta, meta, None,
+                        None, False, port.num_nodes, port.stack_depth)
+    with pytest.raises(ValueError, match="no traversal"):
+        bvh2.bvh2_occluded(port.node_rows, port.leaf_rows, meta, meta, None,
+                           None, port.end_index, port.num_nodes)
+
+
+def test_kernel_wrapper_refuses_a_deep_stack(soup):
+    _, port, _ = soup
+    x = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="stack"):
+        bvh2._launch_trace(port.node_rows, port.leaf_rows, x, x, x[:, 0],
+                           x[:, 0] > 0, False, port.num_nodes,
+                           bvh2.STACK_MAX * 2)
+
+
+def test_step_bound_stops_and_counts_rays(soup):
+    """A ray still traversing at the step bound stops and is counted, in
+    both twins, as the kernels' capped counter does."""
+    _, port, tris = soup
+    ro, rd = (_t(x) for x in random_rays(tris, 256, seed=86))
+    t0 = torch.full((256,), 1e30)
+    on = torch.ones(256, dtype=torch.bool)
+    bvh2.reset_counters()
+    # num_nodes -15 -> a bound of 4 * -15 + 64 = 4 node visits.
+    bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
+                          False, -15, port.stack_depth)
+    capped = bvh2.capped_rays("cpu")
+    assert 0 < capped <= 256
+    bvh2.bvh2_occluded_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
+                             port.end_index, -15)
+    assert capped < bvh2.capped_rays("cpu") <= 512
+    bvh2.reset_counters()
+    assert bvh2.capped_rays("cpu") == 0
+    stats = {}
+    bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
+                          False, port.num_nodes, port.stack_depth, stats)
+    assert bvh2.capped_rays("cpu") == 0
+    assert stats["visits"] >= 256 and stats["tri_tests"] > 0

@@ -21,7 +21,7 @@ from loupiote_tpu.accel.bvh import bvh_max_depth as ref_bvh_max_depth
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch
 from loupiote_tpu_torch import build_arch_scene as port_arch
-from loupiote_tpu_torch import build_scene_buffers, from_reference
+from loupiote_tpu_torch import Renderer, build_scene_buffers, from_reference
 from loupiote_tpu_torch.accel import native
 from loupiote_tpu_torch.accel.bvh import build_bvh, bvh_max_depth
 from loupiote_tpu_torch.ops.wide import wide_trace_plain
@@ -49,7 +49,7 @@ def test_tables_byte_equal(name):
     ref_scene, port_scene = _scenes(name)
     with numpy_bvh():
         ref = ref_buffers(ref_scene)
-    port = build_scene_buffers(port_scene, use_native=False)
+    port = build_scene_buffers(port_scene, device="cpu", use_native=False)
     for f in TABLES:
         a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
         assert a.shape == b.shape and a.dtype == b.dtype, f
@@ -61,7 +61,7 @@ def test_tables_byte_equal(name):
 def test_from_reference_round_trips_every_field():
     with numpy_bvh():
         ref = ref_buffers(ref_arch(8_000))
-    port = from_reference(ref)
+    port = from_reference(ref, device="cpu")
     for f in TABLES:
         t = getattr(port, f)
         assert t.dtype == torch.float32 and t.is_contiguous(), f
@@ -90,7 +90,7 @@ def test_native_builder_gives_a_valid_tree():
     traverses to the brute-force closest hit. Its tree may differ from the
     reference's."""
     tris = random_tris(seed=5, n=2000, spread=10.0, size=0.8)
-    bufs = build_scene_buffers(soup_scene(port_types, *tris))
+    bufs = build_scene_buffers(soup_scene(port_types, *tris), device="cpu")
     lib = [p for p in os.listdir(native.BUILD_DIR) if p.startswith("libbvh")]
     assert lib and native.BUILD_DIR.startswith(
         os.path.join(REPO, "loupiote_tpu_torch"))
@@ -113,10 +113,98 @@ def test_native_builder_gives_a_valid_tree():
     assert (ulp_diff(t.numpy()[hit], best_t[hit]) == 0).all()
 
 
+@pytest.mark.parametrize("name", ["random500", "arch8k"])
+def test_bvh2_tables_byte_equal(name):
+    """node_rows, leaf_rows, end_index and stack_depth: the port's own
+    host path and from_reference give the reference's bytes."""
+    ref_scene, port_scene = _scenes(name)
+    with numpy_bvh():
+        ref = ref_buffers(ref_scene)
+    ports = (build_scene_buffers(port_scene, device="cpu",
+                                 use_native=False),
+             from_reference(ref, device="cpu"))
+    for port in ports:
+        for f in ("node_rows", "leaf_rows"):
+            a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
+            assert a.shape == b.shape and a.dtype == b.dtype, f
+            assert a.tobytes() == b.tobytes(), f
+        assert port.end_index == ref.end_index == port.num_nodes
+        assert port.stack_depth == ref.stack_depth >= 64
+        ints = port.node_rows.view(torch.int32)
+        leaf = ints[:port.num_nodes, 6] > 0
+        assert int(ints[:port.num_nodes, 8][leaf].max()) == \
+            port.leaf_rows.shape[0] - 1
+        # Padding rows past end_index are empty boxes.
+        assert (port.node_rows[port.end_index:, :3] == 1e30).all()
+
+
+def test_bvh_builder_source_is_the_references():
+    """The port compiles its own copy of the C++ builder, byte-equal to
+    the reference's source."""
+    with open(os.path.join(REPO, "loupiote_tpu", "accel", "cpp",
+                           "bvh_builder.cpp"), "rb") as f:
+        ref_src = f.read()
+    with open(native.SOURCE, "rb") as f:
+        assert f.read() == ref_src
+    assert native.SOURCE.startswith(os.path.join(REPO, "loupiote_tpu_torch"))
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, the entry points raise instead of falling back to
+    the CPU; asked for the CPU, they run there."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would use it")
+    scene = port_arch(2_000)
+    with pytest.raises((RuntimeError, AssertionError)):
+        build_scene_buffers(scene)
+    with numpy_bvh():
+        ref = ref_buffers(ref_arch(2_000))
+    with pytest.raises((RuntimeError, AssertionError)):
+        from_reference(ref)
+    with pytest.raises((RuntimeError, AssertionError)):
+        Renderer((16, 16))
+    assert build_scene_buffers(scene, device="cpu").device.type == "cpu"
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, loupiote_tpu_torch; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'loupiote_tpu')]; "
-            "assert not bad, bad")
+    """Importing every module of the port and chip_smoke.py, and building
+    a scene (which compiles or loads the native builder), imports no jax
+    and nothing of loupiote_tpu, and opens, runs or loads no file under
+    loupiote_tpu/."""
+    code = """
+import importlib, os, pkgutil, sys
+ref_dir = os.path.join(os.getcwd(), "loupiote_tpu") + os.sep
+seen = []
+
+def paths(x):
+    if isinstance(x, (str, bytes, os.PathLike)):
+        return [os.path.abspath(os.fsdecode(x))]
+    if isinstance(x, (list, tuple)):
+        return [p for y in x for p in paths(y)]
+    return []
+
+def hook(event, args):
+    if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.exec"):
+        seen.extend(paths(args[:2]))
+
+sys.addaudithook(hook)
+import loupiote_tpu_torch as lt
+for m in pkgutil.walk_packages(lt.__path__, "loupiote_tpu_torch."):
+    importlib.import_module(m.name)
+importlib.import_module("chip_smoke")
+lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "loupiote_tpu")]
+assert not bad, bad
+opened = sorted({p for p in seen if p.startswith(ref_dir)})
+assert not opened, opened
+assert any(p.endswith("bvh_builder.cpp") or "libbvh_" in p for p in seen)
+"""
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=300)
+    # No module names the reference package as a path component.
+    for root, _, files in os.walk(os.path.join(REPO, "loupiote_tpu_torch")):
+        for fn in files:
+            if fn.endswith(".py"):
+                with open(os.path.join(root, fn)) as f:
+                    assert '"loupiote_tpu"' not in f.read(), fn

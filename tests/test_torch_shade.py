@@ -45,7 +45,7 @@ def _t(x):
 def arch8k():
     with numpy_bvh():
         ref = ref_buffers(build_arch_scene(8_000))
-    return ref, from_reference(ref)
+    return ref, from_reference(ref, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -34,7 +34,7 @@ def soup():
     tris = random_tris()
     with numpy_bvh():
         ref = ref_buffers(soup_scene(ref_types, *tris))
-    return ref, from_reference(ref), tris
+    return ref, from_reference(ref, device="cpu"), tris
 
 
 def _port_hit(port, ro, rd, tmax=None, active=None):
@@ -111,7 +111,7 @@ def test_anyhit_matches_pallas_kernel(soup, dist):
 def test_arch8k_primary_rays():
     with numpy_bvh():
         ref = ref_buffers(build_arch_scene(8_000))
-    port = from_reference(ref)
+    port = from_reference(ref, device="cpu")
     jitter = np.random.default_rng(3).random((32 * 32, 2)).astype(np.float32)
     ro, rd = (np.asarray(x) for x in ref_generate_rays(
         jnp.asarray(arch_camera()), 32, 32, 0.7853982, jnp.asarray(jitter)))
@@ -126,7 +126,7 @@ def test_single_triangle_scene_has_synthetic_root():
     v1 = np.array([[1, -1, 0]], np.float32)
     v2 = np.array([[0, 1, 0]], np.float32)
     ref = ref_buffers(soup_scene(ref_types, v0, v1, v2))
-    port = from_reference(ref)
+    port = from_reference(ref, device="cpu")
     ptr = port.trav_rows.view(torch.int32)[0, 6::16]
     assert (ptr == -1).sum() == 7 and int(ptr.max()) == (1 | (1 << 30))
     xs = np.linspace(-1.5, 1.5, 16, dtype=np.float32)
