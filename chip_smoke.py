@@ -5,8 +5,8 @@
 
 Phases, each timed:
   1. device    - require CUDA; print the card and its power limit;
-  2. build     - compile the traversal kernels (nvcc, one process per
-                 source, in parallel) and the BVH builder (g++);
+  2. build     - compile the kernels (nvcc, one process per source, in
+                 parallel) and the BVH builder (g++);
   3. K1        - kernel K1 (csrc/wide_traverse.cu) against its plain torch
                  twin on the card, closest-hit and any-hit, on a random
                  4k-triangle scene, the arch-260k primary wave at 1080p and
@@ -24,12 +24,29 @@ Phases, each timed:
                  DENOISED_PATHTRACE, the camera moving every frame, with
                  the launch counts read around it; A-SVGF timed alone;
                  every blit mode; a small denoised frame pair on the card
-                 held against the CPU path.
+                 held against the CPU path;
+  7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
+                 (csrc/slab_sort.cu) against its twin on the primary
+                 wave's pair keys, random keys with three payload types and
+                 uint32 keys with DEAD_KEYs, timed beside torch.sort +
+                 gather; the run scatter E5 (csrc/regroup.cu) against its
+                 twin on the same wave's regroup;
+  8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
+                 their twins on strided rays of the primary and a diffuse
+                 wave, E7 in both modes; their times on the primary wave;
+  9. pipeline  - treelet_intersect against K1 on the full waves and
+                 treelet_occluded on the NEE wave; one wave's time by
+                 stage against K1's;
+ 10. treelet   - the headline frame on the treelet tables through
+                 Renderer, launch counts read around it (E6, K4, E5, E7 3
+                 each a frame), and a small frame held against the K1
+                 path's.
 Any disagreement or failure raises, so the run exits non-zero without its
 last line. Prints a JSON line of kernel results, then the card's nvidia-smi
 line, then {"ok": true, "device": {...}} as the last line.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -55,11 +72,13 @@ def phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of fn() over reps calls (after one warm-up)."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean device milliseconds of fn() over reps calls (after one warm-up
+    unless ``warm`` is False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -71,13 +90,19 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_rays, out_bytes, table_bytes, ops):
+def bound_of(nbytes, ops):
     """(ms, which): the larger of the bytes over the memory rate and the
     operations over the float32 rate."""
-    b_ms = (n_rays * (RAY_IN_BYTES + out_bytes) + table_bytes) / PEAK_BYTES_S
+    b_ms = nbytes / PEAK_BYTES_S
     o_ms = ops / PEAK_FLOP_S
     return (max(b_ms, o_ms) * 1e3,
             "bytes" if b_ms >= o_ms else "operations")
+
+
+def bound(n_rays, out_bytes, table_bytes, ops):
+    """bound_of for a traversal: each ray's inputs and outputs once, the
+    tables once."""
+    return bound_of(n_rays * (RAY_IN_BYTES + out_bytes) + table_bytes, ops)
 
 
 def ulp_diff(a, b):
@@ -287,6 +312,136 @@ def ops_of(stats, n_compared, n_rays, box_key="visits"):
     return ops * n_rays / max(n_compared, 1)
 
 
+def bits_equal(a, b):
+    """Exact equality of two tensors of one dtype, floats by their bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def compare_slab_sort(name, key, cols, rows):
+    """K4 against slab_sort_plain on the card on one input: the sorted
+    (1 + payload, Rp) matrices bit for bit, and the wrapper's unpacked
+    output (dtypes included) against the twin's. Returns (ok, max |err|,
+    the packed input, c_log)."""
+    import torch
+
+    from loupiote_tpu_torch.ops import slab_sort as ss
+
+    mat, c_log = ss.pack(key, cols)
+    k = ss.sort_matrix(mat.clone(), c_log)
+    p = ss.slab_sort_plain(mat.clone(), c_log)
+    ks, kcols = ss.slab_sort(key, cols)
+    pks, pcols = ss.unpack(p, key, cols)
+    torch.cuda.synchronize()
+    slab = 1 << c_log
+    srt = bool((k[0].view(-1, slab).diff(dim=1) >= 0).all())
+    same = bits_equal(k, p)
+    unpacked = bits_equal(ks, pks) and all(
+        bits_equal(a, b) and a.dtype == c.dtype
+        for a, b, c in zip(kcols, pcols, cols))
+    err = float((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+    ok = same and unpacked and srt
+    rows.append(f"| {name} | {key.shape[0]} ({len(cols)} payload, "
+                f"{k.shape[1] // slab} slabs of 2^{c_log}) | {same} | "
+                f"{unpacked} | {srt} | {'PASS' if ok else 'FAIL'} |")
+    return ok, err, mat, c_log
+
+
+def pair_multiset_equal(key, ray_of, S, ray_out, sid_blocks, on, R):
+    """The grouped (key, ray) multiset of block_regroup's output equals the
+    input's (dump keys >= S dropped)."""
+    import torch
+
+    keep = key < S
+    want = torch.sort(key[keep].to(torch.int64) * R + ray_of[keep])[0]
+    sid = torch.repeat_interleave(sid_blocks.to(torch.int64), 1024)
+    got = torch.sort((sid * R + ray_out)[on > 0])[0]
+    return bool(torch.equal(want, got))
+
+
+def compare_lanes(name, td, wave, rows, stats):
+    """E6 and E7 (both modes) against their twins on SUBSET strided rays of
+    one wave. E6 runs on the whole wave and is compared on the subset; the
+    subset's pairs (grouped by the card's K4 + E5) feed E7 and its twin.
+    ``stats``: receives the twins' work counts and the subset's live
+    pairs. Returns (ok, max |t| error by E7 mode)."""
+    import torch
+
+    from loupiote_tpu_torch.treelet import lane_bottom, lane_top
+    from loupiote_tpu_torch.treelet.pipeline import _compact_pairs
+    from loupiote_tpu_torch.treelet.regroup import block_regroup
+
+    ro, rd, act = wave
+    R = ro.shape[0]
+    idx = strided(R, ro.device)
+    t0 = torch.full((R,), 1e30, device=ro.device)
+    pk, nk = lane_top.lane_top_trace(td.top_fields, ro, rd, t0, act,
+                                     td.num_top)
+    sub = [x[idx].contiguous() for x in (ro, rd, t0, act)]
+    pp, npp = lane_top.lane_top_plain(td.top_fields, *sub, td.num_top,
+                                      stats=stats.setdefault("E6", {}))
+    torch.cuda.synchronize()
+    top_ok = bits_equal(pk[idx], pp) and bits_equal(nk[idx], npp)
+    errs = {"E6": float(max((pk[idx] - pp).abs().max(),
+                            (nk[idx] - npp).abs().max()))}
+    key, ray_of, fb = _compact_pairs(pp, npp, sub[3], S=td.num_subtrees)
+    pray, sid, on = block_regroup(key, ray_of, td.num_subtrees)
+    pr = pray.long()
+    args = (sid, td.sub_fields, sub[0][pr].contiguous(),
+            sub[1][pr].contiguous(), sub[2][pr].contiguous(), on)
+    stats["live_pairs"] = int((on > 0).sum())
+    ok, cells = top_ok, []
+    for mode in ("closest", "anyhit"):
+        kt, ktri = lane_bottom.lane_bottom_trace(*args, mode == "anyhit")
+        pt, ptri = lane_bottom.lane_bottom_plain(
+            *args, mode == "anyhit", stats=stats.setdefault(f"E7 {mode}", {}))
+        torch.cuda.synchronize()
+        m_ulp = int(ulp_diff(kt, pt).max())
+        tri_eq = bits_equal(ktri, ptri)
+        errs[mode] = float((kt - pt).abs().max())
+        ok &= m_ulp == 0 and tri_eq
+        cells.append(f"{m_ulp} / {tri_eq} / "
+                     f"{float(((ktri >= 0) & (on > 0)).float().sum()):.0f}")
+    rows.append(f"| {name} | {len(idx)} of {R} | {top_ok} | "
+                f"{float((npp == 8).float().mean()):.4f} | "
+                f"{float(npp[sub[3]].float().mean()):.3f} | "
+                f"{stats['live_pairs']} | {cells[0]} | {cells[1]} | "
+                f"{'PASS' if ok else 'FAIL'} |")
+    return ok, errs
+
+
+class StageTimer:
+    """The ``mark`` hook of treelet_intersect: a CUDA event at each stage's
+    end; ``ms()`` sums the device time between marks by stage name."""
+
+    def __init__(self):
+        import torch
+
+        self.events = [("start", torch.cuda.Event(enable_timing=True))]
+        self.events[0][1].record()
+
+    def __call__(self, stage):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((stage, ev))
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -300,7 +455,11 @@ def main():
     from loupiote_tpu_torch.accel import native
     from loupiote_tpu_torch.denoise.asvgf import denoise
     from loupiote_tpu_torch.ops import bvh2, wide
-    from loupiote_tpu_torch.ops.sort import ray_sort_key, sort_order
+    from loupiote_tpu_torch.ops import slab_sort as ss
+    from loupiote_tpu_torch.ops.sort import DEAD_KEY, ray_sort_key, sort_order
+    from loupiote_tpu_torch.treelet import (lane_bottom, lane_top, pipeline,
+                                            regroup)
+    from loupiote_tpu_torch.treelet.pipeline import _compact_pairs
     from loupiote_tpu_torch.render import renderer as rmod
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
                                                       trace_paths)
@@ -318,7 +477,8 @@ def main():
 
     # -- build: every kernel source and the BVH builder, in parallel ------
     t0 = time.perf_counter()
-    kernels_src = ("wide_traverse", "bvh2_traverse")
+    kernels_src = ("wide_traverse", "bvh2_traverse", "slab_sort",
+                   "treelet_traverse", "regroup")
     with ThreadPoolExecutor(len(kernels_src) + 1) as pool:
         futs = [pool.submit(_build.load, k) for k in kernels_src]
         t1 = time.perf_counter()
@@ -379,6 +539,7 @@ def main():
                                     arch.node_max[0]))
     dro, drd, dact = (dro[order].contiguous(), drd[order].contiguous(),
                       dact[order].contiguous())
+    diff260 = (dro, drd, dact)
     ok &= compare_wide("arch-260k / diffuse 1080p, sorted (shadow: tmax 25)",
                        arch, (dro, drd, dact),
                        (dro, drd, torch.full((N,), 25.0, device=dev), dact),
@@ -684,6 +845,303 @@ def main():
                          "with the CPU path")
     phase("denoised frames vs CPU", t0)
 
+    # -- The treelet path ------------------------------------------------------
+    # Its tables on the same arch-260k scene (the native builder gives the
+    # same tree; every comparison below runs on this one buffer set).
+    t0 = time.perf_counter()
+    del inter
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    archT = lt.build_scene_buffers(scene_cpu, treelets=True)
+    torch.cuda.synchronize()
+    tb_s = time.perf_counter() - t1
+    td = archT.treelet
+    S = td.num_subtrees
+    top_bytes = td.top_fields.numel() * 4
+    sub_bytes = td.sub_fields.numel() * 4
+    print(f"arch-260k with treelets=True: buffers {tb_s:.2f} s (without "
+          f"{build_s:.2f} s, so the treelet host build ~{tb_s - build_s:.2f} "
+          f"s); {archT.stats()}; top table {top_bytes} bytes, subtree "
+          f"tables {sub_bytes} bytes ({S} + 1 dump tile); same tree as the "
+          f"headline's: {bits_equal(archT.trav_rows, arch.trav_rows)}")
+    phase("treelet scene build", t0)
+
+    # K4 against its twin on three inputs; the primary wave's pairs first.
+    t0 = time.perf_counter()
+    pro, prd, pact = prim
+    pend, npend = lane_top.lane_top_trace(td.top_fields, pro, prd, tfar, pact,
+                                          td.num_top)
+    key, ray_of, _ = _compact_pairs(pend, npend, pact, S=S)
+    rows = ["| input | keys | matrix equal | unpacked equal | slabs sorted | "
+            "verdict |", "|---|---|---|---|---|---|"]
+    ok, k4_err, k4_mat, c_log = compare_slab_sort(
+        "arch-260k primary 1080p (subtree, ray) pairs", key, [ray_of], rows)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    nr = 1_000_003
+    cols = [torch.randint(-2**31, 2**31 - 1, (nr,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.rand(nr, generator=g, device=dev),
+            torch.rand(nr, generator=g, device=dev) < 0.5]
+    ok &= compare_slab_sort(
+        "random int32 keys, payload int32 + float32 + bool",
+        torch.randint(-2**31, 2**31 - 1, (nr,), generator=g, device=dev,
+                      dtype=torch.int32), cols, rows)[0]
+    nu = 600_001
+    ukey = torch.randint(0, 2**32, (nu,), generator=g, device=dev,
+                         dtype=torch.int64)
+    ukey[torch.rand(nu, generator=g, device=dev) < 0.3] = DEAD_KEY
+    ok &= compare_slab_sort("uint32 keys (int64) with 30% DEAD_KEY", ukey,
+                            [torch.arange(nu, device=dev, dtype=torch.int32)],
+                            rows)[0]
+    print("\n".join(rows), flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: K4 disagrees with its plain version")
+    work = torch.empty_like(k4_mat)
+    copy_ms = cuda_ms(lambda: work.copy_(k4_mat), 20)
+    k4_ms = cuda_ms(lambda: ss.sort_matrix(work.copy_(k4_mat), c_log),
+                    20) - copy_ms
+    k4_plain = cuda_ms(lambda: ss.slab_sort_plain(work.copy_(k4_mat), c_log),
+                       1, warm=False) - copy_ms
+    n_slabs = k4_mat.shape[1] >> c_log
+
+    def k4_library():
+        v, i = torch.sort(k4_mat[0].view(n_slabs, -1), dim=1)
+        return v, torch.gather(k4_mat[1].view(n_slabs, -1), 1, i)
+
+    k4_lib = cuda_ms(k4_library, 20)
+    # Operations: per compare-exchange one compare and two selects per row.
+    k4_cx = c_log * (c_log + 1) // 2 * (k4_mat.shape[1] // 2)
+    k4_bound = bound_of(2 * k4_mat.numel() * 4,
+                        k4_cx * (1 + 2 * k4_mat.shape[0]))
+    print(f"K4 on the primary wave's {key.shape[0]} pair keys ({n_slabs} "
+          f"slabs of 2^{c_log}, 1 payload; {ss.cuda_launches(c_log)} CUDA "
+          f"launches a sort): kernel {k4_ms:.4f} ms, plain torch "
+          f"{k4_plain:.3f} ms, torch.sort + gather along the slab rows "
+          f"{k4_lib:.4f} ms (ties in any order); bound {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}: {2 * k4_mat.numel() * 4} bytes, {k4_cx} "
+          f"compare-exchanges); matrix copy {copy_ms:.4f} ms subtracted "
+          f"({smi})", flush=True)
+    phase("K4: three inputs + timing", t0)
+
+    # E5 against its twin on the same wave's block_regroup inputs.
+    t0 = time.perf_counter()
+    ks_, (ray_s,) = ss.slab_sort(key, [ray_of])
+    e5_args, (starts, counts) = regroup.block_runs(ks_, ray_s, S)
+    out_k = regroup.scatter_runs(*e5_args)
+    out_p = regroup.scatter_runs_plain(*e5_args)
+    torch.cuda.synchronize()
+    e5_same = bits_equal(out_k, out_p)
+    e5_err = float((out_k - out_p).abs().max())
+    pray, sid, on = regroup.block_layout(out_k, starts, counts, N)
+    grouped = pair_multiset_equal(key, ray_of, S, pray, sid, on, N)
+    e5_ms = cuda_ms(lambda: regroup.scatter_runs(*e5_args), 20)
+    e5_plain = cuda_ms(lambda: regroup.scatter_runs_plain(*e5_args), 1)
+    data2, e5_tables = e5_args[0], e5_args[1:5]
+    e5_bytes = (data2.numel() + e5_args[5]
+                + sum(x.numel() for x in e5_tables)) * 4
+    e5_bound = bound_of(e5_bytes, 0)
+    print(f"E5 on the primary wave's block_regroup inputs ({data2.shape[0]} "
+          f"slabs, {int(counts.sum())} pairs, {S} keys, out_rows "
+          f"{e5_args[5]}): output equal {e5_same}, grouped (key, ray) "
+          f"multiset equal {grouped}; kernel {e5_ms:.4f} ms (with the zero "
+          f"fill), plain torch {e5_plain:.3f} ms, bound {e5_bound[0]:.4f} "
+          f"ms ({e5_bound[1]})", flush=True)
+    if not (e5_same and grouped):
+        raise SystemExit("chip_smoke: E5 disagrees with its plain version")
+    phase("E5: check + timing", t0)
+
+    # E6 and E7 against their twins on two waves, then their times at the
+    # primary wave's full shapes.
+    t0 = time.perf_counter()
+    rows = ["| wave | rays compared | E6 pend, npend equal | npend == 8 | "
+            "mean npend | live pairs | E7 closest: t max ulp / tri equal / "
+            "hits | E7 any-hit: same | verdict |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    lane_stats = {"primary": {}, "diffuse": {}}
+    ok, lane_err = compare_lanes("arch-260k primary 1080p", td, prim, rows,
+                                 lane_stats["primary"])
+    ok &= compare_lanes("arch-260k diffuse 1080p, sorted", td, diff260, rows,
+                        lane_stats["diffuse"])[0]
+    capped = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
+    rows.append(f"lanes stopped by a step bound (E6, E7 and their twins, "
+                f"both waves): {capped}")
+    print("\n".join(rows), flush=True)
+    if not ok or capped:
+        raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
+                         "version, or lanes reached a step bound")
+    e6_args = (td.top_fields, pro, prd, tfar, pact, td.num_top)
+    e6_ms = cuda_ms(lambda: lane_top.lane_top_trace(*e6_args), 20)
+    e6_plain = cuda_ms(lambda: lane_top.lane_top_plain(*e6_args), 1,
+                       warm=False)
+    pr = pray.long()
+    e7_args = (sid, td.sub_fields, pro[pr].contiguous(), prd[pr].contiguous(),
+               tfar[pr].contiguous(), on)
+    live_pairs = int((on > 0).sum())
+    e7_timing = {}
+    for mode in ("closest", "anyhit"):
+        e7_timing[mode] = (
+            cuda_ms(lambda: lane_bottom.lane_bottom_trace(
+                *e7_args, mode == "anyhit"), 10),
+            cuda_ms(lambda: lane_bottom.lane_bottom_plain(
+                *e7_args, mode == "anyhit"), 1, warm=False))
+    ps = lane_stats["primary"]
+    n_cmp = len(strided(N, dev))
+    e6_bound = bound_of(N * (RAY_IN_BYTES + 36) + top_bytes,
+                        ps["E6"]["box_tests"] * OPS_BOX * N / n_cmp)
+    P = on.shape[0]
+    e7_bound = {m: bound_of(
+        P * (24 + 4 + 4 + 8) + sid.numel() * 4 + sub_bytes * 10 // 11,
+        ops_of(ps[f"E7 {m}"], ps["live_pairs"], live_pairs,
+               box_key="box_tests")) for m in ("closest", "anyhit")}
+    print(f"E6 on the 1080p primary wave ({N} rays, K {td.num_top}): kernel "
+          f"{e6_ms:.4f} ms, plain torch {e6_plain:.3f} ms, bound "
+          f"{e6_bound[0]:.4f} ms ({e6_bound[1]}; twin work on {n_cmp} rays: "
+          f"{ps['E6']})")
+    for m, (k_ms, p_ms) in e7_timing.items():
+        print(f"E7 {m} on the primary wave's pairs ({P} slots, {live_pairs} "
+              f"live, {P // 1024} blocks): kernel {k_ms:.4f} ms, plain torch "
+              f"{p_ms:.3f} ms, bound {e7_bound[m][0]:.4f} ms "
+              f"({e7_bound[m][1]}; twin work on {ps['live_pairs']} live "
+              f"pairs: {ps[f'E7 {m}']})")
+    print(smi, flush=True)
+    phase("E6/E7: two waves + timing", t0)
+
+    # The pipeline against K1 on the same full waves; one wave's time by
+    # stage against K1's.
+    t0 = time.perf_counter()
+    rows = ["| wave | rays | tri agree (ties) | t max ulp | fallback rays "
+            "(share) | verdict |", "|---|---|---|---|---|---|"]
+    ok = True
+    for name, (wro, wrd, wact) in (("primary 1080p", prim),
+                                   ("diffuse 1080p, sorted", diff260)):
+        pipeline.reset_counters()
+        th = pipeline.treelet_intersect(archT, wro, wrd, active=wact)
+        n_fb = pipeline.fallback_rays(dev)
+        kh = wide.intersect_wide(archT, wro, wrd, active=wact)
+        agree, ties, max_ulp, _ = hits_agree(archT, wro, wrd, kh.t, kh.tri,
+                                             th.t, th.tri)
+        ok_w = agree == 1.0 and max_ulp <= 2
+        ok &= ok_w
+        n_act = max(int(wact.sum()), 1)
+        rows.append(f"| {name} | {N} | {agree:.6f} ({ties} ties) | "
+                    f"{max_ulp} | {n_fb} ({n_fb / n_act:.4%}) | "
+                    f"{'PASS' if ok_w else 'FAIL'} |")
+    nro, nrd, ndist, nact = nee
+    pipeline.reset_counters()
+    blocked = pipeline.treelet_occluded(archT, nro, nrd, ndist, active=nact)
+    n_fb = pipeline.fallback_rays(dev)
+    want = wide.occluded_wide(archT, nro, nrd, ndist * (1.0 - 1e-3),
+                              active=nact)
+    b_agree = float((blocked == want).float().mean())
+    ok &= b_agree == 1.0
+    rows.append(f"| NEE of the primary wave (treelet_occluded vs K1 any-hit) "
+                f"| {N} | blocked equal {b_agree:.6f} | - | {n_fb} "
+                f"({n_fb / max(int(nact.sum()), 1):.4%}) | "
+                f"{'PASS' if b_agree == 1.0 else 'FAIL'} |")
+    print("\n".join(rows), flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: the treelet traversal disagrees with "
+                         "K1")
+    for name, (wro, wrd, wact) in (("primary", prim),
+                                   ("diffuse, sorted", diff260)):
+        by_stage = {}
+        for rep in range(6):  # the first is a warm-up
+            timer = StageTimer()
+            pipeline.treelet_intersect(archT, wro, wrd, active=wact,
+                                       mark=timer)
+            for k, v in timer.ms().items():
+                if rep:
+                    by_stage[k] = by_stage.get(k, 0.0) + v / 5
+        k1_wave = cuda_ms(lambda: wide.intersect_wide(archT, wro, wrd,
+                                                      active=wact), 10)
+        print(f"one {name} 1080p wave: treelet path "
+              f"{sum(by_stage.values()):.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in by_stage.items())
+              + f"); K1 path (intersect_wide with recompute_uv) "
+              f"{k1_wave:.3f} ms ({smi})", flush=True)
+    phase("treelet pipeline vs K1", t0)
+
+    # -- The treelet frame: the headline frame on the treelet tables ---------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rt = lt.Renderer((WIDTH, HEIGHT),
+                     lt.RenderConfig(downsample_factor=1.0, denoise=False))
+    rt.set_resources(archT)
+    rt.accumulate = True
+    view = lt.arch_camera()
+    for m in (wide, bvh2, ss, regroup, lane_top, lane_bottom, pipeline):
+        m.reset_counters()
+    rt.raytrace(view)  # warm-up frame; accum == its sample
+    first = rt.accum.clone()
+    frame_ms = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rt.raytrace(view)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    img = rt.blit()
+    n_frames = 6
+    t_launches = {"E6": lane_top.launches, "K4": ss.launches,
+                  "E5": regroup.launches,
+                  "E7 closest": lane_bottom.launches_closest,
+                  "E7 any-hit": lane_bottom.launches_anyhit,
+                  "K1 closest": wide.launches_closest,
+                  "K1 any-hit": wide.launches_anyhit,
+                  "K2": bvh2.launches_closest, "K3": bvh2.launches_occluded}
+    capped = (wide.capped_rays(dev) + bvh2.capped_rays(dev)
+              + lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev))
+    n_fb = pipeline.fallback_rays(dev)
+    per_frame = {k: v / n_frames for k, v in t_launches.items()}
+    print(f"treelet path: {n_frames} frames; launches {t_launches} "
+          f"({per_frame} a frame); "
+          f"fallback rays {n_fb} ({n_fb / n_frames:.0f} a frame, "
+          f"{n_fb / (n_frames * BOUNCES * N):.4%} of the closest-hit ray "
+          f"slots); lanes stopped by a step bound {capped}")
+    for k in ("E6", "K4", "E5", "E7 closest"):
+        if t_launches[k] != BOUNCES * n_frames:
+            raise SystemExit(f"chip_smoke: the treelet path launched {k} "
+                             f"{t_launches[k]} times, not {BOUNCES} a frame")
+    if capped:
+        raise SystemExit("chip_smoke: lanes reached a step bound")
+    if not (torch.isfinite(rt.accum).all() and img.shape ==
+            (HEIGHT, WIDTH, 3) and img.dtype == np.uint8):
+        raise SystemExit("chip_smoke: non-finite or misshapen treelet frame")
+    nonzero = float((first.reshape(-1, 3).sum(1) > 0).float().mean())
+    tms = float(np.mean(frame_ms))
+    print(f"treelet frame ms (CUDA events): mean {tms:.3f}, min "
+          f"{min(frame_ms):.3f}, all {[round(x, 3) for x in frame_ms]}; "
+          f"Mrays/s {WIDTH * HEIGHT * BOUNCES * 2 / tms / 1e3:.3f}; "
+          f"nonzero_pixel_frac (1 spp) {nonzero:.4f}; image mean "
+          f"{float(rt.accum.mean()):.5f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})",
+          flush=True)
+    if nonzero < 0.5:
+        raise SystemExit("chip_smoke: the treelet frame is mostly black")
+    phase("treelet path (warm-up + 5 frames + blit)", t0)
+
+    # Small frame: the treelet path against the K1 path on the card, the
+    # same uniforms, sort off.
+    t0 = time.perf_counter()
+    gu.manual_seed(7)
+    uni = draw_uniforms(w * h, BOUNCES, gu, "cpu").to(dev)
+    a = trace_paths(archT, cam, w, h, bounces=BOUNCES, sort_rays=False,
+                    uniforms=uni)[0]
+    b = trace_paths(dataclasses.replace(archT, treelet=None), cam, w, h,
+                    bounces=BOUNCES, sort_rays=False, uniforms=uni)[0]
+    close = float(torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(1)
+                  .float().mean())
+    rel = abs(float(a.mean()) / max(float(b.mean()), 1e-12) - 1.0)
+    print(f"small frame {w}x{h}, treelet path vs K1 path on the card: pixels "
+          f"close {close:.5f}, mean rel diff {rel:.2e}")
+    if close < 0.995 or rel > 1e-3:
+        raise SystemExit("chip_smoke: the treelet frame disagrees with the "
+                         "K1 path's")
+    phase("treelet frame vs K1 frame", t0)
+
     kernels = []
     for mode, err in (("closest", t_err), ("anyhit", b_err)):
         b_ms, b_by = k1_bound[mode]
@@ -715,6 +1173,43 @@ def main():
                 "bound_ms": k23_bound["K2 any-hit"][0],
                 "bound_by": k23_bound["K2 any-hit"][1]}}
         kernels.append(entry)
+    kernels.append({
+        "name": "slab_sort", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/slab_sort.cu",
+        "replaces": "loupiote_tpu/ops/slab_sort.py:81",
+        "launches": t_launches["K4"], "max_abs_err": k4_err, "ms": k4_ms,
+        "plain_ms": k4_plain, "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1], "library_ms": k4_lib})
+    kernels.append({
+        "name": "scatter_runs", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/regroup.cu",
+        "replaces": "experiments/treelet/regroup.py:53",
+        "launches": t_launches["E5"], "max_abs_err": e5_err, "ms": e5_ms,
+        "plain_ms": e5_plain, "bound_ms": e5_bound[0],
+        "bound_by": e5_bound[1], "library_ms": None})
+    kernels.append({
+        "name": "lane_top", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/treelet_traverse.cu",
+        "replaces": "experiments/treelet/lane_top.py:178",
+        "launches": t_launches["E6"], "max_abs_err": lane_err["E6"],
+        "ms": e6_ms, "plain_ms": e6_plain, "bound_ms": e6_bound[0],
+        "bound_by": e6_bound[1], "library_ms": None})
+    kernels.append({
+        "name": "lane_bottom", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/treelet_traverse.cu",
+        "replaces": "experiments/treelet/lane_bottom.py:63",
+        "launches": t_launches["E7 closest"],
+        "max_abs_err": lane_err["closest"], "ms": e7_timing["closest"][0],
+        "plain_ms": e7_timing["closest"][1],
+        "bound_ms": e7_bound["closest"][0],
+        "bound_by": e7_bound["closest"][1], "library_ms": None,
+        # E7's any-hit mode: checked and timed here, not on the path.
+        "modes": {"anyhit": {
+            "launches": t_launches["E7 any-hit"],
+            "max_abs_err": lane_err["anyhit"],
+            "ms": e7_timing["anyhit"][0], "plain_ms": e7_timing["anyhit"][1],
+            "bound_ms": e7_bound["anyhit"][0],
+            "bound_by": e7_bound["anyhit"][1]}}})
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

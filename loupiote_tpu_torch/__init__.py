@@ -2,9 +2,12 @@
 
 Runs the path tracer on an NVIDIA H100: plain torch for the wavefront
 stages and the A-SVGF denoiser, hand-written CUDA for the BVH traversals
-(``csrc/``). Entry points put their tensors on the card unless the caller
-names another device. Imports torch and numpy only; never jax or the
-``loupiote_tpu`` package, which stays beside it as the reference.
+and for the opt-in treelet traversal's sort, scatter and walks
+(``csrc/``; ``build_scene_buffers(scene, treelets=True)`` turns the
+treelet traversal on, ``treelet/``). Entry points put their tensors on
+the card unless the caller names another device. Imports torch and numpy
+only; never jax, the ``loupiote_tpu`` package or ``experiments/``, which
+stay beside it as the reference.
 """
 
 from .config import BlitMode, RenderConfig

@@ -23,8 +23,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .intersect import (T_MIN, Hit, check_args, moller_trumbore, on_card,
-                        ray_args)
+from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
+                        moller_trumbore, on_card, ray_args)
 from .wide import _safe_inv
 
 STACK_MAX = 128  # csrc/bvh2_traverse.cu: kStackMax
@@ -36,28 +36,20 @@ launches_closest = 0  # K2, closest-hit
 launches_anyhit = 0  # K2, any-hit
 launches_occluded = 0  # K3
 
-# Per-device int32 counters of rays stopped by the step bound.
-_capped: dict = {}
-
-
-def _capped_counter(device: torch.device) -> torch.Tensor:
-    key = str(device)
-    if key not in _capped:
-        _capped[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _capped[key]
+# Rays stopped by the step bound, per device.
+_capped = DeviceCounter()
 
 
 def capped_rays(device) -> int:
     """Rays that reached the step bound ``4 * num_nodes + 64`` on
     ``device`` since the last ``reset_counters()``; 0 on a sound tree."""
-    return int(_capped_counter(torch.device(device)).item())
+    return _capped.read(device)
 
 
 def reset_counters() -> None:
     global launches_closest, launches_anyhit, launches_occluded
     launches_closest = launches_anyhit = launches_occluded = 0
-    for c in _capped.values():
-        c.zero_()
+    _capped.reset()
 
 
 def max_steps(num_nodes: int) -> int:
@@ -183,7 +175,7 @@ def bvh2_trace_plain(node_rows, leaf_rows, ro, rd, tmax, active,
         live = live[keep]
     else:
         if live.numel():
-            _capped_counter(dev).add_(live.numel())
+            _capped.tensor(dev).add_(live.numel())
     if stats is not None:
         stats["visits"] = visits
         stats["tri_tests"] = tri_tests
@@ -236,7 +228,7 @@ def bvh2_occluded_plain(node_rows, leaf_rows, ro, rd, tmax, active,
         node[live] = nxt[keep]
     else:
         if live.numel():
-            _capped_counter(dev).add_(live.numel())
+            _capped.tensor(dev).add_(live.numel())
     if stats is not None:
         stats["visits"] = visits
         stats["tri_tests"] = tri_tests
@@ -273,7 +265,7 @@ def _launch_trace(node_rows, leaf_rows, ro, rd, tmax, active, any_hit,
     err = fn(node_rows.data_ptr(), leaf_rows.data_ptr(), ro.data_ptr(),
              rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
              *(x.data_ptr() for x in out), tri.data_ptr(),
-             _capped_counter(dev).data_ptr(), R, max_steps(num_nodes),
+             _capped.tensor(dev).data_ptr(), R, max_steps(num_nodes),
              int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bvh2_trace launch failed: CUDA error {err}")
@@ -297,7 +289,7 @@ def _launch_occluded(node_rows, leaf_rows, ro, rd, tmax, active, end_index,
     blocked = torch.empty(R, dtype=torch.int32, device=dev)
     err = fn(node_rows.data_ptr(), leaf_rows.data_ptr(), ro.data_ptr(),
              rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
-             blocked.data_ptr(), _capped_counter(dev).data_ptr(), R,
+             blocked.data_ptr(), _capped.tensor(dev).data_ptr(), R,
              max_steps(num_nodes), int(end_index),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -7,7 +7,9 @@ waves. Larger scenes go to the wide traversal (``ops/wide.py``, K1). Each
 runs its CUDA kernel on CUDA tensors and its plain twin on CPU tensors,
 for any ray count: the reference's padding to 1024-ray packets, its SIMT
 path for tiny batches and its ``_WIDE_MAX_BYTES`` VMEM ceiling are TPU
-matters and are not ported.
+matters and are not ported. A scene that carries treelet tables
+(``SceneBuffers.treelet``) sends ``intersect_any`` to the treelet
+traversal; ``occluded`` does not take it, as in the reference.
 """
 
 from __future__ import annotations
@@ -83,6 +85,38 @@ def on_card(ro: torch.Tensor) -> bool:
     return True
 
 
+def full_device(device) -> torch.device:
+    """The device with its index: "cuda" is the current card, as
+    ``tensor.device`` names it ("cuda:0")."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class DeviceCounter:
+    """A count kept as a one-element tensor on each device, so kernels
+    (``atomicAdd``) and tensor code add to it without a host sync. "cuda"
+    and "cuda:0" name the same card, hence the same counter."""
+
+    def __init__(self, dtype=torch.int32):
+        self.dtype = dtype
+        self._by_device: dict = {}
+
+    def tensor(self, device) -> torch.Tensor:
+        d = full_device(device)
+        if d not in self._by_device:
+            self._by_device[d] = torch.zeros(1, dtype=self.dtype, device=d)
+        return self._by_device[d]
+
+    def read(self, device) -> int:
+        return int(self.tensor(device).item())
+
+    def reset(self) -> None:
+        for c in self._by_device.values():
+            c.zero_()
+
+
 def check_args(dev, specs) -> None:
     """Raise unless each (name, tensor, dtype, shape or None) is a
     contiguous tensor of that dtype and shape on ``dev``: what a kernel
@@ -113,7 +147,14 @@ def _bvh2(scene) -> bool:
 
 def intersect_any(scene, ro, rd, tmax=None, active=None,
                   any_hit: bool = False) -> Hit:
-    """Trace (R,) rays against the scene; ``active`` False rays miss."""
+    """Trace (R,) rays against the scene; ``active`` False rays miss.
+    Scenes built with ``treelets=True`` take the treelet traversal in both
+    modes (``treelet/pipeline.py``)."""
+    if scene.treelet is not None:
+        from ..treelet.pipeline import treelet_intersect
+
+        return treelet_intersect(scene, ro, rd, tmax=tmax, active=active,
+                                 any_hit=any_hit)
     if _bvh2(scene):
         from .bvh2 import intersect_bvh2
 

@@ -17,8 +17,8 @@ import torch
 
 from .. import _build
 from ..accel.wide import LEAF_MASK, LEAF_TAG
-from .intersect import (T_MIN, Hit, check_args, moller_trumbore, on_card,
-                        ray_args, recompute_uv)
+from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
+                        moller_trumbore, on_card, ray_args, recompute_uv)
 
 STACK_MAX = 64  # csrc/wide_traverse.cu: kStackMax
 
@@ -27,29 +27,21 @@ STACK_MAX = 64  # csrc/wide_traverse.cu: kStackMax
 launches_closest = 0
 launches_anyhit = 0
 
-# Per-device int32 counters of rays stopped by the step bound.
-_capped: dict = {}
-
-
-def _capped_counter(device: torch.device) -> torch.Tensor:
-    key = str(device)
-    if key not in _capped:
-        _capped[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _capped[key]
+# Rays stopped by the step bound, per device.
+_capped = DeviceCounter()
 
 
 def capped_rays(device) -> int:
     """Rays that reached the step bound ``4 * wide_end + 64`` on ``device``
     since the last ``reset_counters()``; 0 on a well-formed table."""
-    return int(_capped_counter(torch.device(device)).item())
+    return _capped.read(device)
 
 
 def reset_counters() -> None:
     global launches_closest, launches_anyhit
     launches_closest = 0
     launches_anyhit = 0
-    for c in _capped.values():
-        c.zero_()
+    _capped.reset()
 
 
 def max_steps(wide_end: int) -> int:
@@ -178,7 +170,7 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
         live = live[descend | can_pop]
     else:
         if live.numel():
-            _capped_counter(dev).add_(live.numel())
+            _capped.tensor(dev).add_(live.numel())
     if stats is not None:
         stats["box_tests"] = box_tests
         stats["tri_tests"] = tri_tests
@@ -209,7 +201,7 @@ def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
     tri = torch.empty(R, dtype=torch.int32, device=dev)
     err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
              tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             _capped_counter(dev).data_ptr(), R, max_steps(wide_end),
+             _capped.tensor(dev).data_ptr(), R, max_steps(wide_end),
              int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")

@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..accel.bvh import LEAF_MAX, build_bvh, bvh_max_depth
 from ..accel.wide import collapse_wide
+from ..treelet.build import TreeletDevice, build_treelet_device
 from .types import INVALID_INDEX, Scene, pad_rows
 
 _PAD = 128
@@ -66,6 +68,9 @@ class SceneBuffers:
     num_lights: int
     has_probe: bool = False
     has_textures: bool = False
+    # Treelet tables (treelet/build.py); None unless built with
+    # treelets=True, and then intersect_any takes the treelet traversal.
+    treelet: Optional[TreeletDevice] = None
 
     @property
     def device(self) -> torch.device:
@@ -74,15 +79,31 @@ class SceneBuffers:
     def to(self, device) -> "SceneBuffers":
         """A copy with every table on ``device``."""
         return dataclasses.replace(self, **{
-            name: getattr(self, name).to(device) for name in _TENSOR_FIELDS})
+            name: getattr(self, name).to(device) for name in _TENSOR_FIELDS},
+            treelet=None if self.treelet is None
+            else self.treelet.to(device))
+
+    def stats(self) -> dict:
+        """Table sizes: BVH2 nodes, wide rows and, with treelets, the
+        subtree count S, the top entries K and the treelet table bytes."""
+        out = {"bvh2_nodes": self.num_nodes, "wide_rows": self.wide_end,
+               "trav_rows_bytes": self.trav_rows.numel() * 4}
+        if self.treelet is not None:
+            out.update(subtrees=self.treelet.num_subtrees,
+                       top_entries=self.treelet.num_top,
+                       top_tiles=self.treelet.top_tiles,
+                       treelet_bytes=self.treelet.nbytes())
+        return out
 
 
-def build_scene_buffers(scene: Scene, device="cuda",
-                        use_native: bool = True) -> SceneBuffers:
+def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
+                        treelets: bool = False) -> SceneBuffers:
     """Flatten the scene's instances, build its BVH and upload the tables.
 
     ``use_native``: build the BVH2 with the C++ builder (the shipped
     default); False selects the numpy builder, whose tree differs.
+    ``treelets``: also build the treelet tables (``treelet/build.py``), so
+    that closest-hit waves take the treelet traversal.
     """
     p0s, p1s, p2s = [], [], []
     n0s, n1s, n2s = [], [], []
@@ -241,6 +262,8 @@ def build_scene_buffers(scene: Scene, device="cuda",
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    treelet = build_treelet_device(bvh, tri9, device) if treelets else None
+
     return SceneBuffers(
         trav_rows=dev(trav),
         node_rows=dev(node_rows),
@@ -263,6 +286,7 @@ def build_scene_buffers(scene: Scene, device="cuda",
         num_lights=len(scene.lights),
         has_probe=False,
         has_textures=len(scene.images) > 0,
+        treelet=treelet,
     )
 
 
@@ -275,9 +299,9 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
     """The port's buffers from a reference (JAX) ``SceneBuffers``.
 
     Each field's bytes are copied with ``np.asarray``, so this needs no
-    jax import and bitcast ints (a -1 ``miss`` is a NaN pattern) survive.
-    Instanced scenes and the width-16 / multi-row-leaf tables are not
-    ported and raise.
+    jax import and bitcast ints (a -1 ``miss`` is a NaN pattern) survive;
+    a reference ``TreeletDevice`` is copied the same way. Instanced scenes
+    and the width-16 / multi-row-leaf tables are not ported and raise.
     """
     if getattr(ref, "inst_w2o", None) is not None:
         raise NotImplementedError(
@@ -286,8 +310,17 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
     if int(ref.wide_width) != 8 or int(ref.wide_leaf_rows) != 1:
         raise NotImplementedError(
             "the port traverses only the 8-wide, one-row-leaf table")
-    tensors = {name: torch.from_numpy(np.array(np.asarray(getattr(ref, name))))
-               .to(device) for name in _TENSOR_FIELDS}
+    def copy(x):
+        return torch.from_numpy(np.array(np.asarray(x))).to(device)
+
+    tensors = {name: copy(getattr(ref, name)) for name in _TENSOR_FIELDS}
+    treelet = None
+    td = getattr(ref, "treelet", None)
+    if td is not None:
+        treelet = TreeletDevice(
+            top_fields=copy(td.top_fields), sub_fields=copy(td.sub_fields),
+            sub_tri_base=copy(td.sub_tri_base), num_top=int(td.num_top),
+            top_tiles=int(td.top_tiles), num_subtrees=int(td.num_subtrees))
     return SceneBuffers(
         **tensors,
         wide_end=int(ref.wide_end),
@@ -299,4 +332,5 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
         num_lights=int(ref.num_lights),
         has_probe=bool(ref.has_probe),
         has_textures=bool(ref.has_textures),
+        treelet=treelet,
     )

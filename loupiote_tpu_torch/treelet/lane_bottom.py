@@ -1,0 +1,170 @@
+"""Phase 2 of the treelet traversal: kernel E7 (``csrc/treelet_traverse.cu``,
+``lane_bottom``) and its plain torch twin.
+
+Counterpart of ``experiments/treelet/lane_bottom.py`` (``lane_bottom_trace``,
+the Pallas ``_lane_bottom_kernel``). Pairs come in blocks of ``TILE``; all
+pairs of block b walk subtree ``sid[b]``. Each pair walks the threaded
+subtree from entry 0: a node entry's box test against the pair's best t
+goes to ``hit_id`` or ``miss_id``; a triangle entry runs Moller-Trumbore
+(accepted when T_MIN < t < best t, |det| > 1e-12, u, v >= 0, u + v <= 1)
+and records its subtree-local ordinal. In any-hit mode the first accepted
+triangle ends the walk. Step bound 2048; pairs that reach it are counted.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..ops.intersect import (T_MIN, DeviceCounter, check_args,
+                             moller_trumbore, on_card)
+from ..ops.wide import _safe_inv
+from .build import SUB_END, TILE
+
+MAX_STEPS = 2048
+WALK_FIELDS = 10  # f0..f9; f10 (the global id) is host-side only
+
+# Launches of E7 by mode on the card; chip_smoke.py zeroes them before the
+# main path and reads them after.
+launches_closest = 0
+launches_anyhit = 0
+
+_capped = DeviceCounter()  # pairs stopped by the step bound, per device
+
+
+def capped_pairs(device) -> int:
+    """Pairs that reached the step bound on ``device`` since the last
+    ``reset_counters()``."""
+    return _capped.read(device)
+
+
+def reset_counters() -> None:
+    global launches_closest, launches_anyhit
+    launches_closest = 0
+    launches_anyhit = 0
+    _capped.reset()
+
+
+def lane_bottom_plain(sid_blocks, sub_fields, ro, rd, tmax, active,
+                      any_hit: bool, stats: dict | None = None):
+    """Plain torch walk of each pair's subtree, vectorised over the live
+    pairs. Returns ``(t (P,) f32, tri_local (P,) int32, -1 on a miss)``.
+    ``stats``: receives ``box_tests`` (node entries visited) and
+    ``tri_tests`` (triangle entries visited)."""
+    dev = ro.device
+    P = ro.shape[0]
+    tab = sub_fields[:WALK_FIELDS].reshape(WALK_FIELDS, -1)
+    link_all = tab[9].view(torch.int32)
+    base = torch.repeat_interleave(sid_blocks.to(torch.int64) * TILE, TILE)
+    cur = torch.zeros(P, dtype=torch.int64, device=dev)
+    best_t = tmax.clone()
+    best_tri = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    inv = [_safe_inv(rd[:, a]) for a in range(3)]
+    live = torch.nonzero(active > 0).flatten()
+    box_tests = tri_tests = 0
+    for _ in range(MAX_STEPS):
+        if live.numel() == 0:
+            break
+        e = base[live] + cur[live]
+        link = link_all[e]
+        hit_id = link & 1023
+        miss_id = (link >> 10) & 1023
+        is_tri = ((link >> 20) & 1) > 0
+        nxt = miss_id.clone()
+
+        # Node entries: slab test against the pair's best t.
+        node = ~is_tri
+        if bool(node.any()):
+            ni, ne = live[node], e[node]
+            box_tests += ni.numel()
+            t1 = [(tab[a, ne] - ro[ni, a]) * inv[a][ni] for a in range(3)]
+            t2 = [(tab[a + 3, ne] - ro[ni, a]) * inv[a][ni] for a in range(3)]
+            tn = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                             torch.minimum(t1[1], t2[1])),
+                               torch.minimum(t1[2], t2[2]))
+            tf = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                             torch.maximum(t1[1], t2[1])),
+                               torch.maximum(t1[2], t2[2]))
+            go = (tf >= torch.clamp_min(tn, 0.0)) & (tn < best_t[ni])
+            nxt[node] = torch.where(go, hit_id[node], miss_id[node])
+
+        # Triangle entries: Moller-Trumbore on f0..f8 = p0, e1, e2.
+        ended = torch.zeros_like(is_tri)
+        if bool(is_tri.any()):
+            ti, te = live[is_tri], e[is_tri]
+            tri_tests += ti.numel()
+            u, v, t = moller_trumbore(
+                tuple(ro[ti, a] for a in range(3)),
+                tuple(rd[ti, a] for a in range(3)),
+                tuple(tab[j, te] for j in range(9)))
+            # t is 0 where |det| <= 1e-12 (inv_det 0), so t > T_MIN also
+            # carries the determinant test.
+            ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
+                  & (t < best_t[ti]))
+            best_t[ti[ok]] = t[ok]
+            best_tri[ti[ok]] = (link[is_tri][ok] >> 21) & 1023
+            if any_hit:
+                ended[is_tri] = ok
+        nxt = torch.where(ended, SUB_END, nxt)
+        cur[live] = nxt.to(torch.int64)
+        live = live[nxt != SUB_END]
+    else:
+        if live.numel():
+            _capped.tensor(dev).add_(live.numel())
+    if stats is not None:
+        stats["box_tests"] = box_tests
+        stats["tri_tests"] = tri_tests
+    return best_t, best_tri
+
+
+def _launch(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit: bool):
+    dev = ro.device
+    P = ro.shape[0]
+    if P % TILE:
+        raise ValueError(f"lane_bottom: {P} pairs is not a multiple of "
+                         f"{TILE}")
+    tab = sub_fields.reshape(sub_fields.shape[0], -1)
+    check_args(dev, (("sid_blocks", sid_blocks, torch.int32, (P // TILE,)),
+                     ("sub_fields", tab, torch.float32, None),
+                     ("ro", ro, torch.float32, (P, 3)),
+                     ("rd", rd, torch.float32, (P, 3)),
+                     ("tmax", tmax, torch.float32, (P,)),
+                     ("active", active, torch.int32, (P,))))
+    if tab.shape[0] < WALK_FIELDS or tab.shape[1] % TILE:
+        raise ValueError("sub_fields: need shape (>= 10, S, 8, 128)")
+    lib = _build.load("treelet_traverse")
+    fn = lib.lane_bottom
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    t = torch.empty(P, dtype=torch.float32, device=dev)
+    tri = torch.empty(P, dtype=torch.int32, device=dev)
+    err = fn(sid_blocks.data_ptr(), tab.data_ptr(), tab.shape[1],
+             ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
+             t.data_ptr(), tri.data_ptr(), _capped.tensor(dev).data_ptr(), P,
+             MAX_STEPS, int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lane_bottom launch failed: CUDA error {err}")
+    global launches_closest, launches_anyhit
+    if any_hit:
+        launches_anyhit += 1
+    else:
+        launches_closest += 1
+    return t, tri
+
+
+def lane_bottom_trace(sid_blocks, sub_fields, ro, rd, tmax, active,
+                      any_hit: bool = False):
+    """E7 on CUDA tensors, the plain twin on CPU tensors.
+
+    ``sid_blocks`` (P / TILE,) int32 subtree per block; ``sub_fields``
+    (NUM_FIELDS, S + 1, 8, 128) f32; ``ro``, ``rd`` (P, 3) pair-ordered ray
+    data; ``tmax`` (P,) per-pair bound; ``active`` (P,) int32 pair
+    validity. Returns ``(t, tri_local)``; add the subtree's triangle base
+    to tri_local for the global id.
+    """
+    fn = _launch if on_card(ro) else lane_bottom_plain
+    return fn(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit)

@@ -168,12 +168,14 @@ def test_entry_points_default_to_the_card():
 
 def test_port_imports_no_jax():
     """Importing every module of the port and chip_smoke.py, and building
-    a scene (which compiles or loads the native builder), imports no jax
-    and nothing of loupiote_tpu, and opens, runs or loads no file under
-    loupiote_tpu/."""
+    a scene with treelet tables (which compiles or loads the native
+    builder), imports no jax and nothing of loupiote_tpu or experiments,
+    and opens, runs or loads no file under loupiote_tpu/ or
+    experiments/."""
     code = """
 import importlib, os, pkgutil, sys
-ref_dir = os.path.join(os.getcwd(), "loupiote_tpu") + os.sep
+ref_dirs = tuple(os.path.join(os.getcwd(), d) + os.sep
+                 for d in ("loupiote_tpu", "experiments"))
 seen = []
 
 def paths(x):
@@ -192,19 +194,24 @@ import loupiote_tpu_torch as lt
 for m in pkgutil.walk_packages(lt.__path__, "loupiote_tpu_torch."):
     importlib.import_module(m.name)
 importlib.import_module("chip_smoke")
-lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu")
-bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "loupiote_tpu")]
+b = lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu",
+                           treelets=True)
+assert b.treelet is not None
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "flax", "loupiote_tpu", "experiments")]
 assert not bad, bad
-opened = sorted({p for p in seen if p.startswith(ref_dir)})
+opened = sorted({p for p in seen if p.startswith(ref_dirs)})
 assert not opened, opened
 assert any(p.endswith("bvh_builder.cpp") or "libbvh_" in p for p in seen)
 """
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300)
-    # No module names the reference package as a path component.
+    # No module names the reference package or experiments/ as a path
+    # component.
     for root, _, files in os.walk(os.path.join(REPO, "loupiote_tpu_torch")):
         for fn in files:
             if fn.endswith(".py"):
                 with open(os.path.join(root, fn)) as f:
-                    assert '"loupiote_tpu"' not in f.read(), fn
+                    src = f.read()
+                assert '"loupiote_tpu"' not in src, fn
+                assert '"experiments"' not in src, fn
