@@ -72,9 +72,9 @@ def phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def cuda_ms(fn, reps, warm=True):
-    """Mean device milliseconds of fn() over reps calls (after one warm-up
-    unless ``warm`` is False)."""
+def timed(fn, reps, warm=True):
+    """(mean device milliseconds of fn() over reps calls after one warm-up
+    unless ``warm`` is False, the last call's result)."""
     import torch
 
     if warm:
@@ -84,10 +84,14 @@ def cuda_ms(fn, reps, warm=True):
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
+
+
+def cuda_ms(fn, reps, warm=True):
+    return timed(fn, reps, warm)[0]
 
 
 def bound_of(nbytes, ops):
@@ -364,12 +368,11 @@ def pair_multiset_equal(key, ray_of, S, ray_out, sid_blocks, on, R):
     return bool(torch.equal(want, got))
 
 
-def compare_lanes(name, td, wave, rows, stats):
+def compare_lanes(name, td, wave, rows):
     """E6 and E7 (both modes) against their twins on SUBSET strided rays of
     one wave. E6 runs on the whole wave and is compared on the subset; the
     subset's pairs (grouped by the card's K4 + E5) feed E7 and its twin.
-    ``stats``: receives the twins' work counts and the subset's live
-    pairs. Returns (ok, max |t| error by E7 mode)."""
+    Returns (ok, max |err| of E6 and of E7 by mode)."""
     import torch
 
     from loupiote_tpu_torch.treelet import lane_bottom, lane_top
@@ -383,8 +386,7 @@ def compare_lanes(name, td, wave, rows, stats):
     pk, nk = lane_top.lane_top_trace(td.top_fields, ro, rd, t0, act,
                                      td.num_top)
     sub = [x[idx].contiguous() for x in (ro, rd, t0, act)]
-    pp, npp = lane_top.lane_top_plain(td.top_fields, *sub, td.num_top,
-                                      stats=stats.setdefault("E6", {}))
+    pp, npp = lane_top.lane_top_plain(td.top_fields, *sub, td.num_top)
     torch.cuda.synchronize()
     top_ok = bits_equal(pk[idx], pp) and bits_equal(nk[idx], npp)
     errs = {"E6": float(max((pk[idx] - pp).abs().max(),
@@ -394,12 +396,11 @@ def compare_lanes(name, td, wave, rows, stats):
     pr = pray.long()
     args = (sid, td.sub_fields, sub[0][pr].contiguous(),
             sub[1][pr].contiguous(), sub[2][pr].contiguous(), on)
-    stats["live_pairs"] = int((on > 0).sum())
+    live_pairs = int((on > 0).sum())
     ok, cells = top_ok, []
     for mode in ("closest", "anyhit"):
         kt, ktri = lane_bottom.lane_bottom_trace(*args, mode == "anyhit")
-        pt, ptri = lane_bottom.lane_bottom_plain(
-            *args, mode == "anyhit", stats=stats.setdefault(f"E7 {mode}", {}))
+        pt, ptri = lane_bottom.lane_bottom_plain(*args, mode == "anyhit")
         torch.cuda.synchronize()
         m_ulp = int(ulp_diff(kt, pt).max())
         tri_eq = bits_equal(ktri, ptri)
@@ -410,7 +411,7 @@ def compare_lanes(name, td, wave, rows, stats):
     rows.append(f"| {name} | {len(idx)} of {R} | {top_ok} | "
                 f"{float((npp == 8).float().mean()):.4f} | "
                 f"{float(npp[sub[3]].float().mean()):.3f} | "
-                f"{stats['live_pairs']} | {cells[0]} | {cells[1]} | "
+                f"{live_pairs} | {cells[0]} | {cells[1]} | "
                 f"{'PASS' if ok else 'FAIL'} |")
     return ok, errs
 
@@ -926,8 +927,8 @@ def main():
 
     # E5 against its twin on the same wave's block_regroup inputs.
     t0 = time.perf_counter()
-    ks_, (ray_s,) = ss.slab_sort(key, [ray_of])
-    e5_args, (starts, counts) = regroup.block_runs(ks_, ray_s, S)
+    e5_args, (starts, counts) = regroup.block_runs(
+        *regroup.sort_pairs(key, ray_of), key.shape[0], S)
     out_k = regroup.scatter_runs(*e5_args)
     out_p = regroup.scatter_runs_plain(*e5_args)
     torch.cuda.synchronize()
@@ -937,9 +938,11 @@ def main():
     grouped = pair_multiset_equal(key, ray_of, S, pray, sid, on, N)
     e5_ms = cuda_ms(lambda: regroup.scatter_runs(*e5_args), 20)
     e5_plain = cuda_ms(lambda: regroup.scatter_runs_plain(*e5_args), 1)
-    data2, e5_tables = e5_args[0], e5_args[1:5]
-    e5_bytes = (data2.numel() + e5_args[5]
-                + sum(x.numel() for x in e5_tables)) * 4
+    # Bytes E5 moves: the copied pairs read once, the whole output written
+    # once, nruns and the three run-table entries of each live run.
+    data2, nruns = e5_args[0], e5_args[1]
+    e5_bytes = (int(counts.sum()) + e5_args[5] + nruns.numel()
+                + 3 * int(nruns.sum())) * 4
     e5_bound = bound_of(e5_bytes, 0)
     print(f"E5 on the primary wave's block_regroup inputs ({data2.shape[0]} "
           f"slabs, {int(counts.sum())} pairs, {S} keys, out_rows "
@@ -958,11 +961,9 @@ def main():
             "mean npend | live pairs | E7 closest: t max ulp / tri equal / "
             "hits | E7 any-hit: same | verdict |",
             "|---|---|---|---|---|---|---|---|---|"]
-    lane_stats = {"primary": {}, "diffuse": {}}
-    ok, lane_err = compare_lanes("arch-260k primary 1080p", td, prim, rows,
-                                 lane_stats["primary"])
-    ok &= compare_lanes("arch-260k diffuse 1080p, sorted", td, diff260, rows,
-                        lane_stats["diffuse"])[0]
+    ok, lane_err = compare_lanes("arch-260k primary 1080p", td, prim, rows)
+    ok &= compare_lanes("arch-260k diffuse 1080p, sorted", td, diff260,
+                        rows)[0]
     capped = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
     rows.append(f"lanes stopped by a step bound (E6, E7 and their twins, "
                 f"both waves): {capped}")
@@ -970,40 +971,67 @@ def main():
     if not ok or capped:
         raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
                          "version, or lanes reached a step bound")
+    # At the primary wave's full shapes: time kernel and twin, and hold the
+    # last kernel call's outputs against the twin's, which also counts the
+    # work this wave's data needs (for the bounds).
     e6_args = (td.top_fields, pro, prd, tfar, pact, td.num_top)
-    e6_ms = cuda_ms(lambda: lane_top.lane_top_trace(*e6_args), 20)
-    e6_plain = cuda_ms(lambda: lane_top.lane_top_plain(*e6_args), 1,
-                       warm=False)
+    e6_ms, (pk, nk) = timed(lambda: lane_top.lane_top_trace(*e6_args), 20)
+    e6_stats = {}
+    e6_plain, (pp, npp) = timed(lambda: lane_top.lane_top_plain(
+        *e6_args, stats=e6_stats), 1, warm=False)
+    ok = bits_equal(pk, pp) and bits_equal(nk, npp)
+    full_rows = [f"E6 on all {N} rays of the primary wave: pend, npend "
+                 f"equal {ok}"]
+    lane_err["E6"] = max(lane_err["E6"], float(max(
+        (pk - pp).abs().max(), (nk - npp).abs().max())))
     pr = pray.long()
     e7_args = (sid, td.sub_fields, pro[pr].contiguous(), prd[pr].contiguous(),
                tfar[pr].contiguous(), on)
     live_pairs = int((on > 0).sum())
-    e7_timing = {}
-    for mode in ("closest", "anyhit"):
-        e7_timing[mode] = (
-            cuda_ms(lambda: lane_bottom.lane_bottom_trace(
-                *e7_args, mode == "anyhit"), 10),
-            cuda_ms(lambda: lane_bottom.lane_bottom_plain(
-                *e7_args, mode == "anyhit"), 1, warm=False))
-    ps = lane_stats["primary"]
-    n_cmp = len(strided(N, dev))
-    e6_bound = bound_of(N * (RAY_IN_BYTES + 36) + top_bytes,
-                        ps["E6"]["box_tests"] * OPS_BOX * N / n_cmp)
     P = on.shape[0]
+    e7_timing, e7_stats = {}, {}
+    for mode in ("closest", "anyhit"):
+        k_ms, (kt, ktri) = timed(lambda: lane_bottom.lane_bottom_trace(
+            *e7_args, mode == "anyhit"), 10)
+        p_ms, (pt, ptri) = timed(lambda: lane_bottom.lane_bottom_plain(
+            *e7_args, mode == "anyhit",
+            stats=e7_stats.setdefault(mode, {})), 1, warm=False)
+        e7_timing[mode] = (k_ms, p_ms)
+        m_ulp = int(ulp_diff(kt, pt).max())
+        tri_eq = bits_equal(ktri, ptri)
+        ok &= m_ulp == 0 and tri_eq
+        lane_err[mode] = max(lane_err[mode], float((kt - pt).abs().max()))
+        full_rows.append(f"E7 {mode} on all {P} pair slots of the primary "
+                         f"wave ({live_pairs} live): t max ulp {m_ulp}, tri "
+                         f"equal {tri_eq}")
+    capped = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
+    full_rows.append(f"lanes stopped by a step bound (with the full-shape "
+                     f"runs): {capped}")
+    print("\n".join(full_rows), flush=True)
+    if not ok or capped:
+        raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
+                         "version at the path's shapes, or lanes reached a "
+                         "step bound")
+    n_act = int(pact.sum())
+    e6_bound = bound_of(N * (1 + 36) + n_act * (RAY_IN_BYTES - 1)
+                        + top_bytes, e6_stats["box_tests"] * OPS_BOX)
+    # E7 reads tmax and the active flag of every slot and ro, rd only for
+    # live pairs; the walked fields are 10 of the table's 11.
     e7_bound = {m: bound_of(
-        P * (24 + 4 + 4 + 8) + sid.numel() * 4 + sub_bytes * 10 // 11,
-        ops_of(ps[f"E7 {m}"], ps["live_pairs"], live_pairs,
-               box_key="box_tests")) for m in ("closest", "anyhit")}
+        P * (4 + 4 + 4 + 4) + live_pairs * 24 + sid.numel() * 4
+        + sub_bytes * 10 // 11,
+        ops_of(e7_stats[m], P, P, box_key="box_tests"))
+        for m in ("closest", "anyhit")}
     print(f"E6 on the 1080p primary wave ({N} rays, K {td.num_top}): kernel "
           f"{e6_ms:.4f} ms, plain torch {e6_plain:.3f} ms, bound "
-          f"{e6_bound[0]:.4f} ms ({e6_bound[1]}; twin work on {n_cmp} rays: "
-          f"{ps['E6']})")
+          f"{e6_bound[0]:.4f} ms ({e6_bound[1]}; twin work on the wave: "
+          f"{e6_stats})")
     for m, (k_ms, p_ms) in e7_timing.items():
         print(f"E7 {m} on the primary wave's pairs ({P} slots, {live_pairs} "
               f"live, {P // 1024} blocks): kernel {k_ms:.4f} ms, plain torch "
               f"{p_ms:.3f} ms, bound {e7_bound[m][0]:.4f} ms "
-              f"({e7_bound[m][1]}; twin work on {ps['live_pairs']} live "
-              f"pairs: {ps[f'E7 {m}']})")
+              f"({e7_bound[m][1]}; twin work on the wave's pairs: "
+              f"{e7_stats[m]})")
     print(smi, flush=True)
     phase("E6/E7: two waves + timing", t0)
 

@@ -27,8 +27,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.bvh2 import bvh2_trace
 from ..ops.intersect import (T_FAR, DeviceCounter, Hit, _bvh2, ray_args,
                              recompute_uv)
+from ..ops.wide import wide_trace
 from .build import PEND_CAP, TILE
 from .lane_bottom import lane_bottom_trace
 from .lane_top import lane_top_trace
@@ -172,6 +174,20 @@ def _bin_and_walk(td, ro, rd, t0, act, pend, npend, *, any_hit: bool,
     return t, tri, fallback
 
 
+def _fallback_trace(scene, ro, rd, t0, act, any_hit: bool):
+    """(t, tri) of the port's non-treelet traversal, without u, v: K2 on
+    scenes below 8,192 BVH2 nodes, K1 from there on; any-hit tri is -1
+    where nothing blocks."""
+    if _bvh2(scene):
+        t, _, _, tri = bvh2_trace(scene.node_rows, scene.leaf_rows, ro, rd,
+                                  t0, act, any_hit, scene.num_nodes,
+                                  scene.stack_depth)
+        return t, tri
+    t, tri = wide_trace(scene.trav_rows, ro, rd, t0, act, any_hit,
+                        scene.wide_end, scene.wide_stack)
+    return t, (torch.where(tri > 0, tri, -1) if any_hit else tri)
+
+
 def treelet_intersect(scene, ro, rd, tmax=None, active=None,
                       any_hit: bool = False, regroup: str = "count",
                       mark=_no_mark) -> Hit:
@@ -197,13 +213,9 @@ def treelet_intersect(scene, ro, rd, tmax=None, active=None,
                                      mark=mark)
     fb_act = fallback & act
     _fallback.tensor(ro.device).add_(fb_act.sum())
-    if _bvh2(scene):
-        from ..ops.bvh2 import intersect_bvh2 as trace
-    else:
-        from ..ops.wide import intersect_wide as trace
-    fb = trace(scene, ro, rd, tmax=t0, active=fb_act, any_hit=any_hit)
-    t = torch.where(fb_act, fb.t, t)
-    tri = torch.where(fb_act, fb.tri, tri)
+    fb_t, fb_tri = _fallback_trace(scene, ro, rd, t0, fb_act, any_hit)
+    t = torch.where(fb_act, fb_t, t)
+    tri = torch.where(fb_act, fb_tri, tri)
     # u, v once for the final hits (the walks track only t and tri).
     u, v = recompute_uv(scene, ro, rd, tri)
     mark("fallback")

@@ -32,7 +32,7 @@ import torch
 
 from .. import _build
 from ..ops.intersect import check_args, on_card
-from ..ops.slab_sort import I32_MAX, slab_log_of, slab_sort
+from ..ops.slab_sort import pack, sort_matrix
 
 CHUNK = 256  # the reference's copy granule; also its per-key gap size
 
@@ -103,27 +103,25 @@ def scatter_runs(data2, nruns, src, dst, lens, out_rows: int):
     return fn(data2, nruns, src, dst, lens, out_rows)
 
 
-def _slab_counts(ks, pay_s, K: int, slab_log: int):
-    """From the slab-sorted keys and payload (R,): the payload's slab rows
-    (G, slab), per-slab per-key counts C (G, K) and the run sources (G, K)
-    inside each slab."""
-    R = ks.shape[0]
-    slab = 1 << slab_log_of(R, slab_log)
-    Rp_in = -(-R // slab) * slab
-    G = Rp_in // slab
-    dev = ks.device
+def _slab_counts(mat, K: int, c_log: int):
+    """From K4's sorted (2, Rp) matrix (``ops/slab_sort.pack``: keys, then
+    the payload): the payload's slab rows (G, slab), per-slab per-key
+    counts C (G, K) and the run sources (G, K) inside each slab."""
+    G, slab = mat.shape[1] >> c_log, 1 << c_log
+    keys = mat[0].view(G, slab)
     # The tail slab's I32_MAX pads sort last and fall outside [0, K), so
     # searchsorted drops them from every bucket.
-    ks3 = torch.full((Rp_in,), I32_MAX, dtype=torch.int32, device=dev)
-    ks3[:R] = ks
-    ks3 = ks3.reshape(G, slab)
-    pay3 = torch.zeros(Rp_in, dtype=torch.int32, device=dev)
-    pay3[:R] = pay_s
-    pay3 = pay3.reshape(G, slab)
-    edges = torch.arange(K + 1, dtype=torch.int32, device=dev)
-    ss = torch.searchsorted(ks3, edges.expand(G, K + 1).contiguous())
+    edges = torch.arange(K + 1, dtype=torch.int32, device=mat.device)
+    ss = torch.searchsorted(keys, edges.expand(G, K + 1).contiguous())
     C = (ss[:, 1:] - ss[:, :-1]).to(torch.int32)
-    return pay3, C, ss[:, :-1].to(torch.int32), Rp_in
+    return mat[1].view(G, slab), C, ss[:, :-1].to(torch.int32)
+
+
+def sort_pairs(key, payload, slab_log: int = 16):
+    """K4 on the (2, Rp) matrix of (R,) int32 keys and payload; returns the
+    sorted matrix and its c_log."""
+    mat, c_log = pack(key, [payload], slab_log)
+    return sort_matrix(mat, c_log), c_log
 
 
 def _run_lists(C, starts):
@@ -160,29 +158,28 @@ def counting_regroup(key, payload, n_keys: int, slab_log: int = 16,
     """
     K = int(n_keys)
     dev = key.device
-    ks, (pay_s,) = slab_sort(key, [payload], slab_log=slab_log)
-    pay3, C, src_all, Rp_in = _slab_counts(ks, pay_s, K, slab_log)
+    mat, c_log = sort_pairs(key, payload, slab_log)
+    pay3, C, src_all = _slab_counts(mat, K, c_log)
     H = C.sum(0, dtype=torch.int32)
     region = H + chunk
     starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                         torch.cumsum(region, 0, dtype=torch.int32)[:-1]])
     nruns, pos, cell_base = _run_lists(C, starts)
-    out_rows = Rp_in + (K + 1) * chunk
+    out_rows = mat.shape[1] + (K + 1) * chunk
     out = scatter_runs(pay3, nruns, _compact(src_all, pos),
                        _compact(cell_base, pos), _compact(C, pos), out_rows)
     return out, starts, H
 
 
-def block_runs(ks, ray_s, n_keys: int, tile: int = 1024, chunk: int = CHUNK,
-               slab_log: int = 16):
-    """The glue between K4 and E5 of ``block_regroup``: from the slab-sorted
-    (key, ray) pairs, E5's arguments ``(data2, nruns, src, dst, lens,
-    out_rows)`` and the key regions ``(starts, counts)``. Regions are
+def block_runs(mat, c_log: int, R: int, n_keys: int, tile: int = 1024,
+               chunk: int = CHUNK):
+    """The glue between K4 and E5 of ``block_regroup``: from the sorted
+    (key, ray) matrix of R pairs, E5's arguments ``(data2, nruns, src, dst,
+    lens, out_rows)`` and the key regions ``(starts, counts)``. Regions are
     tile-aligned with the reference's >= ``chunk`` gap."""
-    R = ks.shape[0]
     K = int(n_keys)
-    dev = ks.device
-    pay3, C, src_all, _ = _slab_counts(ks, ray_s, K, slab_log)
+    dev = mat.device
+    pay3, C, src_all = _slab_counts(mat, K, c_log)
     H = C.sum(0, dtype=torch.int32)
     region = (-(-(H + chunk) // tile) * tile).to(torch.int32)
     starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
@@ -228,10 +225,10 @@ def block_regroup(key, ray, n_keys: int, tile: int = 1024,
     ``mark(stage)`` is called as each stage ends ("K4", "binning", "E5"),
     for a caller that times them.
     """
-    ks, (ray_s,) = slab_sort(key, [ray], slab_log=slab_log)
+    mat, c_log = sort_pairs(key, ray, slab_log)
     mark("K4")
-    args, (starts, counts) = block_runs(ks, ray_s, n_keys, tile, chunk,
-                                        slab_log)
+    args, (starts, counts) = block_runs(mat, c_log, key.shape[0], n_keys,
+                                        tile, chunk)
     mark("binning")
     out = scatter_runs(*args)
     mark("E5")

@@ -39,7 +39,6 @@ from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch  # noqa: 
 from loupiote_tpu_torch import build_arch_scene as port_arch  # noqa: E402
 from loupiote_tpu_torch import build_scene_buffers, from_reference  # noqa: E402
 from loupiote_tpu_torch.accel.bvh import build_bvh  # noqa: E402
-from loupiote_tpu_torch.ops.slab_sort import slab_sort  # noqa: E402
 from loupiote_tpu_torch.treelet import build as tb  # noqa: E402
 from loupiote_tpu_torch.treelet import lane_bottom, lane_top, regroup  # noqa: E402
 from loupiote_tpu_torch.treelet.pipeline import _compact_pairs  # noqa: E402
@@ -215,8 +214,8 @@ def _slab_runs(seed, G=3, slab=1024, K=9):
     keys = torch.from_numpy(rng.integers(0, K + 1, G * slab).astype(np.int32))
     pay = torch.from_numpy(rng.integers(0, 1 << 20, G * slab)
                            .astype(np.int32))
-    ks, (pay_s,) = slab_sort(keys, [pay], slab_log=10)
-    pay3, C, src, _ = regroup._slab_counts(ks, pay_s, K, 10)
+    mat, c_log = regroup.sort_pairs(keys, pay, slab_log=10)
+    pay3, C, src = regroup._slab_counts(mat, K, c_log)
     H = C.sum(0, dtype=torch.int32)
     starts = torch.cat([torch.zeros(1, dtype=torch.int32),
                         torch.cumsum(H + regroup.CHUNK, 0,
