@@ -40,7 +40,23 @@ Phases, each timed:
  10. treelet   - the headline frame on the treelet tables through
                  Renderer, launch counts read around it (E6, K4, E5, E7 3
                  each a frame), and a small frame held against the K1
-                 path's.
+                 path's;
+ 11. E1        - kernel_probe.main (the step-cost probe, csrc/kernel_probe.cu)
+                 on the sorted arch-260k 1080p diffuse wave, its five
+                 variants timed with launch counts read around it; each
+                 held against probe_trace_plain on the card (t, u, v, tri,
+                 steps bit-equal, dropped pushes equal, 0 but for
+                 nofetch); full against K1's closest hits;
+ 12. E2        - lane_gather_bench.main (csrc/lane_gather.cu) at 64, 512
+                 and 4,096 steps with launch counts; the kernel against
+                 its twin at 128 x 1,024 lanes and 512 steps, bit-equal;
+ 13. E3        - r3_probes.main all (csrc/r3_probes.cu): ten slopes between
+                 30,000 and 230,000 steps with launch counts; each probe
+                 against its twin at 256 steps, bit-equal;
+ 14. E4        - device_sort_bench.main (K4's network over one 2^23-key
+                 slab) against torch.sort + gather, with K4's launches
+                 counted; device_sort against slab_sort_plain at c_log 23
+                 (keys and payload bit-equal) and against torch.sort.
 Any disagreement or failure raises, so the run exits non-zero without its
 last line. Prints a JSON line of kernel results, then the card's nvidia-smi
 line, then {"ok": true, "device": {...}} as the last line.
@@ -455,11 +471,14 @@ def main():
     from loupiote_tpu_torch import _build
     from loupiote_tpu_torch.accel import native
     from loupiote_tpu_torch.denoise.asvgf import denoise
+    from loupiote_tpu_torch.experiments import (
+        device_sort_bench, kernel_probe, lane_gather_bench, r3_probes)
     from loupiote_tpu_torch.ops import bvh2, wide
     from loupiote_tpu_torch.ops import slab_sort as ss
     from loupiote_tpu_torch.ops.sort import DEAD_KEY, ray_sort_key, sort_order
     from loupiote_tpu_torch.treelet import (lane_bottom, lane_top, pipeline,
                                             regroup)
+    from loupiote_tpu_torch.treelet.device_sort import device_sort
     from loupiote_tpu_torch.treelet.pipeline import _compact_pairs
     from loupiote_tpu_torch.render import renderer as rmod
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
@@ -479,7 +498,8 @@ def main():
     # -- build: every kernel source and the BVH builder, in parallel ------
     t0 = time.perf_counter()
     kernels_src = ("wide_traverse", "bvh2_traverse", "slab_sort",
-                   "treelet_traverse", "regroup")
+                   "treelet_traverse", "regroup", "kernel_probe",
+                   "lane_gather", "r3_probes")
     with ThreadPoolExecutor(len(kernels_src) + 1) as pool:
         futs = [pool.submit(_build.load, k) for k in kernels_src]
         t1 = time.perf_counter()
@@ -1170,6 +1190,177 @@ def main():
                          "K1 path's")
     phase("treelet frame vs K1 frame", t0)
 
+    # -- E1: the step-cost probe's path ------------------------------------
+    # kernel_probe.main on the arch-260k scene built above (what its own
+    # measure_traversal.build makes), its launches counted around it; then
+    # each variant's last outputs against the twin on the same inputs.
+    t0 = time.perf_counter()
+    del rt, archT, td
+    torch.cuda.empty_cache()
+    kernel_probe.reset_counters()
+    e1 = kernel_probe.main(bufs=arch, cam=cam)
+    e1_launches = dict(kernel_probe.launches)
+    print(f"E1 path launches {e1_launches}", flush=True)
+    if not all(e1_launches.values()):
+        raise SystemExit("chip_smoke: the E1 path did not launch every "
+                         "variant")
+    e1_args = e1["inputs"]
+    G1 = e1_args[1].shape[0]
+    N1 = G1 * 1024
+    rows = ["| variant | kernel ms | twin ms | t,u,v,tri,steps equal | "
+            "dropped pushes (kernel / twin) | steps mean / max | hit frac | "
+            "bound ms (which) | verdict |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    e1_res, ok = {}, True
+    for probe, res in e1["probes"].items():
+        st = {}
+        d0 = kernel_probe.dropped_pushes(dev)
+        p_ms, pout = timed(lambda: kernel_probe.probe_trace_plain(
+            *e1_args, **kernel_probe.probe_kwargs(arch, probe), stats=st), 1,
+            warm=False)
+        p_drop = kernel_probe.dropped_pushes(dev) - d0
+        kout = res["outputs"]
+        same = all(bits_equal(a, b) for a, b in zip(kout, pout))
+        drop_ok = (p_drop == res["dropped"]
+                   and (probe == "nofetch" or p_drop == 0))
+        # Bytes: each lane's rays (24), t0, act in and t, u, v, tri out
+        # once, the steps once, the table once.
+        b_ms, b_by = bound_of(N1 * (24 + 4 + 4 + 16) + G1 * 8 * 4
+                              + trav_bytes,
+                              st["box_tests"] * OPS_BOX
+                              + st["tri_tests"] * OPS_TRI)
+        err = float((kout[0] - pout[0]).abs().max())
+        ok_p = same and drop_ok
+        ok &= ok_p
+        e1_res[probe] = {"ms": res["ms"], "plain_ms": p_ms,
+                         "bound": (b_ms, b_by), "err": err, "res": res}
+        rows.append(f"| {probe} | {res['ms']:.3f} | {p_ms:.1f} | {same} | "
+                    f"{res['dropped']} / {p_drop} | {res['steps_mean']:.1f}"
+                    f" / {res['steps_max']} | "
+                    f"{float((kout[3] >= 0).float().mean()):.4f} | "
+                    f"{b_ms:.4f} ({b_by}) | {'PASS' if ok_p else 'FAIL'} |")
+    # full's closest hits against K1 on the same rays.
+    dro1 = torch.stack([e1_args[a].reshape(-1) for a in (1, 2, 3)], 1)
+    drd1 = torch.stack([e1_args[a].reshape(-1) for a in (4, 5, 6)], 1)
+    act1 = e1_args[8].reshape(-1) > 0
+    kt1, ktri1 = wide.wide_trace(arch.trav_rows, dro1, drd1,
+                                 torch.full((N1,), 1e30, device=dev), act1,
+                                 False, arch.wide_end, arch.wide_stack)
+    fo = e1["probes"]["full"]["outputs"]
+    agree, ties, max_ulp, _ = hits_agree(arch, dro1, drd1, kt1, ktri1,
+                                         fo[0].reshape(-1), fo[3].reshape(-1))
+    k1_ok = agree == 1.0 and max_ulp <= 2
+    rows.append(f"full vs K1 on all {N1} rays: tri agree {agree:.6f} ({ties} "
+                f"ties), t max ulp {max_ulp}: {'PASS' if k1_ok else 'FAIL'}")
+    print("\n".join(rows), flush=True)
+    print(f"E1 on the sorted arch-260k 1080p diffuse wave ({G1 * 8} packets "
+          f"of 128 rays) ({smi})", flush=True)
+    if not (ok and k1_ok):
+        raise SystemExit("chip_smoke: E1 disagrees with its plain version or "
+                         "with K1, or dropped pushes")
+    phase("E1: path + five variants vs twin", t0)
+
+    # -- E2: the lane-gather probe's path ----------------------------------
+    t0 = time.perf_counter()
+    lane_gather_bench.reset_counters()
+    e2 = lane_gather_bench.main()
+    e2_launches = lane_gather_bench.launches
+    if not e2_launches:
+        raise SystemExit("chip_smoke: the E2 path did not launch E2")
+    e2_args = [torch.from_numpy(a).to(dev)
+               for a in lane_gather_bench.inputs(128)]
+    k2 = lane_gather_bench.run(*e2_args, steps=512)
+    e2_plain, p2 = timed(lambda: lane_gather_bench.lane_gather_plain(
+        *e2_args, steps=512), 1, warm=False)
+    e2_same = bits_equal(k2, p2)
+    e2_err = float((k2 - p2).abs().max())
+    lanes2 = e2_args[1].numel()
+    # Bytes: the table, each lane's rays in and its sum out once.
+    e2_bound = bound_of(7 * 1024 * 4 + lanes2 * 7 * 4,
+                        lanes2 * 512 * OPS_BOX)
+    print(f"E2 path launches {e2_launches}; at {e2_args[1].shape[0]} x 1024 "
+          f"lanes and 512 steps: output equal {e2_same}; kernel "
+          f"{e2['ms'][512]:.4f} ms, plain torch {e2_plain:.3f} ms, bound "
+          f"{e2_bound[0]:.4f} ms ({e2_bound[1]}); slope "
+          f"{e2['per_step_ns']:.3f} ns a step per block ({smi})", flush=True)
+    if not e2_same:
+        raise SystemExit("chip_smoke: E2 disagrees with its plain version")
+    phase("E2: path + check", t0)
+
+    # -- E3: the op-latency probes' path -----------------------------------
+    t0 = time.perf_counter()
+    r3_probes.reset_counters()
+    e3 = r3_probes.main(["all"])
+    e3_launches = dict(r3_probes.launches)
+    if not all(e3_launches.values()):
+        raise SystemExit("chip_smoke: the E3 path did not launch every probe")
+    x3 = r3_probes.tile(dev)
+    rows = ["| probe | ns / step (slope) | kernel ms (256 steps) | twin ms | "
+            "bound ms (operations, one SM) | equal | verdict |",
+            "|---|---|---|---|---|---|---|"]
+    e3_res, ok = {}, True
+    for name in r3_probes.PROBES:
+        k_ms, k3 = timed(lambda: r3_probes.run_probe_kernel(name, x3, 256), 5)
+        p_ms, p3 = timed(lambda: r3_probes.probe_plain(name, x3, 256), 1,
+                         warm=False)
+        same = bits_equal(k3, p3)
+        ok &= same
+        # One block runs on one SM: its share of the FP32 rate.
+        ops = 256 * 1024 * r3_probes.OPS_PER_ELEMENT[name]
+        b_ms = ops / (PEAK_FLOP_S / 132) * 1e3
+        e3_res[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "err": float((k3 - p3).abs().max()),
+                        "ns": e3[name]["ns_per_step"]}
+        rows.append(f"| {name} | {e3[name]['ns_per_step']:.3f} | {k_ms:.4f} | "
+                    f"{p_ms:.1f} | {b_ms:.5f} | {same} | "
+                    f"{'PASS' if same else 'FAIL'} |")
+    print("\n".join(rows), flush=True)
+    print(f"E3 path launches {e3_launches} ({smi})", flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: E3 disagrees with its plain version")
+    phase("E3: path + ten probes vs twin", t0)
+
+    # -- E4: the global sort's path ----------------------------------------
+    t0 = time.perf_counter()
+    ss.reset_counters()
+    e4 = device_sort_bench.main()
+    e4_launches = ss.launches
+    if not (e4_launches and e4["correct"]):
+        raise SystemExit("chip_smoke: the E4 path did not launch K4 or "
+                         "sorted wrongly")
+    n4 = 8_388_608
+    _, keys4, vals4 = device_sort_bench.inputs(n4, dev)
+    mat4, c4 = ss.pack(keys4, [vals4], slab_log=64)
+    k4m = ss.sort_matrix(mat4.clone(), c4)
+    e4_plain, p4m = timed(lambda: ss.slab_sort_plain(mat4.clone(), c4), 1,
+                          warm=False)
+    ks4, vs4 = device_sort(keys4, vals4)
+    lk4, _ = device_sort_bench.library_sort(keys4, vals4)
+    torch.cuda.synchronize()
+    e4_same = bits_equal(k4m, p4m) and bits_equal(ks4, k4m[0, :n4]) and \
+        bits_equal(vs4, k4m[1, :n4])
+    e4_lib = bool(torch.equal(lk4, ks4)) and bool(
+        torch.equal(keys4[vs4.long()], ks4))
+    e4_err = float((k4m.to(torch.int64) - p4m.to(torch.int64)).abs().max())
+    n_pad = mat4.shape[1]
+    # Operations: a compare and two selects per compare-exchange, n_pad / 2
+    # of them in each of the c4 (c4 + 1) / 2 stages; bytes: keys and vals
+    # read and written once.
+    e4_bound = bound_of(2 * mat4.numel() * 4,
+                        (n_pad // 2) * (c4 * (c4 + 1) // 2) * 3)
+    print(f"E4 path launches (K4 wrapper) {e4_launches}, "
+          f"{ss.cuda_launches(c4)} CUDA launches a sort (c_log {c4}); "
+          f"device_sort on {n4} keys: matrix and output equal to "
+          f"slab_sort_plain {e4_same}, keys equal to torch.sort and payload "
+          f"riding with its key {e4_lib}; device_sort {e4['device_sort']:.3f}"
+          f" ms, torch.sort + gather {e4['torch.sort+gather']:.3f} ms, plain "
+          f"torch {e4_plain:.1f} ms, bound {e4_bound[0]:.4f} ms "
+          f"({e4_bound[1]}) ({smi})", flush=True)
+    if not (e4_same and e4_lib):
+        raise SystemExit("chip_smoke: E4 disagrees with its plain version or "
+                         "with torch.sort")
+    phase("E4: path + check", t0)
+
     kernels = []
     for mode, err in (("closest", t_err), ("anyhit", b_err)):
         b_ms, b_by = k1_bound[mode]
@@ -1238,6 +1429,56 @@ def main():
             "ms": e7_timing["anyhit"][0], "plain_ms": e7_timing["anyhit"][1],
             "bound_ms": e7_bound["anyhit"][0],
             "bound_by": e7_bound["anyhit"][1]}}})
+    full = e1_res["full"]
+    kernels.append({
+        "name": "kernel_probe", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/kernel_probe.cu",
+        "replaces": "experiments/kernel_probe.py:45",
+        "launches": sum(e1_launches.values()),
+        "max_abs_err": max(r["err"] for r in e1_res.values()),
+        "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound"][0], "bound_by": full["bound"][1],
+        "library_ms": None,
+        # Each variant on the same wave; the top-level numbers are full's.
+        "modes": {p: {"launches": e1_launches[p], "max_abs_err": r["err"],
+                      "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                      "library_ms": None,
+                      "steps_mean": r["res"]["steps_mean"],
+                      "dropped_pushes": r["res"]["dropped"]}
+                  for p, r in e1_res.items()}})
+    kernels.append({
+        "name": "lane_gather", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/lane_gather.cu",
+        "replaces": "experiments/lane_gather_bench.py:40",
+        "launches": e2_launches, "max_abs_err": e2_err,
+        "ms": e2["ms"][512], "plain_ms": e2_plain, "bound_ms": e2_bound[0],
+        "bound_by": e2_bound[1], "library_ms": None,
+        "ms_by_steps": e2["ms"], "per_step_ns": e2["per_step_ns"]})
+    kernels.append({
+        "name": "r3_probes", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/r3_probes.cu",
+        "replaces": "experiments/r3_probes.py:147",
+        "launches": sum(e3_launches.values()),
+        "max_abs_err": max(r["err"] for r in e3_res.values()),
+        # The ten probes at 256 steps, one call each, summed.
+        "ms": sum(r["ms"] for r in e3_res.values()),
+        "plain_ms": sum(r["plain_ms"] for r in e3_res.values()),
+        "bound_ms": sum(r["bound_ms"] for r in e3_res.values()),
+        "bound_by": "operations", "library_ms": None,
+        "modes": {n: {"launches": e3_launches[n], "max_abs_err": r["err"],
+                      "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"], "bound_by": "operations",
+                      "library_ms": None, "ns_per_step": r["ns"]}
+                  for n, r in e3_res.items()}})
+    kernels.append({
+        "name": "device_sort", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/slab_sort.cu",
+        "replaces": "experiments/treelet/device_sort.py:81",
+        "launches": e4_launches, "max_abs_err": e4_err,
+        "ms": e4["device_sort"], "plain_ms": e4_plain,
+        "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
+        "library_ms": e4["torch.sort+gather"]})
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
