@@ -43,7 +43,8 @@ Phases, each timed:
                  path's;
  11. E1        - kernel_probe.main (the step-cost probe, csrc/kernel_probe.cu)
                  on the sorted arch-260k 1080p diffuse wave, its five
-                 variants timed with launch counts read around it; each
+                 variants timed with launch counts read around it (K1's
+                 too, which traces the primary wave on the way); each
                  held against probe_trace_plain on the card (t, u, v, tri,
                  steps bit-equal, dropped pushes equal, 0 but for
                  nofetch); full against K1's closest hits;
@@ -1192,18 +1193,23 @@ def main():
 
     # -- E1: the step-cost probe's path ------------------------------------
     # kernel_probe.main on the arch-260k scene built above (what its own
-    # measure_traversal.build makes), its launches counted around it; then
-    # each variant's last outputs against the twin on the same inputs.
+    # measure_traversal.build makes), its launches counted around it (K1
+    # too: make_waves traces the primary wave with it); then each
+    # variant's last outputs against the twin on the same inputs.
     t0 = time.perf_counter()
     del rt, archT, td
     torch.cuda.empty_cache()
     kernel_probe.reset_counters()
+    wide.reset_counters()
     e1 = kernel_probe.main(bufs=arch, cam=cam)
     e1_launches = dict(kernel_probe.launches)
-    print(f"E1 path launches {e1_launches}", flush=True)
-    if not all(e1_launches.values()):
+    e1_path = {"K1 closest": wide.launches_closest,
+               "K1 any-hit": wide.launches_anyhit}
+    print(f"E1 path launches {e1_launches}; on the way to it {e1_path}",
+          flush=True)
+    if not (all(e1_launches.values()) and e1_path["K1 closest"]):
         raise SystemExit("chip_smoke: the E1 path did not launch every "
-                         "variant")
+                         "variant, or K1 for its primary wave")
     e1_args = e1["inputs"]
     G1 = e1_args[1].shape[0]
     N1 = G1 * 1024
@@ -1268,7 +1274,7 @@ def main():
     if not e2_launches:
         raise SystemExit("chip_smoke: the E2 path did not launch E2")
     e2_args = [torch.from_numpy(a).to(dev)
-               for a in lane_gather_bench.inputs(128)]
+               for a in lane_gather_bench.inputs()]
     k2 = lane_gather_bench.run(*e2_args, steps=512)
     e2_plain, p2 = timed(lambda: lane_gather_bench.lane_gather_plain(
         *e2_args, steps=512), 1, warm=False)
@@ -1282,7 +1288,9 @@ def main():
           f"lanes and 512 steps: output equal {e2_same}; kernel "
           f"{e2['ms'][512]:.4f} ms, plain torch {e2_plain:.3f} ms, bound "
           f"{e2_bound[0]:.4f} ms ({e2_bound[1]}); slope "
-          f"{e2['per_step_ns']:.3f} ns a step per block ({smi})", flush=True)
+          f"{e2['per_step_ns']:.3f} ns a step of all lanes (the reference's "
+          f"per-block figure {e2['ref_per_block_ns']:.3f} ns) ({smi})",
+          flush=True)
     if not e2_same:
         raise SystemExit("chip_smoke: E2 disagrees with its plain version")
     phase("E2: path + check", t0)
@@ -1439,6 +1447,8 @@ def main():
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound"][0], "bound_by": full["bound"][1],
         "library_ms": None,
+        # Other kernels that kernel_probe.main launches (make_waves).
+        "path_launches": {"K1": e1_path["K1 closest"] + e1_path["K1 any-hit"]},
         # Each variant on the same wave; the top-level numbers are full's.
         "modes": {p: {"launches": e1_launches[p], "max_abs_err": r["err"],
                       "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1454,7 +1464,8 @@ def main():
         "launches": e2_launches, "max_abs_err": e2_err,
         "ms": e2["ms"][512], "plain_ms": e2_plain, "bound_ms": e2_bound[0],
         "bound_by": e2_bound[1], "library_ms": None,
-        "ms_by_steps": e2["ms"], "per_step_ns": e2["per_step_ns"]})
+        "ms_by_steps": e2["ms"], "per_step_ns": e2["per_step_ns"],
+        "ref_per_block_ns": e2["ref_per_block_ns"]})
     kernels.append({
         "name": "r3_probes", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/r3_probes.cu",

@@ -29,3 +29,23 @@ def require_card(device) -> torch.device:
                            f"card; got device {device!r}, CUDA available: "
                            f"{torch.cuda.is_available()}")
     return d
+
+
+def time_probe(fn, reps: int, make_input=None):
+    """``(best device ms, last output)`` of ``reps`` calls of ``fn`` after
+    one warm-up call, each timed with CUDA events. Call ``i`` (0 the
+    warm-up) gets ``*make_input(i)`` where that is given, no arguments
+    otherwise."""
+    args = make_input or (lambda i: ())
+    out = fn(*args(0))
+    best = float("inf")
+    for i in range(1, reps + 1):
+        a = args(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best, out

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ..treelet.device_sort import device_sort
-from . import require_card
+from . import require_card, time_probe
+
+REPS = 4  # timed calls of each sort, after one warm-up
 
 
 def library_sort(keys: torch.Tensor, vals: torch.Tensor):
@@ -34,33 +36,23 @@ def inputs(n: int, device):
 
 
 def main(n: int = 8_388_608, device="cuda") -> dict:
-    """Time ``device_sort`` and the library sort (best of 4 calls after a
-    warm-up, each on ``keys ^ (i + 1)`` as the reference does) and check
-    ``device_sort``'s last output: keys sorted, each payload riding with
-    its key. Returns ``{name: ms}`` and ``"correct"``."""
+    """Time ``device_sort`` and the library sort (best of ``REPS`` calls
+    after a warm-up, call ``i`` on ``keys ^ i`` as the reference does) and
+    check ``device_sort``'s last output: keys sorted, each payload riding
+    with its key. Returns ``{name: ms}`` and ``"correct"``."""
     require_card(device)
     keys_np, keys, vals = inputs(n, device)
     out = {}
     for name, fn in (("device_sort", device_sort), ("torch.sort+gather",
                                                     library_sort)):
-        fn(keys, vals)
-        best = float("inf")
-        for i in range(4):
-            k2 = keys ^ (i + 1)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            o = fn(k2, vals)
-            end.record()
-            torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(end))
+        best, o = time_probe(fn, REPS, lambda i: (keys ^ i, vals))
         out[name] = best
         print(f"{name} n={n}: {best:.3f} ms", flush=True)
         if name == "device_sort":
             ks, vs = o[0].cpu().numpy(), o[1].cpu().numpy()
-            ref = np.sort(keys_np ^ 4)
+            ref = np.sort(keys_np ^ REPS)
             ok = bool((ks == ref).all()) and bool(
-                ((keys_np ^ 4)[vs] == ks).all())
+                ((keys_np ^ REPS)[vs] == ks).all())
             out["correct"] = ok
             print(f"  correct={ok}", flush=True)
     return out

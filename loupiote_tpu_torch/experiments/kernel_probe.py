@@ -33,7 +33,7 @@ from ..ops.intersect import (T_MIN, DeviceCounter, check_args,
                              moller_trumbore, on_card)
 from ..ops.sort import ray_sort_key, sort_order
 from ..ops.wide import _safe_inv
-from . import require_card
+from . import require_card, time_probe
 from .measure_traversal import build, make_waves
 
 SUB, SUBP, WIDTH = 8, 128, 8
@@ -41,6 +41,7 @@ TILE = SUB * SUBP
 BIG = 3e30
 PROBES = ("full", "nomt", "noorder", "nostack", "nofetch")
 NOFETCH_STEPS = 600
+REPS = 3  # timed calls of each variant, after one warm-up
 
 # Launches of E1 by variant; each call that launches the kernel adds one.
 launches = {p: 0 for p in PROBES}
@@ -276,36 +277,19 @@ def probe_kwargs(bufs, probe: str) -> dict:
                 probe=probe)
 
 
-def sorted_diffuse_wave(bufs, cam, W: int = 1920, H: int = 1080,
-                        seed: int = 0):
+def sorted_diffuse_wave(bufs, cam, W: int = 1920, H: int = 1080):
     """The diffuse wave of ``make_waves``, sorted by ``ray_sort_key`` /
     ``sort_order``: ``(dro, drd, alive)``."""
-    _, _, dro, drd, alive = make_waves(bufs, cam, W, H, seed)
+    _, _, dro, drd, alive = make_waves(bufs, cam, W, H)
     order = sort_order(ray_sort_key(dro, drd, alive, bufs.node_min[0],
                                     bufs.node_max[0]))
     return (dro[order].contiguous(), drd[order].contiguous(),
             alive[order].contiguous())
 
 
-def time_probe(fn, reps: int = 3) -> float:
-    """Best of ``reps`` device milliseconds of ``fn()`` after one warm-up
-    call (CUDA events around each call)."""
-    fn()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
-
-
 def main(device="cuda", bufs=None, cam=None) -> dict:
     """The probe's path: the arch-260k diffuse wave, sorted, as (2025, 8,
-    128) blocks; each variant timed (best of 3 after a warm-up) and its
+    128) blocks; each variant timed (best of ``REPS`` after a warm-up) and its
     steps per packet printed. ``bufs`` / ``cam``: a scene already built by
     ``measure_traversal.build`` (built here otherwise). Returns
     ``{"inputs": the probe's arguments, "probes": {probe: {"ms",
@@ -319,15 +303,11 @@ def main(device="cuda", bufs=None, cam=None) -> dict:
     out = {}
     for probe in PROBES:
         kw = probe_kwargs(bufs, probe)
-        res = {}
-
-        def call():
-            res["outputs"] = probe_trace(*args, **kw)
-
         before = dropped_pushes(dev)
-        ms = time_probe(call)
-        dropped = (dropped_pushes(dev) - before) // 4  # 4 identical calls
-        steps = res["outputs"][4].float()
+        ms, outputs = time_probe(lambda: probe_trace(*args, **kw), REPS)
+        # REPS + 1 identical calls, the warm-up included.
+        dropped = (dropped_pushes(dev) - before) // (REPS + 1)
+        steps = outputs[4].float()
         note = (f" (per-step x {NOFETCH_STEPS} fixed)" if probe == "nofetch"
                 else "")
         print(f"{probe}: {ms:.3f} ms{note}; steps per packet mean "
@@ -335,7 +315,7 @@ def main(device="cuda", bufs=None, cam=None) -> dict:
               f"pushes {dropped} a call on {dev}", flush=True)
         out[probe] = {"ms": ms, "steps_mean": float(steps.mean()),
                       "steps_max": int(steps.max()), "dropped": dropped,
-                      "outputs": res["outputs"]}
+                      "outputs": outputs}
     return {"inputs": args, "probes": out}
 
 

@@ -23,11 +23,14 @@ import torch
 
 from .. import _build
 from ..ops.intersect import check_args, on_card
-from . import require_card
+from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
 ENTRIES = SUB * SUBP
 STEPS = (64, 512, 4096)
+BLOCKS = 128  # the reference's grid: 128 blocks of 1,024 lanes
+SEED = 3
+REPS = 4  # timed calls at each step count, after one warm-up
 
 # Launches of E2 on the card; each call that launches the kernel adds one.
 launches = 0
@@ -102,11 +105,11 @@ def run(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     return fn(tab, ox, oy, oz, dx, dy, dz, steps=steps)
 
 
-def inputs(G: int = 128, seed: int = 3):
-    """The reference's numpy inputs (``default_rng(3)``, drawn in its
+def inputs(G: int = BLOCKS):
+    """The reference's numpy inputs (``default_rng(SEED)``, drawn in its
     order): the (7, 8, 128) table with random links and (G, 8, 128)
     origins in [0, 1) and directions in [-0.5, 0.5)."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     tab = rng.random((7, SUB, SUBP), np.float32)
     links = (rng.integers(0, 1024, (SUB, SUBP)).astype(np.uint32)
              | (rng.integers(0, 1024, (SUB, SUBP)).astype(np.uint32) << 16))
@@ -117,36 +120,34 @@ def inputs(G: int = 128, seed: int = 3):
     return tab, ox, oy, oz, dx, dy, dz
 
 
-def main(device="cuda", G: int = 128, reps: int = 4) -> dict:
-    """Time the kernel at 64, 512 and 4,096 steps (best of ``reps`` calls
-    after a warm-up, CUDA events) and print the per-step slope as the
-    reference does. Returns ``{"ms": {steps: ms}, "per_step_ns",
-    "per_visit_ns"}``."""
+def main(device="cuda") -> dict:
+    """Time the kernel on ``BLOCKS`` blocks at 64, 512 and 4,096 steps
+    (best of ``REPS`` calls after a warm-up, CUDA events) and print the
+    per-step slope. Returns ``{"ms": {steps: ms}, "per_step_ns",
+    "ref_per_block_ns", "per_visit_ns"}``."""
     require_card(device)
-    args = [torch.from_numpy(a).to(device) for a in inputs(G)]
+    args = [torch.from_numpy(a).to(device) for a in inputs()]
     times = {}
     for steps in STEPS:
-        out = run(*args, steps=steps)
-        best = float("inf")
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = run(*args, steps=steps)
-            end.record()
-            torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(end))
+        best, out = time_probe(lambda: run(*args, steps=steps), REPS)
         times[steps] = best
         print(f"steps={steps}: {best:.4f} ms total  (checksum "
               f"{float(out.sum()):.4e})", flush=True)
-    # The slope removes launch overhead; divided by G as the reference
-    # divides its sequential grid, so it reads per block of 1,024 lanes.
-    per_step = (times[4096] - times[512]) * 1e-3 / (4096 - 512) / G
-    print(f"per-lane step (7-field gather + slab + control, 1024 lanes): "
-          f"{per_step * 1e9:.3f} ns", flush=True)
-    print(f"=> per ray-visit: {per_step * 1e9 / 1024:.5f} ns", flush=True)
-    return {"ms": times, "per_step_ns": per_step * 1e9,
-            "per_visit_ns": per_step * 1e9 / 1024}
+    # The slope removes launch overhead: one step of every lane of every
+    # block, which all run at once on the card.
+    per_step_ns = (times[4096] - times[512]) * 1e6 / (4096 - 512)
+    # The reference divides by its grid, whose cells ran one after another
+    # on the TPU: kept under its own name, to set beside the TPU's.
+    ref_per_block_ns = per_step_ns / BLOCKS
+    per_visit_ns = ref_per_block_ns / ENTRIES
+    print(f"step of all {BLOCKS} x {ENTRIES} lanes (7-field gather + slab + "
+          f"control): {per_step_ns:.3f} ns", flush=True)
+    print(f"the reference's per-block figure (slope / {BLOCKS}): "
+          f"{ref_per_block_ns:.3f} ns", flush=True)
+    print(f"=> per ray-visit: {per_visit_ns:.5f} ns", flush=True)
+    return {"ms": times, "per_step_ns": per_step_ns,
+            "ref_per_block_ns": ref_per_block_ns,
+            "per_visit_ns": per_visit_ns}
 
 
 if __name__ == "__main__":

@@ -23,12 +23,15 @@ import torch
 
 from .. import _build
 from ..ops.intersect import check_args, on_card
-from . import require_card
+from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
 PROBES = ("repeat", "bdim", "seggather", "seggather1", "mxu", "transpose",
           "selmerge", "cgather28", "roll", "segmin")
 SLOPE_STEPS = (30_000, 230_000)
+SEED = 0
+SLOPE_REPS = 3  # timed calls at each end of the slope, after a warm-up
+TORCH_REPS = 3  # timed calls of each plain torch probe, after a warm-up
 
 # Float operations of one element's step as the body is written (adds,
 # multiplies, minima and selects; gathers and index arithmetic not
@@ -139,57 +142,33 @@ def run_probe_kernel(name: str, x: torch.Tensor, steps: int) -> torch.Tensor:
     return fn(name, x, steps)
 
 
-def tile(device, seed: int = 0) -> torch.Tensor:
+def tile(device) -> torch.Tensor:
     """The reference's input tile: (1, 8, 128) float32 from
-    ``default_rng(0).random``."""
-    x = np.random.default_rng(seed).random((1, SUB, SUBP), np.float32)
+    ``default_rng(SEED).random``."""
+    x = np.random.default_rng(SEED).random((1, SUB, SUBP), np.float32)
     return torch.from_numpy(x).to(device)
 
 
-def _best_ms(fn, reps: int) -> float:
-    fn()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
-
-
-def run_probe_slope(name: str, device="cuda", reps: int = 3) -> dict:
+def run_probe_slope(name: str, device="cuda") -> dict:
     """Per-step cost of probe ``name`` as the slope of the kernel's time
-    (best of ``reps`` calls after a warm-up, CUDA events) between 30,000
-    and 230,000 steps. Returns ``{"ms": {steps: ms}, "ns_per_step"}``."""
+    (best of ``SLOPE_REPS`` calls after a warm-up, CUDA events) between
+    30,000 and 230,000 steps. Returns ``{"ms": {steps: ms},
+    "ns_per_step"}``."""
     require_card(device)
     x = tile(device)
     s1, s2 = SLOPE_STEPS
-    t1 = _best_ms(lambda: run_probe_kernel(name, x, s1), reps)
-    t2 = _best_ms(lambda: run_probe_kernel(name, x, s2), reps)
+    t1, _ = time_probe(lambda: run_probe_kernel(name, x, s1), SLOPE_REPS)
+    t2, _ = time_probe(lambda: run_probe_kernel(name, x, s2), SLOPE_REPS)
     slope_ns = (t2 - t1) * 1e6 / (s2 - s1)
     print(f"PROBE {name}: {slope_ns:.3f} ns/step (slope {s1}->{s2}; raw "
           f"{t1:.3f}/{t2:.3f} ms)", flush=True)
     return {"ms": {s1: t1, s2: t2}, "ns_per_step": slope_ns}
 
 
-def _timed(fn, make_input, reps: int = 4) -> float:
-    """Best device ms of ``fn(make_input(i))`` over ``reps`` calls, the
-    first of which is not counted (the reference's warm-up)."""
-    best = float("inf")
-    for i in range(reps):
-        arg = make_input(i)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*arg)
-        end.record()
-        torch.cuda.synchronize()
-        if i:
-            best = min(best, start.elapsed_time(end))
-    return best
+def _timed(fn, make_input) -> float:
+    """Best device ms of ``fn(*make_input(i))`` over ``TORCH_REPS`` calls
+    after a warm-up on ``make_input(0)``, as the reference times them."""
+    return time_probe(fn, TORCH_REPS, make_input)[0]
 
 
 def run_sort_probe(device="cuda") -> dict:
