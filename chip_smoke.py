@@ -26,11 +26,15 @@ Phases, each timed:
                  every blit mode; a small denoised frame pair on the card
                  held against the CPU path;
   7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
-                 (csrc/slab_sort.cu) against its twin on the primary
-                 wave's pair keys, random keys with three payload types and
-                 uint32 keys with DEAD_KEYs, timed beside torch.sort +
-                 gather; the run scatter E5 (csrc/regroup.cu) against its
-                 twin on the same wave's regroup;
+                 (csrc/slab_sort.cu): its launch plans, cluster shapes,
+                 cudaOccupancyMaxActiveClusters and ptxas report, then K4
+                 against its twin, three times each, on the primary wave's
+                 pair keys, random keys with three payload types, uint32
+                 keys with DEAD_KEYs and 2^20 keys with two payloads in one
+                 slab above a cluster's span (global passes), timed beside
+                 torch.sort + gather and in two cluster shapes; the run
+                 scatter E5 (csrc/regroup.cu) against its twin on the same
+                 wave's regroup;
   8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
                  their twins on strided rays of the primary and a diffuse
                  wave, E7 in both modes; their times on the primary wave;
@@ -57,7 +61,8 @@ Phases, each timed:
  14. E4        - device_sort_bench.main (K4's network over one 2^23-key
                  slab) against torch.sort + gather, with K4's launches
                  counted; device_sort against slab_sort_plain at c_log 23
-                 (keys and payload bit-equal) and against torch.sort.
+                 (keys and payload bit-equal) and against torch.sort, three
+                 times.
 Any disagreement or failure raises, so the run exits non-zero without its
 last line. Prints a JSON line of kernel results, then the card's nvidia-smi
 line, then {"ok": true, "device": {...}} as the last line.
@@ -344,32 +349,39 @@ def bits_equal(a, b):
     return bool(torch.equal(a, b))
 
 
-def compare_slab_sort(name, key, cols, rows):
-    """K4 against slab_sort_plain on the card on one input: the sorted
-    (1 + payload, Rp) matrices bit for bit, and the wrapper's unpacked
-    output (dtypes included) against the twin's. Returns (ok, max |err|,
-    the packed input, c_log)."""
+def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
+    """K4 against slab_sort_plain on the card on one input, ``repeats``
+    times (a race between the blocks of a cluster would break equality
+    only some of the time): the sorted (1 + payload, Rp) matrices bit for
+    bit, and the wrapper's unpacked output (dtypes included) against the
+    twin's. Returns (ok, max |err|, the packed input, c_log)."""
     import torch
 
     from loupiote_tpu_torch.ops import slab_sort as ss
 
-    mat, c_log = ss.pack(key, cols)
-    k = ss.sort_matrix(mat.clone(), c_log)
+    mat, c_log = ss.pack(key, cols, slab_log)
     p = ss.slab_sort_plain(mat.clone(), c_log)
-    ks, kcols = ss.slab_sort(key, cols)
     pks, pcols = ss.unpack(p, key, cols)
-    torch.cuda.synchronize()
     slab = 1 << c_log
-    srt = bool((k[0].view(-1, slab).diff(dim=1) >= 0).all())
-    same = bits_equal(k, p)
-    unpacked = bits_equal(ks, pks) and all(
-        bits_equal(a, b) and a.dtype == c.dtype
-        for a, b, c in zip(kcols, pcols, cols))
-    err = float((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+    same = unpacked = srt = True
+    err = 0.0
+    for _ in range(repeats):
+        k = ss.sort_matrix(mat.clone(), c_log)
+        ks, kcols = ss.slab_sort(key, cols, slab_log)
+        torch.cuda.synchronize()
+        srt &= bool((k[0].view(-1, slab).diff(dim=1) >= 0).all())
+        same &= bits_equal(k, p)
+        unpacked &= bits_equal(ks, pks) and all(
+            bits_equal(a, b) and a.dtype == c.dtype
+            for a, b, c in zip(kcols, pcols, cols))
+        err = max(err, float((k.to(torch.int64) - p.to(torch.int64))
+                             .abs().max()))
     ok = same and unpacked and srt
     rows.append(f"| {name} | {key.shape[0]} ({len(cols)} payload, "
-                f"{k.shape[1] // slab} slabs of 2^{c_log}) | {same} | "
-                f"{unpacked} | {srt} | {'PASS' if ok else 'FAIL'} |")
+                f"{k.shape[1] // slab} slabs of 2^{c_log}; "
+                f"{ss.cuda_launches(c_log, len(cols))} CUDA launches) | "
+                f"{repeats} | {same} | {unpacked} | {srt} | "
+                f"{'PASS' if ok else 'FAIL'} |")
     return ok, err, mat, c_log
 
 
@@ -894,8 +906,23 @@ def main():
     pend, npend = lane_top.lane_top_trace(td.top_fields, pro, prd, tfar, pact,
                                           td.num_top)
     key, ray_of, _ = _compact_pairs(pend, npend, pact, S=S)
-    rows = ["| input | keys | matrix equal | unpacked equal | slabs sorted | "
-            "verdict |", "|---|---|---|---|---|---|"]
+    # The cluster launch's shape on this card, before its first launch.
+    print(f"K4 plan at c_log 16, 1 payload: {ss.launch_plan(16, 1)}; "
+          f"at c_log 20, 2 payloads: {ss.launch_plan(20, 2)}; at c_log 23, "
+          f"1 payload: {ss.launch_plan(23, 1)}")
+    for c, npay in ((16, 1), (20, 2), (16, 3), (23, 1)):
+        for blog in (None, 14) if (c, npay) == (16, 1) else (None,):
+            span, b = ss._shape(c, npay, blog)
+            print(f"K4 cluster at c_log {c}, {npay} payload: {1 << (span - b)}"
+                  f" blocks of 2^{b} keys ({(1 + npay) * 4 << b} bytes of "
+                  f"shared memory each), 2^{span} keys a cluster; "
+                  f"cudaOccupancyMaxActiveClusters "
+                  f"{ss.max_active_clusters(c, npay, blog)}")
+    print("K4 ptxas (registers, shared memory, spills):\n" + "\n".join(
+        line for line in _build.build_info["slab_sort"]["log"].splitlines()
+        if "entry function" in line or "Used" in line or "spill" in line))
+    rows = ["| input | keys | repeats | matrix equal | unpacked equal | "
+            "slabs sorted | verdict |", "|---|---|---|---|---|---|---|"]
     ok, k4_err, k4_mat, c_log = compare_slab_sort(
         "arch-260k primary 1080p (subtree, ray) pairs", key, [ray_of], rows)
     g = torch.Generator(device=dev)
@@ -916,6 +943,15 @@ def main():
     ok &= compare_slab_sort("uint32 keys (int64) with 30% DEAD_KEY", ukey,
                             [torch.arange(nu, device=dev, dtype=torch.int32)],
                             rows)[0]
+    # Above the span: global passes with two payload rows.
+    nb = 1 << 20
+    ok &= compare_slab_sort(
+        "random keys in [0, 1000) above the span, payload int32 x 2",
+        torch.randint(0, 1000, (nb,), generator=g, device=dev,
+                      dtype=torch.int32),
+        [torch.arange(nb, device=dev, dtype=torch.int32),
+         torch.randint(-2**31, 2**31 - 1, (nb,), generator=g, device=dev,
+                       dtype=torch.int32)], rows, slab_log=20)[0]
     print("\n".join(rows), flush=True)
     if not ok:
         raise SystemExit("chip_smoke: K4 disagrees with its plain version")
@@ -923,6 +959,10 @@ def main():
     copy_ms = cuda_ms(lambda: work.copy_(k4_mat), 20)
     k4_ms = cuda_ms(lambda: ss.sort_matrix(work.copy_(k4_mat), c_log),
                     20) - copy_ms
+    # The cluster shapes at this input: 4 blocks of 2^14 keys against the
+    # default 8 of 2^13.
+    k4_shapes = {b: cuda_ms(lambda: ss._launch(work.copy_(k4_mat), c_log, b),
+                            20) - copy_ms for b in (14, 13, 14, 13)}
     k4_plain = cuda_ms(lambda: ss.slab_sort_plain(work.copy_(k4_mat), c_log),
                        1, warm=False) - copy_ms
     n_slabs = k4_mat.shape[1] >> c_log
@@ -936,15 +976,19 @@ def main():
     k4_cx = c_log * (c_log + 1) // 2 * (k4_mat.shape[1] // 2)
     k4_bound = bound_of(2 * k4_mat.numel() * 4,
                         k4_cx * (1 + 2 * k4_mat.shape[0]))
+    k4_cuda = ss.cuda_launches(c_log, 1)
     print(f"K4 on the primary wave's {key.shape[0]} pair keys ({n_slabs} "
-          f"slabs of 2^{c_log}, 1 payload; {ss.cuda_launches(c_log)} CUDA "
+          f"slabs of 2^{c_log}, 1 payload; {k4_cuda} CUDA "
           f"launches a sort): kernel {k4_ms:.4f} ms, plain torch "
           f"{k4_plain:.3f} ms, torch.sort + gather along the slab rows "
           f"{k4_lib:.4f} ms (ties in any order); bound {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}: {2 * k4_mat.numel() * 4} bytes, {k4_cx} "
-          f"compare-exchanges); matrix copy {copy_ms:.4f} ms subtracted "
-          f"({smi})", flush=True)
-    phase("K4: three inputs + timing", t0)
+          f"compare-exchanges); matrix copy {copy_ms:.4f} ms subtracted; "
+          f"by cluster shape (the second of two timings each): "
+          + ", ".join(f"{1 << (16 - b)} x 2^{b} keys {t:.4f} ms"
+                      for b, t in k4_shapes.items())
+          + f" ({smi})", flush=True)
+    phase("K4: four inputs + timing", t0)
 
     # E5 against its twin on the same wave's block_regroup inputs.
     t0 = time.perf_counter()
@@ -1339,17 +1383,21 @@ def main():
     n4 = 8_388_608
     _, keys4, vals4 = device_sort_bench.inputs(n4, dev)
     mat4, c4 = ss.pack(keys4, [vals4], slab_log=64)
-    k4m = ss.sort_matrix(mat4.clone(), c4)
     e4_plain, p4m = timed(lambda: ss.slab_sort_plain(mat4.clone(), c4), 1,
                           warm=False)
-    ks4, vs4 = device_sort(keys4, vals4)
     lk4, _ = device_sort_bench.library_sort(keys4, vals4)
-    torch.cuda.synchronize()
-    e4_same = bits_equal(k4m, p4m) and bits_equal(ks4, k4m[0, :n4]) and \
-        bits_equal(vs4, k4m[1, :n4])
-    e4_lib = bool(torch.equal(lk4, ks4)) and bool(
-        torch.equal(keys4[vs4.long()], ks4))
-    e4_err = float((k4m.to(torch.int64) - p4m.to(torch.int64)).abs().max())
+    e4_same = e4_lib = True
+    e4_err = 0.0
+    for _ in range(3):  # a race would break equality only some of the time
+        k4m = ss.sort_matrix(mat4.clone(), c4)
+        ks4, vs4 = device_sort(keys4, vals4)
+        torch.cuda.synchronize()
+        e4_same &= bits_equal(k4m, p4m) and bits_equal(
+            ks4, k4m[0, :n4]) and bits_equal(vs4, k4m[1, :n4])
+        e4_lib &= bool(torch.equal(lk4, ks4)) and bool(
+            torch.equal(keys4[vs4.long()], ks4))
+        e4_err = max(e4_err, float((k4m.to(torch.int64) -
+                                    p4m.to(torch.int64)).abs().max()))
     n_pad = mat4.shape[1]
     # Operations: a compare and two selects per compare-exchange, n_pad / 2
     # of them in each of the c4 (c4 + 1) / 2 stages; bytes: keys and vals
@@ -1357,8 +1405,9 @@ def main():
     e4_bound = bound_of(2 * mat4.numel() * 4,
                         (n_pad // 2) * (c4 * (c4 + 1) // 2) * 3)
     print(f"E4 path launches (K4 wrapper) {e4_launches}, "
-          f"{ss.cuda_launches(c4)} CUDA launches a sort (c_log {c4}); "
-          f"device_sort on {n4} keys: matrix and output equal to "
+          f"{ss.cuda_launches(c4, 1)} CUDA launches a sort (c_log {c4}, "
+          f"plan {ss.launch_plan(c4, 1)}); device_sort on {n4} keys, three "
+          f"repeats: matrix and output equal to "
           f"slab_sort_plain {e4_same}, keys equal to torch.sort and payload "
           f"riding with its key {e4_lib}; device_sort {e4['device_sort']:.3f}"
           f" ms, torch.sort + gather {e4['torch.sort+gather']:.3f} ms, plain "
@@ -1404,7 +1453,8 @@ def main():
         "name": "slab_sort", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/slab_sort.cu",
         "replaces": "loupiote_tpu/ops/slab_sort.py:81",
-        "launches": t_launches["K4"], "max_abs_err": k4_err, "ms": k4_ms,
+        "launches": t_launches["K4"], "cuda_launches": k4_cuda,
+        "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain, "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1], "library_ms": k4_lib})
     kernels.append({
@@ -1486,7 +1536,8 @@ def main():
         "name": "device_sort", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/slab_sort.cu",
         "replaces": "experiments/treelet/device_sort.py:81",
-        "launches": e4_launches, "max_abs_err": e4_err,
+        "launches": e4_launches, "cuda_launches": ss.cuda_launches(c4, 1),
+        "max_abs_err": e4_err,
         "ms": e4["device_sort"], "plain_ms": e4_plain,
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
         "library_ms": e4["torch.sort+gather"]})

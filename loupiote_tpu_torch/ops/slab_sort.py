@@ -1,5 +1,5 @@
 """Slab-local bitonic sort carrying payload columns: kernel K4
-(``csrc/slab_sort.cu``) and its plain torch twin.
+(``csrc/slab_sort.cu``), its launch plan and its plain torch twin.
 
 Counterpart of ``loupiote_tpu/ops/slab_sort.py`` (``slab_sort``, the
 Pallas ``_slab_kernel``). The keys are sorted ascending within each slab
@@ -10,6 +10,14 @@ in-slab index is clear; strict compares, so equal keys never swap; every
 payload column follows the key's swap. Kernel, twin and reference apply
 the same network, so keys and the payload order among equal keys agree
 bit for bit. The tail slab is padded with ``I32_MAX`` keys.
+
+Only the schedule is the card's own. ``launch_plan`` cuts the network
+into CUDA launches, and the kernel runs that plan as given: a thread-block
+cluster holds ``2**span_log`` keys (every row) in its blocks' shared
+memory, so a slab of up to that size is sorted in one launch and one
+round trip through device memory, as the TPU kernel sorts a slab in VMEM;
+the stages of a larger slab whose partner lies beyond a cluster run as
+passes over device memory, up to ``global_stages`` stages a pass.
 
 Keys: int32, or uint32 values held in int64 (``ops/sort.py``), mapped to
 int32 order by subtracting 2**31 (the reference's sign-bit flip).
@@ -28,10 +36,17 @@ from .intersect import on_card
 
 I32_MAX = 2**31 - 1
 MAX_PAYLOAD = 4  # csrc/slab_sort.cu: kMaxPayload
-CHUNK_LOG = 12  # csrc/slab_sort.cu: stages with d < 4096 run in shared memory
+# The H100's limits that size the plan (csrc/slab_sort.cu: kSmemBytes,
+# kClusterLog): the shared memory one block may use (227 KB), and 8 blocks,
+# the largest portable cluster. A cluster holds 8 blocks' worth of keys.
+SMEM_BYTES = 232_448
+CLUSTER_LOG = 3
+# Data registers a thread of a global pass may hold (half of the 255 a
+# thread may use; csrc/slab_sort.cu: global_stages).
+PASS_REGISTERS = 128
 
-# Sorts launched on the card (each issues csrc/slab_sort.cu's sequence of
-# CUDA launches). chip_smoke.py zeroes it before the main path and reads it
+# Sorts launched on the card (each issues the CUDA launches of its
+# launch_plan). chip_smoke.py zeroes it before the main path and reads it
 # after.
 launches = 0
 
@@ -46,57 +61,141 @@ def slab_log_of(n: int, slab_log: int = 16) -> int:
     return min(slab_log, max((n - 1).bit_length(), 10))
 
 
-def cuda_launches(c_log: int) -> int:
-    """CUDA launches one sort issues: one shared-memory launch for the
-    stages k <= CHUNK_LOG, then for each k > CHUNK_LOG one global pass per
-    d >= 2**CHUNK_LOG and one shared-memory launch for the rest."""
-    cl = min(CHUNK_LOG, c_log)
-    return 1 + sum(k - cl + 1 for k in range(cl + 1, c_log + 1))
+def block_log_max(n_payload: int) -> int:
+    """The most keys one block holds, log2: the largest power of two whose
+    ``(1 + n_payload)`` int32 rows fit ``SMEM_BYTES``."""
+    return (SMEM_BYTES // (4 * (1 + n_payload))).bit_length() - 1
 
 
-def _stages(c_log: int):
-    for k in range(1, c_log + 1):
-        for j in range(k - 1, -1, -1):
-            yield k, j
+def global_stages(n_payload: int) -> int:
+    """Stages one pass over device memory applies in registers, at most:
+    each thread holds ``2**m`` keys and their payloads, at most
+    ``PASS_REGISTERS`` values (6 at one payload, 4 at four)."""
+    return (PASS_REGISTERS // (1 + n_payload)).bit_length() - 1
+
+
+def span_log_of(n_payload: int) -> int:
+    """Keys one cluster holds on chip, log2: 2**17 at one or two payload
+    rows, 2**16 at three or four."""
+    return block_log_max(n_payload) + CLUSTER_LOG
+
+
+def launch_plan(c_log: int, n_payload: int, span_log: int | None = None):
+    """The ordered CUDA launches of one sort of slabs of ``2**c_log`` keys.
+
+    ``("cluster", k_lo, k_hi, j_top)``: one cluster launch for the stages
+    ``k = k_lo..k_hi``, ``j = min(k - 1, j_top)..0``, every partner within
+    the cluster's ``2**span`` keys (``span = min(span_log, c_log)``).
+    ``("global", k, j_hi, j_lo)``: one pass over device memory for the
+    stages ``j = j_hi..j_lo`` of level ``k``, at most ``global_stages`` of
+    them, each with ``d = 2**j >= 2**span``. Applied in order, the steps
+    run the network's stages in its order, each once."""
+    if not 0 <= n_payload <= MAX_PAYLOAD:
+        raise ValueError(f"slab_sort carries at most {MAX_PAYLOAD} payload "
+                         f"columns, got {n_payload}")
+    span = min(c_log, span_log_of(n_payload) if span_log is None
+               else span_log)
+    plan = [("cluster", 1, span, span - 1)]
+    for k in range(span + 1, c_log + 1):
+        j = k - 1
+        while j >= span:
+            lo = max(span, j - global_stages(n_payload) + 1)
+            plan.append(("global", k, j, lo))
+            j = lo - 1
+        plan.append(("cluster", k, k, span - 1))
+    return plan
+
+
+def cuda_launches(c_log: int, n_payload: int) -> int:
+    """CUDA launches one sort issues: one a step of its plan."""
+    return len(launch_plan(c_log, n_payload))
+
+
+def plain_stage(mat: torch.Tensor, c_log: int, k: int, j: int) -> None:
+    """Stage (k, j) of the network on a (1 + n_payload, Rp) int32 matrix,
+    in place; vectorised over all pairs of the stage."""
+    rows, n = mat.shape
+    d = 1 << j
+    v = mat.view(rows, n // (2 * d), 2, d)
+    lo, hi = v[:, :, 0, :].clone(), v[:, :, 1, :].clone()
+    # Pair block a holds in-slab indices with bit k = bit (k - j - 1) of a;
+    # at k == c_log the whole slab ascends.
+    if k == c_log:
+        asc = torch.ones((n // (2 * d), 1), dtype=torch.bool,
+                         device=mat.device)
+    else:
+        a = torch.arange(n // (2 * d), device=mat.device)[:, None]
+        asc = ((a >> (k - j - 1)) & 1) == 0
+    swap = torch.where(asc, hi[0] < lo[0], lo[0] < hi[0])
+    v[:, :, 0, :] = torch.where(swap, hi, lo)
+    v[:, :, 1, :] = torch.where(swap, lo, hi)
 
 
 def slab_sort_plain(mat: torch.Tensor, c_log: int) -> torch.Tensor:
     """The network on a (1 + n_payload, Rp) int32 matrix (row 0 the keys,
     Rp a multiple of the slab), in place; vectorised over all pairs of a
     stage. Returns ``mat``."""
-    rows, n = mat.shape
-    for k, j in _stages(c_log):
-        d = 1 << j
-        v = mat.view(rows, n // (2 * d), 2, d)
-        lo, hi = v[:, :, 0, :].clone(), v[:, :, 1, :].clone()
-        # Pair block a holds in-slab indices with bit k = bit (k - j - 1)
-        # of a; at k == c_log the whole slab ascends.
-        if k == c_log:
-            asc = torch.ones((n // (2 * d), 1), dtype=torch.bool,
-                             device=mat.device)
-        else:
-            a = torch.arange(n // (2 * d), device=mat.device)[:, None]
-            asc = ((a >> (k - j - 1)) & 1) == 0
-        swap = torch.where(asc, hi[0] < lo[0], lo[0] < hi[0])
-        v[:, :, 0, :] = torch.where(swap, hi, lo)
-        v[:, :, 1, :] = torch.where(swap, lo, hi)
+    for k in range(1, c_log + 1):
+        for j in range(k - 1, -1, -1):
+            plain_stage(mat, c_log, k, j)
     return mat
 
 
-def _launch(mat: torch.Tensor, c_log: int) -> torch.Tensor:
+def _lib():
+    lib = _build.load("slab_sort")
+    lib.slab_sort.restype = ctypes.c_int
+    lib.slab_sort.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_void_p]
+    lib.slab_sort_max_clusters.restype = ctypes.c_int
+    lib.slab_sort_max_clusters.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def _shape(c_log: int, n_payload: int, block_log: int | None):
+    """(span, b): keys a cluster and a block hold, log2. By default a
+    cluster has as many blocks as it may (8 blocks hide latency better
+    than 4 larger ones), each of at least 2**10 keys (32 lanes of 32
+    registers) and at most what its shared memory holds."""
+    span = min(c_log, span_log_of(n_payload))
+    if block_log is None:
+        block_log = min(block_log_max(n_payload),
+                        max(span - CLUSTER_LOG, min(span, 10)))
+    return span, min(block_log, span)
+
+
+def max_active_clusters(c_log: int, n_payload: int,
+                        block_log: int | None = None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the cluster launch of a sort
+    of ``2**c_log``-key slabs on the current card."""
+    out = ctypes.c_int(0)
+    err = _lib().slab_sort_max_clusters(
+        n_payload, *_shape(c_log, n_payload, block_log), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"slab_sort occupancy query: CUDA error {err}")
+    return out.value
+
+
+def _launch(mat: torch.Tensor, c_log: int,
+            block_log: int | None = None) -> torch.Tensor:
+    """K4 on a CUDA matrix, in place. ``block_log``: keys a block holds,
+    log2 (``_shape``'s rule by default)."""
     rows, n = mat.shape
-    if rows - 1 > MAX_PAYLOAD:
-        raise ValueError(f"slab_sort carries at most {MAX_PAYLOAD} payload "
-                         f"columns, got {rows - 1}")
+    plan = launch_plan(c_log, rows - 1)
     if mat.dtype != torch.int32 or not mat.is_contiguous():
         raise ValueError("slab_sort: need a contiguous int32 matrix")
-    lib = _build.load("slab_sort")
-    fn = lib.slab_sort
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    err = fn(mat.data_ptr(), rows - 1, n, c_log,
-             torch.cuda.current_stream(mat.device).cuda_stream)
+    if mat.data_ptr() % 16:
+        raise ValueError("slab_sort: the matrix must be 16-byte aligned")
+    codes = [x for step in plan
+             for x in ((0 if step[0] == "cluster" else 1), *step[1:])]
+    flat = (ctypes.c_int * len(codes))(*codes)
+    err = _lib().slab_sort(
+        mat.data_ptr(), rows - 1, n, c_log,
+        *_shape(c_log, rows - 1, block_log), flat, len(plan),
+        torch.cuda.current_stream(mat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slab_sort launch failed: CUDA error {err}")
     global launches

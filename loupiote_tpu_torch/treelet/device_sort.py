@@ -3,15 +3,16 @@
 ``_chunk_sort_kernel``, ``_cross_kernel`` and ``_descent_kernel``).
 
 The reference's network is K4's network with one slab spanning the padded
-array: its chunk sort is K4's first shared-memory launch, each cross
-stage one of K4's device-memory passes, each descent K4's per-level
-shared-memory launch, and the direction of a pair is global bit ``k`` of
-its index in both. So ``device_sort`` runs ``ops/slab_sort.py`` on one
-slab of ``2**n_log`` keys (K4, ``csrc/slab_sort.cu``, on CUDA tensors; its
-plain twin on CPU tensors), and keys and payload agree bit for bit with
-the reference. The reference's ``chunk_log`` and ``interpret`` sized its
-TPU VMEM chunk and change no result; they are not ported (the
-shared-memory chunk is K4's ``CHUNK_LOG``).
+array: its chunk sort, cross stages and descents are the same stages, and
+the direction of a pair is global bit ``k`` of its index in both. So
+``device_sort`` runs ``ops/slab_sort.py`` on one slab of ``2**n_log`` keys
+(K4, ``csrc/slab_sort.cu``, on CUDA tensors; its plain twin on CPU
+tensors), and keys and payload agree bit for bit with the reference. K4's
+``launch_plan`` schedules the slab: cluster launches for the stages whose
+partner lies within a cluster's keys, passes over device memory of up to
+``global_stages`` stages for the rest (13 launches at 2**23 keys). The
+reference's ``chunk_log`` and ``interpret`` sized its TPU VMEM chunk and
+change no result; they are not ported.
 
 The reference measured this network slower than XLA's sort on a TPU and
 kept ``lax.sort`` in production; the port's treelet path does not call it

@@ -4,7 +4,9 @@ plain twin slab_sort_plain) against the reference Pallas kernel
 
 Tolerance: none. Kernel, twin and reference apply the same compare-exchange
 network with strict compares, so keys and every payload column, including
-the payload order among equal keys, are exactly equal.
+the payload order among equal keys, are exactly equal. The launch plan the
+kernel runs is checked here too: it covers the network's stages in order,
+and replayed stage by stage it equals the reference.
 """
 
 import os
@@ -91,14 +93,97 @@ def test_slab_sort_sorts_each_slab_and_keeps_pairs():
 
 def test_slab_size_and_launch_count():
     """The slab follows the reference (2**16, or less for short inputs, at
-    least 2**10); the kernel's launches per sort follow from it."""
+    least 2**10); the kernel's launches per sort follow from it and the
+    payload count: one cluster launch whenever the slab fits a cluster."""
     assert port.slab_log_of(8_294_400) == 16
     assert port.slab_log_of(3000, slab_log=10) == 10
     assert port.slab_log_of(100) == 10
     assert port.slab_log_of(40_000) == 16
-    assert port.cuda_launches(16) == 15
-    assert port.cuda_launches(12) == 1
-    assert port.cuda_launches(10) == 1
+    assert [port.span_log_of(p) for p in range(5)] == [18, 17, 17, 16, 16]
+    # Clusters of 8 blocks where shared memory allows: 8 x 2^13 keys for
+    # the treelet path, 8 x 2^14 for E4.
+    assert port._shape(16, 1, None) == (16, 13)
+    assert port._shape(23, 1, None) == (17, 14)
+    assert port._shape(10, 1, None) == (10, 10)
+    assert port.cuda_launches(16, 1) == 1
+    assert port.cuda_launches(16, 4) == 1
+    assert port.cuda_launches(12, 1) == 1
+    assert port.cuda_launches(10, 1) == 1
+    assert [port.global_stages(p) for p in range(5)] == [7, 6, 5, 5, 4]
+    assert port.cuda_launches(17, 4) == 3
+    assert port.cuda_launches(20, 2) == 7
+    assert port.cuda_launches(23, 1) == 13
+
+
+def _flatten(plan):
+    """The (k, j) stages a launch plan applies, in its order."""
+    for step in plan:
+        if step[0] == "cluster":
+            _, k_lo, k_hi, j_top = step
+            for k in range(k_lo, k_hi + 1):
+                for j in range(min(k - 1, j_top), -1, -1):
+                    yield k, j
+        else:
+            _, k, j_hi, j_lo = step
+            for j in range(j_hi, j_lo - 1, -1):
+                yield k, j
+
+
+@pytest.mark.parametrize("span_log", [None, 10, 12])
+@pytest.mark.parametrize("n_payload", [0, 1, 4])
+@pytest.mark.parametrize("c_log", [10, 12, 16, 17, 20, 23])
+def test_launch_plan_covers_the_network(c_log, n_payload, span_log):
+    """The plan's steps apply the network's stages in its order, each once;
+    a cluster step's partners lie within 2**span keys, a global pass holds
+    at most global_stages stages, each with d >= 2**span."""
+    plan = port.launch_plan(c_log, n_payload, span_log)
+    network = [(k, j) for k in range(1, c_log + 1)
+               for j in range(k - 1, -1, -1)]
+    assert list(_flatten(plan)) == network
+    span = min(c_log, port.span_log_of(n_payload) if span_log is None
+               else span_log)
+    assert plan[0] == ("cluster", 1, span, span - 1)
+    for step in plan:
+        if step[0] == "cluster":
+            _, k_lo, k_hi, j_top = step
+            assert 1 <= k_lo <= k_hi <= c_log and 0 <= j_top < span
+        else:
+            assert step[0] == "global"
+            _, k, j_hi, j_lo = step
+            assert span <= j_lo <= j_hi < k <= c_log
+            assert j_hi - j_lo + 1 <= port.global_stages(n_payload)
+    if span_log is None:
+        assert port.cuda_launches(c_log, n_payload) == len(plan)
+
+
+@pytest.mark.parametrize("R,n_payload,slab_log", [
+    (8192, 1, 13), (12_000, 2, 14), (16_384, 0, 14)])
+def test_plan_replay_matches_reference(R, n_payload, slab_log):
+    """A plan with a 2**10-key span, so that global passes and cluster
+    tails both occur, replayed step by step with the twin's stage function,
+    equals the reference kernel byte for byte, the order of ties
+    included."""
+    rng = np.random.default_rng(R)
+    keys = rng.integers(0, 40, R).astype(np.int32)
+    cols = [rng.integers(-(1 << 31), (1 << 31) - 1, R).astype(np.int32)
+            for _ in range(n_payload)]
+    ref_k, ref_cols = ref_slab_sort(jnp.asarray(keys),
+                                    [jnp.asarray(c) for c in cols],
+                                    slab_log=slab_log, interpret=True)
+    key, tcols = _port_args(keys, cols)
+    mat, c_log = port.pack(key, tcols, slab_log)
+    assert c_log == slab_log
+    plan = port.launch_plan(c_log, n_payload, span_log=10)
+    assert [s[0] for s in plan].count("global") >= 3
+    assert any(s[2] > s[3] for s in plan if s[0] == "global")
+    assert ("cluster", c_log, c_log, 9) in plan
+    for step in plan:
+        for k, j in _flatten([step]):
+            port.plain_stage(mat, c_log, k, j)
+    k, out = port.unpack(mat, key, tcols)
+    assert k.numpy().tobytes() == np.asarray(ref_k).tobytes()
+    for o, r in zip(out, ref_cols):
+        assert o.numpy().tobytes() == np.asarray(r).tobytes()
 
 
 def test_slab_sort_empty_and_bad_inputs():
