@@ -28,13 +28,15 @@ Phases, each timed:
   7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
                  (csrc/slab_sort.cu): its launch plans, cluster shapes,
                  cudaOccupancyMaxActiveClusters and ptxas report, then K4
-                 against its twin, three times each, on the primary wave's
-                 pair keys, random keys with three payload types, uint32
-                 keys with DEAD_KEYs and 2^20 keys with two payloads in one
-                 slab above a cluster's span (global passes), timed beside
-                 torch.sort + gather and in two cluster shapes; the run
-                 scatter E5 (csrc/regroup.cu) against its twin on the same
-                 wave's regroup;
+                 against its twin, three times each, with the CUDA
+                 launches it made held to its plan, on the primary
+                 wave's pair keys, random keys with three payload types,
+                 uint32 keys with DEAD_KEYs, and one slab above a
+                 cluster's span (global passes) of 2^20 keys with two,
+                 three and four payloads and of 2^22 keys alone; timed
+                 beside torch.sort + gather; the run scatter E5
+                 (csrc/regroup.cu) against its twin on the same wave's
+                 regroup;
   8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
                  their twins on strided rays of the primary and a diffuse
                  wave, E7 in both modes; their times on the primary wave;
@@ -43,7 +45,8 @@ Phases, each timed:
                  stage against K1's;
  10. treelet   - the headline frame on the treelet tables through
                  Renderer, launch counts read around it (E6, K4, E5, E7 3
-                 each a frame), and a small frame held against the K1
+                 each a frame; K4's CUDA launches as its C entry point
+                 counts them), and a small frame held against the K1
                  path's;
  11. E1        - kernel_probe.main (the step-cost probe, csrc/kernel_probe.cu)
                  on the sorted arch-260k 1080p diffuse wave, its five
@@ -60,7 +63,7 @@ Phases, each timed:
                  against its twin at 256 steps, bit-equal;
  14. E4        - device_sort_bench.main (K4's network over one 2^23-key
                  slab) against torch.sort + gather, with K4's launches
-                 counted; device_sort against slab_sort_plain at c_log 23
+                 and CUDA launches counted; device_sort against slab_sort_plain at c_log 23
                  (keys and payload bit-equal) and against torch.sort, three
                  times.
 Any disagreement or failure raises, so the run exits non-zero without its
@@ -365,8 +368,12 @@ def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
     slab = 1 << c_log
     same = unpacked = srt = True
     err = 0.0
+    n_plan = len(ss.launch_plan(c_log, len(cols)))
+    made = []
     for _ in range(repeats):
+        before = ss.cuda_launched
         k = ss.sort_matrix(mat.clone(), c_log)
+        made.append(ss.cuda_launched - before)
         ks, kcols = ss.slab_sort(key, cols, slab_log)
         torch.cuda.synchronize()
         srt &= bool((k[0].view(-1, slab).diff(dim=1) >= 0).all())
@@ -376,11 +383,11 @@ def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
             for a, b, c in zip(kcols, pcols, cols))
         err = max(err, float((k.to(torch.int64) - p.to(torch.int64))
                              .abs().max()))
-    ok = same and unpacked and srt
+    launched = made == [n_plan] * repeats
+    ok = same and unpacked and srt and launched
     rows.append(f"| {name} | {key.shape[0]} ({len(cols)} payload, "
-                f"{k.shape[1] // slab} slabs of 2^{c_log}; "
-                f"{ss.cuda_launches(c_log, len(cols))} CUDA launches) | "
-                f"{repeats} | {same} | {unpacked} | {srt} | "
+                f"{k.shape[1] // slab} slabs of 2^{c_log}) | {repeats} | "
+                f"{same} | {unpacked} | {srt} | {made} (plan {n_plan}) | "
                 f"{'PASS' if ok else 'FAIL'} |")
     return ok, err, mat, c_log
 
@@ -906,23 +913,23 @@ def main():
     pend, npend = lane_top.lane_top_trace(td.top_fields, pro, prd, tfar, pact,
                                           td.num_top)
     key, ray_of, _ = _compact_pairs(pend, npend, pact, S=S)
-    # The cluster launch's shape on this card, before its first launch.
-    print(f"K4 plan at c_log 16, 1 payload: {ss.launch_plan(16, 1)}; "
-          f"at c_log 20, 2 payloads: {ss.launch_plan(20, 2)}; at c_log 23, "
-          f"1 payload: {ss.launch_plan(23, 1)}")
-    for c, npay in ((16, 1), (20, 2), (16, 3), (23, 1)):
-        for blog in (None, 14) if (c, npay) == (16, 1) else (None,):
-            span, b = ss._shape(c, npay, blog)
-            print(f"K4 cluster at c_log {c}, {npay} payload: {1 << (span - b)}"
-                  f" blocks of 2^{b} keys ({(1 + npay) * 4 << b} bytes of "
-                  f"shared memory each), 2^{span} keys a cluster; "
-                  f"cudaOccupancyMaxActiveClusters "
-                  f"{ss.max_active_clusters(c, npay, blog)}")
+    # The plan and cluster shape of each input below, before its first
+    # launch.
+    for c, npay in ((16, 1), (16, 3), (20, 2), (20, 3), (20, 4), (22, 0),
+                    (23, 1)):
+        span, b = ss._shape(c, npay)
+        print(f"K4 at c_log {c}, {npay} payload: plan "
+              f"{ss.launch_plan(c, npay)}; clusters of {1 << (span - b)} "
+              f"blocks of 2^{b} keys ({(1 + npay) * 4 << b} bytes of shared "
+              f"memory each), 2^{span} keys a cluster; "
+              f"cudaOccupancyMaxActiveClusters "
+              f"{ss.max_active_clusters(c, npay)}")
     print("K4 ptxas (registers, shared memory, spills):\n" + "\n".join(
         line for line in _build.build_info["slab_sort"]["log"].splitlines()
         if "entry function" in line or "Used" in line or "spill" in line))
     rows = ["| input | keys | repeats | matrix equal | unpacked equal | "
-            "slabs sorted | verdict |", "|---|---|---|---|---|---|---|"]
+            "slabs sorted | CUDA launches made | verdict |",
+            "|---|---|---|---|---|---|---|---|"]
     ok, k4_err, k4_mat, c_log = compare_slab_sort(
         "arch-260k primary 1080p (subtree, ray) pairs", key, [ray_of], rows)
     g = torch.Generator(device=dev)
@@ -943,15 +950,24 @@ def main():
     ok &= compare_slab_sort("uint32 keys (int64) with 30% DEAD_KEY", ukey,
                             [torch.arange(nu, device=dev, dtype=torch.int32)],
                             rows)[0]
-    # Above the span: global passes with two payload rows.
+    # Above the span: global passes with two, three and four payload rows
+    # (clusters of 2^17 and 2^16 keys), and with none (2^18).
     nb = 1 << 20
+    for npay in (2, 3, 4):
+        ok &= compare_slab_sort(
+            f"random keys in [0, 1000) above the span, payload int32 x "
+            f"{npay}",
+            torch.randint(0, 1000, (nb,), generator=g, device=dev,
+                          dtype=torch.int32),
+            [torch.arange(nb, device=dev, dtype=torch.int32)] + [
+                torch.randint(-2**31, 2**31 - 1, (nb,), generator=g,
+                              device=dev, dtype=torch.int32)
+                for _ in range(npay - 1)], rows, slab_log=20)[0]
+    nk = 1 << 22
     ok &= compare_slab_sort(
-        "random keys in [0, 1000) above the span, payload int32 x 2",
-        torch.randint(0, 1000, (nb,), generator=g, device=dev,
-                      dtype=torch.int32),
-        [torch.arange(nb, device=dev, dtype=torch.int32),
-         torch.randint(-2**31, 2**31 - 1, (nb,), generator=g, device=dev,
-                       dtype=torch.int32)], rows, slab_log=20)[0]
+        "random int32 keys above the span, keys only",
+        torch.randint(-2**31, 2**31 - 1, (nk,), generator=g, device=dev,
+                      dtype=torch.int32), [], rows, slab_log=22)[0]
     print("\n".join(rows), flush=True)
     if not ok:
         raise SystemExit("chip_smoke: K4 disagrees with its plain version")
@@ -959,10 +975,6 @@ def main():
     copy_ms = cuda_ms(lambda: work.copy_(k4_mat), 20)
     k4_ms = cuda_ms(lambda: ss.sort_matrix(work.copy_(k4_mat), c_log),
                     20) - copy_ms
-    # The cluster shapes at this input: 4 blocks of 2^14 keys against the
-    # default 8 of 2^13.
-    k4_shapes = {b: cuda_ms(lambda: ss._launch(work.copy_(k4_mat), c_log, b),
-                            20) - copy_ms for b in (14, 13, 14, 13)}
     k4_plain = cuda_ms(lambda: ss.slab_sort_plain(work.copy_(k4_mat), c_log),
                        1, warm=False) - copy_ms
     n_slabs = k4_mat.shape[1] >> c_log
@@ -976,19 +988,15 @@ def main():
     k4_cx = c_log * (c_log + 1) // 2 * (k4_mat.shape[1] // 2)
     k4_bound = bound_of(2 * k4_mat.numel() * 4,
                         k4_cx * (1 + 2 * k4_mat.shape[0]))
-    k4_cuda = ss.cuda_launches(c_log, 1)
     print(f"K4 on the primary wave's {key.shape[0]} pair keys ({n_slabs} "
-          f"slabs of 2^{c_log}, 1 payload; {k4_cuda} CUDA "
-          f"launches a sort): kernel {k4_ms:.4f} ms, plain torch "
+          f"slabs of 2^{c_log}, 1 payload; {ss.cuda_launches(c_log, 1)} "
+          f"CUDA launches a sort): kernel {k4_ms:.4f} ms, plain torch "
           f"{k4_plain:.3f} ms, torch.sort + gather along the slab rows "
           f"{k4_lib:.4f} ms (ties in any order); bound {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}: {2 * k4_mat.numel() * 4} bytes, {k4_cx} "
-          f"compare-exchanges); matrix copy {copy_ms:.4f} ms subtracted; "
-          f"by cluster shape (the second of two timings each): "
-          + ", ".join(f"{1 << (16 - b)} x 2^{b} keys {t:.4f} ms"
-                      for b, t in k4_shapes.items())
-          + f" ({smi})", flush=True)
-    phase("K4: four inputs + timing", t0)
+          f"compare-exchanges); matrix copy {copy_ms:.4f} ms subtracted "
+          f"({smi})", flush=True)
+    phase("K4: seven inputs + timing", t0)
 
     # E5 against its twin on the same wave's block_regroup inputs.
     t0 = time.perf_counter()
@@ -1178,6 +1186,7 @@ def main():
         frame_ms.append(start.elapsed_time(end))
     img = rt.blit()
     n_frames = 6
+    k4_cuda = ss.cuda_launched
     t_launches = {"E6": lane_top.launches, "K4": ss.launches,
                   "E5": regroup.launches,
                   "E7 closest": lane_bottom.launches_closest,
@@ -1190,7 +1199,7 @@ def main():
     n_fb = pipeline.fallback_rays(dev)
     per_frame = {k: v / n_frames for k, v in t_launches.items()}
     print(f"treelet path: {n_frames} frames; launches {t_launches} "
-          f"({per_frame} a frame); "
+          f"({per_frame} a frame); K4's CUDA launches {k4_cuda}; "
           f"fallback rays {n_fb} ({n_fb / n_frames:.0f} a frame, "
           f"{n_fb / (n_frames * BOUNCES * N):.4%} of the closest-hit ray "
           f"slots); lanes stopped by a step bound {capped}")
@@ -1198,6 +1207,10 @@ def main():
         if t_launches[k] != BOUNCES * n_frames:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
                              f"{t_launches[k]} times, not {BOUNCES} a frame")
+    # Every treelet sort has one payload and a slab of at most 2^16 keys.
+    if k4_cuda != t_launches["K4"] * ss.cuda_launches(16, 1):
+        raise SystemExit(f"chip_smoke: K4's {t_launches['K4']} sorts made "
+                         f"{k4_cuda} CUDA launches, not their plans'")
     if capped:
         raise SystemExit("chip_smoke: lanes reached a step bound")
     if not (torch.isfinite(rt.accum).all() and img.shape ==
@@ -1377,12 +1390,16 @@ def main():
     ss.reset_counters()
     e4 = device_sort_bench.main()
     e4_launches = ss.launches
+    e4_cuda = ss.cuda_launched
     if not (e4_launches and e4["correct"]):
         raise SystemExit("chip_smoke: the E4 path did not launch K4 or "
                          "sorted wrongly")
     n4 = 8_388_608
     _, keys4, vals4 = device_sort_bench.inputs(n4, dev)
     mat4, c4 = ss.pack(keys4, [vals4], slab_log=64)
+    if e4_cuda != e4_launches * ss.cuda_launches(c4, 1):
+        raise SystemExit(f"chip_smoke: the E4 path's {e4_launches} sorts "
+                         f"made {e4_cuda} CUDA launches, not their plans'")
     e4_plain, p4m = timed(lambda: ss.slab_sort_plain(mat4.clone(), c4), 1,
                           warm=False)
     lk4, _ = device_sort_bench.library_sort(keys4, vals4)
@@ -1404,9 +1421,9 @@ def main():
     # read and written once.
     e4_bound = bound_of(2 * mat4.numel() * 4,
                         (n_pad // 2) * (c4 * (c4 + 1) // 2) * 3)
-    print(f"E4 path launches (K4 wrapper) {e4_launches}, "
-          f"{ss.cuda_launches(c4, 1)} CUDA launches a sort (c_log {c4}, "
-          f"plan {ss.launch_plan(c4, 1)}); device_sort on {n4} keys, three "
+    print(f"E4 path launches (K4 wrapper) {e4_launches}, CUDA launches "
+          f"made {e4_cuda} ({ss.cuda_launches(c4, 1)} a sort in its plan, "
+          f"c_log {c4}: {ss.launch_plan(c4, 1)}); device_sort on {n4} keys, three "
           f"repeats: matrix and output equal to "
           f"slab_sort_plain {e4_same}, keys equal to torch.sort and payload "
           f"riding with its key {e4_lib}; device_sort {e4['device_sort']:.3f}"
@@ -1536,7 +1553,7 @@ def main():
         "name": "device_sort", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/slab_sort.cu",
         "replaces": "experiments/treelet/device_sort.py:81",
-        "launches": e4_launches, "cuda_launches": ss.cuda_launches(c4, 1),
+        "launches": e4_launches, "cuda_launches": e4_cuda,
         "max_abs_err": e4_err,
         "ms": e4["device_sort"], "plain_ms": e4_plain,
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],

@@ -33,7 +33,7 @@
 // the warp (__shfl_xor_sync), j in the thread's register bits in
 // registers, j >= b in another block of the cluster, read through
 // distributed shared memory. The thread's register bits are a window
-// [lo, lo + EL) of the index that moves down with j; each move is one
+// [lo, lo + 5) of the index that moves down with j; each move is one
 // store and one load of shared memory (a "phase").
 //
 // Keys are held XORed with -1 where their pair descends at the level being
@@ -73,12 +73,11 @@ constexpr int kLaneLog = 5;
 constexpr int kGlobalThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Keys a thread holds in registers in a cluster launch, log2: 32, or 16
-// at four and five rows, so that ROWS x 2^EL values fit the 128 registers
-// a thread of a 512-thread block may use.
-__host__ __device__ constexpr int elem_log(int rows) {
-  return rows <= 3 ? 5 : 4;
-}
+// Keys a thread holds in registers in a cluster launch, log2: 32 at
+// every row count (ROWS x 32 values; at four and five rows a block has
+// 256 threads, so a thread may use 255 registers).
+constexpr int kElemLog = 5;
+constexpr int kElems = 1 << kElemLog;
 
 // The most keys a block holds, log2: every row in shared memory.
 __host__ __device__ constexpr int block_log_max(int rows) {
@@ -97,33 +96,33 @@ __host__ __device__ constexpr int global_stages(int rows) {
 }
 
 __host__ __device__ constexpr int max_threads(int rows) {
-  return 1 << (block_log_max(rows) - elem_log(rows));
+  return 1 << (block_log_max(rows) - kElemLog);
 }
 
 // Register 0's local index in a phase whose register bits are
-// [lo, lo + EL): lane bits 0..4, the warp index in the other bits.
-template <int EL>
+// [lo, lo + 5): lane bits 0..4, the warp index in the other bits.
 __device__ __forceinline__ int phase_base(int lo, int lane, int warp) {
   const int wb = lo - kLaneLog;
   return lane | ((warp & ((1 << wb) - 1)) << kLaneLog) |
-         ((warp >> wb) << (lo + EL));
+         ((warp >> wb) << (lo + kElemLog));
 }
 
-template <int ROWS, int EL>
+template <int ROWS>
 __device__ __forceinline__ void load_phase(const int32_t* sm, int B, int l0,
-                                           int lo, int32_t (&v)[ROWS][1 << EL]) {
+                                           int lo,
+                                           int32_t (&v)[ROWS][kElems]) {
 #pragma unroll
-  for (int q = 0; q < (1 << EL); ++q) {
+  for (int q = 0; q < kElems; ++q) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) v[r][q] = sm[r * B + l0 + (q << lo)];
   }
 }
 
-template <int ROWS, int EL>
+template <int ROWS>
 __device__ __forceinline__ void store_phase(int32_t* sm, int B, int l0, int lo,
-                                            int32_t (&v)[ROWS][1 << EL]) {
+                                            int32_t (&v)[ROWS][kElems]) {
 #pragma unroll
-  for (int q = 0; q < (1 << EL); ++q) {
+  for (int q = 0; q < kElems; ++q) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) sm[r * B + l0 + (q << lo)] = v[r][q];
   }
@@ -141,35 +140,34 @@ __device__ __forceinline__ int32_t flip(unsigned i, int k) {
 // One stage with its partner C register bits away: the pair (q, q | 2^C)
 // keeps (min, max) of the held keys and swaps payloads where the upper key
 // is the smaller.
-template <int ROWS, int EL, int C>
-__device__ __forceinline__ void reg_stage(int32_t (&v)[ROWS][1 << EL]) {
-  if constexpr (C < EL) {
+template <int ROWS, int C>
+__device__ __forceinline__ void reg_stage(int32_t (&v)[ROWS][kElems]) {
 #pragma unroll
-    for (int q = 0; q < (1 << EL); ++q) {
-      if (q & (1 << C)) continue;
-      const int q2 = q | (1 << C);
-      const int32_t a = v[0][q], c = v[0][q2];
-      const bool sw = c < a;
-      v[0][q] = min(a, c);
-      v[0][q2] = max(a, c);
+  for (int q = 0; q < kElems; ++q) {
+    if (q & (1 << C)) continue;
+    const int q2 = q | (1 << C);
+    const int32_t a = v[0][q], c = v[0][q2];
+    const bool sw = c < a;
+    v[0][q] = min(a, c);
+    v[0][q2] = max(a, c);
 #pragma unroll
-      for (int r = 1; r < ROWS; ++r) {
-        const int32_t x = v[r][q], y = v[r][q2];
-        v[r][q] = sw ? y : x;
-        v[r][q2] = sw ? x : y;
-      }
+    for (int r = 1; r < ROWS; ++r) {
+      const int32_t x = v[r][q], y = v[r][q2];
+      v[r][q] = sw ? y : x;
+      v[r][q2] = sw ? x : y;
     }
   }
 }
 
-template <int ROWS, int EL>
-__device__ __forceinline__ void reg_stage_at(int c, int32_t (&v)[ROWS][1 << EL]) {
+template <int ROWS>
+__device__ __forceinline__ void reg_stage_at(int c,
+                                             int32_t (&v)[ROWS][kElems]) {
   switch (c) {
-    case 0: reg_stage<ROWS, EL, 0>(v); break;
-    case 1: reg_stage<ROWS, EL, 1>(v); break;
-    case 2: reg_stage<ROWS, EL, 2>(v); break;
-    case 3: reg_stage<ROWS, EL, 3>(v); break;
-    default: reg_stage<ROWS, EL, 4>(v); break;
+    case 0: reg_stage<ROWS, 0>(v); break;
+    case 1: reg_stage<ROWS, 1>(v); break;
+    case 2: reg_stage<ROWS, 2>(v); break;
+    case 3: reg_stage<ROWS, 3>(v); break;
+    default: reg_stage<ROWS, 4>(v); break;
   }
 }
 
@@ -177,13 +175,13 @@ __device__ __forceinline__ void reg_stage_at(int c, int32_t (&v)[ROWS][1 << EL])
 // lane keeps the minimum (lower lane) or the maximum (upper lane) of its
 // pair, as the TPU kernel's elements do, and takes its partner's payload
 // where its key changed: strict compares, so ties keep their own.
-template <int ROWS, int EL>
-__device__ __forceinline__ void shfl_stage(int32_t (&v)[ROWS][1 << EL], int j,
+template <int ROWS>
+__device__ __forceinline__ void shfl_stage(int32_t (&v)[ROWS][kElems], int j,
                                            int lane) {
   const int d = 1 << j;
   const bool up = (lane & d) != 0;
 #pragma unroll
-  for (int q = 0; q < (1 << EL); ++q) {
+  for (int q = 0; q < kElems; ++q) {
     const int32_t kx = v[0][q];
     const int32_t kp = __shfl_xor_sync(kFull, kx, d);
     const int32_t nk = up ? max(kx, kp) : min(kx, kp);
@@ -204,28 +202,30 @@ __device__ __forceinline__ void shfl_stage(int32_t (&v)[ROWS][1 << EL], int j,
 // and takes its partner's payload where it changed. (Loads of 16 bytes, and
 // one exchange for all of a level's stages j >= b, measured slower on the
 // H100: PERF.md, Findings.)
-template <int ROWS, int EL>
+template <int ROWS>
 __device__ __forceinline__ void cross_stage(cg::cluster_group& cluster,
                                             int32_t* sm, int B, int T,
                                             unsigned ib0, int b, int j,
-                                            int32_t (&v)[ROWS][1 << EL]) {
+                                            int32_t (&v)[ROWS][kElems]) {
   const int32_t* rem =
       cluster.map_shared_rank(sm, cluster.block_rank() ^ (1u << (j - b)));
   const bool up = ((ib0 >> j) & 1) != 0;
   cluster.sync();  // every block's shared memory holds the last stage
 #pragma unroll
-  for (int q = 0; q < (1 << EL); ++q) {
+  for (int q = 0; q < kElems; ++q) {
     const int l = threadIdx.x + q * T;
     const int32_t kx = sm[l], kp = rem[l];
     const int32_t nk = up ? max(kx, kp) : min(kx, kp);
     const bool sel = nk != kx;
     v[0][q] = nk;
 #pragma unroll
-    for (int r = 1; r < ROWS; ++r) v[r][q] = sel ? rem[r * B + l] : sm[r * B + l];
+    for (int r = 1; r < ROWS; ++r) {
+      v[r][q] = sel ? rem[r * B + l] : sm[r * B + l];
+    }
   }
   cluster.sync();  // no block writes before every block has read
 #pragma unroll
-  for (int q = 0; q < (1 << EL); ++q) {
+  for (int q = 0; q < kElems; ++q) {
     const int l = threadIdx.x + q * T;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) sm[r * B + l] = v[r][q];
@@ -240,12 +240,11 @@ template <int ROWS>
 __global__ void __launch_bounds__(max_threads(ROWS))
 cluster_kernel(int32_t* __restrict__ mat, long long n, int c_log, int b,
                int k_lo, int k_hi, int j_top) {
-  constexpr int EL = elem_log(ROWS);
-  extern __shared__ int4 smem4[];
+    extern __shared__ int4 smem4[];
   int32_t* sm = reinterpret_cast<int32_t*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int B = 1 << b;
-  const int T = B >> EL;
+  const int T = B >> kElemLog;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> kLaneLog;
   const long long base = static_cast<long long>(blockIdx.x) << b;
@@ -269,42 +268,42 @@ cluster_kernel(int32_t* __restrict__ mat, long long n, int c_log, int b,
   }
   __syncthreads();
 
-  int32_t v[ROWS][1 << EL];
-  int lo = -1;  // the phase's register bits [lo, lo + EL); -1: none loaded
+  int32_t v[ROWS][kElems];
+  int lo = -1;  // the phase's register bits [lo, lo + 5); -1: none loaded
   int l0 = 0;
   for (int k = k_lo; k <= k_hi; ++k) {
     if (k > k_lo) {
       // The last stage of level k - 1 (j = 0) left the keys in registers.
 #pragma unroll
-      for (int q = 0; q < (1 << EL); ++q) {
+      for (int q = 0; q < kElems; ++q) {
         const unsigned i = ib0 | l0 | (static_cast<unsigned>(q) << lo);
         v[0][q] ^= flip(i, k - 1) ^ flip(i, k);
       }
     }
     for (int j = min(k - 1, j_top); j >= 0; --j) {
       if (j >= b) {
-        if (lo >= 0) store_phase<ROWS, EL>(sm, B, l0, lo, v);
+        if (lo >= 0) store_phase<ROWS>(sm, B, l0, lo, v);
         lo = -1;
-        cross_stage<ROWS, EL>(cluster, sm, B, T, ib0, b, j, v);
+        cross_stage<ROWS>(cluster, sm, B, T, ib0, b, j, v);
         continue;
       }
-      if (lo < 0 || !(j < kLaneLog || (j >= lo && j < lo + EL))) {
+      if (lo < 0 || !(j < kLaneLog || (j >= lo && j < lo + kElemLog))) {
         if (lo >= 0) {
-          store_phase<ROWS, EL>(sm, B, l0, lo, v);
+          store_phase<ROWS>(sm, B, l0, lo, v);
           __syncthreads();
         }
-        lo = min(max(kLaneLog, j - EL + 1), b - EL);
-        l0 = phase_base<EL>(lo, lane, warp);
-        load_phase<ROWS, EL>(sm, B, l0, lo, v);
+        lo = min(max(kLaneLog, j - kElemLog + 1), b - kElemLog);
+        l0 = phase_base(lo, lane, warp);
+        load_phase<ROWS>(sm, B, l0, lo, v);
       }
       if (j < kLaneLog) {
-        shfl_stage<ROWS, EL>(v, j, lane);
+        shfl_stage<ROWS>(v, j, lane);
       } else {
-        reg_stage_at<ROWS, EL>(j - lo, v);
+        reg_stage_at<ROWS>(j - lo, v);
       }
     }
   }
-  if (lo >= 0) store_phase<ROWS, EL>(sm, B, l0, lo, v);
+  if (lo >= 0) store_phase<ROWS>(sm, B, l0, lo, v);
   __syncthreads();
   for (int r = 0; r < ROWS; ++r) {
     int4* dst = reinterpret_cast<int4*>(mat + r * n + base);
@@ -385,7 +384,7 @@ cudaError_t cluster_config(int span, int b, long long n, cudaStream_t s,
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(static_cast<unsigned>(n >> b));
-  cfg->blockDim = dim3(1u << (b - elem_log(ROWS)));
+  cfg->blockDim = dim3(1u << (b - kElemLog));
   cfg->dynamicSmemBytes = smem;
   cfg->stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -439,22 +438,36 @@ cudaError_t launch_global(int32_t* m, long long n, int c_log, const int* step,
   }
 }
 
+// Launches the plan's steps in order, counting in ``*launched`` the
+// launches that the runtime accepted.
 template <int ROWS>
 cudaError_t run_plan(int32_t* m, long long n, int c_log, int span, int b,
-                     const int* plan, int n_steps, cudaStream_t s) {
+                     const int* plan, int n_steps, cudaStream_t s,
+                     int* launched) {
   for (int i = 0; i < n_steps; ++i) {
     const int* step = plan + 4 * i;
     const cudaError_t err =
         step[0] == 0 ? launch_cluster<ROWS>(m, n, c_log, span, b, step, s)
                      : launch_global<ROWS>(m, n, c_log, step, s);
     if (err != cudaSuccess) return err;
+    ++*launched;
   }
   return cudaSuccess;
 }
 
+template <int ROWS>
+cudaError_t max_clusters(int span, int b, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err =
+      cluster_config<ROWS>(span, b, 1ll << span, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, cluster_kernel<ROWS>, &cfg);
+}
+
 bool valid_shape(int rows, int c_log, int span, int b) {
-  return c_log >= 10 && c_log <= 30 && span >= 1 && span <= c_log && b <= span &&
-         b >= kLaneLog + elem_log(rows) && b <= block_log_max(rows) &&
+  return c_log >= 10 && c_log <= 30 && span >= 1 && span <= c_log &&
+         b <= span && b >= kLaneLog + kElemLog && b <= block_log_max(rows) &&
          span - b <= kClusterLog;
 }
 
@@ -473,12 +486,13 @@ bool valid_step(const int* st, int rows, int c_log, int span) {
 // int32 matrix, 16-byte aligned, n a multiple of 2^c_log; ``span``: keys a
 // cluster holds, log2 (<= c_log); ``b``: keys a block holds, log2;
 // ``plan``: host array of ``n_steps`` int32 quadruples (see the header);
-// ``stream``: the caller's CUDA stream. Issues one launch a step; returns
-// the first error (a refused launch included), else cudaSuccess;
-// allocates nothing, does not sync.
+// ``stream``: the caller's CUDA stream; ``launched``: out, the launches
+// made, one a step; returns the first error (a refused launch
+// included), else cudaSuccess; allocates nothing, does not sync.
 extern "C" int slab_sort(void* mat, int n_payload, long long n, int c_log,
                          int span, int b, const int* plan, int n_steps,
-                         void* stream) {
+                         void* stream, int* launched) {
+  *launched = 0;
   if (n <= 0) return 0;
   if (n_payload < 0 || n_payload > kMaxPayload) return cudaErrorInvalidValue;
   const int rows = 1 + n_payload;
@@ -496,11 +510,21 @@ extern "C" int slab_sort(void* mat, int n_payload, long long n, int c_log,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (rows) {
-    case 1: err = run_plan<1>(m, n, c_log, span, b, plan, n_steps, s); break;
-    case 2: err = run_plan<2>(m, n, c_log, span, b, plan, n_steps, s); break;
-    case 3: err = run_plan<3>(m, n, c_log, span, b, plan, n_steps, s); break;
-    case 4: err = run_plan<4>(m, n, c_log, span, b, plan, n_steps, s); break;
-    default: err = run_plan<5>(m, n, c_log, span, b, plan, n_steps, s); break;
+    case 1:
+      err = run_plan<1>(m, n, c_log, span, b, plan, n_steps, s, launched);
+      break;
+    case 2:
+      err = run_plan<2>(m, n, c_log, span, b, plan, n_steps, s, launched);
+      break;
+    case 3:
+      err = run_plan<3>(m, n, c_log, span, b, plan, n_steps, s, launched);
+      break;
+    case 4:
+      err = run_plan<4>(m, n, c_log, span, b, plan, n_steps, s, launched);
+      break;
+    default:
+      err = run_plan<5>(m, n, c_log, span, b, plan, n_steps, s, launched);
+      break;
   }
   return static_cast<int>(err);
 }
@@ -514,16 +538,13 @@ extern "C" int slab_sort_max_clusters(int n_payload, int span, int b,
       !valid_shape(rows, span, span, b)) {
     return cudaErrorInvalidValue;
   }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  const long long n = 1ll << span;
   cudaError_t err;
   switch (rows) {
-    case 1: err = cluster_config<1>(span, b, n, nullptr, &cfg, &attr); if (!err) err = cudaOccupancyMaxActiveClusters(out, cluster_kernel<1>, &cfg); break;
-    case 2: err = cluster_config<2>(span, b, n, nullptr, &cfg, &attr); if (!err) err = cudaOccupancyMaxActiveClusters(out, cluster_kernel<2>, &cfg); break;
-    case 3: err = cluster_config<3>(span, b, n, nullptr, &cfg, &attr); if (!err) err = cudaOccupancyMaxActiveClusters(out, cluster_kernel<3>, &cfg); break;
-    case 4: err = cluster_config<4>(span, b, n, nullptr, &cfg, &attr); if (!err) err = cudaOccupancyMaxActiveClusters(out, cluster_kernel<4>, &cfg); break;
-    default: err = cluster_config<5>(span, b, n, nullptr, &cfg, &attr); if (!err) err = cudaOccupancyMaxActiveClusters(out, cluster_kernel<5>, &cfg); break;
+    case 1: err = max_clusters<1>(span, b, out); break;
+    case 2: err = max_clusters<2>(span, b, out); break;
+    case 3: err = max_clusters<3>(span, b, out); break;
+    case 4: err = max_clusters<4>(span, b, out); break;
+    default: err = max_clusters<5>(span, b, out); break;
   }
   return static_cast<int>(err);
 }

@@ -45,15 +45,16 @@ CLUSTER_LOG = 3
 # thread may use; csrc/slab_sort.cu: global_stages).
 PASS_REGISTERS = 128
 
-# Sorts launched on the card (each issues the CUDA launches of its
-# launch_plan). chip_smoke.py zeroes it before the main path and reads it
-# after.
+# Sorts launched on the card, and the CUDA launches their plans made, as
+# the C entry point counts them. chip_smoke.py zeroes both before the main
+# path and reads them after.
 launches = 0
+cuda_launched = 0
 
 
 def reset_counters() -> None:
-    global launches
-    launches = 0
+    global launches, cuda_launched
+    launches = cuda_launched = 0
 
 
 def slab_log_of(n: int, slab_log: int = 16) -> int:
@@ -107,7 +108,7 @@ def launch_plan(c_log: int, n_payload: int, span_log: int | None = None):
 
 
 def cuda_launches(c_log: int, n_payload: int) -> int:
-    """CUDA launches one sort issues: one a step of its plan."""
+    """CUDA launches one sort makes: one a step of its plan."""
     return len(launch_plan(c_log, n_payload))
 
 
@@ -147,7 +148,7 @@ def _lib():
     lib.slab_sort.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.slab_sort_max_clusters.restype = ctypes.c_int
     lib.slab_sort_max_clusters.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -155,51 +156,55 @@ def _lib():
     return lib
 
 
-def _shape(c_log: int, n_payload: int, block_log: int | None):
-    """(span, b): keys a cluster and a block hold, log2. By default a
-    cluster has as many blocks as it may (8 blocks hide latency better
-    than 4 larger ones), each of at least 2**10 keys (32 lanes of 32
-    registers) and at most what its shared memory holds."""
+def _shape(c_log: int, n_payload: int):
+    """(span, b): keys a cluster and a block hold, log2. A cluster has as
+    many blocks as it may (8 blocks of 2**13 keys measured faster than 4 of
+    2**14 at the treelet shape), each of at least 2**10 keys (32 lanes of
+    32 registers) and at most what its shared memory holds."""
     span = min(c_log, span_log_of(n_payload))
-    if block_log is None:
-        block_log = min(block_log_max(n_payload),
-                        max(span - CLUSTER_LOG, min(span, 10)))
-    return span, min(block_log, span)
+    return span, min(block_log_max(n_payload),
+                     max(span - CLUSTER_LOG, min(span, 10)))
 
 
-def max_active_clusters(c_log: int, n_payload: int,
-                        block_log: int | None = None) -> int:
+def max_active_clusters(c_log: int, n_payload: int) -> int:
     """``cudaOccupancyMaxActiveClusters`` for the cluster launch of a sort
     of ``2**c_log``-key slabs on the current card."""
     out = ctypes.c_int(0)
     err = _lib().slab_sort_max_clusters(
-        n_payload, *_shape(c_log, n_payload, block_log), ctypes.byref(out))
+        n_payload, *_shape(c_log, n_payload), ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"slab_sort occupancy query: CUDA error {err}")
     return out.value
 
 
-def _launch(mat: torch.Tensor, c_log: int,
-            block_log: int | None = None) -> torch.Tensor:
-    """K4 on a CUDA matrix, in place. ``block_log``: keys a block holds,
-    log2 (``_shape``'s rule by default)."""
+def _run_plan(mat: torch.Tensor, c_log: int, plan) -> int:
+    """Launch the steps of ``plan`` on a CUDA matrix, in place, through the
+    C entry point; returns the CUDA launches it made. Raises on a refused
+    launch."""
     rows, n = mat.shape
-    plan = launch_plan(c_log, rows - 1)
     if mat.dtype != torch.int32 or not mat.is_contiguous():
         raise ValueError("slab_sort: need a contiguous int32 matrix")
     if mat.data_ptr() % 16:
         raise ValueError("slab_sort: the matrix must be 16-byte aligned")
     codes = [x for step in plan
              for x in ((0 if step[0] == "cluster" else 1), *step[1:])]
-    flat = (ctypes.c_int * len(codes))(*codes)
+    made = ctypes.c_int(0)
     err = _lib().slab_sort(
-        mat.data_ptr(), rows - 1, n, c_log,
-        *_shape(c_log, rows - 1, block_log), flat, len(plan),
-        torch.cuda.current_stream(mat.device).cuda_stream)
+        mat.data_ptr(), rows - 1, n, c_log, *_shape(c_log, rows - 1),
+        (ctypes.c_int * len(codes))(*codes), len(plan),
+        torch.cuda.current_stream(mat.device).cuda_stream,
+        ctypes.byref(made))
     if err != 0:
         raise RuntimeError(f"slab_sort launch failed: CUDA error {err}")
-    global launches
+    return made.value
+
+
+def _launch(mat: torch.Tensor, c_log: int) -> torch.Tensor:
+    """K4 on a CUDA matrix, in place: its launch plan, counted."""
+    made = _run_plan(mat, c_log, launch_plan(c_log, mat.shape[0] - 1))
+    global launches, cuda_launched
     launches += 1
+    cuda_launched += made
     return mat
 
 

@@ -7,15 +7,13 @@ For the two shapes that run K4 (the treelet primary wave's 8,294,400
 pair keys in 127 slabs of 2^16 with one payload, and E4's one slab of
 2^23 keys with one payload), runs every step of
 ``ops/slab_sort.py::launch_plan`` alone on the matrix, in the plan's
-order, and prints its mean device time over ``REPS`` runs (CUDA events,
-after a warm-up) beside the time one read and one write of the matrix
-take at 3.35 TB/s; then the whole plan through ``sort_matrix``, and the
-sorted matrix against ``slab_sort_plain``. The treelet shape also runs
-in both cluster shapes (4 blocks of 2^14 keys, 8 of 2^13). Needs CUDA;
-fails without it.
+order, and prints its best device time over ``REPS`` runs
+(``experiments.time_probe``: CUDA events, after a warm-up) beside the
+time one read and one write of the matrix take at 3.35 TB/s; then the
+whole plan, and the sorted matrix against ``slab_sort_plain``. Needs
+CUDA; fails without it.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -27,40 +25,10 @@ REPS = 10
 PEAK_BYTES_S = 3.35e12
 
 
-def run_steps(ss, mat, c_log, plan, block_log):
-    """Launch ``plan`` on ``mat`` with the kernel's C entry point."""
+def report(ss, time_probe, name, mat, c_log):
     import torch
 
-    codes = [x for step in plan
-             for x in ((0 if step[0] == "cluster" else 1), *step[1:])]
-    err = ss._lib().slab_sort(
-        mat.data_ptr(), mat.shape[0] - 1, mat.shape[1], c_log,
-        *ss._shape(c_log, mat.shape[0] - 1, block_log),
-        (ctypes.c_int * len(codes))(*codes), len(plan),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"slab_sort launch failed: CUDA error {err}")
-
-
-def cuda_ms(fn, reps=REPS):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def report(ss, name, mat, c_log, block_log=None):
-    import torch
-
-    span, b = ss._shape(c_log, mat.shape[0] - 1, block_log)
+    span, b = ss._shape(c_log, mat.shape[0] - 1)
     plan = ss.launch_plan(c_log, mat.shape[0] - 1)
     io_ms = 2 * mat.numel() * 4 / PEAK_BYTES_S * 1e3
     print(f"{name}: {mat.shape[1]} keys, {mat.shape[0] - 1} payload, c_log "
@@ -70,23 +38,25 @@ def report(ss, name, mat, c_log, block_log=None):
     work = mat.clone()
     total = 0.0
     for step in plan:
-        ms = cuda_ms(lambda: run_steps(ss, work, c_log, [step], block_log))
+        ms = time_probe(lambda: ss._run_plan(work, c_log, [step]), REPS)[0]
         total += ms
         print(f"  {step}: {ms:.4f} ms", flush=True)
-    whole = cuda_ms(lambda: run_steps(ss, work, c_log, plan, block_log))
+    whole = time_probe(lambda: ss._run_plan(work, c_log, plan), REPS)[0]
     check = mat.clone()
-    run_steps(ss, check, c_log, plan, block_log)
+    made = ss._run_plan(check, c_log, plan)
     same = bool(torch.equal(check, ss.slab_sort_plain(mat.clone(), c_log)))
     print(f"  steps summed {total:.4f} ms; the plan in one call {whole:.4f} "
-          f"ms; equal to slab_sort_plain {same}", flush=True)
-    if not same:
+          f"ms ({made} CUDA launches made); equal to slab_sort_plain "
+          f"{same}", flush=True)
+    if not same or made != len(plan):
         raise SystemExit("slab_sort_steps: K4 disagrees with its plain "
-                         "version")
+                         "version or skipped a launch")
 
 
 def main():
     import torch
 
+    from loupiote_tpu_torch.experiments import time_probe
     from loupiote_tpu_torch.ops import slab_sort as ss
 
     if not torch.cuda.is_available():
@@ -104,15 +74,13 @@ def main():
                         dtype=torch.int32)
     mat, c_log = ss.pack(key, [torch.arange(n, device=dev,
                                             dtype=torch.int32)])
-    for block_log in (None, 14):
-        report(ss, f"treelet shape, block_log {block_log}", mat, c_log,
-               block_log)
+    report(ss, time_probe, "treelet shape", mat, c_log)
     n4 = 1 << 23  # E4: one slab of the reference's 8,388,608 keys
     key4 = torch.randint(0, 1 << 30, (n4,), generator=g, device=dev,
                          dtype=torch.int32)
     mat4, c4 = ss.pack(key4, [torch.arange(n4, device=dev,
                                             dtype=torch.int32)], slab_log=64)
-    report(ss, "E4 shape", mat4, c4)
+    report(ss, time_probe, "E4 shape", mat4, c4)
     print(smi)
 
 

@@ -102,9 +102,12 @@ def test_slab_size_and_launch_count():
     assert [port.span_log_of(p) for p in range(5)] == [18, 17, 17, 16, 16]
     # Clusters of 8 blocks where shared memory allows: 8 x 2^13 keys for
     # the treelet path, 8 x 2^14 for E4.
-    assert port._shape(16, 1, None) == (16, 13)
-    assert port._shape(23, 1, None) == (17, 14)
-    assert port._shape(10, 1, None) == (10, 10)
+    assert port._shape(16, 1) == (16, 13)
+    assert port._shape(23, 1) == (17, 14)
+    assert port._shape(10, 1) == (10, 10)
+    # Keys only: 8 x 2^15 keys; four payloads: 8 x 2^13 keys.
+    assert port._shape(20, 0) == (18, 15)
+    assert port._shape(20, 4) == (16, 13)
     assert port.cuda_launches(16, 1) == 1
     assert port.cuda_launches(16, 4) == 1
     assert port.cuda_launches(12, 1) == 1
