@@ -45,33 +45,40 @@ def nvcc_path() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure.
-    Threads that load different sources build them at the same time."""
+def load(name: str, defines: tuple = (), src: str | None = None
+         ) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` (or ``src``) with
+    ``-D`` for each of ``defines``; raises on failure. Threads that load
+    different sources build them at the same time. ``build_info`` files
+    the build under ``name``, followed by the defines if there are any."""
+    label = " ".join((name,) + tuple(defines))
     with _lock:
-        lock = _name_locks.setdefault(name, threading.Lock())
+        lock = _name_locks.setdefault(label, threading.Lock())
     with lock:
-        lib = _libs.get(name)
+        key = (label, src)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(_compile(name))
-            _libs[name] = lib
+            path = src or os.path.join(CSRC_DIR, f"{name}.cu")
+            lib = ctypes.CDLL(_compile(path, label, defines))
+            _libs[key] = lib
         return lib
 
 
-def _compile(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def _compile(src: str, label: str, defines: tuple) -> str:
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(out):
-        build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
+        build_info.setdefault(label, {"seconds": 0.0, "log": "(cached)"})
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, src, "-o", tmp],
+        proc = subprocess.run([nvcc_path(), *flags, src, "-o", tmp],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src}:\n"
@@ -80,6 +87,6 @@ def _compile(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": (proc.stdout + proc.stderr).strip()}
+    build_info[label] = {"seconds": time.perf_counter() - t0,
+                         "log": (proc.stdout + proc.stderr).strip()}
     return out

@@ -7,9 +7,15 @@
 // E7 replaces experiments/treelet/lane_bottom.py::_lane_bottom_kernel
 // (wrapped by lane_bottom_trace): each (ray, subtree) pair walks its
 // subtree, node boxes and triangles, to (t, tri_local); closest-hit or
-// any-hit. The plain twins are loupiote_tpu_torch/treelet/lane_top.py::
-// lane_top_plain and lane_bottom.py::lane_bottom_plain; kernel and twin
-// take the same steps with the same arithmetic, so they agree bit for bit.
+// any-hit. It has two epilogues: per pair (that contract: t, tri_local at
+// each pair slot) and per ray (lane_bottom.py::lane_bottom_rays, what the
+// pipeline runs): the combine of experiments/treelet/pipeline.py
+// (least t over a ray's pairs, then the largest global triangle id) done
+// by one 64-bit atomicMin per accepted pair. The plain twins are
+// loupiote_tpu_torch/treelet/lane_top.py::lane_top_plain and
+// lane_bottom.py::lane_bottom_plain / lane_bottom_rays_plain; kernel and
+// twin take the same steps with the same arithmetic, so they agree bit for
+// bit (the atomics' order cannot change a minimum).
 //
 // Tables (loupiote_tpu_torch/treelet/build.py), float32 with ints bitcast:
 //   top (8, Ktiles * 1024): min.xyz, max.xyz, link = hit | miss << 12,
@@ -26,11 +32,12 @@
 // flops, with the rays of a warp on different entries and step counts, so
 // latency and divergence, not bytes or flops. E6 reads the top table
 // through L1 (32 KB for arch-260k; at most 8 x 4,096 entries = 128 KB).
-// E7 stages the block's subtree (10 fields x 1,024 entries = 40 KB) in
-// shared memory, the counterpart of the TPU kernel's scalar-prefetched
-// VMEM tile: each 1,024-pair block of the pair layout holds pairs of one
-// subtree, and runs as two CUDA blocks of 512 threads that read the same
-// sid and stage the same subtree.
+// E7 walks a subtree (10 fields x 1,024 entries) staged in shared memory,
+// the counterpart of the TPU kernel's scalar-prefetched VMEM tile. The
+// pair layout (treelet/regroup.py::block_regroup) puts each subtree's
+// pairs in a run of consecutive 1,024-pair tiles, so a block walks runs
+// of tiles, stages a subtree only when the tile's subtree changes, and
+// copies the next one in (cp.async, two buffers) while it walks.
 //
 // Step bounds: E6 4 * num_top + 64, E7 2048 (the reference's). The
 // reference stops such lanes silently; here every lane that reaches the
@@ -53,7 +60,35 @@ constexpr int kTile = 1024;      // entries per subtree; pairs per block
 constexpr int kWalkFields = 10;  // f0..f9
 constexpr int kTopThreads = 128;
 constexpr int kBottomThreads = 512;
+constexpr int kPairsPerThread = kTile / kBottomThreads;
+constexpr int kEntry = 12;       // floats an entry in the E7_AOS layout
 constexpr float kTMin = 1e-4f;
+
+#ifndef E7_AOS
+#define E7_AOS 1
+#endif
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most n of this thread's copy groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
 
 __device__ __forceinline__ float safe_inv(float d) {
   const float s = fabsf(d) > 1e-20f ? d : (d >= 0.0f ? 1e-20f : -1e-20f);
@@ -123,76 +158,250 @@ __global__ void __launch_bounds__(kTopThreads)
   npend_out[i] = np;
 }
 
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBottomThreads)
-    lane_bottom_kernel(const int32_t* __restrict__ sid_blocks,
-                       const float* __restrict__ sub, int sub_stride,
+// E7's walk reads the staged subtree from shared memory. Layout
+// (E7_AOS, -D; scripts/traversal_variants.py builds the other to time
+// it): 1 = entry-major, kEntry floats an entry (f0..f9, two pad), read
+// as three 16-byte loads issued together; 0 = field-major f[10][1024]
+// (the table's own order), the link first, then the fields its kind
+// needs.
+template <bool kAos>
+struct Layout;
+
+template <>
+struct Layout<true> {
+  static constexpr int kFloats = kEntry * kTile;
+  // 4-byte async copies: field f of entry n to buf[kEntry * n + f].
+  static __device__ __forceinline__ void stage(float* buf,
+                                               const float* tile,
+                                               int sub_stride) {
+    for (int e = threadIdx.x; e < kWalkFields * kTile; e += blockDim.x) {
+      const int f = e / kTile, n = e % kTile;
+      cp_async4(buf + kEntry * n + f,
+                tile + static_cast<size_t>(f) * sub_stride + n);
+    }
+  }
+};
+
+template <>
+struct Layout<false> {
+  static constexpr int kFloats = kWalkFields * kTile;
+  // 16-byte async copies of each field's 1,024 floats.
+  static __device__ __forceinline__ void stage(float* buf,
+                                               const float* tile,
+                                               int sub_stride) {
+    constexpr int kQuads = kTile / 4;
+    for (int e = threadIdx.x; e < kWalkFields * kQuads; e += blockDim.x) {
+      const int f = e / kQuads, q = e % kQuads;
+      cp_async16(buf + f * kTile + 4 * q,
+                 tile + static_cast<size_t>(f) * sub_stride + 4 * q);
+    }
+  }
+};
+
+// One pair's walk of the staged subtree (the reference kernel's steps and
+// arithmetic): a node entry's slab test against the pair's best t goes
+// to hit_id or miss_id; a triangle entry runs Moller-Trumbore. Returns
+// tri_local (-1 on a miss); best holds the pair's t.
+template <bool kAnyHit, bool kAos>
+__device__ __forceinline__ int walk(const float* buf, float ox, float oy,
+                                    float oz, float dx, float dy, float dz,
+                                    float& best, int32_t* capped,
+                                    int max_steps) {
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  int best_tri = -1;
+  int cur = 0;
+  for (int steps = 0; cur != kSubEnd; ++steps) {
+    if (steps == max_steps) {  // the reference's silent step bound
+      atomicAdd(capped, 1);
+      break;
+    }
+    float g[9];
+    int link;
+    if constexpr (kAos) {
+      const float4* e4 = reinterpret_cast<const float4*>(buf + kEntry * cur);
+      const float4 q0 = e4[0], q1 = e4[1], q2 = e4[2];
+      g[0] = q0.x; g[1] = q0.y; g[2] = q0.z; g[3] = q0.w;
+      g[4] = q1.x; g[5] = q1.y; g[6] = q1.z; g[7] = q1.w;
+      g[8] = q2.x;
+      link = __float_as_int(q2.y);
+    } else {
+      link = __float_as_int(buf[9 * kTile + cur]);
+    }
+    const int hit_id = link & 1023;
+    const int miss_id = (link >> 10) & 1023;
+    if ((link >> 20) & 1) {
+      if constexpr (!kAos) {
+#pragma unroll
+        for (int f = 0; f < 9; ++f) g[f] = buf[f * kTile + cur];
+      }
+      // Moller-Trumbore, products in the order of ops/intersect.py.
+      const float p0x = g[0], p0y = g[1], p0z = g[2];
+      const float e1x = g[3], e1y = g[4], e1z = g[5];
+      const float e2x = g[6], e2y = g[7], e2z = g[8];
+      const float pvx = dy * e2z - dz * e2y;
+      const float pvy = dz * e2x - dx * e2z;
+      const float pvz = dx * e2y - dy * e2x;
+      const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+      const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+      const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+      const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+      const float qvx = tvy * e1z - tvz * e1y;
+      const float qvy = tvz * e1x - tvx * e1z;
+      const float qvz = tvx * e1y - tvy * e1x;
+      const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+      const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+      if (fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+          t > kTMin && t < best) {
+        best = t;
+        best_tri = (link >> 21) & 1023;
+        if (kAnyHit) break;  // the first accepted triangle ends the walk
+      }
+      cur = miss_id;  // a triangle entry holds its next id in both slots
+    } else {
+      if constexpr (!kAos) {
+#pragma unroll
+        for (int f = 0; f < 6; ++f) g[f] = buf[f * kTile + cur];
+      }
+      float tn, tf;
+      slab(g[0], g[1], g[2], g[3], g[4], g[5], ox, oy, oz, ix, iy, iz, &tn,
+           &tf);
+      cur = (tf >= fmaxf(tn, 0.0f) && tn < best) ? hit_id : miss_id;
+    }
+  }
+  return best_tri;
+}
+
+// E7 with either epilogue. Each block walks the tiles of its chunks
+// (blockIdx.x, blockIdx.x + gridDim.x, ...; a chunk is `chunk`
+// consecutive tiles of 1,024 pairs) in order, two pairs a thread. It
+// stages a tile's subtree only when the block does not hold it already
+// (block_regroup lays out each subtree's pairs as a run of tiles),
+// skips tiles with no live pair and the dump tiles (sid >= n_sub; their
+// walks would end at the first entry), and copies the next tile's
+// subtree into the other buffer (cp.async) while it walks this one.
+// kPerRay == false: pair p walks ray data at p and writes (t, tri_local)
+// at p. kPerRay == true: pair p walks ray pair_ray[p] and an accepted
+// hit does atomicMin(hit_out[ray], float_bits(t) << 32 | 0x7FFFFFFF -
+// global tri): the least t, then the largest global id (t > T_MIN > 0,
+// so the bits order as the values).
+template <bool kAnyHit, bool kPerRay, bool kAos>
+__global__ void __launch_bounds__(kBottomThreads, 2)
+    lane_bottom_kernel(const int32_t* __restrict__ sid_blocks, int n_tiles,
+                       int n_sub, int chunk, const float* __restrict__ sub,
+                       int sub_stride, const int32_t* __restrict__ pair_ray,
                        const float* __restrict__ ro,
                        const float* __restrict__ rd,
                        const float* __restrict__ tmax,
                        const int32_t* __restrict__ active,
+                       const int32_t* __restrict__ tri_base,
                        float* __restrict__ t_out,
                        int32_t* __restrict__ tri_out,
+                       unsigned long long* __restrict__ hit_out,
                        int32_t* __restrict__ capped, int max_steps) {
-  __shared__ float f[kWalkFields][kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // pair
-  const int sid = sid_blocks[i / kTile];  // the same for the whole block
-  const float* tile = sub + static_cast<size_t>(sid) * kTile;
-  for (int e = threadIdx.x; e < kWalkFields * kTile; e += blockDim.x) {
-    f[e / kTile][e % kTile] =
-        __ldg(tile + static_cast<size_t>(e / kTile) * sub_stride + e % kTile);
-  }
-  __syncthreads();
-  const float t0 = tmax[i];
-  float best = t0;
-  int best_tri = -1;
-  if (active[i] > 0) {
-    const float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
-    const float dx = rd[3 * i], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    int cur = 0;
-    for (int steps = 0; cur != kSubEnd; ++steps) {
-      if (steps == max_steps) {  // the reference's silent step bound
-        atomicAdd(capped, 1);
-        break;
-      }
-      const int link = __float_as_int(f[9][cur]);
-      const int hit_id = link & 1023;
-      const int miss_id = (link >> 10) & 1023;
-      if ((link >> 20) & 1) {
-        // Moller-Trumbore, products in the order of ops/intersect.py.
-        const float p0x = f[0][cur], p0y = f[1][cur], p0z = f[2][cur];
-        const float e1x = f[3][cur], e1y = f[4][cur], e1z = f[5][cur];
-        const float e2x = f[6][cur], e2y = f[7][cur], e2z = f[8][cur];
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-        const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-        const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-        const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        if (fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f &&
-            u + v <= 1.0f && t > kTMin && t < best) {
-          best = t;
-          best_tri = (link >> 21) & 1023;
-          if (kAnyHit) break;  // the first accepted triangle ends the walk
+  using L = Layout<kAos>;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  int cb = 1;        // the buffer the last walked tile read
+  int hc = -1;       // the subtree in (or on its way to) buffer cb
+  int ho = -1;       // and in buffer cb ^ 1
+  int k = blockIdx.x * chunk;
+  while (k < n_tiles) {
+    int nk = k + 1;  // this block's next tile
+    if (nk % chunk == 0) nk += (gridDim.x - 1) * chunk;
+    const int sid = sid_blocks[k];
+    bool on[kPairsPerThread];
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < kPairsPerThread; ++h) {
+      on[h] = active[k * kTile + h * kBottomThreads + threadIdx.x] > 0;
+      any |= on[h];
+    }
+    // Also the barrier after the last tile's reads of its buffer.
+    any = __syncthreads_or(any) && sid < n_sub;
+    if (any) {
+      if (hc != sid) {  // walk from the other buffer
+        cb ^= 1;
+        const int h = hc;
+        hc = ho;
+        ho = h;
+        if (hc != sid) {
+          cp_async_wait<0>();  // a copy ahead for a tile that was skipped
+          L::stage(smem + cb * L::kFloats,
+                   sub + static_cast<size_t>(sid) * kTile, sub_stride);
+          cp_async_commit();
+          hc = sid;
         }
-        cur = miss_id;  // a triangle entry holds its next id in both slots
+      }
+      const int nsid = nk < n_tiles ? sid_blocks[nk] : n_sub;
+      if (nsid < n_sub && nsid != sid && ho != nsid) {
+        // Buffer cb ^ 1 was last read before the barrier above.
+        L::stage(smem + (cb ^ 1) * L::kFloats,
+                 sub + static_cast<size_t>(nsid) * kTile, sub_stride);
+        cp_async_commit();
+        ho = nsid;
+        cp_async_wait<1>();
       } else {
-        float tn, tf;
-        slab(f[0][cur], f[1][cur], f[2][cur], f[3][cur], f[4][cur], f[5][cur],
-             ox, oy, oz, ix, iy, iz, &tn, &tf);
-        cur = (tf >= fmaxf(tn, 0.0f) && tn < best) ? hit_id : miss_id;
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    const float* buf = smem + cb * L::kFloats;
+    const int base = kPerRay && any ? tri_base[sid] : 0;
+#pragma unroll
+    for (int h = 0; h < kPairsPerThread; ++h) {
+      const int p = k * kTile + h * kBottomThreads + threadIdx.x;
+      const int r = kPerRay ? (on[h] && any ? pair_ray[p] : 0) : p;
+      float best = 0.0f;
+      int tri = -1;
+      if (!kPerRay || (on[h] && any)) best = tmax[r];
+      if (on[h] && any) {
+        tri = walk<kAnyHit, kAos>(buf, ro[3 * r], ro[3 * r + 1],
+                                  ro[3 * r + 2], rd[3 * r], rd[3 * r + 1],
+                                  rd[3 * r + 2], best, capped, max_steps);
+      }
+      if (!kPerRay) {
+        t_out[p] = best;
+        tri_out[p] = tri;
+      } else if (tri >= 0) {
+        const unsigned long long key =
+            (static_cast<unsigned long long>(__float_as_uint(best)) << 32) |
+            static_cast<unsigned>(0x7FFFFFFF - (base + tri));
+        atomicMin(hit_out + r, key);
       }
     }
+    k = nk;
   }
-  t_out[i] = best;
-  tri_out[i] = best_tri;
+  cp_async_wait<0>();  // a copy ahead of a tile that was skipped
+}
+
+template <bool kAnyHit, bool kPerRay>
+int launch_bottom(const int32_t* sid, int n_tiles, int n_sub, int chunk,
+                  const float* sub, int sub_stride, const int32_t* pair_ray,
+                  const float* ro, const float* rd, const float* tmax,
+                  const int32_t* active, const int32_t* tri_base, float* t,
+                  int32_t* tri, unsigned long long* hit, int32_t* capped,
+                  int max_steps, cudaStream_t s) {
+  constexpr bool kAos = E7_AOS != 0;
+  auto kernel = lane_bottom_kernel<kAnyHit, kPerRay, kAos>;
+  const int smem = 2 * Layout<kAos>::kFloats * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kBottomThreads, smem);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int blocks = sms * per_sm;
+  // chunk <= 0: one run of consecutive tiles a block.
+  if (chunk <= 0) chunk = (n_tiles + blocks - 1) / blocks;
+  const int n_chunks = (n_tiles + chunk - 1) / chunk;
+  if (n_chunks < blocks) blocks = n_chunks;
+  kernel<<<blocks, kBottomThreads, smem, s>>>(
+      sid, n_tiles, n_sub, chunk, sub, sub_stride, pair_ray, ro, rd, tmax,
+      active, tri_base, t, tri, hit, capped, max_steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -218,34 +427,43 @@ extern "C" int lane_top(const void* top, int top_stride, const void* ro,
   return static_cast<int>(cudaGetLastError());
 }
 
-// sid_blocks (n_pairs / 1024,) i32; sub: (11, sub_stride) f32 with
-// sub_stride = (S + 1) * 1024; ro, rd (n_pairs, 3) f32; tmax (n_pairs,)
-// f32; active (n_pairs,) i32; t (n_pairs,) f32; tri (n_pairs,) i32;
-// capped: one i32 counter. n_pairs is a multiple of 1024.
-extern "C" int lane_bottom(const void* sid_blocks, const void* sub,
-                           int sub_stride, const void* ro, const void* rd,
-                           const void* tmax, const void* active, void* t_out,
-                           void* tri_out, void* capped, int n_pairs,
-                           int max_steps, int any_hit, void* stream) {
-  if (n_pairs <= 0) return 0;
-  if (n_pairs % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_pairs / kBottomThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// sid_blocks (n_tiles,) i32, the subtree of each 1,024-pair tile (>=
+// n_sub: a dump tile); sub: (11, sub_stride) f32 with sub_stride =
+// (n_sub + 1) * 1024, 16-byte aligned; active (n_tiles * 1024,) i32;
+// capped: one i32 counter; chunk: consecutive tiles a block takes at a
+// time (<= 0: one run a block).
+// Per pair (per_ray == 0): ro, rd (n_pairs, 3) f32 and tmax (n_pairs,)
+// f32 at the pair slots; writes t (n_pairs,) f32, tri (n_pairs,) i32
+// (tri_local, -1 on a miss); pair_ray, tri_base, hit unused.
+// Per ray (per_ray != 0): pair_ray (n_pairs,) i32; ro, rd (R, 3) f32 and
+// tmax (R,) f32 by ray; tri_base (n_sub + 1,) i32; hit (R,) u64, set to
+// 2^63 - 1 (no hit) before the launch; t, tri unused.
+extern "C" int lane_bottom(const void* sid_blocks, int n_tiles, int n_sub,
+                           int chunk, const void* sub, int sub_stride,
+                           const void* pair_ray, const void* ro,
+                           const void* rd, const void* tmax,
+                           const void* active, const void* tri_base,
+                           void* t_out, void* tri_out, void* hit,
+                           void* capped, int max_steps, int any_hit,
+                           int per_ray, void* stream) {
+  if (n_tiles <= 0) return 0;
   auto* sid = static_cast<const int32_t*>(sid_blocks);
   auto* tab = static_cast<const float*>(sub);
+  auto* pr = static_cast<const int32_t*>(pair_ray);
   auto* o = static_cast<const float*>(ro);
   auto* d = static_cast<const float*>(rd);
   auto* tm = static_cast<const float*>(tmax);
   auto* act = static_cast<const int32_t*>(active);
+  auto* base = static_cast<const int32_t*>(tri_base);
   auto* t = static_cast<float*>(t_out);
   auto* tri = static_cast<int32_t*>(tri_out);
+  auto* h = static_cast<unsigned long long*>(hit);
   auto* cap = static_cast<int32_t*>(capped);
-  if (any_hit) {
-    lane_bottom_kernel<true><<<grid, kBottomThreads, 0, s>>>(
-        sid, tab, sub_stride, o, d, tm, act, t, tri, cap, max_steps);
-  } else {
-    lane_bottom_kernel<false><<<grid, kBottomThreads, 0, s>>>(
-        sid, tab, sub_stride, o, d, tm, act, t, tri, cap, max_steps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* fn = any_hit ? (per_ray ? launch_bottom<true, true>
+                                : launch_bottom<true, false>)
+                     : (per_ray ? launch_bottom<false, true>
+                                : launch_bottom<false, false>);
+  return fn(sid, n_tiles, n_sub, chunk, tab, sub_stride, pr, o, d, tm, act,
+            base, t, tri, h, cap, max_steps, s);
 }

@@ -3,10 +3,9 @@
 // Replaces the TPU kernel loupiote_tpu/ops/pallas_wide.py::_wide_kernel
 // (launched by _wide_trace, wrapped by intersect_wide / occluded_wide).
 // It computes what that kernel computes, not how: one thread per ray,
-// a private stack in local memory, no 128-lane sub-packets, no deferred
-// leaf flushes. The plain torch twin is
-// loupiote_tpu_torch/ops/wide.py::wide_trace_plain; both follow the same
-// visit order, so they agree bit for bit, ties included.
+// no 128-lane sub-packets, no deferred leaf flushes. The plain torch twin
+// is loupiote_tpu_torch/ops/wide.py::wide_trace_plain; both follow the
+// same visit order, so they agree bit for bit, ties included.
 //
 // Table (loupiote_tpu_torch/accel/wide.py): rows of 128 floats. An
 // internal row holds child c in floats [16c, 16c+7): min.xyz, max.xyz,
@@ -16,27 +15,56 @@
 // Pointers are read with __float_as_int only: a -1 pointer is a NaN bit
 // pattern that any float operation could canonicalise.
 //
+// Visit order (the twin's): at an internal row the hit children are
+// ranked by priority p = slot ^ octant(ray direction); the first goes
+// next, the others wait on the stack and are popped in priority order
+// after the first one's subtree is done.
+//
 // What bounds it on an H100: each step is a dependent load of one
 // 512-byte row (the next row's address comes out of this one), then a
-// few dozen flops. Rays of a warp diverge to different rows and different
-// step counts. So it is latency and divergence bound, not flop or
-// bandwidth bound: the arch-260k table (15,638,528 bytes as chip_smoke.py
-// prints it) fits the 50 MB L2, and the rays of a coherent warp share
-// each row load in L1. The design answers latency only with occupancy:
-// 128 threads a block, one wave of up to ~2M rays. Coherence comes from
-// the callers, which sort rays between bounces.
+// few dozen flops. Rays of a warp diverge to different rows and step
+// counts. So latency and divergence bound it, not flops or bytes: the
+// arch-260k table (15,638,528 bytes) fits the 50 MB L2, and the rays of
+// a coherent warp share each row load in L1. What the design does:
+//  - One stack entry per level, not per child: the parent row and the
+//    mask of its hit children not yet visited, in one 32-bit word
+//    (row << 8 | mask by priority). A pop takes the mask's lowest bit and
+//    re-reads that child's pointer from the parent row, most likely
+//    still in L1. The stack needs the tree's depth in internal rows
+//    (ops/wide.py computes it from the table), so it lives in shared
+//    memory, depth x 128 x 4 bytes a block, and the kernel has no local
+//    stack frame.
+//  - Warps that refill: the grid holds only as many blocks as are
+//    resident; each warp takes the next 32 rays from a counter when its
+//    rays are done, so a warp is held only by its own longest ray.
+//  - No per-child pointer array: the nearest hit child's pointer is kept
+//    while the row is tested, the others are re-read on a pop.
+// Coherence comes from the callers, which sort rays between bounces.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py). --fmad=false keeps every product
 // separately rounded as in the reference, so t agrees within 2 ulp and
-// every edge decision is the same.
+// every edge decision is the same. K1_MIN_BLOCKS (-D) sets the
+// __launch_bounds__ minimum of resident blocks; scripts/traversal_variants.py
+// builds other values to time them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef K1_MIN_BLOCKS
+#define K1_MIN_BLOCKS 8
+#endif
+#ifndef K1_WHILE
+#define K1_WHILE 0
+#endif
+#ifndef K1_CHILD_STACK
+#define K1_CHILD_STACK 0
+#endif
+
 namespace {
 
-constexpr int kStackMax = 64;  // ops/wide.py raises if scene.wide_stack > 64
+constexpr int kThreads = 128;
+constexpr int kDepthMax = 32;  // ops/wide.py: DEPTH_MAX
 constexpr int kLeafTag = 1 << 30;
 constexpr int kLeafMask = kLeafTag - 1;
 constexpr int kRow = 128;
@@ -47,19 +75,126 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / s;
 }
 
+// Child c's pointer in internal row r.
+__device__ __forceinline__ int child_ptr(const float* rows, int r, int c) {
+  return __float_as_int(
+      __ldg(rows + static_cast<size_t>(r) * kRow + 16 * c + 6));
+}
+
+// A leaf row's triangles against the ray, in slot order; strict t < best
+// keeps the earlier triangle on a tie. Returns true where any-hit mode
+// found a blocker.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(128)
-    wide_traverse_kernel(const float* __restrict__ rows,
-                         const float* __restrict__ ro,
-                         const float* __restrict__ rd,
-                         const float* __restrict__ tmax,
-                         const uint8_t* __restrict__ active,
-                         float* __restrict__ t_out,
-                         int32_t* __restrict__ tri_out,
-                         int32_t* __restrict__ capped, int n_rays,
-                         int max_steps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+__device__ __forceinline__ bool leaf_row(const float* row, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float& best,
+                                         int& best_tri) {
+  const int fc = __float_as_int(__ldg(row + 126));
+  const int count = fc & 15;
+  const int first = fc >> 4;
+  for (int k = 0; k < count; ++k) {
+    const float* tr = row + 9 * k;
+    const float p0x = __ldg(tr + 0), p0y = __ldg(tr + 1), p0z = __ldg(tr + 2);
+    const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
+    const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
+    // Moller-Trumbore, products in the reference's order.
+    const float pvx = dy * e2z - dz * e2y;
+    const float pvy = dz * e2x - dx * e2z;
+    const float pvz = dx * e2y - dy * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+    const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < best) {
+      if (kAnyHit) return true;
+      best = t;
+      best_tri = first + k;
+    }
+  }
+  return false;
+}
+
+// An internal row: box-test the 8 children against bound, push the hit
+// ones but the nearest as one entry, return the nearest (-1: none hit).
+__device__ __forceinline__ int internal_row(const float* rows, int cur,
+                                            float ox, float oy, float oz,
+                                            float ix, float iy, float iz,
+                                            int oct, float bound,
+                                            uint32_t* stack, int& sp) {
+  const float4* r4 =
+      reinterpret_cast<const float4*>(rows + static_cast<size_t>(cur) * kRow);
+  unsigned pmask = 0;  // hit children, bit p = slot p ^ oct
+  int near_p = 8;      // the first of them and its pointer
+  int next = -1;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 a = __ldg(r4 + 4 * c);      // min.xyz, max.x
+    const float4 b = __ldg(r4 + 4 * c + 1);  // max.yz, ptr, pad
+    const int ptr = __float_as_int(b.z);
+    const float t1x = (a.x - ox) * ix, t2x = (a.w - ox) * ix;
+    const float t1y = (a.y - oy) * iy, t2y = (b.x - oy) * iy;
+    const float t1z = (a.z - oz) * iz, t2z = (b.y - oz) * iz;
+    const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                           fminf(t1z, t2z));
+    const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                           fmaxf(t1z, t2z));
+    const int p = c ^ oct;
+    if (ptr != -1 && tf >= fmaxf(tn, 0.0f) && tn < bound) {
+      pmask |= 1u << p;
+      if (p < near_p) {
+        near_p = p;
+        next = ptr;
+      }
+    }
+  }
+  pmask &= pmask - 1;  // the rest wait as one entry
+#if K1_CHILD_STACK
+  // One entry a waiting child, pushed far to near (the first design).
+  for (int p = 7; p >= 0; --p) {
+    if ((pmask >> p) & 1u) stack[sp++] = child_ptr(rows, cur, p ^ oct);
+  }
+#else
+  if (pmask) stack[kThreads * sp++] = (cur << 8) | pmask;
+#endif
+  return next;
+}
+
+// The next row from the stack: the top entry's first waiting child,
+// whose pointer is re-read from the parent row (-1: the stack is empty).
+__device__ __forceinline__ int pop(const float* rows, uint32_t* stack,
+                                   int& sp, int oct) {
+  if (sp == 0) return -1;
+#if K1_CHILD_STACK
+  return static_cast<int>(stack[--sp]);
+#endif
+  uint32_t* top = stack + kThreads * (sp - 1);
+  const uint32_t e = *top;
+  const uint32_t mask = e & 0xFFu;
+  const uint32_t rest = mask & (mask - 1);
+  if (rest) {
+    *top = (e & ~0xFFu) | rest;
+  } else {
+    --sp;
+  }
+  return child_ptr(rows, static_cast<int>(e >> 8), (__ffs(mask) - 1) ^ oct);
+}
+
+// One ray, start to end. stack: this thread's entries, entry d at
+// stack[d * kThreads]. With K1_WHILE a ray walks internal rows until it
+// reaches a leaf row before it tests one, so the lanes of a warp test
+// their leaf rows together; each ray's own order of rows is the same.
+template <bool kAnyHit>
+__device__ __forceinline__ void trace_ray(
+    const float* __restrict__ rows, const float* __restrict__ ro,
+    const float* __restrict__ rd, const float* __restrict__ tmax,
+    const uint8_t* __restrict__ active, float* __restrict__ t_out,
+    int32_t* __restrict__ tri_out, int32_t* __restrict__ capped,
+    uint32_t* stack, int i, int max_steps) {
   const float t0 = tmax[i];
   float best = t0;
   int best_tri = -1;
@@ -71,107 +206,138 @@ __global__ void __launch_bounds__(128)
     // Children sit at octant-coded slots: visiting slot c ^ oct in
     // ascending order goes roughly near-to-far for this ray.
     const int oct = (dx < 0.0f) | ((dy < 0.0f) << 1) | ((dz < 0.0f) << 2);
-    int stack[kStackMax];
     int sp = 0;
-    int cur = 0;
-    for (int steps = 0;; ++steps) {
-      if (steps == max_steps) {  // the reference's silent step bound
+    int cur = 0;  // -1: done
+#if K1_CHILD_STACK
+    uint32_t local_stack[64];
+    stack = local_stack;
+#endif
+    int steps = 0;
+#if K1_WHILE
+    while (cur >= 0) {
+      while (cur >= 0 && !(cur & kLeafTag)) {
+        if (steps++ == max_steps) {  // the reference's silent step bound
+          atomicAdd(capped, 1);
+          cur = -1;
+          break;
+        }
+        const int next = internal_row(rows, cur, ox, oy, oz, ix, iy, iz, oct,
+                                      kAnyHit ? t0 : best, stack, sp);
+        cur = next >= 0 ? next : pop(rows, stack, sp, oct);
+      }
+      if (cur < 0) break;
+      if (steps++ == max_steps) {
         atomicAdd(capped, 1);
         break;
       }
-      const float* row = rows + static_cast<size_t>(cur & kLeafMask) * kRow;
-      int next = -1;  // -1: pop the stack
-      if (cur & kLeafTag) {
-        const int fc = __float_as_int(__ldg(row + 126));
-        const int count = fc & 15;
-        const int first = fc >> 4;
-        for (int k = 0; k < count; ++k) {
-          const float* tr = row + 9 * k;
-          const float p0x = __ldg(tr + 0), p0y = __ldg(tr + 1),
-                      p0z = __ldg(tr + 2);
-          const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4),
-                      e1z = __ldg(tr + 5);
-          const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7),
-                      e2z = __ldg(tr + 8);
-          // Moller-Trumbore, products in the reference's order.
-          const float pvx = dy * e2z - dz * e2y;
-          const float pvy = dz * e2x - dx * e2z;
-          const float pvz = dx * e2y - dy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-          const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-          const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-          const float qvx = tvy * e1z - tvz * e1y;
-          const float qvy = tvz * e1x - tvx * e1z;
-          const float qvz = tvx * e1y - tvy * e1x;
-          const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-          const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-          // Strict t < best keeps the earlier triangle on a tie.
-          if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin &&
-              t < best) {
-            if (kAnyHit) {
-              blocked = true;
-              break;
-            }
-            best = t;
-            best_tri = first + k;
-          }
-        }
-        if (kAnyHit && blocked) break;
-      } else {
-        const float bound = kAnyHit ? t0 : best;
-        const float4* r4 = reinterpret_cast<const float4*>(row);
-        int ptrs[8];
-        unsigned hit = 0;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float4 a = __ldg(r4 + 4 * c);      // min.xyz, max.x
-          const float4 b = __ldg(r4 + 4 * c + 1);  // max.yz, ptr, pad
-          const int ptr = __float_as_int(b.z);
-          ptrs[c] = ptr;
-          const float t1x = (a.x - ox) * ix, t2x = (a.w - ox) * ix;
-          const float t1y = (a.y - oy) * iy, t2y = (b.x - oy) * iy;
-          const float t1z = (a.z - oz) * iz, t2z = (b.y - oz) * iz;
-          const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                                 fminf(t1z, t2z));
-          const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                                 fmaxf(t1z, t2z));
-          if (ptr != -1 && tf >= fmaxf(tn, 0.0f) && tn < bound) hit |= 1u << c;
-        }
-        // Push the hit children far-to-near; the nearest one is visited
-        // next without a round trip through the stack.
-        for (int p = 7; p >= 0; --p) {
-          const int c = p ^ oct;
-          if (!((hit >> c) & 1u)) continue;
-          if (next >= 0) stack[sp++] = next;
-          next = ptrs[c];
-        }
+      if (leaf_row<kAnyHit>(rows + static_cast<size_t>(cur & kLeafMask) * kRow,
+                            ox, oy, oz, dx, dy, dz, best, best_tri)) {
+        blocked = true;
+        break;
       }
-      if (next >= 0) {
-        cur = next;
-      } else {
-        if (sp == 0) break;
-        cur = stack[--sp];
-      }
+      cur = pop(rows, stack, sp, oct);
     }
+#else
+    while (cur >= 0) {
+      if (steps++ == max_steps) {  // the reference's silent step bound
+        atomicAdd(capped, 1);
+        break;
+      }
+      int next = -1;
+      if (cur & kLeafTag) {
+        if (leaf_row<kAnyHit>(
+                rows + static_cast<size_t>(cur & kLeafMask) * kRow, ox, oy,
+                oz, dx, dy, dz, best, best_tri)) {
+          blocked = true;
+          break;
+        }
+      } else {
+        next = internal_row(rows, cur, ox, oy, oz, ix, iy, iz, oct,
+                            kAnyHit ? t0 : best, stack, sp);
+      }
+      cur = next >= 0 ? next : pop(rows, stack, sp, oct);
+    }
+#endif
   }
   t_out[i] = best;
   tri_out[i] = kAnyHit ? (blocked ? 1 : 0) : best_tri;
 }
 
+// refill != 0: each warp takes 32 rays at a time from *next_ray (zeroed
+// by the caller) until none are left. refill == 0: one warp per 32 rays
+// of a grid that covers them all.
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads, K1_MIN_BLOCKS)
+    wide_traverse_kernel(const float* __restrict__ rows,
+                         const float* __restrict__ ro,
+                         const float* __restrict__ rd,
+                         const float* __restrict__ tmax,
+                         const uint8_t* __restrict__ active,
+                         float* __restrict__ t_out,
+                         int32_t* __restrict__ tri_out,
+                         int32_t* __restrict__ capped,
+                         int32_t* __restrict__ next_ray, int refill,
+                         int n_rays, int max_steps) {
+  extern __shared__ uint32_t stacks[];  // [depth][kThreads]
+  uint32_t* stack = stacks + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int base = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  for (bool more = true; more;) {
+    if (refill) {
+      int b = 0;
+      if (lane == 0) b = atomicAdd(next_ray, 32);
+      base = __shfl_sync(0xFFFFFFFFu, b, 0);
+    } else {
+      more = false;
+    }
+    if (base >= n_rays) break;
+    const int i = base + lane;
+    if (i < n_rays) {
+      trace_ray<kAnyHit>(rows, ro, rd, tmax, active, t_out, tri_out, capped,
+                         stack, i, max_steps);
+    }
+  }
+}
+
+template <bool kAnyHit>
+int launch(const float* rows, const float* ro, const float* rd,
+           const float* tmax, const uint8_t* active, float* t, int32_t* tri,
+           int32_t* capped, int32_t* next_ray, int refill, int n_rays,
+           int max_steps, int depth, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(depth) * kThreads * 4;
+  int blocks = (n_rays + kThreads - 1) / kThreads;
+  if (refill) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, wide_traverse_kernel<kAnyHit>, kThreads, smem);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (sms * per_sm < blocks) blocks = sms * per_sm;
+  }
+  wide_traverse_kernel<kAnyHit><<<blocks, kThreads, smem, s>>>(
+      rows, ro, rd, tmax, active, t, tri, capped, next_ray, refill, n_rays,
+      max_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point (ctypes). Pointers come from tensor.data_ptr(); the
-// stream is torch.cuda.current_stream().cuda_stream. Returns
-// cudaGetLastError() after the launch; allocates nothing, does not sync.
+// stream is torch.cuda.current_stream().cuda_stream. next_ray: one int32
+// set to 0 before the launch (read only when refill != 0). depth: the
+// table's depth in internal rows, at most kDepthMax; every row index
+// below 2^24. Returns cudaGetLastError() after the launch; allocates
+// nothing, does not sync.
 extern "C" int wide_traverse(const void* rows, const void* ro, const void* rd,
                              const void* tmax, const void* active, void* t_out,
-                             void* tri_out, void* capped, int n_rays,
-                             int max_steps, int any_hit, void* stream) {
+                             void* tri_out, void* capped, void* next_ray,
+                             int refill, int n_rays, int max_steps,
+                             int depth, int any_hit, void* stream) {
   if (n_rays <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n_rays + 127) / 128);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (depth < 1 || depth > kDepthMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto* r = static_cast<const float*>(rows);
   auto* o = static_cast<const float*>(ro);
   auto* d = static_cast<const float*>(rd);
@@ -180,14 +346,10 @@ extern "C" int wide_traverse(const void* rows, const void* ro, const void* rd,
   auto* t = static_cast<float*>(t_out);
   auto* tri = static_cast<int32_t*>(tri_out);
   auto* cap = static_cast<int32_t*>(capped);
-  if (any_hit) {
-    wide_traverse_kernel<true>
-        <<<grid, block, 0, s>>>(r, o, d, tm, act, t, tri, cap, n_rays,
-                                max_steps);
-  } else {
-    wide_traverse_kernel<false>
-        <<<grid, block, 0, s>>>(r, o, d, tm, act, t, tri, cap, n_rays,
-                                max_steps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto* nxt = static_cast<int32_t*>(next_ray);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return any_hit ? launch<true>(r, o, d, tm, act, t, tri, cap, nxt, refill,
+                                n_rays, max_steps, depth, s)
+                 : launch<false>(r, o, d, tm, act, t, tri, cap, nxt, refill,
+                                 n_rays, max_steps, depth, s);
 }

@@ -5,14 +5,19 @@ Counterpart of ``loupiote_tpu/ops/pallas_wide.py`` (``intersect_wide``,
 ``occluded_wide``). ``wide_trace`` launches the CUDA kernel for CUDA
 tensors and runs ``wide_trace_plain`` for CPU tensors; there is no
 fallback from one to the other. Both visit rows in the same order
-(nearest child next, the other hit children pushed far-to-near by
-``slot ^ octant(ray direction)``), so they return the same hits.
+(nearest hit child next, the others later in ``slot ^ octant(ray
+direction)`` order), so they return the same hits. The twin keeps one
+stack entry per waiting child; the kernel one per level (the parent row
+and the mask of its waiting children), so it needs the table's depth,
+which ``table_depth`` computes on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -20,7 +25,9 @@ from ..accel.wide import LEAF_MASK, LEAF_TAG
 from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
                         moller_trumbore, on_card, ray_args, recompute_uv)
 
-STACK_MAX = 64  # csrc/wide_traverse.cu: kStackMax
+DEPTH_MAX = 32  # csrc/wide_traverse.cu: kDepthMax
+ROWS_MAX = 1 << 24  # a stack entry holds a row index in 24 bits
+REFILL = 1  # warps take new rays from a counter (csrc/wide_traverse.cu)
 
 # Launches of K1 by mode: each wrapper call that launches the kernel adds
 # one. chip_smoke.py zeroes them before the main path and reads them after.
@@ -179,32 +186,97 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
     return t_best, tri
 
 
-def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
+def depth_of_pointers(ptr: np.ndarray) -> int:
+    """Internal rows on the longest root-to-leaf path of a wide table,
+    from its child pointers ``ptr`` (rows, 8) int32 (lanes 6::16 of each
+    row; only internal rows are read). The kernel's per-level stack holds
+    at most this many entries. Raises on a pointer out of the table or a
+    cycle."""
+    n = ptr.shape[0]
+    level = np.zeros(1, np.int64)
+    depth = 0
+    while level.size:
+        depth += 1
+        if depth > n:
+            raise ValueError("trav_rows: the child pointers form a cycle")
+        ch = ptr[level].reshape(-1).astype(np.int64)
+        ch = ch[(ch != -1) & ((ch & LEAF_TAG) == 0)]
+        if ch.size and (ch.min() < 0 or ch.max() >= n):
+            raise ValueError("trav_rows: a child pointer leaves the table")
+        level = np.unique(ch)
+    return depth
+
+
+_depths: dict = {}  # id(trav_rows) -> (its version, its depth)
+
+
+def table_depth(trav_rows: torch.Tensor) -> int:
+    """``depth_of_pointers`` of a (rows, 128) table, computed on the host
+    once per table (and again after the table is written in place)."""
+    key = id(trav_rows)
+    known = _depths.get(key)
+    if known is not None and known[0] == trav_rows._version:
+        return known[1]
+    ptr = trav_rows.view(torch.int32)[:, 6::16].cpu().numpy()
+    depth = depth_of_pointers(ptr)
+    if known is None:
+        weakref.finalize(trav_rows, _depths.pop, key, None)
+    _depths[key] = (trav_rows._version, depth)
+    return depth
+
+
+def kernel_depth(trav_rows: torch.Tensor) -> int:
+    """The depth K1 runs with; raises for a table it cannot hold: 2^24
+    rows or more, or a depth beyond ``DEPTH_MAX``."""
+    if trav_rows.dim() != 2 or trav_rows.shape[1] != 128:
+        raise ValueError("trav_rows: need shape (rows, 128)")
+    if trav_rows.shape[0] >= ROWS_MAX:
+        raise ValueError(f"trav_rows has {trav_rows.shape[0]} rows; the "
+                         f"kernel's stack entries hold row indices below "
+                         f"{ROWS_MAX}")
+    depth = table_depth(trav_rows)
+    if depth > DEPTH_MAX:
+        raise ValueError(f"scene needs a traversal stack of {depth} levels; "
+                         f"the kernel holds {DEPTH_MAX}")
+    return depth
+
+
+def call_kernel(fn, trav_rows, ro, rd, tmax, active, any_hit, wide_end,
+                depth, refill=REFILL):
+    """Launch ``fn`` (the C entry point ``wide_traverse``) on checked CUDA
+    tensors; returns (t, tri). Raises on a refused launch."""
     dev = ro.device
     R = ro.shape[0]
-    if wide_stack > STACK_MAX:
-        raise ValueError(f"scene needs a traversal stack of {wide_stack} "
-                         f"entries; the kernel holds {STACK_MAX}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    tri = torch.empty(R, dtype=torch.int32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
+             _capped.tensor(dev).data_ptr(), next_ray.data_ptr(), int(refill),
+             R, max_steps(wide_end), depth, int(any_hit),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
+    return t, tri
+
+
+def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
+    """K1 on CUDA tensors. ``wide_stack`` sizes the twin's per-child
+    stack; the kernel's per-level stack is sized by ``kernel_depth``."""
+    dev = ro.device
+    R = ro.shape[0]
+    depth = kernel_depth(trav_rows)
     check_args(dev, (("trav_rows", trav_rows, torch.float32, None),
                      ("ro", ro, torch.float32, (R, 3)),
                      ("rd", rd, torch.float32, (R, 3)),
                      ("tmax", tmax, torch.float32, (R,)),
                      ("active", active, torch.bool, (R,))))
-    if trav_rows.dim() != 2 or trav_rows.shape[1] != 128:
-        raise ValueError("trav_rows: need shape (rows, 128)")
-    lib = _build.load("wide_traverse")
-    fn = lib.wide_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    tri = torch.empty(R, dtype=torch.int32, device=dev)
-    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             _capped.tensor(dev).data_ptr(), R, max_steps(wide_end),
-             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
+    t, tri = call_kernel(_build.load("wide_traverse").wide_traverse,
+                         trav_rows, ro, rd, tmax, active, any_hit, wide_end,
+                         depth)
     global launches_closest, launches_anyhit
     if any_hit:
         launches_anyhit += 1

@@ -1,14 +1,21 @@
 """Phase 2 of the treelet traversal: kernel E7 (``csrc/treelet_traverse.cu``,
-``lane_bottom``) and its plain torch twin.
+``lane_bottom``) and its plain torch twins.
 
 Counterpart of ``experiments/treelet/lane_bottom.py`` (``lane_bottom_trace``,
-the Pallas ``_lane_bottom_kernel``). Pairs come in blocks of ``TILE``; all
-pairs of block b walk subtree ``sid[b]``. Each pair walks the threaded
+the Pallas ``_lane_bottom_kernel``) and of the per-ray combine of
+``experiments/treelet/pipeline.py``. Pairs come in tiles of ``TILE``; all
+pairs of tile b walk subtree ``sid[b]``. Each pair walks the threaded
 subtree from entry 0: a node entry's box test against the pair's best t
 goes to ``hit_id`` or ``miss_id``; a triangle entry runs Moller-Trumbore
 (accepted when T_MIN < t < best t, |det| > 1e-12, u, v >= 0, u + v <= 1)
 and records its subtree-local ordinal. In any-hit mode the first accepted
 triangle ends the walk. Step bound 2048; pairs that reach it are counted.
+
+Two entry points share the kernel: ``lane_bottom_trace`` returns each
+pair's (t, tri_local), the reference's contract; ``lane_bottom_rays``
+returns one packed word a ray, the least t over its pairs and, among
+equal t, the largest global triangle id (``pack_hits``; the kernel's
+64-bit atomicMin), which ``unpack_hits`` turns into (t, tri).
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ from .build import SUB_END, TILE
 
 MAX_STEPS = 2048
 WALK_FIELDS = 10  # f0..f9; f10 (the global id) is host-side only
+NO_HIT = (1 << 63) - 1  # a ray's packed word before any pair hits
+# Consecutive tiles a CUDA block walks before it jumps a grid ahead
+# (csrc/treelet_traverse.cu; 0: one run of tiles a block).
+CHUNK_TILES = 2
 
 # Launches of E7 by mode on the card; chip_smoke.py zeroes them before the
 # main path and reads them after.
@@ -119,6 +130,71 @@ def lane_bottom_plain(sid_blocks, sub_fields, ro, rd, tmax, active,
     return best_t, best_tri
 
 
+def pack_hits(t: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """int64 words ``float_bits(t) << 32 | 0x7FFFFFFF - tri`` of hits with
+    t > 0 and global ids tri >= 0: the least word is the least t and,
+    among equal t, the largest id (the reference's combine rule)."""
+    return ((t.view(torch.int32).to(torch.int64) << 32)
+            | (0x7FFFFFFF - tri.to(torch.int64)))
+
+
+def unpack_hits(hit: torch.Tensor, t0: torch.Tensor):
+    """(t, tri) of packed words; ``NO_HIT`` gives (t0, -1)."""
+    miss = hit == NO_HIT
+    t = (hit >> 32).to(torch.int32).view(torch.float32)
+    tri = (0x7FFFFFFF - (hit & 0xFFFFFFFF)).to(torch.int32)
+    return torch.where(miss, t0, t), torch.where(miss, -1, tri)
+
+
+def lane_bottom_rays_plain(sid_blocks, sub_fields, sub_tri_base, pair_ray,
+                           pair_on, ro, rd, t0, any_hit: bool,
+                           stats: dict | None = None):
+    """Plain version of the per-ray epilogue: gather each pair's ray,
+    ``lane_bottom_plain``, then one packed word a ray by an int64
+    ``scatter_reduce`` amin (exact, in any order). Returns (R,) int64."""
+    pr = pair_ray.to(torch.int64)
+    pt, ptri = lane_bottom_plain(sid_blocks, sub_fields, ro[pr].contiguous(),
+                                 rd[pr].contiguous(), t0[pr].contiguous(),
+                                 pair_on, any_hit, stats)
+    base = torch.repeat_interleave(sub_tri_base[sid_blocks.to(torch.int64)],
+                                   TILE)
+    key = torch.where((ptri >= 0) & (pair_on > 0), pack_hits(pt, base + ptri),
+                      NO_HIT)
+    hit = torch.full((ro.shape[0],), NO_HIT, dtype=torch.int64,
+                     device=ro.device)
+    return hit.scatter_reduce(0, pr, key, "amin")
+
+
+def _call(sid_blocks, sub_fields, ray_args, outs, any_hit: bool,
+          per_ray: bool, chunk: int = CHUNK_TILES, lib=None):
+    """Launch the C entry point ``lane_bottom`` (``lib``'s, default the
+    built ``csrc/treelet_traverse.cu``) on checked CUDA tensors.
+    ``ray_args``: (pair_ray or None, ro, rd, tmax, active, tri_base or
+    None); ``outs``: (t, tri, hit), None where the epilogue has none."""
+    dev = sid_blocks.device
+    tab = sub_fields.reshape(sub_fields.shape[0], -1)
+    if tab.data_ptr() % 16:
+        raise ValueError("sub_fields: need a 16-byte aligned table")
+    lib = lib or _build.load("treelet_traverse")
+    fn = lib.lane_bottom
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    ptrs = [0 if x is None else x.data_ptr() for x in (*ray_args, *outs)]
+    err = fn(sid_blocks.data_ptr(), sid_blocks.shape[0],
+             tab.shape[1] // TILE - 1, chunk, tab.data_ptr(), tab.shape[1],
+             *ptrs, _capped.tensor(dev).data_ptr(), MAX_STEPS, int(any_hit),
+             int(per_ray), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lane_bottom launch failed: CUDA error {err}")
+    global launches_closest, launches_anyhit
+    if any_hit:
+        launches_anyhit += 1
+    else:
+        launches_closest += 1
+
+
 def _launch(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit: bool):
     dev = ro.device
     P = ro.shape[0]
@@ -133,32 +209,61 @@ def _launch(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit: bool):
                      ("tmax", tmax, torch.float32, (P,)),
                      ("active", active, torch.int32, (P,))))
     if tab.shape[0] < WALK_FIELDS or tab.shape[1] % TILE:
-        raise ValueError("sub_fields: need shape (>= 10, S, 8, 128)")
-    lib = _build.load("treelet_traverse")
-    fn = lib.lane_bottom
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+        raise ValueError("sub_fields: need shape (>= 10, S + 1, 8, 128)")
     t = torch.empty(P, dtype=torch.float32, device=dev)
     tri = torch.empty(P, dtype=torch.int32, device=dev)
-    err = fn(sid_blocks.data_ptr(), tab.data_ptr(), tab.shape[1],
-             ro.data_ptr(), rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
-             t.data_ptr(), tri.data_ptr(), _capped.tensor(dev).data_ptr(), P,
-             MAX_STEPS, int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_bottom launch failed: CUDA error {err}")
-    global launches_closest, launches_anyhit
-    if any_hit:
-        launches_anyhit += 1
-    else:
-        launches_closest += 1
+    _call(sid_blocks, sub_fields, (None, ro, rd, tmax, active, None),
+          (t, tri, None), any_hit, per_ray=False)
     return t, tri
+
+
+def _launch_rays(sid_blocks, sub_fields, sub_tri_base, pair_ray, pair_on, ro,
+                 rd, t0, any_hit: bool):
+    dev = ro.device
+    P = pair_ray.shape[0]
+    R = ro.shape[0]
+    if P % TILE:
+        raise ValueError(f"lane_bottom: {P} pairs is not a multiple of "
+                         f"{TILE}")
+    tab = sub_fields.reshape(sub_fields.shape[0], -1)
+    check_args(dev, (("sid_blocks", sid_blocks, torch.int32, (P // TILE,)),
+                     ("sub_fields", tab, torch.float32, None),
+                     ("sub_tri_base", sub_tri_base, torch.int32,
+                      (tab.shape[1] // TILE,)),
+                     ("pair_ray", pair_ray, torch.int32, (P,)),
+                     ("pair_on", pair_on, torch.int32, (P,)),
+                     ("ro", ro, torch.float32, (R, 3)),
+                     ("rd", rd, torch.float32, (R, 3)),
+                     ("t0", t0, torch.float32, (R,))))
+    if tab.shape[0] < WALK_FIELDS or tab.shape[1] % TILE:
+        raise ValueError("sub_fields: need shape (>= 10, S + 1, 8, 128)")
+    hit = torch.full((R,), NO_HIT, dtype=torch.int64, device=dev)
+    _call(sid_blocks, sub_fields,
+          (pair_ray, ro, rd, t0, pair_on, sub_tri_base), (None, None, hit),
+          any_hit, per_ray=True)
+    return hit
+
+
+def lane_bottom_rays(sid_blocks, sub_fields, sub_tri_base, pair_ray,
+                     pair_on, ro, rd, t0, any_hit: bool = False):
+    """E7 with the per-ray epilogue on CUDA tensors, the plain version on
+    CPU tensors.
+
+    ``sid_blocks`` (P / TILE,) int32 subtree per tile; ``sub_fields``
+    (NUM_FIELDS, S + 1, 8, 128) f32; ``sub_tri_base`` (S + 1,) int32;
+    ``pair_ray``, ``pair_on`` (P,) int32, the ray of each pair slot and its
+    validity; ``ro``, ``rd`` (R, 3), ``t0`` (R,) ray data. Returns (R,)
+    int64 packed words (``unpack_hits``).
+    """
+    fn = _launch_rays if on_card(ro) else lane_bottom_rays_plain
+    return fn(sid_blocks, sub_fields, sub_tri_base, pair_ray, pair_on, ro,
+              rd, t0, any_hit)
 
 
 def lane_bottom_trace(sid_blocks, sub_fields, ro, rd, tmax, active,
                       any_hit: bool = False):
-    """E7 on CUDA tensors, the plain twin on CPU tensors.
+    """E7 with the per-pair epilogue on CUDA tensors, the plain twin on CPU
+    tensors.
 
     ``sid_blocks`` (P / TILE,) int32 subtree per block; ``sub_fields``
     (NUM_FIELDS, S + 1, 8, 128) f32; ``ro``, ``rd`` (P, 3) pair-ordered ray

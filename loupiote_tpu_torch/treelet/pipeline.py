@@ -10,9 +10,11 @@
                                 one stable torch.sort, a rank within runs
                                 and a padded scatter (the reference's
                                 ``xla`` binning);
-  phase 2  lane_bottom.py (E7)  every pair walks its subtree;
-  combine                       per-ray min of t over its pairs, the
-                                largest global id among equal t; rays
+  phase 2  lane_bottom.py (E7)  every pair walks its subtree and folds
+                                its hit into its ray's packed word: the
+                                least t over the ray's pairs, the largest
+                                global id among equal t;
+  combine                       the words unpacked to (t, tri); rays
                                 whose pending list filled or whose pairs
                                 did not fit the budget are traced again by
                                 the port's non-treelet dispatch.
@@ -28,11 +30,10 @@ from __future__ import annotations
 import torch
 
 from ..ops.bvh2 import bvh2_trace
-from ..ops.intersect import (T_FAR, DeviceCounter, Hit, _bvh2, ray_args,
-                             recompute_uv)
+from ..ops.intersect import DeviceCounter, Hit, _bvh2, ray_args, recompute_uv
 from ..ops.wide import wide_trace
 from .build import PEND_CAP, TILE
-from .lane_bottom import lane_bottom_trace
+from .lane_bottom import lane_bottom_rays, unpack_hits
 from .lane_top import lane_top_trace
 from .regroup import _no_mark, block_regroup
 
@@ -114,31 +115,18 @@ def _bin_pairs_sort(key, ray_of, fallback, *, R: int, S: int):
     return pair_ray[:P_pad], pair_sid[:P_pad], pair_on[:P_pad], fallback
 
 
-def _phase2_combine(td, ro, rd, t0, pair_ray, pair_sid, pair_on,
-                    sid_blocks, *, any_hit: bool, mark=_no_mark):
-    """Per-pair subtree walks, then per ray: the least t over its pairs
-    and, among pairs at that t, the largest global triangle id. Returns
+def _phase2_combine(td, ro, rd, t0, pair_ray, pair_on, sid_blocks, *,
+                    any_hit: bool, mark=_no_mark):
+    """Per-pair subtree walks and, per ray, the least t over its pairs and,
+    among pairs at that t, the largest global triangle id: E7 with its
+    per-ray epilogue (one packed word a ray), then the unpacking. Returns
     (t, tri)."""
-    R = ro.shape[0]
-    dev = ro.device
-    pr = pair_ray.to(torch.int64)
-    pro, prd, pt0 = (x[pr].contiguous() for x in (ro, rd, t0))
     mark("binning")
-    pt, ptri_local = lane_bottom_trace(sid_blocks, td.sub_fields, pro, prd,
-                                       pt0, pair_on.contiguous(),
-                                       any_hit=any_hit)
+    hit = lane_bottom_rays(sid_blocks, td.sub_fields, td.sub_tri_base,
+                           pair_ray, pair_on.contiguous(), ro, rd, t0,
+                           any_hit=any_hit)
     mark("E7")
-    hit_ok = (ptri_local >= 0) & (pair_on > 0)
-    pt = torch.where(hit_ok, pt, T_FAR)
-    tmin = torch.full((R,), T_FAR, dtype=torch.float32, device=dev)
-    tmin = tmin.scatter_reduce(0, pr, pt, "amin")
-    ptri = torch.where(hit_ok,
-                       td.sub_tri_base[pair_sid.to(torch.int64)] + ptri_local,
-                       -1)
-    cand = hit_ok & (pt <= tmin[pr])
-    tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    tri = tri.scatter_reduce(0, pr, torch.where(cand, ptri, -1), "amax")
-    out = torch.where(tri >= 0, tmin, t0), tri
+    out = unpack_hits(hit, t0)
     mark("combine")
     return out
 
@@ -155,7 +143,6 @@ def _bin_and_walk(td, ro, rd, t0, act, pend, npend, *, any_hit: bool,
         # spare, so no further fallback arises here.
         pair_ray, sid_blocks, pair_on = block_regroup(key, ray_of, S,
                                                       tile=TILE, mark=mark)
-        pair_sid = torch.repeat_interleave(sid_blocks, TILE)
     elif regroup == "sort":
         pair_ray, pair_sid, pair_on, fallback = _bin_pairs_sort(
             key, ray_of, fallback, R=R, S=S)
@@ -169,8 +156,8 @@ def _bin_and_walk(td, ro, rd, t0, act, pend, npend, *, any_hit: bool,
     else:
         raise ValueError(f"regroup must be 'count' or 'sort', got "
                          f"{regroup!r}")
-    t, tri = _phase2_combine(td, ro, rd, t0, pair_ray, pair_sid, pair_on,
-                             sid_blocks, any_hit=any_hit, mark=mark)
+    t, tri = _phase2_combine(td, ro, rd, t0, pair_ray, pair_on, sid_blocks,
+                             any_hit=any_hit, mark=mark)
     return t, tri, fallback
 
 

@@ -176,3 +176,104 @@ def test_frame_with_treelets_matches_frame_without():
     assert close.mean() >= 0.995, close.mean()
     assert abs(imgs[1].mean() / imgs[0].mean() - 1) < 1e-3
     assert (imgs[1].sum(axis=1) > 0).mean() > 0.4
+
+
+def _two_scatter_combine(R, pair_ray, pt, ptri_local, pair_on, pair_sid,
+                         sub_tri_base, t0):
+    """The port's combine before E7 took it in, as it stood: per ray the
+    least t by an amin scatter_reduce, then among the pairs at that t the
+    largest global triangle id by an amax scatter_reduce."""
+    from loupiote_tpu_torch.ops.intersect import T_FAR
+
+    pr = pair_ray.to(torch.int64)
+    hit_ok = (ptri_local >= 0) & (pair_on > 0)
+    pt = torch.where(hit_ok, pt, T_FAR)
+    tmin = torch.full((R,), T_FAR, dtype=torch.float32)
+    tmin = tmin.scatter_reduce(0, pr, pt, "amin")
+    ptri = torch.where(hit_ok,
+                       sub_tri_base[pair_sid.to(torch.int64)] + ptri_local,
+                       -1)
+    cand = hit_ok & (pt <= tmin[pr])
+    tri = torch.full((R,), -1, dtype=torch.int32)
+    tri = tri.scatter_reduce(0, pr, torch.where(cand, ptri, -1), "amax")
+    return torch.where(tri >= 0, tmin, t0), tri
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_combine_matches_two_scatter_reduces(seed):
+    """pack_hits + an int64 amin + unpack_hits (the per-ray epilogue's
+    combine) against the two scatter_reduces, on random pairs whose t are
+    drawn from four values, so most rays tie across their pairs."""
+    from loupiote_tpu_torch.treelet.lane_bottom import (NO_HIT, TILE,
+                                                        pack_hits,
+                                                        unpack_hits)
+
+    rng = np.random.default_rng(seed)
+    Rn, S, tiles = 400, 12, 3
+    P = tiles * TILE
+    sid_blocks = torch.from_numpy(rng.integers(0, S, tiles).astype(np.int32))
+    pair_sid = torch.repeat_interleave(sid_blocks, TILE)
+    base = torch.from_numpy(np.concatenate(
+        [np.cumsum(rng.integers(50, 300, S)), [0]]).astype(np.int32))
+    pair_ray = torch.from_numpy(rng.integers(0, Rn, P).astype(np.int32))
+    pair_on = torch.from_numpy((rng.random(P) < 0.85).astype(np.int32))
+    pt = torch.from_numpy(rng.choice(
+        np.float32([0.5, 1.25, 1.25, 7.0]), P).astype(np.float32))
+    local = torch.from_numpy(np.where(rng.random(P) < 0.3, -1,
+                                      rng.integers(0, 40, P)).astype(np.int32))
+    t0 = torch.from_numpy(np.where(rng.random(Rn) < 0.5, 1e30, 9.0)
+                          .astype(np.float32))
+    want = _two_scatter_combine(Rn, pair_ray, pt, local, pair_on, pair_sid,
+                                base, t0)
+    ok = (local >= 0) & (pair_on > 0)
+    key = torch.where(ok, pack_hits(pt, base[pair_sid.long()] + local),
+                      NO_HIT)
+    hit = torch.full((Rn,), NO_HIT, dtype=torch.int64).scatter_reduce(
+        0, pair_ray.long(), key, "amin")
+    t, tri = unpack_hits(hit, t0)
+    assert torch.equal(t.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(tri, want[1])
+    # Ties: rays with two hit pairs at their least t and different ids.
+    at_min = ok & (pt == t[pair_ray.long()])
+    n_at = torch.zeros(Rn, dtype=torch.int64).index_add_(
+        0, pair_ray.long(), at_min.long())
+    assert int((n_at >= 2).sum()) > 50
+    assert (tri >= 0).float().mean() > 0.5
+
+
+def _old_phase2_combine(td, ro, rd, t0, pair_ray, pair_on, sid_blocks, *,
+                        any_hit, mark=None):
+    """The phase 2 chain before E7 took in the combine: gather each pair's
+    ray, the per-pair walk, the two scatter_reduces."""
+    from loupiote_tpu_torch.treelet.lane_bottom import TILE, lane_bottom_trace
+
+    pr = pair_ray.to(torch.int64)
+    pt, local = lane_bottom_trace(sid_blocks, td.sub_fields,
+                                  ro[pr].contiguous(), rd[pr].contiguous(),
+                                  t0[pr].contiguous(), pair_on.contiguous(),
+                                  any_hit=any_hit)
+    return _two_scatter_combine(ro.shape[0], pair_ray, pt, local, pair_on,
+                                torch.repeat_interleave(sid_blocks, TILE),
+                                td.sub_tri_base, t0)
+
+
+@pytest.mark.parametrize("regroup", ["count", "sort"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_per_ray_epilogue_matches_the_old_chain(scene, monkeypatch, regroup,
+                                                any_hit):
+    """Binning and phase 2 with the per-ray plain version
+    (lane_bottom_rays_plain, then unpack_hits) against the chain it
+    replaces, bit for bit, under both binnings and in both modes."""
+    from loupiote_tpu_torch.treelet.lane_top import lane_top_trace
+
+    _, port, (ro, rd, tmax, active) = scene
+    ro, rd, t0, act = (torch.from_numpy(x) for x in (ro, rd, tmax, active))
+    td = port.treelet
+    pend, npend = lane_top_trace(td.top_fields, ro, rd, t0, act, td.num_top)
+    args = (td, ro, rd, t0, act, pend, npend)
+    got = pipeline._bin_and_walk(*args, any_hit=any_hit, regroup=regroup)
+    monkeypatch.setattr(pipeline, "_phase2_combine", _old_phase2_combine)
+    want = pipeline._bin_and_walk(*args, any_hit=any_hit, regroup=regroup)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert (got[1] >= 0).sum() > 100

@@ -159,12 +159,229 @@ def test_plain_twin_runs_for_cpu_tensors_only(soup, monkeypatch):
                         port.wide_end, port.wide_stack)
 
 
+def _chain_table(depth):
+    """A wide table of ``depth`` internal rows in a chain (slot 0 of each
+    points to the next) over one leaf row."""
+    rows = np.zeros((depth + 1, 128), np.float32)
+    ptr = rows.view(np.int32)
+    ptr[:, 6::16] = -1
+    for r in range(depth):
+        ptr[r, 6] = r + 1 if r + 1 < depth else depth | wide.LEAF_TAG
+    return torch.from_numpy(rows)
+
+
 def test_kernel_wrapper_refuses_a_deep_stack(soup):
-    _, port, _ = soup
+    """K1 holds DEPTH_MAX per-level stack entries: a deeper table raises
+    before anything is launched; one at the limit passes the check."""
     x = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="stack"):
-        wide._launch(port.trav_rows, x, x, x[:, 0], x[:, 0] > 0, False,
-                     port.wide_end, wide.STACK_MAX * 2)
+        wide._launch(_chain_table(wide.DEPTH_MAX + 1), x, x, x[:, 0],
+                     x[:, 0] > 0, False, 0, 16)
+    assert wide.kernel_depth(_chain_table(wide.DEPTH_MAX)) == wide.DEPTH_MAX
+
+
+def test_kernel_wrapper_refuses_a_table_of_2_24_rows():
+    """A stack entry holds a row index in 24 bits."""
+    x = torch.zeros((4, 3))
+    big = torch.empty((wide.ROWS_MAX, 128), device="meta")
+    with pytest.raises(ValueError, match="rows"):
+        wide._launch(big, x, x, x[:, 0], x[:, 0] > 0, False, 0, 16)
+
+
+def _depth_by_parents(trav_rows):
+    """Internal ancestors of the deepest leaf, from a parent map: another
+    way to the depth than table_depth's breadth-first levels."""
+    ptr = trav_rows.view(torch.int32)[:, 6::16].numpy()
+    parent, leaves, todo = {0: None}, [], [0]
+    while todo:
+        r = todo.pop()
+        for c in ptr[r]:
+            if c == -1:
+                continue
+            if c & wide.LEAF_TAG:
+                leaves.append(r)
+            else:
+                parent[int(c)] = r
+                todo.append(int(c))
+    best = 0
+    for r in leaves:
+        n = 0
+        while r is not None:
+            n, r = n + 1, parent[r]
+        best = max(best, n)
+    return best
+
+
+def _dup_soup():
+    """The random soup with every triangle twice, under two indices: every
+    hit is an exact tie, and the winner shows the visit order."""
+    import loupiote_tpu_torch.scene.types as port_types
+    from loupiote_tpu_torch import build_scene_buffers
+
+    v0, v1, v2 = random_tris(n=300)
+    tris = tuple(np.concatenate([a, a]) for a in (v0, v1, v2))
+    return build_scene_buffers(soup_scene(port_types, *tris),
+                               device="cpu"), tris
+
+
+def _arch8k():
+    with numpy_bvh():
+        return from_reference(ref_buffers(build_arch_scene(8_000)),
+                              device="cpu")
+
+
+@pytest.mark.parametrize("name", ["soup", "arch8k", "single", "dup"])
+def test_table_depth_on_in_repo_scenes(soup, name):
+    """The kernel's stack depth from trav_rows: equal to a parent-map
+    count, within DEPTH_MAX, cached per table and recomputed after an
+    in-place write."""
+    if name == "soup":
+        table = soup[1].trav_rows
+    elif name == "arch8k":
+        table = _arch8k().trav_rows
+    elif name == "single":
+        v = [np.array([p], np.float32) for p in
+             ([-1, -1, 0], [1, -1, 0], [0, 1, 0])]
+        table = from_reference(ref_buffers(soup_scene(ref_types, *v)),
+                               device="cpu").trav_rows
+    else:
+        table = _dup_soup()[0].trav_rows
+    table = table.clone()  # written in place below
+    depth = wide.kernel_depth(table)
+    assert depth == _depth_by_parents(table)
+    assert 1 <= depth <= wide.DEPTH_MAX
+    assert (1 if name == "single" else 2) <= depth
+    assert wide.table_depth(table) == depth  # from the cache
+    table.view(torch.int32)[0, 6::16] = -1   # the root loses its children
+    assert wide.table_depth(table) == 1
+
+
+def _per_level_walk(trav_rows, ro, rd, tmax, active, any_hit, wide_end):
+    """A model of K1's per-level stack, vectorised over rays: an entry is
+    (parent row << 8 | mask of its waiting hit children by priority); a
+    pop takes the mask's lowest bit and re-reads that child's pointer.
+    Returns (t, tri, most entries any ray held)."""
+    from loupiote_tpu_torch.ops.intersect import T_MIN, moller_trumbore
+
+    R = ro.shape[0]
+    rows_i = trav_rows.view(torch.int32)
+    t_best, tri = tmax.clone(), torch.full((R,), -1, dtype=torch.int32)
+    blocked = torch.zeros(R, dtype=torch.bool)
+    inv = [wide._safe_inv(rd[:, a]) for a in range(3)]
+    octant = ((rd[:, 0] < 0).long() | ((rd[:, 1] < 0).long() << 1)
+              | ((rd[:, 2] < 0).long() << 2))
+    stack = torch.zeros((R, wide.DEPTH_MAX + 1), dtype=torch.int64)
+    sp = torch.zeros(R, dtype=torch.int64)
+    cur = torch.zeros(R, dtype=torch.int64)
+    slots, k14 = torch.arange(8), torch.arange(14)
+    live = torch.nonzero(active).flatten()
+    most = 0
+    for _ in range(wide.max_steps(wide_end)):
+        if live.numel() == 0:
+            break
+        c = cur[live]
+        leaf = (c & wide.LEAF_TAG) != 0
+        row = c & wide.LEAF_MASK
+        nxt = torch.full_like(c, -1)
+        if bool(leaf.any()):
+            li, lrow = live[leaf], row[leaf]
+            tr = trav_rows[lrow, :126].reshape(-1, 14, 9)
+            fc = rows_i[lrow, 126]
+            u, v, t = moller_trumbore(
+                tuple(ro[li, a, None] for a in range(3)),
+                tuple(rd[li, a, None] for a in range(3)),
+                tuple(tr[:, :, j] for j in range(9)))
+            ok = ((k14[None] < (fc & 15)[:, None]) & (u >= 0) & (v >= 0)
+                  & (u + v <= 1) & (t > T_MIN) & (t < t_best[li, None]))
+            if any_hit:
+                blocked[li] = ok.any(1)
+            else:
+                for k in range(14):  # in slot order, strict <
+                    upd = ok[:, k] & (t[:, k] < t_best[li])
+                    t_best[li] = torch.where(upd, t[:, k], t_best[li])
+                    tri[li] = torch.where(upd, (fc >> 4) + k, tri[li])
+        inner = ~leaf
+        if bool(inner.any()):
+            ni, nrow = live[inner], row[inner]
+            box = trav_rows[nrow].reshape(-1, 8, 16)
+            ptr = rows_i[nrow].reshape(-1, 8, 16)[:, :, 6]
+            t1 = [(box[:, :, a] - ro[ni, a, None]) * inv[a][ni, None]
+                  for a in range(3)]
+            t2 = [(box[:, :, a + 3] - ro[ni, a, None]) * inv[a][ni, None]
+                  for a in range(3)]
+            tn = torch.stack([torch.minimum(a, b) for a, b in zip(t1, t2)]
+                             ).amax(0)
+            tf = torch.stack([torch.maximum(a, b) for a, b in zip(t1, t2)]
+                             ).amin(0)
+            bound = (tmax if any_hit else t_best)[ni, None]
+            hit = (ptr != -1) & (tf >= tn.clamp_min(0.0)) & (tn < bound)
+            hit_p = hit.gather(1, slots[None] ^ octant[ni, None])
+            mask = (hit_p.long() << slots[None]).sum(1)
+            first = (mask & -mask)
+            p = torch.log2(first.clamp_min(1).double()).long()
+            near = ptr.gather(1, (p ^ octant[ni])[:, None])[:, 0]
+            rest = mask & (mask - 1)
+            push = rest > 0
+            stack[ni[push], sp[ni[push]]] = (nrow[push] << 8) | rest[push]
+            sp[ni[push]] += 1
+            nxt[inner] = torch.where(mask > 0, near.long(), -1)
+        most = max(most, int(sp.max()))
+        descend = nxt >= 0
+        pop = ~descend & (sp[live] > 0)
+        if any_hit:
+            descend &= ~blocked[live]
+            pop &= ~blocked[live]
+        pi = live[pop]
+        e = stack[pi, sp[pi] - 1]
+        m = e & 255
+        p = torch.log2((m & -m).double()).long()
+        rest = m & (m - 1)
+        stack[pi, sp[pi] - 1] = (e & ~255) | rest
+        sp[pi] -= (rest == 0).long()
+        cur[pi] = rows_i[e >> 8, 16 * (p ^ octant[pi]) + 6].long()
+        cur[live[descend]] = nxt[descend]
+        live = live[descend | pop]
+    if any_hit:
+        return t_best, blocked.to(torch.int32), most
+    return t_best, tri, most
+
+
+@pytest.mark.parametrize("name", ["soup", "arch8k", "dup"])
+def test_per_level_stack_visits_in_the_twins_order(soup, name):
+    """The redesigned K1's stack (one entry a level) gives wide_trace_plain's
+    hits bit for bit, ties included, in both modes, and never holds more
+    entries than table_depth."""
+    if name == "soup":
+        port, tris = soup[1], soup[2]
+        ro, rd = random_rays(tris, 512, seed=91)
+    elif name == "dup":
+        port, tris = _dup_soup()
+        ro, rd = random_rays(tris, 512, seed=92)
+    else:
+        port = _arch8k()
+        jitter = np.random.default_rng(5).random((24 * 24, 2)).astype(
+            np.float32)
+        ro, rd = (np.array(x) for x in ref_generate_rays(
+            jnp.asarray(arch_camera()), 24, 24, 0.7853982,
+            jnp.asarray(jitter)))
+    ro, rd = torch.from_numpy(ro), torch.from_numpy(rd)
+    R = ro.shape[0]
+    active = torch.from_numpy(np.random.default_rng(93).random(R) < 0.9)
+    for any_hit, tmax in ((False, torch.full((R,), 1e30)),
+                          (True, torch.full((R,), 6.0))):
+        want = wide.wide_trace_plain(port.trav_rows, ro, rd, tmax, active,
+                                     any_hit, port.wide_end, port.wide_stack)
+        t, tri, most = _per_level_walk(port.trav_rows, ro, rd, tmax, active,
+                                       any_hit, port.wide_end)
+        assert torch.equal(t.view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(tri, want[1])
+        assert most <= wide.table_depth(port.trav_rows)
+        if not any_hit:
+            assert (tri >= 0).float().mean() > 0.05
+            if name == "dup":  # winners from both copies: order matters
+                n = tris[0].shape[0] // 2
+                assert (tri[tri >= 0] >= n).any()
+                assert (tri[tri >= 0] < n).any()
 
 
 def test_step_bound_stops_and_counts_rays(soup):
