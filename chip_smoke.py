@@ -8,9 +8,13 @@ Phases, each timed:
   2. build     - compile the kernels (nvcc, one process per source, in
                  parallel) and the BVH builder (g++);
   3. K1        - kernel K1 (csrc/wide_traverse.cu) against its plain torch
-                 twin on the card, closest-hit and any-hit, on a random
-                 4k-triangle scene, the arch-260k primary wave at 1080p and
-                 a sorted diffuse wave; K1's time on the 1080p waves;
+                 twin on the card, closest-hit and any-hit, on every ray
+                 of each wave, exact (tri with ties, t bits, blocked
+                 bits): a random 4k-triangle scene, the same scene with
+                 every triangle twice (every hit a tie), the arch-260k
+                 primary wave at 1080p with its NEE wave and a sorted
+                 diffuse wave; 0 rays at the step bound; K1's time on
+                 the 1080p waves;
   4. K2/K3     - kernels K2 and K3 (csrc/bvh2_traverse.cu) against their
                  twins on the random-4k scene, the arch-40k 960x540 primary
                  wave with its NEE wave and an arch-40k diffuse wave; K2,
@@ -39,10 +43,15 @@ Phases, each timed:
                  regroup;
   8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
                  their twins on strided rays of the primary and a diffuse
-                 wave, E7 in both modes; their times on the primary wave;
+                 wave, E7 in both modes; at the primary wave's full
+                 shapes E6 once and E7's two epilogues (per pair, per ray)
+                 in both modes, three kernel runs each bit-equal to the
+                 plain version; their times on the primary wave;
   9. pipeline  - treelet_intersect against K1 on the full waves and
                  treelet_occluded on the NEE wave; one wave's time by
-                 stage against K1's;
+                 stage against K1's; phase 2's device kernels under
+                 torch.profiler (E7 and the unpacking, no gather or
+                 scatter_reduce);
  10. treelet   - the headline frame on the treelet tables through
                  Renderer, launch counts read around it (E6, K4, E5, E7 3
                  each a frame; K4's CUDA launches as its C entry point
@@ -172,14 +181,16 @@ def hits_agree(scene, ro, rd, kt, ktri, pt, ptri):
     return agree, int(tie.sum()), max_ulp, same
 
 
-def compare_wide(name, scene, closest, shadow, rows, stats=None):
-    """K1 against wide_trace_plain on one wave in both modes.
+def compare_wide(name, scene, closest, shadow, rows, stats=None,
+                 n_first=None):
+    """K1 against wide_trace_plain on every ray of one wave, both modes.
 
-    ``closest``: (ro, rd, active); ``shadow``: (ro, rd, tmax, active). The
-    kernel runs on the whole wave; the plain version on SUBSET rays of it
-    (evenly strided), where the two are compared. ``stats``: receives the
-    twin's work counts, by mode. Returns (ok, max |t| error, max |blocked|
-    error) over the compared rays.
+    ``closest``: (ro, rd, active); ``shadow``: (ro, rd, tmax, active).
+    Exact: tri equal on every ray (ties included: both follow one visit
+    order), t bit-equal, blocked bits equal. ``stats``: receives the
+    twin's work counts, by mode. ``n_first``: where every triangle t has
+    a copy t + n_first, the share of hits the copy wins is printed.
+    Returns (ok, max |t| error, max |blocked| error).
     """
     import torch
 
@@ -187,31 +198,30 @@ def compare_wide(name, scene, closest, shadow, rows, stats=None):
 
     ro, rd, active = closest
     R = ro.shape[0]
-    idx = strided(R, ro.device)
     tfar = torch.full((R,), 1e30, device=ro.device)
     table = (scene.trav_rows,)
     sizes = (scene.wide_end, scene.wide_stack)
     kt, ktri = wide.wide_trace(*table, ro, rd, tfar, active, False, *sizes)
     kb = wide.wide_trace(*table, *shadow, True, *sizes)[1]
-    sub = [x[idx].contiguous() for x in (ro, rd, tfar, active)]
     stats = {} if stats is None else stats
-    pt, ptri = wide.wide_trace_plain(*table, *sub, False, *sizes,
+    pt, ptri = wide.wide_trace_plain(*table, ro, rd, tfar, active, False,
+                                     *sizes,
                                      stats=stats.setdefault("closest", {}))
-    pb = wide.wide_trace_plain(*table, *(x[idx].contiguous()
-                                         for x in shadow), True, *sizes,
+    pb = wide.wide_trace_plain(*table, *shadow, True, *sizes,
                                stats=stats.setdefault("anyhit", {}))[1]
     torch.cuda.synchronize()
-    kt, ktri, kb = kt[idx], ktri[idx], kb[idx]
-    agree, ties, max_ulp, same = hits_agree(scene, sub[0], sub[1], kt, ktri,
-                                            pt, ptri)
-    t_err = float((kt[same] - pt[same]).abs().max()) if same.any() else 0.0
+    tri_eq = bits_equal(ktri, ptri)
+    max_ulp = int(ulp_diff(kt, pt).max())
+    b_eq = bits_equal(kb, pb)
+    t_err = float((kt - pt).abs().max())
     b_err = float((kb - pb).abs().max())
-    shadow_agree = float((kb == pb).float().mean())
-    ok = agree == 1.0 and max_ulp <= 2 and shadow_agree == 1.0
-    rows.append(f"| {name} | {len(idx)} of {R} | {agree:.6f} ({ties} ties) "
-                f"| {max_ulp} | {shadow_agree:.6f} | "
-                f"{float((ktri >= 0).float().mean()):.3f} / "
-                f"{float(kb.float().mean()):.3f} | "
+    hits = ktri >= 0
+    copies = ("-" if n_first is None else
+              f"{float((ktri[hits] >= n_first).float().mean()):.4f}")
+    ok = tri_eq and max_ulp == 0 and b_eq
+    rows.append(f"| {name} | {R} | {tri_eq} | {max_ulp} | {b_eq} | "
+                f"{float(hits.float().mean()):.3f} / "
+                f"{float(kb.float().mean()):.3f} | {copies} | "
                 f"{'PASS' if ok else 'FAIL'} |")
     return ok, t_err, b_err
 
@@ -276,7 +286,9 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
     return ok, errs
 
 
-def random_scene(device):
+def random_scene(device, copies=1):
+    """4,000 random triangles; ``copies`` = 2 adds each again under a
+    second index (t + 4,000), so every hit is an exact tie."""
     from loupiote_tpu_torch import build_scene_buffers
     from loupiote_tpu_torch.scene.types import Instance, Mesh, Scene
 
@@ -285,11 +297,12 @@ def random_scene(device):
     v0 = ((rng.random((n, 3)) - 0.5) * 20).astype(np.float32)
     v1 = v0 + (rng.random((n, 3)) - 0.5).astype(np.float32)
     v2 = v0 + (rng.random((n, 3)) - 0.5).astype(np.float32)
+    v0, v1, v2 = (np.concatenate([v] * copies) for v in (v0, v1, v2))
     scene = Scene.default()
-    pos = np.empty((n * 3, 3), np.float32)
+    pos = np.empty((n * copies * 3, 3), np.float32)
     pos[0::3], pos[1::3], pos[2::3] = v0, v1, v2
     scene.meshes.append(Mesh(pos, None, None,
-                             np.arange(n * 3, dtype=np.uint32)))
+                             np.arange(n * copies * 3, dtype=np.uint32)))
     scene.instances.append(Instance(0, np.eye(4, dtype=np.float32), 0))
     return build_scene_buffers(scene, device=device), rng
 
@@ -535,11 +548,21 @@ def main():
     phase("build", t0)
 
     # -- K1 against its plain twin ----------------------------------------
+    # Every ray of each wave, exact: tri (ties included), t bits, blocked
+    # bits. The tie wave duplicates every triangle of the random scene, so
+    # every hit is a tie and the winner shows the visit order.
     t0 = time.perf_counter()
-    rows = ["| wave | rays compared | tri agree (ties) | t max ulp | "
-            "shadow agree | hit / blocked frac | verdict |",
-            "|---|---|---|---|---|---|---|"]
-    ok = True
+    rows = ["| wave | rays compared | tri equal | t max ulp | blocked equal "
+            "| hit / blocked frac | hits won by the copy | verdict |",
+            "|---|---|---|---|---|---|---|---|"]
+    ok, k1_err = True, [0.0, 0.0]
+
+    def k1_check(*a, **kw):
+        nonlocal ok
+        ok_w, t_e, b_e = compare_wide(*a, **kw)
+        ok &= ok_w
+        k1_err[0], k1_err[1] = max(k1_err[0], t_e), max(k1_err[1], b_e)
+
     rscene, rng = random_scene(dev)
     R = 64 * 1024
     ro = torch.from_numpy(((rng.random((R, 3)) - 0.5) * 30)
@@ -548,9 +571,12 @@ def main():
     rd = (rd / rd.norm(dim=1, keepdim=True)).to(dev)
     on = torch.ones(R, dtype=torch.bool, device=dev)
     r_shadow = (ro, rd, torch.full((R,), 25.0, device=dev), on)
-    ok &= compare_wide("random-4k / random rays (shadow: tmax 25)", rscene,
-                       (ro, rd, on), r_shadow, rows)[0]
-    phase("K1: random-4k", t0)
+    k1_check("random-4k / random rays (shadow: tmax 25)", rscene,
+             (ro, rd, on), r_shadow, rows)
+    tscene, _ = random_scene(dev, copies=2)
+    k1_check("tie wave: random-4k with every triangle twice / the same "
+             "rays", tscene, (ro, rd, on), r_shadow, rows, n_first=4000)
+    phase("K1: random-4k and its tie wave", t0)
 
     t0 = time.perf_counter()
     scene_cpu = lt.build_arch_scene(260_000)
@@ -562,8 +588,13 @@ def main():
     print(f"arch-260k: {scene_cpu.stats()['triangles']} triangles, scene "
           f"{t1 - t0:.2f} s, buffers (native BVH + tables + upload) "
           f"{build_s:.2f} s; BVH2 nodes {arch.num_nodes}, wide rows "
-          f"{arch.wide_end}, wide_stack {arch.wide_stack}, trav_rows "
-          f"{trav_bytes} bytes ({trav_bytes / 1e6:.2f} MB; L2 50 MB)")
+          f"{arch.wide_end}, wide_stack {arch.wide_stack}, K1 stack depth "
+          f"{wide.kernel_depth(arch.trav_rows)} levels (of "
+          f"{wide.DEPTH_MAX}), trav_rows {trav_bytes} bytes "
+          f"({trav_bytes / 1e6:.2f} MB; L2 50 MB)")
+    print("K1 ptxas (registers, stack frame, spills):\n" + "\n".join(
+        line for line in _build.build_info["wide_traverse"]["log"]
+        .splitlines() if "Used" in line or "stack frame" in line))
     phase("scene build", t0)
 
     t0 = time.perf_counter()
@@ -571,21 +602,22 @@ def main():
     N = WIDTH * HEIGHT
     prim, nee, diff = waves(arch, cam, WIDTH, HEIGHT, seed=0)
     k1_stats = {}
-    ok_p, t_err, b_err = compare_wide(
-        "arch-260k / primary 1080p (shadow: NEE to the light)", arch, prim,
-        nee, rows, stats=k1_stats)
-    ok &= ok_p
+    k1_check("arch-260k / primary 1080p (shadow: NEE to the light)", arch,
+             prim, nee, rows, stats=k1_stats)
     dro, drd, dact = diff
     order = sort_order(ray_sort_key(dro, drd, dact, arch.node_min[0],
                                     arch.node_max[0]))
     dro, drd, dact = (dro[order].contiguous(), drd[order].contiguous(),
                       dact[order].contiguous())
     diff260 = (dro, drd, dact)
-    ok &= compare_wide("arch-260k / diffuse 1080p, sorted (shadow: tmax 25)",
-                       arch, (dro, drd, dact),
-                       (dro, drd, torch.full((N,), 25.0, device=dev), dact),
-                       rows)[0]
+    k1_check("arch-260k / diffuse 1080p, sorted (shadow: tmax 25)", arch,
+             (dro, drd, dact),
+             (dro, drd, torch.full((N,), 25.0, device=dev), dact), rows)
+    capped = wide.capped_rays(dev)
+    rows.append(f"rays stopped by the step bound (kernel and twin, all "
+                f"waves): {capped}")
     print("\n".join(rows), flush=True)
+    ok &= capped == 0
     phase("K1: arch-260k waves", t0)
 
     # K1 time at the headline path's shapes: the 1080p primary wave
@@ -602,16 +634,16 @@ def main():
         print(f"K1 {mode} on the 1080p primary/NEE wave ({N} rays): kernel "
               f"{k1_timing[mode][0]:.3f} ms, plain torch "
               f"{k1_timing[mode][1]:.3f} ms", flush=True)
-    n_cmp = len(strided(N, dev))
     k1_bound = {m: bound(N, 8, trav_bytes,
-                         ops_of(k1_stats[m], n_cmp, N, box_key="box_tests"))
+                         ops_of(k1_stats[m], N, N, box_key="box_tests"))
                 for m in ("closest", "anyhit")}
     for m, (b_ms, b_by) in k1_bound.items():
         print(f"K1 {m} bound on the 1080p wave: {b_ms:.4f} ms ({b_by}; "
-              f"twin work on {n_cmp} rays: {k1_stats[m]})")
+              f"twin work on the wave's {N} rays: {k1_stats[m]})")
     phase("K1 timing", t0)
     if not ok:
-        raise SystemExit("chip_smoke: K1 disagrees with its plain version")
+        raise SystemExit("chip_smoke: K1 disagrees with its plain version, "
+                         "or rays reached the step bound")
 
     # -- K2 and K3 against their plain twins --------------------------------
     t0 = time.perf_counter()
@@ -1057,26 +1089,54 @@ def main():
                  f"equal {ok}"]
     lane_err["E6"] = max(lane_err["E6"], float(max(
         (pk - pp).abs().max(), (nk - npp).abs().max())))
+    # E7 at the primary wave's full shapes, both epilogues and modes: the
+    # kernel three times (its atomics land in a different order each
+    # time) against one run of the plain version, which also counts the
+    # work this wave's data needs (for the bounds).
     pr = pray.long()
-    e7_args = (sid, td.sub_fields, pro[pr].contiguous(), prd[pr].contiguous(),
+    e7_pair = (sid, td.sub_fields, pro[pr].contiguous(), prd[pr].contiguous(),
                tfar[pr].contiguous(), on)
+    e7_ray = (sid, td.sub_fields, td.sub_tri_base, pray, on, pro, prd, tfar)
     live_pairs = int((on > 0).sum())
+    rays_paired = int(torch.unique(pray[on > 0]).numel())
     P = on.shape[0]
     e7_timing, e7_stats = {}, {}
-    for mode in ("closest", "anyhit"):
-        k_ms, (kt, ktri) = timed(lambda: lane_bottom.lane_bottom_trace(
-            *e7_args, mode == "anyhit"), 10)
-        p_ms, (pt, ptri) = timed(lambda: lane_bottom.lane_bottom_plain(
-            *e7_args, mode == "anyhit",
-            stats=e7_stats.setdefault(mode, {})), 1, warm=False)
-        e7_timing[mode] = (k_ms, p_ms)
-        m_ulp = int(ulp_diff(kt, pt).max())
-        tri_eq = bits_equal(ktri, ptri)
-        ok &= m_ulp == 0 and tri_eq
-        lane_err[mode] = max(lane_err[mode], float((kt - pt).abs().max()))
-        full_rows.append(f"E7 {mode} on all {P} pair slots of the primary "
-                         f"wave ({live_pairs} live): t max ulp {m_ulp}, tri "
-                         f"equal {tri_eq}")
+    for epi in ("per ray", "per pair"):
+        for mode in ("closest", "anyhit"):
+            any_hit = mode == "anyhit"
+            if epi == "per ray":
+                def kfn(a=any_hit):
+                    return (lane_bottom.lane_bottom_rays(*e7_ray, a),)
+
+                def pfn(a=any_hit, st=e7_stats.setdefault(mode, {})):
+                    return (lane_bottom.lane_bottom_rays_plain(
+                        *e7_ray, a, stats=st),)
+            else:
+                def kfn(a=any_hit):
+                    return lane_bottom.lane_bottom_trace(*e7_pair, a)
+
+                def pfn(a=any_hit):
+                    return lane_bottom.lane_bottom_plain(*e7_pair, a)
+            k_ms, out = timed(kfn, 10)
+            p_ms, want = timed(pfn, 1, warm=False)
+            runs = [out, kfn(), kfn()]
+            torch.cuda.synchronize()
+            same = [all(bits_equal(x, y) for x, y in zip(o, want))
+                    for o in runs]
+            if epi == "per ray":
+                kt = lane_bottom.unpack_hits(out[0], tfar)[0]
+                pt = lane_bottom.unpack_hits(want[0], tfar)[0]
+            else:
+                kt, pt = out[0], want[0]
+            err = float((kt - pt).abs().max())
+            lane_err[(epi, mode)] = err
+            e7_timing[(epi, mode)] = (k_ms, p_ms)
+            ok &= all(same)
+            full_rows.append(
+                f"E7 {epi} {mode} on all {P} pair slots of the primary wave "
+                f"({live_pairs} live pairs of {rays_paired} rays): three "
+                f"kernel runs bit-equal to the plain version {same}; max "
+                f"|t| error {err}")
     capped = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
     full_rows.append(f"lanes stopped by a step bound (with the full-shape "
                      f"runs): {capped}")
@@ -1088,22 +1148,31 @@ def main():
     n_act = int(pact.sum())
     e6_bound = bound_of(N * (1 + 36) + n_act * (RAY_IN_BYTES - 1)
                         + top_bytes, e6_stats["box_tests"] * OPS_BOX)
-    # E7 reads tmax and the active flag of every slot and ro, rd only for
-    # live pairs; the walked fields are 10 of the table's 11.
-    e7_bound = {m: bound_of(
-        P * (4 + 4 + 4 + 4) + live_pairs * 24 + sid.numel() * 4
-        + sub_bytes * 10 // 11,
-        ops_of(e7_stats[m], P, P, box_key="box_tests"))
-        for m in ("closest", "anyhit")}
+    # E7 per pair reads tmax and the active flag of every slot and ro, rd
+    # only for live pairs, and writes t and tri of every slot. Per ray it
+    # reads pair_ray and the active flag of every slot, ro, rd, t0 of each
+    # ray with a live pair once and the triangle bases, and writes one
+    # 8-byte word a ray. Both read the subtree table's 10 walked fields.
+    walk_bytes = sid.numel() * 4 + sub_bytes * 10 // 11
+    e7_bytes = {"per pair": P * 16 + live_pairs * 24 + walk_bytes,
+                "per ray": P * 8 + rays_paired * 28 + (S + 1) * 4 + N * 8
+                + walk_bytes}
+    e7_bound = {k: bound_of(e7_bytes[k[0]],
+                            ops_of(e7_stats[k[1]], P, P, box_key="box_tests"))
+                for k in e7_timing}
     print(f"E6 on the 1080p primary wave ({N} rays, K {td.num_top}): kernel "
           f"{e6_ms:.4f} ms, plain torch {e6_plain:.3f} ms, bound "
           f"{e6_bound[0]:.4f} ms ({e6_bound[1]}; twin work on the wave: "
           f"{e6_stats})")
-    for m, (k_ms, p_ms) in e7_timing.items():
-        print(f"E7 {m} on the primary wave's pairs ({P} slots, {live_pairs} "
-              f"live, {P // 1024} blocks): kernel {k_ms:.4f} ms, plain torch "
-              f"{p_ms:.3f} ms, bound {e7_bound[m][0]:.4f} ms "
-              f"({e7_bound[m][1]}; twin work on the wave's pairs: "
+    print("E7 ptxas (registers, stack frame, spills):\n" + "\n".join(
+        line for line in _build.build_info["treelet_traverse"]["log"]
+        .splitlines() if "Used" in line or "stack frame" in line))
+    for (epi, m), (k_ms, p_ms) in e7_timing.items():
+        b_ms, b_by = e7_bound[(epi, m)]
+        print(f"E7 {epi} {m} on the primary wave's pairs ({P} slots, "
+              f"{live_pairs} live, {P // 1024} tiles): kernel {k_ms:.4f} ms, "
+              f"plain torch {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{e7_bytes[epi]} bytes; twin work on the wave's pairs: "
               f"{e7_stats[m]})")
     print(smi, flush=True)
     phase("E6/E7: two waves + timing", t0)
@@ -1161,6 +1230,33 @@ def main():
               + ", ".join(f"{k} {v:.3f}" for k, v in by_stage.items())
               + f"); K1 path (intersect_wide with recompute_uv) "
               f"{k1_wave:.3f} ms ({smi})", flush=True)
+    # Phase 2 on the card, under torch.profiler: its device kernels, by
+    # name. E7 gathers each pair's ray and combines per ray itself, so no
+    # gather (index) or scatter_reduce kernel may run in it.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def phase2():
+        return pipeline._phase2_combine(td, pro, prd, tfar, pray, on, sid,
+                                        any_hit=False)
+
+    phase2()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        phase2()
+        torch.cuda.synchronize()
+    kernels_run = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels_run[e.name] = kernels_run.get(e.name, 0) + 1
+    print(f"phase 2 of one primary wave (_phase2_combine): device kernels "
+          f"{kernels_run}")
+    if not kernels_run:
+        print("torch.profiler recorded no device kernel: the StageTimer "
+              "split above stands alone")
+    elif (not any("lane_bottom" in k for k in kernels_run)
+          or any("index" in k or "scatter" in k for k in kernels_run)):
+        raise SystemExit("chip_smoke: phase 2 launched a gather or scatter "
+                         "kernel, or no E7")
     phase("treelet pipeline vs K1", t0)
 
     # -- The treelet frame: the headline frame on the treelet tables ---------
@@ -1436,7 +1532,7 @@ def main():
     phase("E4: path + check", t0)
 
     kernels = []
-    for mode, err in (("closest", t_err), ("anyhit", b_err)):
+    for mode, err in (("closest", k1_err[0]), ("anyhit", k1_err[1])):
         b_ms, b_by = k1_bound[mode]
         kernels.append({
             "name": f"wide_traverse ({mode})", "route": "cuda",
@@ -1488,22 +1584,30 @@ def main():
         "launches": t_launches["E6"], "max_abs_err": lane_err["E6"],
         "ms": e6_ms, "plain_ms": e6_plain, "bound_ms": e6_bound[0],
         "bound_by": e6_bound[1], "library_ms": None})
+    def e7_entry(epi, m):
+        b_ms, b_by = e7_bound[(epi, m)]
+        err = lane_err[(epi, m)]
+        if epi == "per pair":  # with the two waves' subset checks
+            err = max(err, lane_err[m])
+        return {"max_abs_err": err, "ms": e7_timing[(epi, m)][0],
+                "plain_ms": e7_timing[(epi, m)][1], "bound_ms": b_ms,
+                "bound_by": b_by}
+
     kernels.append({
         "name": "lane_bottom", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/treelet_traverse.cu",
         "replaces": "experiments/treelet/lane_bottom.py:63",
         "launches": t_launches["E7 closest"],
-        "max_abs_err": lane_err["closest"], "ms": e7_timing["closest"][0],
-        "plain_ms": e7_timing["closest"][1],
-        "bound_ms": e7_bound["closest"][0],
-        "bound_by": e7_bound["closest"][1], "library_ms": None,
-        # E7's any-hit mode: checked and timed here, not on the path.
-        "modes": {"anyhit": {
-            "launches": t_launches["E7 any-hit"],
-            "max_abs_err": lane_err["anyhit"],
-            "ms": e7_timing["anyhit"][0], "plain_ms": e7_timing["anyhit"][1],
-            "bound_ms": e7_bound["anyhit"][0],
-            "bound_by": e7_bound["anyhit"][1]}}})
+        **e7_entry("per ray", "closest"), "library_ms": None,
+        # The per-ray epilogue in closest-hit mode is what the path runs;
+        # its any-hit mode and the per-pair epilogue are checked and timed
+        # here, off the path.
+        "modes": {"anyhit": {"launches": t_launches["E7 any-hit"],
+                             **e7_entry("per ray", "anyhit")},
+                  "per_pair": {"launches": 0,
+                               **e7_entry("per pair", "closest")},
+                  "per_pair_anyhit": {"launches": 0,
+                                      **e7_entry("per pair", "anyhit")}}})
     full = e1_res["full"]
     kernels.append({
         "name": "kernel_probe", "route": "cuda",

@@ -45,40 +45,35 @@ def nvcc_path() -> str:
     return path
 
 
-def load(name: str, defines: tuple = (), src: str | None = None
-         ) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` (or ``src``) with
-    ``-D`` for each of ``defines``; raises on failure. Threads that load
-    different sources build them at the same time. ``build_info`` files
-    the build under ``name``, followed by the defines if there are any."""
-    label = " ".join((name,) + tuple(defines))
+def load(name: str, src: str | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, or the source file
+    ``src`` under the name ``name``; raises on failure. Threads that load
+    different names build them at the same time."""
     with _lock:
-        lock = _name_locks.setdefault(label, threading.Lock())
+        lock = _name_locks.setdefault(name, threading.Lock())
     with lock:
-        key = (label, src)
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
-            path = src or os.path.join(CSRC_DIR, f"{name}.cu")
-            lib = ctypes.CDLL(_compile(path, label, defines))
-            _libs[key] = lib
+            lib = ctypes.CDLL(_compile(
+                name, src or os.path.join(CSRC_DIR, f"{name}.cu")))
+            _libs[name] = lib
         return lib
 
 
-def _compile(src: str, label: str, defines: tuple) -> str:
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+def _compile(name: str, src: str) -> str:
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-    name = os.path.splitext(os.path.basename(src))[0]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(out):
-        build_info.setdefault(label, {"seconds": 0.0, "log": "(cached)"})
+        build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([nvcc_path(), *flags, src, "-o", tmp],
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, src, "-o", tmp],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src}:\n"
@@ -87,6 +82,6 @@ def _compile(src: str, label: str, defines: tuple) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_info[label] = {"seconds": time.perf_counter() - t0,
-                         "log": (proc.stdout + proc.stderr).strip()}
+    build_info[name] = {"seconds": time.perf_counter() - t0,
+                        "log": (proc.stdout + proc.stderr).strip()}
     return out

@@ -61,18 +61,9 @@ constexpr int kWalkFields = 10;  // f0..f9
 constexpr int kTopThreads = 128;
 constexpr int kBottomThreads = 512;
 constexpr int kPairsPerThread = kTile / kBottomThreads;
-constexpr int kEntry = 12;       // floats an entry in the E7_AOS layout
+constexpr int kChunkTiles = 2;   // consecutive tiles a block takes at once
+constexpr int kSubFloats = kWalkFields * kTile;  // a staged subtree
 constexpr float kTMin = 1e-4f;
-
-#ifndef E7_AOS
-#define E7_AOS 1
-#endif
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -158,52 +149,25 @@ __global__ void __launch_bounds__(kTopThreads)
   npend_out[i] = np;
 }
 
-// E7's walk reads the staged subtree from shared memory. Layout
-// (E7_AOS, -D; scripts/traversal_variants.py builds the other to time
-// it): 1 = entry-major, kEntry floats an entry (f0..f9, two pad), read
-// as three 16-byte loads issued together; 0 = field-major f[10][1024]
-// (the table's own order), the link first, then the fields its kind
-// needs.
-template <bool kAos>
-struct Layout;
-
-template <>
-struct Layout<true> {
-  static constexpr int kFloats = kEntry * kTile;
-  // 4-byte async copies: field f of entry n to buf[kEntry * n + f].
-  static __device__ __forceinline__ void stage(float* buf,
-                                               const float* tile,
-                                               int sub_stride) {
-    for (int e = threadIdx.x; e < kWalkFields * kTile; e += blockDim.x) {
-      const int f = e / kTile, n = e % kTile;
-      cp_async4(buf + kEntry * n + f,
-                tile + static_cast<size_t>(f) * sub_stride + n);
-    }
+// Stage subtree `tile` (its 10 walked fields, 1,024 floats each, every
+// field sub_stride floats from the last) into buf[10][1024] with 16-byte
+// async copies.
+__device__ __forceinline__ void stage(float* buf, const float* tile,
+                                      int sub_stride) {
+  constexpr int kQuads = kTile / 4;
+  for (int e = threadIdx.x; e < kWalkFields * kQuads; e += blockDim.x) {
+    const int f = e / kQuads, q = e % kQuads;
+    cp_async16(buf + f * kTile + 4 * q,
+               tile + static_cast<size_t>(f) * sub_stride + 4 * q);
   }
-};
-
-template <>
-struct Layout<false> {
-  static constexpr int kFloats = kWalkFields * kTile;
-  // 16-byte async copies of each field's 1,024 floats.
-  static __device__ __forceinline__ void stage(float* buf,
-                                               const float* tile,
-                                               int sub_stride) {
-    constexpr int kQuads = kTile / 4;
-    for (int e = threadIdx.x; e < kWalkFields * kQuads; e += blockDim.x) {
-      const int f = e / kQuads, q = e % kQuads;
-      cp_async16(buf + f * kTile + 4 * q,
-                 tile + static_cast<size_t>(f) * sub_stride + 4 * q);
-    }
-  }
-};
+}
 
 // One pair's walk of the staged subtree (the reference kernel's steps and
 // arithmetic): a node entry's slab test against the pair's best t goes
 // to hit_id or miss_id; a triangle entry runs Moller-Trumbore. Returns
 // tri_local (-1 on a miss); best holds the pair's t.
-template <bool kAnyHit, bool kAos>
-__device__ __forceinline__ int walk(const float* buf, float ox, float oy,
+template <bool kAnyHit>
+__device__ __forceinline__ int walk(const float* f, float ox, float oy,
                                     float oz, float dx, float dy, float dz,
                                     float& best, int32_t* capped,
                                     int max_steps) {
@@ -215,29 +179,16 @@ __device__ __forceinline__ int walk(const float* buf, float ox, float oy,
       atomicAdd(capped, 1);
       break;
     }
-    float g[9];
-    int link;
-    if constexpr (kAos) {
-      const float4* e4 = reinterpret_cast<const float4*>(buf + kEntry * cur);
-      const float4 q0 = e4[0], q1 = e4[1], q2 = e4[2];
-      g[0] = q0.x; g[1] = q0.y; g[2] = q0.z; g[3] = q0.w;
-      g[4] = q1.x; g[5] = q1.y; g[6] = q1.z; g[7] = q1.w;
-      g[8] = q2.x;
-      link = __float_as_int(q2.y);
-    } else {
-      link = __float_as_int(buf[9 * kTile + cur]);
-    }
+    const int link = __float_as_int(f[9 * kTile + cur]);
     const int hit_id = link & 1023;
     const int miss_id = (link >> 10) & 1023;
     if ((link >> 20) & 1) {
-      if constexpr (!kAos) {
-#pragma unroll
-        for (int f = 0; f < 9; ++f) g[f] = buf[f * kTile + cur];
-      }
       // Moller-Trumbore, products in the order of ops/intersect.py.
-      const float p0x = g[0], p0y = g[1], p0z = g[2];
-      const float e1x = g[3], e1y = g[4], e1z = g[5];
-      const float e2x = g[6], e2y = g[7], e2z = g[8];
+      const float p0x = f[cur], p0y = f[kTile + cur], p0z = f[2 * kTile + cur];
+      const float e1x = f[3 * kTile + cur], e1y = f[4 * kTile + cur],
+                  e1z = f[5 * kTile + cur];
+      const float e2x = f[6 * kTile + cur], e2y = f[7 * kTile + cur],
+                  e2z = f[8 * kTile + cur];
       const float pvx = dy * e2z - dz * e2y;
       const float pvy = dz * e2x - dx * e2z;
       const float pvz = dx * e2y - dy * e2x;
@@ -258,13 +209,10 @@ __device__ __forceinline__ int walk(const float* buf, float ox, float oy,
       }
       cur = miss_id;  // a triangle entry holds its next id in both slots
     } else {
-      if constexpr (!kAos) {
-#pragma unroll
-        for (int f = 0; f < 6; ++f) g[f] = buf[f * kTile + cur];
-      }
       float tn, tf;
-      slab(g[0], g[1], g[2], g[3], g[4], g[5], ox, oy, oz, ix, iy, iz, &tn,
-           &tf);
+      slab(f[cur], f[kTile + cur], f[2 * kTile + cur], f[3 * kTile + cur],
+           f[4 * kTile + cur], f[5 * kTile + cur], ox, oy, oz, ix, iy, iz,
+           &tn, &tf);
       cur = (tf >= fmaxf(tn, 0.0f) && tn < best) ? hit_id : miss_id;
     }
   }
@@ -272,7 +220,7 @@ __device__ __forceinline__ int walk(const float* buf, float ox, float oy,
 }
 
 // E7 with either epilogue. Each block walks the tiles of its chunks
-// (blockIdx.x, blockIdx.x + gridDim.x, ...; a chunk is `chunk`
+// (blockIdx.x, blockIdx.x + gridDim.x, ...; a chunk is kChunkTiles
 // consecutive tiles of 1,024 pairs) in order, two pairs a thread. It
 // stages a tile's subtree only when the block does not hold it already
 // (block_regroup lays out each subtree's pairs as a run of tiles),
@@ -284,10 +232,10 @@ __device__ __forceinline__ int walk(const float* buf, float ox, float oy,
 // hit does atomicMin(hit_out[ray], float_bits(t) << 32 | 0x7FFFFFFF -
 // global tri): the least t, then the largest global id (t > T_MIN > 0,
 // so the bits order as the values).
-template <bool kAnyHit, bool kPerRay, bool kAos>
+template <bool kAnyHit, bool kPerRay>
 __global__ void __launch_bounds__(kBottomThreads, 2)
     lane_bottom_kernel(const int32_t* __restrict__ sid_blocks, int n_tiles,
-                       int n_sub, int chunk, const float* __restrict__ sub,
+                       int n_sub, const float* __restrict__ sub,
                        int sub_stride, const int32_t* __restrict__ pair_ray,
                        const float* __restrict__ ro,
                        const float* __restrict__ rd,
@@ -298,16 +246,15 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
                        int32_t* __restrict__ tri_out,
                        unsigned long long* __restrict__ hit_out,
                        int32_t* __restrict__ capped, int max_steps) {
-  using L = Layout<kAos>;
-  extern __shared__ float4 smem4[];
+  extern __shared__ float4 smem4[];  // two subtree buffers
   float* const smem = reinterpret_cast<float*>(smem4);
   int cb = 1;        // the buffer the last walked tile read
   int hc = -1;       // the subtree in (or on its way to) buffer cb
   int ho = -1;       // and in buffer cb ^ 1
-  int k = blockIdx.x * chunk;
+  int k = blockIdx.x * kChunkTiles;
   while (k < n_tiles) {
     int nk = k + 1;  // this block's next tile
-    if (nk % chunk == 0) nk += (gridDim.x - 1) * chunk;
+    if (nk % kChunkTiles == 0) nk += (gridDim.x - 1) * kChunkTiles;
     const int sid = sid_blocks[k];
     bool on[kPairsPerThread];
     bool any = false;
@@ -326,8 +273,8 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
         ho = h;
         if (hc != sid) {
           cp_async_wait<0>();  // a copy ahead for a tile that was skipped
-          L::stage(smem + cb * L::kFloats,
-                   sub + static_cast<size_t>(sid) * kTile, sub_stride);
+          stage(smem + cb * kSubFloats,
+                sub + static_cast<size_t>(sid) * kTile, sub_stride);
           cp_async_commit();
           hc = sid;
         }
@@ -335,8 +282,8 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
       const int nsid = nk < n_tiles ? sid_blocks[nk] : n_sub;
       if (nsid < n_sub && nsid != sid && ho != nsid) {
         // Buffer cb ^ 1 was last read before the barrier above.
-        L::stage(smem + (cb ^ 1) * L::kFloats,
-                 sub + static_cast<size_t>(nsid) * kTile, sub_stride);
+        stage(smem + (cb ^ 1) * kSubFloats,
+              sub + static_cast<size_t>(nsid) * kTile, sub_stride);
         cp_async_commit();
         ho = nsid;
         cp_async_wait<1>();
@@ -345,7 +292,7 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
       }
       __syncthreads();
     }
-    const float* buf = smem + cb * L::kFloats;
+    const float* buf = smem + cb * kSubFloats;
     const int base = kPerRay && any ? tri_base[sid] : 0;
 #pragma unroll
     for (int h = 0; h < kPairsPerThread; ++h) {
@@ -355,9 +302,9 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
       int tri = -1;
       if (!kPerRay || (on[h] && any)) best = tmax[r];
       if (on[h] && any) {
-        tri = walk<kAnyHit, kAos>(buf, ro[3 * r], ro[3 * r + 1],
-                                  ro[3 * r + 2], rd[3 * r], rd[3 * r + 1],
-                                  rd[3 * r + 2], best, capped, max_steps);
+        tri = walk<kAnyHit>(buf, ro[3 * r], ro[3 * r + 1], ro[3 * r + 2],
+                            rd[3 * r], rd[3 * r + 1], rd[3 * r + 2], best,
+                            capped, max_steps);
       }
       if (!kPerRay) {
         t_out[p] = best;
@@ -375,15 +322,14 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
 }
 
 template <bool kAnyHit, bool kPerRay>
-int launch_bottom(const int32_t* sid, int n_tiles, int n_sub, int chunk,
+int launch_bottom(const int32_t* sid, int n_tiles, int n_sub,
                   const float* sub, int sub_stride, const int32_t* pair_ray,
                   const float* ro, const float* rd, const float* tmax,
                   const int32_t* active, const int32_t* tri_base, float* t,
                   int32_t* tri, unsigned long long* hit, int32_t* capped,
                   int max_steps, cudaStream_t s) {
-  constexpr bool kAos = E7_AOS != 0;
-  auto kernel = lane_bottom_kernel<kAnyHit, kPerRay, kAos>;
-  const int smem = 2 * Layout<kAos>::kFloats * 4;
+  auto kernel = lane_bottom_kernel<kAnyHit, kPerRay>;
+  const int smem = 2 * kSubFloats * 4;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -393,14 +339,11 @@ int launch_bottom(const int32_t* sid, int n_tiles, int n_sub, int chunk,
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                 kBottomThreads, smem);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int blocks = sms * per_sm;
-  // chunk <= 0: one run of consecutive tiles a block.
-  if (chunk <= 0) chunk = (n_tiles + blocks - 1) / blocks;
-  const int n_chunks = (n_tiles + chunk - 1) / chunk;
-  if (n_chunks < blocks) blocks = n_chunks;
+  const int n_chunks = (n_tiles + kChunkTiles - 1) / kChunkTiles;
+  const int blocks = n_chunks < sms * per_sm ? n_chunks : sms * per_sm;
   kernel<<<blocks, kBottomThreads, smem, s>>>(
-      sid, n_tiles, n_sub, chunk, sub, sub_stride, pair_ray, ro, rd, tmax,
-      active, tri_base, t, tri, hit, capped, max_steps);
+      sid, n_tiles, n_sub, sub, sub_stride, pair_ray, ro, rd, tmax, active,
+      tri_base, t, tri, hit, capped, max_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -430,8 +373,7 @@ extern "C" int lane_top(const void* top, int top_stride, const void* ro,
 // sid_blocks (n_tiles,) i32, the subtree of each 1,024-pair tile (>=
 // n_sub: a dump tile); sub: (11, sub_stride) f32 with sub_stride =
 // (n_sub + 1) * 1024, 16-byte aligned; active (n_tiles * 1024,) i32;
-// capped: one i32 counter; chunk: consecutive tiles a block takes at a
-// time (<= 0: one run a block).
+// capped: one i32 counter.
 // Per pair (per_ray == 0): ro, rd (n_pairs, 3) f32 and tmax (n_pairs,)
 // f32 at the pair slots; writes t (n_pairs,) f32, tri (n_pairs,) i32
 // (tri_local, -1 on a miss); pair_ray, tri_base, hit unused.
@@ -439,7 +381,7 @@ extern "C" int lane_top(const void* top, int top_stride, const void* ro,
 // tmax (R,) f32 by ray; tri_base (n_sub + 1,) i32; hit (R,) u64, set to
 // 2^63 - 1 (no hit) before the launch; t, tri unused.
 extern "C" int lane_bottom(const void* sid_blocks, int n_tiles, int n_sub,
-                           int chunk, const void* sub, int sub_stride,
+                           const void* sub, int sub_stride,
                            const void* pair_ray, const void* ro,
                            const void* rd, const void* tmax,
                            const void* active, const void* tri_base,
@@ -464,6 +406,6 @@ extern "C" int lane_bottom(const void* sid_blocks, int n_tiles, int n_sub,
                                 : launch_bottom<true, false>)
                      : (per_ray ? launch_bottom<false, true>
                                 : launch_bottom<false, false>);
-  return fn(sid, n_tiles, n_sub, chunk, tab, sub_stride, pr, o, d, tm, act,
-            base, t, tri, h, cap, max_steps, s);
+  return fn(sid, n_tiles, n_sub, tab, sub_stride, pr, o, d, tm, act, base, t,
+            tri, h, cap, max_steps, s);
 }

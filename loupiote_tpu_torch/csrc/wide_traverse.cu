@@ -22,48 +22,39 @@
 //
 // What bounds it on an H100: each step is a dependent load of one
 // 512-byte row (the next row's address comes out of this one), then a
-// few dozen flops. Rays of a warp diverge to different rows and step
-// counts. So latency and divergence bound it, not flops or bytes: the
-// arch-260k table (15,638,528 bytes) fits the 50 MB L2, and the rays of
-// a coherent warp share each row load in L1. What the design does:
+// few dozen flops; the arch-260k table (15,638,528 bytes) fits the 50 MB
+// L2, and the rays of a coherent warp share each row load in L1. The
+// lanes of a warp run different kinds of step (an internal row's 8 box
+// tests, a leaf row's up to 14 triangle tests) and different numbers of
+// them, and a warp runs every kind its lanes need. What the design does
+// (each choice timed against the others by scripts/traversal_variants.py):
+//  - Leaf rows wait: a lane walks internal rows until it reaches a leaf
+//    row, and the warp tests leaf rows when all its lanes hold one or are
+//    done, so the triangle loop runs with the lanes together. Each ray's
+//    own order of rows is unchanged.
 //  - One stack entry per level, not per child: the parent row and the
 //    mask of its hit children not yet visited, in one 32-bit word
 //    (row << 8 | mask by priority). A pop takes the mask's lowest bit and
 //    re-reads that child's pointer from the parent row, most likely
 //    still in L1. The stack needs the tree's depth in internal rows
 //    (ops/wide.py computes it from the table), so it lives in shared
-//    memory, depth x 128 x 4 bytes a block, and the kernel has no local
-//    stack frame.
-//  - Warps that refill: the grid holds only as many blocks as are
-//    resident; each warp takes the next 32 rays from a counter when its
-//    rays are done, so a warp is held only by its own longest ray.
-//  - No per-child pointer array: the nearest hit child's pointer is kept
-//    while the row is tested, the others are re-read on a pop.
+//    memory, depth x 128 x 4 bytes a block, not in local memory.
+//  - No per-child pointer array, and at most 48 registers a thread (10
+//    blocks of 128 threads an SM).
 // Coherence comes from the callers, which sort rays between bounces.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py). --fmad=false keeps every product
 // separately rounded as in the reference, so t agrees within 2 ulp and
-// every edge decision is the same. K1_MIN_BLOCKS (-D) sets the
-// __launch_bounds__ minimum of resident blocks; scripts/traversal_variants.py
-// builds other values to time them.
+// every edge decision is the same.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef K1_MIN_BLOCKS
-#define K1_MIN_BLOCKS 8
-#endif
-#ifndef K1_WHILE
-#define K1_WHILE 0
-#endif
-#ifndef K1_CHILD_STACK
-#define K1_CHILD_STACK 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 10;  // resident blocks an SM: <= 48 registers
 constexpr int kDepthMax = 32;  // ops/wide.py: DEPTH_MAX
 constexpr int kLeafTag = 1 << 30;
 constexpr int kLeafMask = kLeafTag - 1;
@@ -153,14 +144,7 @@ __device__ __forceinline__ int internal_row(const float* rows, int cur,
     }
   }
   pmask &= pmask - 1;  // the rest wait as one entry
-#if K1_CHILD_STACK
-  // One entry a waiting child, pushed far to near (the first design).
-  for (int p = 7; p >= 0; --p) {
-    if ((pmask >> p) & 1u) stack[sp++] = child_ptr(rows, cur, p ^ oct);
-  }
-#else
   if (pmask) stack[kThreads * sp++] = (cur << 8) | pmask;
-#endif
   return next;
 }
 
@@ -169,9 +153,6 @@ __device__ __forceinline__ int internal_row(const float* rows, int cur,
 __device__ __forceinline__ int pop(const float* rows, uint32_t* stack,
                                    int& sp, int oct) {
   if (sp == 0) return -1;
-#if K1_CHILD_STACK
-  return static_cast<int>(stack[--sp]);
-#endif
   uint32_t* top = stack + kThreads * (sp - 1);
   const uint32_t e = *top;
   const uint32_t mask = e & 0xFFu;
@@ -185,9 +166,9 @@ __device__ __forceinline__ int pop(const float* rows, uint32_t* stack,
 }
 
 // One ray, start to end. stack: this thread's entries, entry d at
-// stack[d * kThreads]. With K1_WHILE a ray walks internal rows until it
-// reaches a leaf row before it tests one, so the lanes of a warp test
-// their leaf rows together; each ray's own order of rows is the same.
+// stack[d * kThreads]. The ray walks internal rows until it reaches a
+// leaf row, then tests it: the lanes of a warp test their leaf rows
+// together.
 template <bool kAnyHit>
 __device__ __forceinline__ void trace_ray(
     const float* __restrict__ rows, const float* __restrict__ ro,
@@ -208,12 +189,7 @@ __device__ __forceinline__ void trace_ray(
     const int oct = (dx < 0.0f) | ((dy < 0.0f) << 1) | ((dz < 0.0f) << 2);
     int sp = 0;
     int cur = 0;  // -1: done
-#if K1_CHILD_STACK
-    uint32_t local_stack[64];
-    stack = local_stack;
-#endif
     int steps = 0;
-#if K1_WHILE
     while (cur >= 0) {
       while (cur >= 0 && !(cur & kLeafTag)) {
         if (steps++ == max_steps) {  // the reference's silent step bound
@@ -237,37 +213,13 @@ __device__ __forceinline__ void trace_ray(
       }
       cur = pop(rows, stack, sp, oct);
     }
-#else
-    while (cur >= 0) {
-      if (steps++ == max_steps) {  // the reference's silent step bound
-        atomicAdd(capped, 1);
-        break;
-      }
-      int next = -1;
-      if (cur & kLeafTag) {
-        if (leaf_row<kAnyHit>(
-                rows + static_cast<size_t>(cur & kLeafMask) * kRow, ox, oy,
-                oz, dx, dy, dz, best, best_tri)) {
-          blocked = true;
-          break;
-        }
-      } else {
-        next = internal_row(rows, cur, ox, oy, oz, ix, iy, iz, oct,
-                            kAnyHit ? t0 : best, stack, sp);
-      }
-      cur = next >= 0 ? next : pop(rows, stack, sp, oct);
-    }
-#endif
   }
   t_out[i] = best;
   tri_out[i] = kAnyHit ? (blocked ? 1 : 0) : best_tri;
 }
 
-// refill != 0: each warp takes 32 rays at a time from *next_ray (zeroed
-// by the caller) until none are left. refill == 0: one warp per 32 rays
-// of a grid that covers them all.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads, K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     wide_traverse_kernel(const float* __restrict__ rows,
                          const float* __restrict__ ro,
                          const float* __restrict__ rd,
@@ -275,69 +227,35 @@ __global__ void __launch_bounds__(kThreads, K1_MIN_BLOCKS)
                          const uint8_t* __restrict__ active,
                          float* __restrict__ t_out,
                          int32_t* __restrict__ tri_out,
-                         int32_t* __restrict__ capped,
-                         int32_t* __restrict__ next_ray, int refill,
-                         int n_rays, int max_steps) {
+                         int32_t* __restrict__ capped, int n_rays,
+                         int max_steps) {
   extern __shared__ uint32_t stacks[];  // [depth][kThreads]
-  uint32_t* stack = stacks + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  int base = blockIdx.x * kThreads + (threadIdx.x & ~31);
-  for (bool more = true; more;) {
-    if (refill) {
-      int b = 0;
-      if (lane == 0) b = atomicAdd(next_ray, 32);
-      base = __shfl_sync(0xFFFFFFFFu, b, 0);
-    } else {
-      more = false;
-    }
-    if (base >= n_rays) break;
-    const int i = base + lane;
-    if (i < n_rays) {
-      trace_ray<kAnyHit>(rows, ro, rd, tmax, active, t_out, tri_out, capped,
-                         stack, i, max_steps);
-    }
-  }
-}
-
-template <bool kAnyHit>
-int launch(const float* rows, const float* ro, const float* rd,
-           const float* tmax, const uint8_t* active, float* t, int32_t* tri,
-           int32_t* capped, int32_t* next_ray, int refill, int n_rays,
-           int max_steps, int depth, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(depth) * kThreads * 4;
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  if (refill) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, wide_traverse_kernel<kAnyHit>, kThreads, smem);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    if (sms * per_sm < blocks) blocks = sms * per_sm;
-  }
-  wide_traverse_kernel<kAnyHit><<<blocks, kThreads, smem, s>>>(
-      rows, ro, rd, tmax, active, t, tri, capped, next_ray, refill, n_rays,
-      max_steps);
-  return static_cast<int>(cudaGetLastError());
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_rays) return;
+  trace_ray<kAnyHit>(rows, ro, rd, tmax, active, t_out, tri_out, capped,
+                     stacks + threadIdx.x, i, max_steps);
 }
 
 }  // namespace
 
 // C entry point (ctypes). Pointers come from tensor.data_ptr(); the
-// stream is torch.cuda.current_stream().cuda_stream. next_ray: one int32
-// set to 0 before the launch (read only when refill != 0). depth: the
-// table's depth in internal rows, at most kDepthMax; every row index
-// below 2^24. Returns cudaGetLastError() after the launch; allocates
-// nothing, does not sync.
+// stream is torch.cuda.current_stream().cuda_stream. depth: the table's
+// depth in internal rows, at most kDepthMax; every row index below 2^24.
+// Returns cudaGetLastError() after the launch; allocates nothing, does
+// not sync.
 extern "C" int wide_traverse(const void* rows, const void* ro, const void* rd,
                              const void* tmax, const void* active, void* t_out,
-                             void* tri_out, void* capped, void* next_ray,
-                             int refill, int n_rays, int max_steps,
-                             int depth, int any_hit, void* stream) {
+                             void* tri_out, void* capped, int n_rays,
+                             int max_steps, int depth, int any_hit,
+                             void* stream) {
   if (n_rays <= 0) return 0;
   if (depth < 1 || depth > kDepthMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const dim3 block(kThreads);
+  const dim3 grid((n_rays + kThreads - 1) / kThreads);
+  const size_t smem = static_cast<size_t>(depth) * kThreads * 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* r = static_cast<const float*>(rows);
   auto* o = static_cast<const float*>(ro);
   auto* d = static_cast<const float*>(rd);
@@ -346,10 +264,12 @@ extern "C" int wide_traverse(const void* rows, const void* ro, const void* rd,
   auto* t = static_cast<float*>(t_out);
   auto* tri = static_cast<int32_t*>(tri_out);
   auto* cap = static_cast<int32_t*>(capped);
-  auto* nxt = static_cast<int32_t*>(next_ray);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? launch<true>(r, o, d, tm, act, t, tri, cap, nxt, refill,
-                                n_rays, max_steps, depth, s)
-                 : launch<false>(r, o, d, tm, act, t, tri, cap, nxt, refill,
-                                 n_rays, max_steps, depth, s);
+  if (any_hit) {
+    wide_traverse_kernel<true><<<grid, block, smem, s>>>(
+        r, o, d, tm, act, t, tri, cap, n_rays, max_steps);
+  } else {
+    wide_traverse_kernel<false><<<grid, block, smem, s>>>(
+        r, o, d, tm, act, t, tri, cap, n_rays, max_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

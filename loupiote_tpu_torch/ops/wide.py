@@ -27,7 +27,6 @@ from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
 
 DEPTH_MAX = 32  # csrc/wide_traverse.cu: kDepthMax
 ROWS_MAX = 1 << 24  # a stack entry holds a row index in 24 bits
-REFILL = 1  # warps take new rays from a counter (csrc/wide_traverse.cu)
 
 # Launches of K1 by mode: each wrapper call that launches the kernel adds
 # one. chip_smoke.py zeroes them before the main path and reads them after.
@@ -241,28 +240,6 @@ def kernel_depth(trav_rows: torch.Tensor) -> int:
     return depth
 
 
-def call_kernel(fn, trav_rows, ro, rd, tmax, active, any_hit, wide_end,
-                depth, refill=REFILL):
-    """Launch ``fn`` (the C entry point ``wide_traverse``) on checked CUDA
-    tensors; returns (t, tri). Raises on a refused launch."""
-    dev = ro.device
-    R = ro.shape[0]
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    tri = torch.empty(R, dtype=torch.int32, device=dev)
-    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             _capped.tensor(dev).data_ptr(), next_ray.data_ptr(), int(refill),
-             R, max_steps(wide_end), depth, int(any_hit),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
-    return t, tri
-
-
 def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
     """K1 on CUDA tensors. ``wide_stack`` sizes the twin's per-child
     stack; the kernel's per-level stack is sized by ``kernel_depth``."""
@@ -274,9 +251,18 @@ def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
                      ("rd", rd, torch.float32, (R, 3)),
                      ("tmax", tmax, torch.float32, (R,)),
                      ("active", active, torch.bool, (R,))))
-    t, tri = call_kernel(_build.load("wide_traverse").wide_traverse,
-                         trav_rows, ro, rd, tmax, active, any_hit, wide_end,
-                         depth)
+    fn = _build.load("wide_traverse").wide_traverse
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    tri = torch.empty(R, dtype=torch.int32, device=dev)
+    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
+             _capped.tensor(dev).data_ptr(), R, max_steps(wide_end), depth,
+             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
     global launches_closest, launches_anyhit
     if any_hit:
         launches_anyhit += 1

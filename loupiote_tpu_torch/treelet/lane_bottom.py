@@ -33,9 +33,6 @@ from .build import SUB_END, TILE
 MAX_STEPS = 2048
 WALK_FIELDS = 10  # f0..f9; f10 (the global id) is host-side only
 NO_HIT = (1 << 63) - 1  # a ray's packed word before any pair hits
-# Consecutive tiles a CUDA block walks before it jumps a grid ahead
-# (csrc/treelet_traverse.cu; 0: one run of tiles a block).
-CHUNK_TILES = 2
 
 # Launches of E7 by mode on the card; chip_smoke.py zeroes them before the
 # main path and reads them after.
@@ -166,24 +163,22 @@ def lane_bottom_rays_plain(sid_blocks, sub_fields, sub_tri_base, pair_ray,
 
 
 def _call(sid_blocks, sub_fields, ray_args, outs, any_hit: bool,
-          per_ray: bool, chunk: int = CHUNK_TILES, lib=None):
-    """Launch the C entry point ``lane_bottom`` (``lib``'s, default the
-    built ``csrc/treelet_traverse.cu``) on checked CUDA tensors.
+          per_ray: bool):
+    """Launch the C entry point ``lane_bottom`` on checked CUDA tensors.
     ``ray_args``: (pair_ray or None, ro, rd, tmax, active, tri_base or
     None); ``outs``: (t, tri, hit), None where the epilogue has none."""
     dev = sid_blocks.device
     tab = sub_fields.reshape(sub_fields.shape[0], -1)
     if tab.data_ptr() % 16:
         raise ValueError("sub_fields: need a 16-byte aligned table")
-    lib = lib or _build.load("treelet_traverse")
-    fn = lib.lane_bottom
+    fn = _build.load("treelet_traverse").lane_bottom
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     ptrs = [0 if x is None else x.data_ptr() for x in (*ray_args, *outs)]
     err = fn(sid_blocks.data_ptr(), sid_blocks.shape[0],
-             tab.shape[1] // TILE - 1, chunk, tab.data_ptr(), tab.shape[1],
+             tab.shape[1] // TILE - 1, tab.data_ptr(), tab.shape[1],
              *ptrs, _capped.tensor(dev).data_ptr(), MAX_STEPS, int(any_hit),
              int(per_ray), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -1,26 +1,26 @@
 #!/usr/bin/env python3
-"""Device time of design variants of K1 (csrc/wide_traverse.cu) and E7
-(csrc/treelet_traverse.cu) on one GPU, at the 1080p arch-260k shapes.
+"""Device time of K1 (csrc/wide_traverse.cu) and E7
+(csrc/treelet_traverse.cu) on one GPU at the 1080p arch-260k shapes,
+against the same kernels built from another checkout's sources.
 
     python3 scripts/traversal_variants.py [--parent DIR]
 
-K1, on the primary wave (closest-hit) and its NEE wave (any-hit), 2,073,600
-rays: builds with K1_MIN_BLOCKS 8, 12 and 16 (the __launch_bounds__
-minimum), each with warps that refill from a counter and with a static
-grid. E7 with its per-ray epilogue, on the primary wave's 8,911,872 pair
-slots: the entry-major and the field-major shared-memory layout (E7_AOS 1
-and 0), each with 0 (one run a block), 2, 4 and 8 consecutive tiles a
-block takes at a time; and the per-pair epilogue of each layout. With
-``--parent DIR`` (a checkout of an earlier commit, for example a ``git
-archive`` of it), the same kernels built from DIR's sources too: its K1,
-and its E7 per-pair kernel with the three pair gathers and the two
-``scatter_reduce`` calls that combined the pairs per ray before E7 did.
+K1 on the primary wave (closest-hit) and its NEE wave (any-hit), 2,073,600
+rays; E7 on the primary wave's 8,911,872 pair slots, with its per-ray
+epilogue and ``unpack_hits`` (what the treelet pipeline runs) and with its
+per-pair epilogue. With ``--parent DIR`` (a checkout of an earlier commit,
+for example a ``git archive`` of it), DIR's K1, DIR's E7 per-pair kernel
+alone, and that kernel with the three pair gathers and the two
+``scatter_reduce`` calls that combined the pairs per ray before E7 did it.
+DIR's kernels must have the C entry points of the commit before the
+per-level stack (``wide_traverse`` without a depth argument,
+``lane_bottom`` per pair only).
 
 Each time is the best of REPS calls (``experiments.time_probe``: CUDA
-events, after a warm-up). Every variant's outputs are held bit-equal to
-the shipped build's, and those to the plain versions; the run fails on a
-difference. Prints each build's ptxas lines (registers, stack frame,
-spills). Needs CUDA; fails without it.
+events, after a warm-up). This build's outputs are held bit-equal to the
+plain versions and DIR's to this build's; the run fails on a difference.
+Prints each build's ptxas lines (registers, stack frame, spills). Needs
+CUDA; fails without it.
 """
 
 import argparse
@@ -32,15 +32,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 REPS = 10
-K1_BUILDS = (("K1_MIN_BLOCKS=8",), ("K1_MIN_BLOCKS=10",),
-             ("K1_MIN_BLOCKS=8", "K1_WHILE=1"),
-             ("K1_MIN_BLOCKS=10", "K1_WHILE=1"),
-             ("K1_MIN_BLOCKS=8", "K1_CHILD_STACK=1"),
-             ("K1_MIN_BLOCKS=10", "K1_CHILD_STACK=1"),
-             ("K1_MIN_BLOCKS=8", "K1_CHILD_STACK=1", "K1_WHILE=1"),
-             ("K1_MIN_BLOCKS=10", "K1_CHILD_STACK=1", "K1_WHILE=1"),
-             ("K1_MIN_BLOCKS=1", "K1_CHILD_STACK=1", "K1_WHILE=1"))
-E7_CHUNKS = {1: (1, 2, 4), 0: (1, 2, 4)}
 
 
 def ptxas_lines(_build, label):
@@ -87,20 +78,15 @@ def parent_k1(lib, arch, wave, any_hit):
     return t, tri
 
 
-def parent_e7_chain(lib, td, ro, rd, t0, pray, sid, on):
-    """The per-ray (t, tri) before E7 took in the combine: three pair
-    gathers, the per-pair kernel, two scatter_reduce calls."""
+def parent_e7(lib, td, pro, prd, pt0, sid, on):
+    """DIR's per-pair E7 on pair-ordered ray data: (t, tri_local)."""
     import ctypes
 
     import torch
 
-    from loupiote_tpu_torch.ops.intersect import T_FAR
     from loupiote_tpu_torch.treelet import lane_bottom as lb
 
-    R = ro.shape[0]
-    pr = pray.long()
-    pro, prd, pt0 = (x[pr].contiguous() for x in (ro, rd, t0))
-    P = pr.shape[0]
+    P = on.shape[0]
     tab = td.sub_fields.reshape(td.sub_fields.shape[0], -1)
     fn = lib.lane_bottom
     fn.restype = ctypes.c_int
@@ -116,6 +102,21 @@ def parent_e7_chain(lib, td, ro, rd, t0, pray, sid, on):
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent E7: CUDA error {err}")
+    return pt, local
+
+
+def parent_e7_chain(lib, td, ro, rd, t0, pray, sid, on):
+    """The per-ray (t, tri) before E7 took in the combine: three pair
+    gathers, DIR's per-pair kernel, two scatter_reduce calls."""
+    import torch
+
+    from loupiote_tpu_torch.ops.intersect import T_FAR
+    from loupiote_tpu_torch.treelet import lane_bottom as lb
+
+    R = ro.shape[0]
+    pr = pray.long()
+    pt, local = parent_e7(lib, td, *(x[pr].contiguous() for x in (ro, rd, t0)),
+                          sid, on)
     hit_ok = (local >= 0) & (on > 0)
     pt = torch.where(hit_ok, pt, T_FAR)
     tmin = torch.full((R,), T_FAR, dtype=torch.float32, device=ro.device)
@@ -166,10 +167,12 @@ def main(argv=None):
           f"rows; {R} rays a wave", flush=True)
 
     # -- K1 -----------------------------------------------------------------
-    want = {m: wide.wide_trace(arch.trav_rows, *w, m == "anyhit",
-                               arch.wide_end, arch.wide_stack)
-            for m, w in k1_waves.items()}
+    print(f"K1: ms, best of {REPS} (closest-hit primary / any-hit NEE)")
+    want, ms = {}, {}
     for m, w in k1_waves.items():
+        call = (arch.trav_rows, *w, m == "anyhit", arch.wide_end,
+                arch.wide_stack)
+        ms[m], want[m] = time_probe(lambda c=call: wide.wide_trace(*c), REPS)
         sub = torch.arange(0, R, R // 65_536, device=dev)[:65_536]
         plain = wide.wide_trace_plain(
             arch.trav_rows, *(x[sub].contiguous() for x in w), m == "anyhit",
@@ -177,32 +180,15 @@ def main(argv=None):
         if not equal((want[m][0][sub], want[m][1][sub]), plain):
             raise SystemExit(f"traversal_variants: K1 {m} disagrees with "
                              f"wide_trace_plain")
-    print("K1: ms, best of {} (closest-hit primary / any-hit NEE)".format(
-        REPS))
-    for defs in K1_BUILDS:
-        mb = " ".join(defs)
-        lib = _build.load("wide_traverse", defs)
-        print(f"  build {mb}:\n"
-              + ptxas_lines(_build, "wide_traverse " + mb))
-        for refill in (1, 0):
-            ms = {}
-            for m, w in k1_waves.items():
-                call = (lambda w=w, m=m: wide.call_kernel(
-                    lib.wide_traverse, arch.trav_rows, *w, m == "anyhit",
-                    arch.wide_end, depth, refill))
-                ms[m], out = time_probe(call, REPS)
-                if not equal(out, want[m]):
-                    raise SystemExit(f"traversal_variants: K1 {mb} "
-                                     f"refill={refill} {m} differs")
-            print(f"  {mb} refill={refill}: "
-                  f"{ms['closest']:.4f} / {ms['anyhit']:.4f}", flush=True)
+    print("  build:\n" + ptxas_lines(_build, "wide_traverse"))
+    print(f"  this build: {ms['closest']:.4f} / {ms['anyhit']:.4f}",
+          flush=True)
     if args.parent:
         src = os.path.join(args.parent, "loupiote_tpu_torch", "csrc",
                            "wide_traverse.cu")
         lib = _build.load("wide_traverse(parent)", src=src)
         print("  build parent:\n" + ptxas_lines(_build,
                                                 "wide_traverse(parent)"))
-        ms = {}
         for m, w in k1_waves.items():
             ms[m], out = time_probe(
                 lambda w=w, m=m: parent_k1(lib, arch, w, m == "anyhit"), REPS)
@@ -219,72 +205,40 @@ def main(argv=None):
                                           td.num_top)
     key, ray_of, _ = _compact_pairs(pend, npend, pact, S=td.num_subtrees)
     pray, sid, on = block_regroup(key, ray_of, td.num_subtrees)
-    ray_args = (pray, pro, prd, tfar, on, td.sub_tri_base)
-    want = lb.lane_bottom_rays(sid, td.sub_fields, td.sub_tri_base, pray, on,
-                               pro, prd, tfar)
-    plain = lb.lane_bottom_rays_plain(sid, td.sub_fields, td.sub_tri_base,
-                                      pray, on, pro, prd, tfar, False)
-    if not torch.equal(want, plain):
+    rays = (sid, td.sub_fields, td.sub_tri_base, pray, on, pro, prd, tfar)
+    want = lb.lane_bottom_rays(*rays)
+    if not torch.equal(want, lb.lane_bottom_rays_plain(*rays, False)):
         raise SystemExit("traversal_variants: E7 per ray disagrees with "
                          "lane_bottom_rays_plain")
     pr = pray.long()
-    pair_args = (pro[pr].contiguous(), prd[pr].contiguous(),
-                 tfar[pr].contiguous())
-    want_pair = lb.lane_bottom_trace(sid, td.sub_fields, *pair_args, on)
-    print(f"E7: {sid.numel()} tiles, {int((on > 0).sum())} live pairs; "
-          f"ms, best of {REPS} (per ray, closest-hit; the per-pair "
-          f"epilogue at chunk {lb.CHUNK_TILES})")
-    for aos in (1, 0):
-        defs = (f"E7_AOS={aos}",)
-        lib = _build.load("treelet_traverse", defs)
-        print(f"  build E7_AOS={aos}:\n"
-              + ptxas_lines(_build, "treelet_traverse " + defs[0]))
-        for chunk in E7_CHUNKS[aos]:
-            def per_ray(chunk=chunk, lib=lib):
-                hit = torch.full((R,), lb.NO_HIT, dtype=torch.int64,
-                                 device=dev)
-                lb._call(sid, td.sub_fields, ray_args, (None, None, hit),
-                         False, True, chunk, lib)
-                return hit
-
-            ms, out = time_probe(per_ray, REPS)
-            if not torch.equal(out, want):
-                raise SystemExit(f"traversal_variants: E7 E7_AOS={aos} "
-                                 f"chunk={chunk} differs")
-            print(f"  E7_AOS={aos} chunk={chunk}: per ray {ms:.4f}",
-                  flush=True)
-
-        def per_pair(lib=lib):
-            t = torch.empty(pr.shape[0], dtype=torch.float32, device=dev)
-            tri = torch.empty(pr.shape[0], dtype=torch.int32, device=dev)
-            lb._call(sid, td.sub_fields, (None, *pair_args, on, None),
-                     (t, tri, None), False, False, lb.CHUNK_TILES, lib)
-            return t, tri
-
-        ms, out = time_probe(per_pair, REPS)
-        if not equal(out, want_pair):
-            raise SystemExit(f"traversal_variants: E7 per pair E7_AOS={aos} "
-                             f"differs")
-        print(f"  E7_AOS={aos}: per pair {ms:.4f}", flush=True)
-    t_new, tri_new = lb.unpack_hits(want, tfar)
+    pairs = (pro[pr].contiguous(), prd[pr].contiguous(),
+             tfar[pr].contiguous())
+    print(f"E7: {sid.numel()} tiles, {int((on > 0).sum())} live pairs; ms, "
+          f"best of {REPS} (closest-hit)")
+    print("  build:\n" + ptxas_lines(_build, "treelet_traverse"))
+    ms_ray, (t_new, tri_new) = time_probe(
+        lambda: lb.unpack_hits(lb.lane_bottom_rays(*rays), tfar), REPS)
+    ms_pair, want_pair = time_probe(
+        lambda: lb.lane_bottom_trace(sid, td.sub_fields, *pairs, on), REPS)
+    print(f"  this build: per ray + unpack_hits {ms_ray:.4f}; per pair "
+          f"{ms_pair:.4f}", flush=True)
     if args.parent:
         src = os.path.join(args.parent, "loupiote_tpu_torch", "csrc",
                            "treelet_traverse.cu")
         lib = _build.load("treelet_traverse(parent)", src=src)
         print("  build parent:\n" + ptxas_lines(_build,
                                                 "treelet_traverse(parent)"))
-        ms, out = time_probe(lambda: parent_e7_chain(
+        ms, out = time_probe(lambda: parent_e7(lib, td, *pairs, sid, on),
+                             REPS)
+        if not equal(out, want_pair):
+            raise SystemExit("traversal_variants: the parent's E7 differs")
+        ms_chain, out = time_probe(lambda: parent_e7_chain(
             lib, td, pro, prd, tfar, pray, sid, on), REPS)
         if not equal(out, (t_new, tri_new)):
             raise SystemExit("traversal_variants: the parent's E7 chain "
                              "differs")
-        print(f"  parent: gathers + per-pair kernel + two scatter_reduce "
-              f"{ms:.4f}", flush=True)
-        ms, _ = time_probe(lambda: lb.unpack_hits(lb.lane_bottom_rays(
-            sid, td.sub_fields, td.sub_tri_base, pray, on, pro, prd, tfar),
-            tfar), REPS)
-        print(f"  this build: lane_bottom_rays + unpack_hits {ms:.4f}",
-              flush=True)
+        print(f"  parent: per pair {ms:.4f}; gathers + per pair + two "
+              f"scatter_reduce {ms_chain:.4f}", flush=True)
     print(smi)
 
 
