@@ -27,7 +27,8 @@
 // lanes of a warp run different kinds of step (an internal row's 8 box
 // tests, a leaf row's up to 14 triangle tests) and different numbers of
 // them, and a warp runs every kind its lanes need. What the design does
-// (each choice timed against the others by scripts/traversal_variants.py):
+// (each choice timed on the card against its alternatives; PERF.md has
+// the numbers):
 //  - Leaf rows wait: a lane walks internal rows until it reaches a leaf
 //    row, and the warp tests leaf rows when all its lanes hold one or are
 //    done, so the triangle loop runs with the lanes together. Each ray's

@@ -185,12 +185,20 @@ def wide_trace_plain(trav_rows: torch.Tensor, ro: torch.Tensor,
     return t_best, tri
 
 
-def depth_of_pointers(ptr: np.ndarray) -> int:
-    """Internal rows on the longest root-to-leaf path of a wide table,
-    from its child pointers ``ptr`` (rows, 8) int32 (lanes 6::16 of each
-    row; only internal rows are read). The kernel's per-level stack holds
-    at most this many entries. Raises on a pointer out of the table or a
-    cycle."""
+_depths: dict = {}  # id(trav_rows) -> (its version, its depth)
+
+
+def table_depth(trav_rows: torch.Tensor) -> int:
+    """Internal rows on the longest root-to-leaf path of a (rows, 128)
+    wide table, from its child pointers (lanes 6::16; only internal rows
+    are read): the most entries the kernel's per-level stack holds.
+    Computed on the host once per table, and again after the table is
+    written in place. Raises on a pointer out of the table or a cycle."""
+    key = id(trav_rows)
+    known = _depths.get(key)
+    if known is not None and known[0] == trav_rows._version:
+        return known[1]
+    ptr = trav_rows.view(torch.int32)[:, 6::16].cpu().numpy()
     n = ptr.shape[0]
     level = np.zeros(1, np.int64)
     depth = 0
@@ -203,21 +211,6 @@ def depth_of_pointers(ptr: np.ndarray) -> int:
         if ch.size and (ch.min() < 0 or ch.max() >= n):
             raise ValueError("trav_rows: a child pointer leaves the table")
         level = np.unique(ch)
-    return depth
-
-
-_depths: dict = {}  # id(trav_rows) -> (its version, its depth)
-
-
-def table_depth(trav_rows: torch.Tensor) -> int:
-    """``depth_of_pointers`` of a (rows, 128) table, computed on the host
-    once per table (and again after the table is written in place)."""
-    key = id(trav_rows)
-    known = _depths.get(key)
-    if known is not None and known[0] == trav_rows._version:
-        return known[1]
-    ptr = trav_rows.view(torch.int32)[:, 6::16].cpu().numpy()
-    depth = depth_of_pointers(ptr)
     if known is None:
         weakref.finalize(trav_rows, _depths.pop, key, None)
     _depths[key] = (trav_rows._version, depth)

@@ -93,9 +93,9 @@ def parent_e7(lib, td, pro, prd, pt0, sid, on):
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
-    pt = torch.empty(P, dtype=torch.float32, device=ro.device)
-    local = torch.empty(P, dtype=torch.int32, device=ro.device)
-    cap = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    pt = torch.empty(P, dtype=torch.float32, device=on.device)
+    local = torch.empty(P, dtype=torch.int32, device=on.device)
+    cap = torch.zeros(1, dtype=torch.int32, device=on.device)
     err = fn(sid.data_ptr(), tab.data_ptr(), tab.shape[1], pro.data_ptr(),
              prd.data_ptr(), pt0.data_ptr(), on.data_ptr(), pt.data_ptr(),
              local.data_ptr(), cap.data_ptr(), P, lb.MAX_STEPS, 0,

@@ -208,6 +208,48 @@ def test_lane_bottom_matches_reference(soup, any_hit):
     np.testing.assert_allclose(pt[same], rt[same], rtol=1e-5)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_lane_bottom_rays_combines_per_ray_on_the_cpu_only(soup, any_hit):
+    """E7's per-ray entry point on CPU tensors runs its plain version: per
+    ray, the least t over its pairs' walks and, at that t, the largest
+    global triangle id (checked here by a numpy loop over the pairs). A
+    tensor on another device raises instead of falling back."""
+    tris, _, _, port_t = soup
+    ro, rd, tmax, active = (torch.from_numpy(x)
+                            for x in _rays(tris, 2048, seed=6))
+    top = torch.from_numpy(port_t.top_fields)
+    sub = torch.from_numpy(np.concatenate(
+        [port_t.sub_fields, tb._empty_tile_like(port_t.sub_fields)], axis=1))
+    base = torch.from_numpy(np.concatenate([port_t.sub_tri_base, [0]])
+                            .astype(np.int32))
+    pend, npend = lane_top.lane_top_plain(top, ro, rd, tmax, active,
+                                          port_t.num_top)
+    key, ray_of, _ = _compact_pairs(pend, npend, active,
+                                    S=port_t.num_subtrees)
+    pray, sid, on = regroup.block_regroup(key, ray_of, port_t.num_subtrees,
+                                          slab_log=10)
+    hit = lane_bottom.lane_bottom_rays(sid, sub, base, pray, on, ro, rd,
+                                       tmax, any_hit)
+    t, tri = lane_bottom.unpack_hits(hit, tmax)
+    pr = pray.long()
+    pt, local = lane_bottom.lane_bottom_trace(sid, sub, ro[pr], rd[pr],
+                                              tmax[pr], on, any_hit)
+    gid = base[sid.long()].repeat_interleave(tb.TILE) + local
+    want_t, want_tri = tmax.numpy().copy(), np.full(2048, -1, np.int32)
+    for p in np.nonzero(((local >= 0) & (on > 0)).numpy())[0]:
+        r, tp, g = int(pr[p]), pt[p].item(), int(gid[p])
+        if want_tri[r] < 0 or tp < want_t[r] or (tp == want_t[r]
+                                                 and g > want_tri[r]):
+            want_t[r], want_tri[r] = tp, g
+    np.testing.assert_array_equal(t.numpy(), want_t)
+    np.testing.assert_array_equal(tri.numpy(), want_tri)
+    assert (tri >= 0).sum() > 100
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no traversal"):
+        lane_bottom.lane_bottom_rays(sid, sub, base, pray, on, meta, meta,
+                                     meta[:, 0], any_hit)
+
+
 def _slab_runs(seed, G=3, slab=1024, K=9):
     """Sorted slab rows and their run tables from the port's glue."""
     rng = np.random.default_rng(seed)

@@ -180,6 +180,19 @@ def test_kernel_wrapper_refuses_a_deep_stack(soup):
     assert wide.kernel_depth(_chain_table(wide.DEPTH_MAX)) == wide.DEPTH_MAX
 
 
+@pytest.mark.parametrize("bad", ["cycle", "out of the table"])
+def test_table_depth_refuses_a_malformed_table(bad):
+    """The depth walk follows pointers from outside the kernel: a cycle
+    or a pointer past the last row raises instead of looping or reading
+    past the table."""
+    table = _chain_table(4)
+    ptr = table.view(torch.int32)
+    ptr[3, 6] = 1 if bad == "cycle" else 99
+    with pytest.raises(ValueError, match="cycle" if bad == "cycle"
+                       else "leaves the table"):
+        wide.table_depth(table)
+
+
 def test_kernel_wrapper_refuses_a_table_of_2_24_rows():
     """A stack entry holds a row index in 24 bits."""
     x = torch.zeros((4, 3))
