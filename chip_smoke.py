@@ -1098,8 +1098,11 @@ def main():
                tfar[pr].contiguous(), on)
     e7_ray = (sid, td.sub_fields, td.sub_tri_base, pray, on, pro, prd, tfar)
     live_pairs = int((on > 0).sum())
-    rays_paired = int(torch.unique(pray[on > 0]).numel())
     P = on.shape[0]
+    # The pairs the kernel walks: live, in a tile of a real subtree.
+    walked = (on > 0) & (sid.repeat_interleave(P // sid.numel()) < S)
+    walked_pairs = int(walked.sum())
+    rays_paired = int(torch.unique(pray[walked]).numel())
     e7_timing, e7_stats = {}, {}
     for epi in ("per ray", "per pair"):
         for mode in ("closest", "anyhit"):
@@ -1134,7 +1137,8 @@ def main():
             ok &= all(same)
             full_rows.append(
                 f"E7 {epi} {mode} on all {P} pair slots of the primary wave "
-                f"({live_pairs} live pairs of {rays_paired} rays): three "
+                f"({live_pairs} live pairs, {walked_pairs} walked, of "
+                f"{rays_paired} rays): three "
                 f"kernel runs bit-equal to the plain version {same}; max "
                 f"|t| error {err}")
     capped = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
@@ -1149,14 +1153,15 @@ def main():
     e6_bound = bound_of(N * (1 + 36) + n_act * (RAY_IN_BYTES - 1)
                         + top_bytes, e6_stats["box_tests"] * OPS_BOX)
     # E7 per pair reads tmax and the active flag of every slot and ro, rd
-    # only for live pairs, and writes t and tri of every slot. Per ray it
-    # reads pair_ray and the active flag of every slot, ro, rd, t0 of each
-    # ray with a live pair once and the triangle bases, and writes one
-    # 8-byte word a ray. Both read the subtree table's 10 walked fields.
+    # only for walked pairs, and writes t and tri of every slot. Per ray it
+    # reads the active flag of every slot, pair_ray of each walked pair,
+    # ro, rd, t0 of each ray with a walked pair once and the triangle
+    # bases, and writes one 8-byte word a ray. Both read the subtree
+    # table's 10 walked fields.
     walk_bytes = sid.numel() * 4 + sub_bytes * 10 // 11
-    e7_bytes = {"per pair": P * 16 + live_pairs * 24 + walk_bytes,
-                "per ray": P * 8 + rays_paired * 28 + (S + 1) * 4 + N * 8
-                + walk_bytes}
+    e7_bytes = {"per pair": P * 16 + walked_pairs * 24 + walk_bytes,
+                "per ray": P * 4 + walked_pairs * 4 + rays_paired * 28
+                + (S + 1) * 4 + N * 8 + walk_bytes}
     e7_bound = {k: bound_of(e7_bytes[k[0]],
                             ops_of(e7_stats[k[1]], P, P, box_key="box_tests"))
                 for k in e7_timing}
@@ -1170,7 +1175,8 @@ def main():
     for (epi, m), (k_ms, p_ms) in e7_timing.items():
         b_ms, b_by = e7_bound[(epi, m)]
         print(f"E7 {epi} {m} on the primary wave's pairs ({P} slots, "
-              f"{live_pairs} live, {P // 1024} tiles): kernel {k_ms:.4f} ms, "
+              f"{walked_pairs} walked, {P // 1024} tiles): kernel "
+              f"{k_ms:.4f} ms, "
               f"plain torch {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
               f"{e7_bytes[epi]} bytes; twin work on the wave's pairs: "
               f"{e7_stats[m]})")
@@ -1285,8 +1291,12 @@ def main():
     k4_cuda = ss.cuda_launched
     t_launches = {"E6": lane_top.launches, "K4": ss.launches,
                   "E5": regroup.launches,
-                  "E7 closest": lane_bottom.launches_closest,
-                  "E7 any-hit": lane_bottom.launches_anyhit,
+                  "E7 closest": lane_bottom.launches[("per_ray", "closest")],
+                  "E7 any-hit": lane_bottom.launches[("per_ray", "anyhit")],
+                  "E7 per pair": lane_bottom.launches[("per_pair",
+                                                       "closest")],
+                  "E7 per pair any-hit": lane_bottom.launches[("per_pair",
+                                                               "anyhit")],
                   "K1 closest": wide.launches_closest,
                   "K1 any-hit": wide.launches_anyhit,
                   "K2": bvh2.launches_closest, "K3": bvh2.launches_occluded}
@@ -1303,6 +1313,11 @@ def main():
         if t_launches[k] != BOUNCES * n_frames:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
                              f"{t_launches[k]} times, not {BOUNCES} a frame")
+    # Every E7 launch of the frame is the per-ray epilogue, closest-hit.
+    for k in ("E7 any-hit", "E7 per pair", "E7 per pair any-hit"):
+        if t_launches[k]:
+            raise SystemExit(f"chip_smoke: the treelet path launched {k} "
+                             f"{t_launches[k]} times")
     # Every treelet sort has one payload and a slab of at most 2^16 keys.
     if k4_cuda != t_launches["K4"] * ss.cuda_launches(16, 1):
         raise SystemExit(f"chip_smoke: K4's {t_launches['K4']} sorts made "
@@ -1601,13 +1616,14 @@ def main():
         **e7_entry("per ray", "closest"), "library_ms": None,
         # The per-ray epilogue in closest-hit mode is what the path runs;
         # its any-hit mode and the per-pair epilogue are checked and timed
-        # here, off the path.
+        # here, off the path (their launches on the path are counted: 0).
         "modes": {"anyhit": {"launches": t_launches["E7 any-hit"],
                              **e7_entry("per ray", "anyhit")},
-                  "per_pair": {"launches": 0,
+                  "per_pair": {"launches": t_launches["E7 per pair"],
                                **e7_entry("per pair", "closest")},
-                  "per_pair_anyhit": {"launches": 0,
-                                      **e7_entry("per pair", "anyhit")}}})
+                  "per_pair_anyhit": {
+                      "launches": t_launches["E7 per pair any-hit"],
+                      **e7_entry("per pair", "anyhit")}}})
     full = e1_res["full"]
     kernels.append({
         "name": "kernel_probe", "route": "cuda",

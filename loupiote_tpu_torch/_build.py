@@ -45,26 +45,24 @@ def nvcc_path() -> str:
     return path
 
 
-def load(name: str, src: str | None = None) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, or the source file
-    ``src`` under the name ``name``; raises on failure. Threads that load
-    different names build them at the same time."""
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure.
+    Threads that load different sources build them at the same time."""
     with _lock:
         lock = _name_locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_compile(
-                name, src or os.path.join(CSRC_DIR, f"{name}.cu")))
+            lib = ctypes.CDLL(_compile(name))
             _libs[name] = lib
         return lib
 
 
-def _compile(name: str, src: str) -> str:
+def _compile(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(os.path.basename(src))[0]
-    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(out):
         build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
         return out

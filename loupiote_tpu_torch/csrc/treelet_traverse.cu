@@ -266,7 +266,8 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
     // Also the barrier after the last tile's reads of its buffer.
     any = __syncthreads_or(any) && sid < n_sub;
     if (any) {
-      if (hc != sid) {  // walk from the other buffer
+      const bool swap = hc != sid;
+      if (swap) {  // walk from the other buffer
         cb ^= 1;
         const int h = hc;
         hc = ho;
@@ -281,7 +282,11 @@ __global__ void __launch_bounds__(kBottomThreads, 2)
       }
       const int nsid = nk < n_tiles ? sid_blocks[nk] : n_sub;
       if (nsid < n_sub && nsid != sid && ho != nsid) {
-        // Buffer cb ^ 1 was last read before the barrier above.
+        // Buffer cb ^ 1 was last read before the barrier above. Without a
+        // swap, a copy ahead for a tile that was skipped may still be
+        // landing in it: cp.async orders no writes between groups, so
+        // let it finish first (this tile's buffer is complete already).
+        if (!swap) cp_async_wait<0>();
         stage(smem + (cb ^ 1) * kSubFloats,
               sub + static_cast<size_t>(nsid) * kTile, sub_stride);
         cp_async_commit();

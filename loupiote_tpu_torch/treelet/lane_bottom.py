@@ -34,10 +34,11 @@ MAX_STEPS = 2048
 WALK_FIELDS = 10  # f0..f9; f10 (the global id) is host-side only
 NO_HIT = (1 << 63) - 1  # a ray's packed word before any pair hits
 
-# Launches of E7 by mode on the card; chip_smoke.py zeroes them before the
-# main path and reads them after.
-launches_closest = 0
-launches_anyhit = 0
+# Launches of E7 on the card by (epilogue, mode): epilogue "per_ray" or
+# "per_pair", mode "closest" or "anyhit". chip_smoke.py zeroes them before
+# the main path and reads them after.
+launches = {(e, m): 0 for e in ("per_ray", "per_pair")
+            for m in ("closest", "anyhit")}
 
 _capped = DeviceCounter()  # pairs stopped by the step bound, per device
 
@@ -49,9 +50,8 @@ def capped_pairs(device) -> int:
 
 
 def reset_counters() -> None:
-    global launches_closest, launches_anyhit
-    launches_closest = 0
-    launches_anyhit = 0
+    for k in launches:
+        launches[k] = 0
     _capped.reset()
 
 
@@ -183,11 +183,8 @@ def _call(sid_blocks, sub_fields, ray_args, outs, any_hit: bool,
              int(per_ray), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_bottom launch failed: CUDA error {err}")
-    global launches_closest, launches_anyhit
-    if any_hit:
-        launches_anyhit += 1
-    else:
-        launches_closest += 1
+    launches[("per_ray" if per_ray else "per_pair",
+              "anyhit" if any_hit else "closest")] += 1
 
 
 def _launch(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit: bool):

@@ -12,6 +12,7 @@ may differ from the port's separately rounded products by a few ulp.
 
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -248,6 +249,40 @@ def test_lane_bottom_rays_combines_per_ray_on_the_cpu_only(soup, any_hit):
     with pytest.raises(ValueError, match="no traversal"):
         lane_bottom.lane_bottom_rays(sid, sub, base, pray, on, meta, meta,
                                      meta[:, 0], any_hit)
+
+
+@pytest.mark.parametrize("per_ray", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_lane_bottom_counts_launches_by_epilogue(monkeypatch, per_ray,
+                                                 any_hit):
+    """E7's launch site counts each launch under its own (epilogue, mode)
+    key, so a run can tell which epilogue a path launched. The C entry
+    point is replaced by a stub that records its epilogue and mode flags;
+    ``reset_counters`` zeroes every key."""
+    calls = []
+
+    def stub(*args):
+        calls.append(args[-4:-1])  # max_steps, any_hit, per_ray
+        return 0
+
+    monkeypatch.setattr(lane_bottom._build, "load",
+                        lambda name: SimpleNamespace(lane_bottom=stub))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    sid = torch.zeros(1, dtype=torch.int32)
+    sub = torch.zeros((11, 2 * tb.TILE), dtype=torch.float32)
+    ray = torch.zeros((tb.TILE, 3), dtype=torch.float32)
+    lane_bottom.reset_counters()
+    for _ in range(2):
+        lane_bottom._call(sid, sub, (None, ray, ray, ray[:, 0], sid, None),
+                          (None, None, None), any_hit, per_ray)
+    key = ("per_ray" if per_ray else "per_pair",
+           "anyhit" if any_hit else "closest")
+    assert lane_bottom.launches == {k: 2 * (k == key)
+                                    for k in lane_bottom.launches}
+    assert calls == [(lane_bottom.MAX_STEPS, int(any_hit), int(per_ray))] * 2
+    lane_bottom.reset_counters()
+    assert not any(lane_bottom.launches.values())
 
 
 def _slab_runs(seed, G=3, slab=1024, K=9):
