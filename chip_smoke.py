@@ -17,8 +17,11 @@ Phases, each timed:
                  the 1080p waves;
   4. K2/K3     - kernels K2 and K3 (csrc/bvh2_traverse.cu) against their
                  twins on the random-4k scene, the arch-40k 960x540 primary
-                 wave with its NEE wave and an arch-40k diffuse wave; K2,
-                 K3 and K1 times on the same arch-40k waves;
+                 wave with its NEE wave and an arch-40k diffuse wave (its
+                 shadow wave: tmax 25); K2 on strided rays, K3 on every ray
+                 of the three shadow waves, three runs each, 0 rays at the
+                 step bound; K2, K3 and K1 times on the same arch-40k waves
+                 (K3 and K1 any-hit on the NEE and the diffuse shadow wave);
   5. headline  - arch-260k at 1920x1080, 3 bounces, NEE, 1 spp, pathtrace,
                  through Renderer.set_resources -> raytrace -> blit, with
                  the kernels' launch counts read around it, and a small
@@ -26,7 +29,9 @@ Phases, each timed:
   6. interactive - arch-40k in a 1920x1080 window with RenderConfig()
                  (960x540 internal, 3 bounces, NEE, A-SVGF) and
                  DENOISED_PATHTRACE, the camera moving every frame, with
-                 the launch counts read around it; A-SVGF timed alone;
+                 the launch counts read around it; K3's device time summed
+                 over one frame's launches (torch.profiler), none of them
+                 stopping rays at the step bound; A-SVGF timed alone;
                  every blit mode; a small denoised frame pair on the card
                  held against the CPU path;
   7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
@@ -43,8 +48,10 @@ Phases, each timed:
                  regroup;
   8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
                  their twins on strided rays of the primary and a diffuse
-                 wave, E7 in both modes; at the primary wave's full
-                 shapes E6 once and E7's two epilogues (per pair, per ray)
+                 wave, E7 in both modes; E6's two epilogues (per ray;
+                 compacting, against lane_top_plain + compact_pairs) on
+                 every ray and pair slot of both waves, and at the primary
+                 wave's full shapes E7's two epilogues (per pair, per ray)
                  in both modes, three kernel runs each bit-equal to the
                  plain version; their times on the primary wave;
   9. pipeline  - treelet_intersect against K1 on the full waves and
@@ -54,9 +61,9 @@ Phases, each timed:
                  scatter_reduce);
  10. treelet   - the headline frame on the treelet tables through
                  Renderer, launch counts read around it (E6, K4, E5, E7 3
-                 each a frame; K4's CUDA launches as its C entry point
-                 counts them), and a small frame held against the K1
-                 path's;
+                 each a frame, E6's all compacting and E7's all per ray;
+                 K4's CUDA launches as its C entry point counts them), and
+                 a small frame held against the K1 path's;
  11. E1        - kernel_probe.main (the step-cost probe, csrc/kernel_probe.cu)
                  on the sorted arch-260k 1080p diffuse wave, its five
                  variants timed with launch counts read around it (K1's
@@ -226,14 +233,16 @@ def compare_wide(name, scene, closest, shadow, rows, stats=None,
     return ok, t_err, b_err
 
 
-def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
+def compare_bvh2(name, scene, closest, shadow, rows, stats=None, runs=3):
     """K2 (both modes) and K3 against their twins on one wave.
 
     ``closest``: (ro, rd, active) for K2 closest-hit; ``shadow``: (ro, rd,
-    tmax, active) for K2 any-hit and K3. Compared on SUBSET strided rays:
-    tri agree 1.0 except t-ties, t within 2 ulp, u and v equal where the
-    triangle is the same, blocked bits equal. ``stats``: receives the
-    twins' work counts, by mode. Returns (ok, errors by mode).
+    tmax, active) for K2 any-hit and K3. K2 is compared on SUBSET strided
+    rays: tri agree 1.0 except t-ties, t within 2 ulp, u and v equal where
+    the triangle is the same, blocked bits equal. K3 is compared on every
+    ray, ``runs`` kernel runs against one of the twin: blocked bits equal.
+    ``stats``: receives the twins' work counts, by mode (K3's on the whole
+    wave). Returns (ok, errors by mode).
     """
     import torch
 
@@ -251,14 +260,15 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
         stats.setdefault(k, {})
     k_out = bvh2.bvh2_trace(*tables, ro, rd, tfar, active, False, *trace)
     k_any = bvh2.bvh2_trace(*tables, *shadow, True, *trace)[3] >= 0
-    k_occ = bvh2.bvh2_occluded(*tables, *shadow, *occ) > 0
+    k_occ = [bvh2.bvh2_occluded(*tables, *shadow, *occ) > 0
+             for _ in range(runs)]
     sub = [x[idx].contiguous() for x in (ro, rd, tfar, active)]
     ssub = [x[idx].contiguous() for x in shadow]
     p_out = bvh2.bvh2_trace_plain(*tables, *sub, False, *trace,
                                   stats=stats["closest"])
     p_any = bvh2.bvh2_trace_plain(*tables, *ssub, True, *trace,
                                   stats=stats["anyhit"])[3] >= 0
-    p_occ = bvh2.bvh2_occluded_plain(*tables, *ssub, *occ,
+    p_occ = bvh2.bvh2_occluded_plain(*tables, *shadow, *occ,
                                      stats=stats["occluded"]) > 0
     torch.cuda.synchronize()
     kt, ku, kv, ktri = (x[idx] for x in k_out)
@@ -267,21 +277,22 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
                                             pt, ptri)
     uv_same = bool((ku[same] == pu[same]).all() & (kv[same] == pv[same]).all())
     any_agree = float((k_any[idx] == p_any).float().mean())
-    occ_agree = float((k_occ[idx] == p_occ).float().mean())
-    cross = float((k_any == k_occ).float().mean())
+    occ_equal = [bool(torch.equal(k, p_occ)) for k in k_occ]
+    cross = float((k_any == k_occ[0]).float().mean())
     ok = (agree == 1.0 and max_ulp <= 2 and uv_same and any_agree == 1.0
-          and occ_agree == 1.0)
+          and all(occ_equal))
     rows.append(f"| {name} | {len(idx)} of {R} | {agree:.6f} ({ties} ties) "
                 f"| {max_ulp} | {uv_same} | {any_agree:.6f} | "
-                f"{occ_agree:.6f} | {cross:.6f} | "
+                f"all {R}: {occ_equal} | {cross:.6f} | "
                 f"{float((ktri >= 0).float().mean()):.3f} / "
-                f"{float(k_occ.float().mean()):.3f} | "
+                f"{float(k_occ[0].float().mean()):.3f} | "
                 f"{'PASS' if ok else 'FAIL'} |")
     errs = {
         "closest": (float((kt[same] - pt[same]).abs().max())
                     if same.any() else 0.0),
         "anyhit": float((k_any[idx].int() - p_any.int()).abs().max()),
-        "occluded": float((k_occ[idx].int() - p_occ.int()).abs().max()),
+        "occluded": max(float((k.int() - p_occ.int()).abs().max())
+                        for k in k_occ),
     }
     return ok, errs
 
@@ -425,7 +436,6 @@ def compare_lanes(name, td, wave, rows):
     import torch
 
     from loupiote_tpu_torch.treelet import lane_bottom, lane_top
-    from loupiote_tpu_torch.treelet.pipeline import _compact_pairs
     from loupiote_tpu_torch.treelet.regroup import block_regroup
 
     ro, rd, act = wave
@@ -440,7 +450,8 @@ def compare_lanes(name, td, wave, rows):
     top_ok = bits_equal(pk[idx], pp) and bits_equal(nk[idx], npp)
     errs = {"E6": float(max((pk[idx] - pp).abs().max(),
                             (nk[idx] - npp).abs().max()))}
-    key, ray_of, fb = _compact_pairs(pp, npp, sub[3], S=td.num_subtrees)
+    key, ray_of, fb = lane_top.compact_pairs(pp, npp, sub[3],
+                                             S=td.num_subtrees)
     pray, sid, on = block_regroup(key, ray_of, td.num_subtrees)
     pr = pray.long()
     args = (sid, td.sub_fields, sub[0][pr].contiguous(),
@@ -512,7 +523,6 @@ def main():
     from loupiote_tpu_torch.treelet import (lane_bottom, lane_top, pipeline,
                                             regroup)
     from loupiote_tpu_torch.treelet.device_sort import device_sort
-    from loupiote_tpu_torch.treelet.pipeline import _compact_pairs
     from loupiote_tpu_torch.render import renderer as rmod
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
                                                       trace_paths)
@@ -648,11 +658,12 @@ def main():
     # -- K2 and K3 against their plain twins --------------------------------
     t0 = time.perf_counter()
     rows = ["| wave | rays compared | K2 tri agree (ties) | t max ulp | "
-            "u,v equal | K2 any-hit agree | K3 agree | K2 any-hit = K3 | "
+            "u,v equal | K2 any-hit agree | K3 bits equal, 3 runs | "
+            "K2 any-hit = K3 | "
             "hit / blocked frac | verdict |",
             "|---|---|---|---|---|---|---|---|---|---|"]
-    ok = compare_bvh2("random-4k / random rays (shadow: tmax 25)", rscene,
-                      (ro, rd, on), r_shadow, rows)[0]
+    ok, k23_err = compare_bvh2("random-4k / random rays (shadow: tmax 25)",
+                               rscene, (ro, rd, on), r_shadow, rows)
     scene40 = lt.build_arch_scene(40_000)
     t1 = time.perf_counter()
     arch40 = lt.build_scene_buffers(scene40)
@@ -666,24 +677,34 @@ def main():
     w40, h40 = WIDTH // 2, HEIGHT // 2
     N40 = w40 * h40
     prim40, nee40, diff40 = waves(arch40, cam, w40, h40, seed=1)
-    k23_stats = {}
-    ok_p, k23_err = compare_bvh2(
-        f"arch-40k / primary {w40}x{h40} (shadow: NEE to the light)", arch40,
-        prim40, nee40, rows, stats=k23_stats)
-    ok &= ok_p
+    k23_stats, diff_stats = {}, {}
     dro, drd, dact = diff40
-    ok &= compare_bvh2(f"arch-40k / diffuse {w40}x{h40}, unsorted "
-                       f"(shadow: tmax 25)", arch40, diff40,
-                       (dro, drd, torch.full((N40,), 25.0, device=dev),
-                        dact), rows)[0]
+    dshadow40 = (dro, drd, torch.full((N40,), 25.0, device=dev), dact)
+    for wname, closest40, shadow40, st in (
+            (f"arch-40k / primary {w40}x{h40} (shadow: NEE to the light)",
+             prim40, nee40, k23_stats),
+            (f"arch-40k / diffuse {w40}x{h40}, unsorted (shadow: tmax 25)",
+             diff40, dshadow40, diff_stats)):
+        ok_w, errs = compare_bvh2(wname, arch40, closest40, shadow40, rows,
+                                  stats=st)
+        ok &= ok_w
+        k23_err = {k: max(v, errs[k]) for k, v in k23_err.items()}
+    capped = bvh2.capped_rays(dev)
+    rows.append(f"rays stopped by the step bound (K2, K3 and their twins, "
+                f"all waves): {capped}")
+    ok &= capped == 0
     print("\n".join(rows), flush=True)
+    print("K2/K3 ptxas (registers, stack frame, spills):\n" + "\n".join(
+        line for line in _build.build_info["bvh2_traverse"]["log"]
+        .splitlines() if "Used" in line or "stack frame" in line))
     phase("K2/K3: three waves", t0)
     if not ok:
         raise SystemExit("chip_smoke: K2 or K3 disagrees with its plain "
-                         "version")
+                         "version, or rays reached the step bound")
 
     # Times on the interactive path's waves: K2 closest-hit on the primary
-    # wave, K2 any-hit and K3 on its NEE wave; K1 on the same waves.
+    # wave, K2 any-hit and K3 on its NEE wave, K3 on the diffuse shadow
+    # wave; K1 on the same waves.
     t0 = time.perf_counter()
     tfar40 = torch.full((N40,), 1e30, device=dev)
     p40 = (prim40[0], prim40[1], tfar40, prim40[2])
@@ -699,6 +720,9 @@ def main():
                                                      *tr40)),
         "K3": (lambda: bvh2.bvh2_occluded(*tb40, *nee40, *oc40),
                lambda: bvh2.bvh2_occluded_plain(*tb40, *nee40, *oc40)),
+        "K3 diffuse": (lambda: bvh2.bvh2_occluded(*tb40, *dshadow40, *oc40),
+                       lambda: bvh2.bvh2_occluded_plain(*tb40, *dshadow40,
+                                                        *oc40)),
     }
     k23_timing = {}
     for name, (kfn, pfn) in calls.items():
@@ -710,26 +734,36 @@ def main():
                                                    *ws40), 20),
         "anyhit": cuda_ms(lambda: wide.wide_trace(*wide40, *nee40, True,
                                                   *ws40), 20),
+        "anyhit diffuse": cuda_ms(lambda: wide.wide_trace(
+            *wide40, *dshadow40, True, *ws40), 20),
     }
     n40 = len(strided(N40, dev))
+    # K2's work counted on the subset, K3's on every ray of its wave (its
+    # walk is the twin's pre-order, so the twin's counts are its own).
     k23_bound = {
         "K2 closest": bound(N40, 16, tables40,
                             ops_of(k23_stats["closest"], n40, N40)),
         "K2 any-hit": bound(N40, 16, tables40,
                             ops_of(k23_stats["anyhit"], n40, N40)),
         "K3": bound(N40, 4, tables40,
-                    ops_of(k23_stats["occluded"], n40, N40)),
+                    ops_of(k23_stats["occluded"], N40, N40)),
+        "K3 diffuse": bound(N40, 4, tables40,
+                            ops_of(diff_stats["occluded"], N40, N40)),
     }
     for name, (k_ms, p_ms) in k23_timing.items():
         b_ms, b_by = k23_bound[name]
-        print(f"{name} on the arch-40k {w40}x{h40} "
-              f"{'primary' if name == 'K2 closest' else 'NEE'} wave ({N40} "
+        wave = {"K2 closest": "primary", "K3 diffuse": "diffuse shadow"}.get(
+            name, "NEE")
+        print(f"{name} on the arch-40k {w40}x{h40} {wave} wave ({N40} "
               f"rays): kernel {k_ms:.4f} ms, plain torch {p_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
     print(f"dispatch comparison on the same arch-40k waves: K1 closest-hit "
           f"{k1_40['closest']:.4f} ms vs K2 {k23_timing['K2 closest'][0]:.4f}"
           f" ms; K1 any-hit {k1_40['anyhit']:.4f} ms vs K3 "
-          f"{k23_timing['K3'][0]:.4f} ms ({smi})", flush=True)
+          f"{k23_timing['K3'][0]:.4f} ms (NEE), K1 any-hit "
+          f"{k1_40['anyhit diffuse']:.4f} ms vs K3 "
+          f"{k23_timing['K3 diffuse'][0]:.4f} ms (diffuse shadow) ({smi})",
+          flush=True)
     phase("K2/K3 timing", t0)
 
     # -- The headline path ---------------------------------------------------
@@ -855,6 +889,34 @@ def main():
           f"fps {1e3 / ims:.2f}; host-clock frame with blit {host_ms:.3f} "
           f"ms", flush=True)
 
+    # K3's device time in one interactive frame (torch.profiler): the sum
+    # over the frame's launches (its NEE and final-gather shadow waves).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    view[0, 3] += 1e-3
+    n_k3, cap0 = bvh2.launches_occluded, bvh2.capped_rays(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        inter.raytrace(view)
+        torch.cuda.synchronize()
+    k3_frame = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "bvh2_occluded_kernel" in e.name]
+    n_k3 = bvh2.launches_occluded - n_k3
+    k3_frame_capped = bvh2.capped_rays(dev) - cap0
+    k3_frame_ms = sum(k3_frame)
+    print(f"K3 in one interactive frame (torch.profiler): {n_k3} launches, "
+          f"{len(k3_frame)} kernels recorded, "
+          f"{[round(x, 4) for x in k3_frame]} ms, sum {k3_frame_ms:.4f} ms; "
+          f"rays stopped by the step bound {k3_frame_capped} ({smi})",
+          flush=True)
+    if n_k3 == 0 or len(k3_frame) != n_k3:
+        raise SystemExit("chip_smoke: the profiler did not record each K3 "
+                         "launch of the interactive frame")
+    if k3_frame_capped:
+        raise SystemExit("chip_smoke: a K3 launch of the interactive frame "
+                         "stopped rays at the step bound")
+
     # One more frame by hand, to time A-SVGF alone on its own inputs and
     # read the 1-spp sample.
     st = inter.state
@@ -942,9 +1004,8 @@ def main():
     # K4 against its twin on three inputs; the primary wave's pairs first.
     t0 = time.perf_counter()
     pro, prd, pact = prim
-    pend, npend = lane_top.lane_top_trace(td.top_fields, pro, prd, tfar, pact,
-                                          td.num_top)
-    key, ray_of, _ = _compact_pairs(pend, npend, pact, S=S)
+    key, ray_of, _ = lane_top.lane_top_pairs(td.top_fields, pro, prd, tfar,
+                                             pact, td.num_top, S)
     # The plan and cluster shape of each input below, before its first
     # launch.
     for c, npay in ((16, 1), (16, 3), (20, 2), (20, 3), (20, 4), (22, 0),
@@ -1076,19 +1137,53 @@ def main():
     if not ok or capped:
         raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
                          "version, or lanes reached a step bound")
-    # At the primary wave's full shapes: time kernel and twin, and hold the
-    # last kernel call's outputs against the twin's, which also counts the
-    # work this wave's data needs (for the bounds).
-    e6_args = (td.top_fields, pro, prd, tfar, pact, td.num_top)
-    e6_ms, (pk, nk) = timed(lambda: lane_top.lane_top_trace(*e6_args), 20)
-    e6_stats = {}
-    e6_plain, (pp, npp) = timed(lambda: lane_top.lane_top_plain(
-        *e6_args, stats=e6_stats), 1, warm=False)
-    ok = bits_equal(pk, pp) and bits_equal(nk, npp)
-    full_rows = [f"E6 on all {N} rays of the primary wave: pend, npend "
-                 f"equal {ok}"]
-    lane_err["E6"] = max(lane_err["E6"], float(max(
-        (pk - pp).abs().max(), (nk - npp).abs().max())))
+    # E6 at full shape, both epilogues, on every ray and pair slot of both
+    # waves: three kernel runs each against one run of the plain version
+    # (the compacting epilogue's scan crosses blocks); the plain walk on the
+    # primary wave also counts the work its data needs (for the bounds).
+    e6_stats, e6_timing, full_rows = {}, {}, []
+    lane_err["E6 pairs"] = 0.0
+    e6_waves = (("primary", (pro, prd, tfar, pact)),
+                ("diffuse, sorted", (diff260[0], diff260[1], tfar,
+                                     diff260[2])))
+    for wname, wave in e6_waves:
+        e6_args = (td.top_fields, *wave, td.num_top)
+        st = e6_stats if wname == "primary" else None
+        p_ms, (pp, npp) = timed(lambda: lane_top.lane_top_plain(
+            *e6_args, stats=st), 1, warm=False)
+        c_ms, want = timed(lambda: lane_top.compact_pairs(
+            pp, npp, wave[3], S=S), 5)
+        k_ms, out = timed(lambda: lane_top.lane_top_trace(*e6_args), 20)
+        kc_ms, outc = timed(lambda: lane_top.lane_top_pairs(*e6_args, S), 20)
+        runs = [out, lane_top.lane_top_trace(*e6_args),
+                lane_top.lane_top_trace(*e6_args)]
+        runs_c = [outc, lane_top.lane_top_pairs(*e6_args, S),
+                  lane_top.lane_top_pairs(*e6_args, S)]
+        torch.cuda.synchronize()
+        same = [all(bits_equal(x, y) for x, y in zip(o, (pp, npp)))
+                for o in runs]
+        same_c = [all(bits_equal(x, y) for x, y in zip(o, want))
+                  for o in runs_c]
+        lane_err["E6"] = max(lane_err["E6"], max(float(max(
+            (o[0] - pp).abs().max(), (o[1] - npp).abs().max())) for o in runs))
+        lane_err["E6 pairs"] = max(lane_err["E6 pairs"], max(float(max(
+            (o[0] - want[0]).abs().max(), (o[1] - want[1]).abs().max(),
+            (o[2].int() - want[2].int()).abs().max())) for o in runs_c))
+        ok &= all(same) and all(same_c)
+        n_pairs = int((want[0] < S).sum())
+        n_fb = int(want[2].sum())
+        e6_timing[wname] = {"per_ray": k_ms, "pairs": kc_ms, "plain": p_ms,
+                            "compact_pairs": c_ms}
+        full_rows.append(
+            f"E6 on all {N} rays of the {wname} wave: per ray, pend and npend "
+            f"of three kernel runs bit-equal to the plain version {same}; "
+            f"compacting, key and ray_of of all {want[0].numel()} pair slots "
+            f"and the {N} fallback flags of three runs bit-equal to "
+            f"lane_top_plain + compact_pairs {same_c} ({n_pairs} pairs, "
+            f"{n_fb} fallback rays, npend == 8: "
+            f"{int((npp == 8).sum())}); kernel per ray {k_ms:.4f} ms, "
+            f"compacting {kc_ms:.4f} ms; plain walk {p_ms:.3f} ms, "
+            f"compact_pairs alone {c_ms:.4f} ms")
     # E7 at the primary wave's full shapes, both epilogues and modes: the
     # kernel three times (its atomics land in a different order each
     # time) against one run of the plain version, which also counts the
@@ -1149,9 +1244,19 @@ def main():
         raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
                          "version at the path's shapes, or lanes reached a "
                          "step bound")
+    # E6 reads the active flag of every ray, ro, rd and tmax of the active
+    # ones and the top table once a block; per ray it writes 32 bytes of
+    # ids and npend a ray, compacting 8 bytes a pair slot (key, ray_of) and
+    # the fallback flag a ray.
     n_act = int(pact.sum())
-    e6_bound = bound_of(N * (1 + 36) + n_act * (RAY_IN_BYTES - 1)
-                        + top_bytes, e6_stats["box_tests"] * OPS_BOX)
+    e6_in = {c: N + n_act * (RAY_IN_BYTES - 1)
+             + lane_top.grid_blocks(td.top_fields, N, c) * top_bytes
+             for c in (False, True)}
+    e6_bound = {
+        "per_ray": bound_of(e6_in[False] + N * 36,
+                            e6_stats["box_tests"] * OPS_BOX),
+        "pairs": bound_of(e6_in[True] + lane_top.PAIR_BUDGET * N * 8 + N,
+                          e6_stats["box_tests"] * OPS_BOX)}
     # E7 per pair reads tmax and the active flag of every slot and ro, rd
     # only for walked pairs, and writes t and tri of every slot. Per ray it
     # reads the active flag of every slot, pair_ray of each walked pair,
@@ -1165,11 +1270,17 @@ def main():
     e7_bound = {k: bound_of(e7_bytes[k[0]],
                             ops_of(e7_stats[k[1]], P, P, box_key="box_tests"))
                 for k in e7_timing}
-    print(f"E6 on the 1080p primary wave ({N} rays, K {td.num_top}): kernel "
-          f"{e6_ms:.4f} ms, plain torch {e6_plain:.3f} ms, bound "
-          f"{e6_bound[0]:.4f} ms ({e6_bound[1]}; twin work on the wave: "
-          f"{e6_stats})")
-    print("E7 ptxas (registers, stack frame, spills):\n" + "\n".join(
+    et = e6_timing["primary"]
+    for epi in ("per_ray", "pairs"):
+        print(f"E6 {epi} on the 1080p primary wave ({N} rays, K "
+              f"{td.num_top}): kernel {et[epi]:.4f} ms, bound "
+              f"{e6_bound[epi][0]:.4f} ms ({e6_bound[epi][1]}; "
+              f"{lane_top.grid_blocks(td.top_fields, N, epi == 'pairs')} "
+              f"blocks; twin work on the wave: {e6_stats})")
+    print(f"E6 per ray + compact_pairs (the parent's chain, with this "
+          f"kernel) {et['per_ray'] + et['compact_pairs']:.4f} ms against "
+          f"the compacting epilogue {et['pairs']:.4f} ms")
+    print("E6/E7 ptxas (registers, stack frame, spills):\n" + "\n".join(
         line for line in _build.build_info["treelet_traverse"]["log"]
         .splitlines() if "Used" in line or "stack frame" in line))
     for (epi, m), (k_ms, p_ms) in e7_timing.items():
@@ -1289,7 +1400,9 @@ def main():
     img = rt.blit()
     n_frames = 6
     k4_cuda = ss.cuda_launched
-    t_launches = {"E6": lane_top.launches, "K4": ss.launches,
+    t_launches = {"E6": lane_top.launches["pairs"],
+                  "E6 per ray": lane_top.launches["per_ray"],
+                  "K4": ss.launches,
                   "E5": regroup.launches,
                   "E7 closest": lane_bottom.launches[("per_ray", "closest")],
                   "E7 any-hit": lane_bottom.launches[("per_ray", "anyhit")],
@@ -1313,8 +1426,10 @@ def main():
         if t_launches[k] != BOUNCES * n_frames:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
                              f"{t_launches[k]} times, not {BOUNCES} a frame")
-    # Every E7 launch of the frame is the per-ray epilogue, closest-hit.
-    for k in ("E7 any-hit", "E7 per pair", "E7 per pair any-hit"):
+    # Every E6 launch of the frame is the compacting epilogue, every E7
+    # launch the per-ray epilogue in closest-hit mode.
+    for k in ("E6 per ray", "E7 any-hit", "E7 per pair",
+              "E7 per pair any-hit"):
         if t_launches[k]:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
                              f"{t_launches[k]} times")
@@ -1557,9 +1672,9 @@ def main():
             "ms": k1_timing[mode][0], "plain_ms": k1_timing[mode][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     any_ms, any_plain = k23_timing["K2 any-hit"]
-    for name, fn, line, key, err_key in (
-            ("bvh2_trace", "K2 closest", 67, "K2 closest", "closest"),
-            ("bvh2_occluded", "K3", 260, "K3", "occluded")):
+    for name, line, key, err_key in (
+            ("bvh2_trace", 67, "K2 closest", "closest"),
+            ("bvh2_occluded", 260, "K3", "occluded")):
         b_ms, b_by = k23_bound[key]
         entry = {
             "name": name, "route": "cuda",
@@ -1576,6 +1691,21 @@ def main():
                 "plain_ms": any_plain,
                 "bound_ms": k23_bound["K2 any-hit"][0],
                 "bound_by": k23_bound["K2 any-hit"][1]}}
+        else:
+            # K3's top-level numbers are the NEE wave's; the diffuse shadow
+            # wave's beside them, and the interactive frame's launches
+            # summed (torch.profiler).
+            entry["modes"] = {
+                "diffuse_shadow": {
+                    "ms": k23_timing["K3 diffuse"][0],
+                    "plain_ms": k23_timing["K3 diffuse"][1],
+                    "bound_ms": k23_bound["K3 diffuse"][0],
+                    "bound_by": k23_bound["K3 diffuse"][1],
+                    "k1_anyhit_ms": k1_40["anyhit diffuse"]},
+                "frame": {"launches": n_k3, "ms": k3_frame_ms,
+                          "ms_by_launch": k3_frame,
+                          "capped": k3_frame_capped}}
+            entry["k1_anyhit_ms"] = k1_40["anyhit"]
         kernels.append(entry)
     kernels.append({
         "name": "slab_sort", "route": "cuda",
@@ -1592,13 +1722,25 @@ def main():
         "launches": t_launches["E5"], "max_abs_err": e5_err, "ms": e5_ms,
         "plain_ms": e5_plain, "bound_ms": e5_bound[0],
         "bound_by": e5_bound[1], "library_ms": None})
+    # E6's compacting epilogue is what the path runs (its plain version:
+    # the plain walk, then compact_pairs); the per-ray one is checked and
+    # timed here, off the path (its launches on the path are counted: 0).
+    et = e6_timing["primary"]
     kernels.append({
         "name": "lane_top", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/treelet_traverse.cu",
         "replaces": "experiments/treelet/lane_top.py:178",
-        "launches": t_launches["E6"], "max_abs_err": lane_err["E6"],
-        "ms": e6_ms, "plain_ms": e6_plain, "bound_ms": e6_bound[0],
-        "bound_by": e6_bound[1], "library_ms": None})
+        "launches": t_launches["E6"], "max_abs_err": lane_err["E6 pairs"],
+        "ms": et["pairs"], "plain_ms": et["plain"] + et["compact_pairs"],
+        "bound_ms": e6_bound["pairs"][0], "bound_by": e6_bound["pairs"][1],
+        "library_ms": None,
+        "diffuse_ms": e6_timing["diffuse, sorted"]["pairs"],
+        "modes": {"per_ray": {
+            "launches": t_launches["E6 per ray"],
+            "max_abs_err": lane_err["E6"], "ms": et["per_ray"],
+            "plain_ms": et["plain"], "bound_ms": e6_bound["per_ray"][0],
+            "bound_by": e6_bound["per_ray"][1],
+            "diffuse_ms": e6_timing["diffuse, sorted"]["per_ray"]}}})
     def e7_entry(epi, m):
         b_ms, b_by = e7_bound[(epi, m)]
         err = lane_err[(epi, m)]

@@ -24,16 +24,29 @@
 // The left child of internal node n is n + 1. Ints are read with
 // __float_as_int only: a -1 is a NaN bit pattern.
 //
-// What bounds it on an H100: each step is a dependent load of one 64-byte
-// node row (and, at a leaf, one 512-byte leaf row), then a few dozen
-// flops. The tables of a small scene are small (arch-40k: about 0.5 MB of
-// nodes and 2 MB of leaves) and stay in the 50 MB L2; a 960x540 wave is
-// about 15 MB of ray input, read once. So the kernel is bound by load
-// latency and warp divergence, not by bytes or flops. One thread per ray
-// answers latency with occupancy (128 threads a block), and threads of a
-// warp whose rays share a pixel tile read the same rows, which L1 serves
-// once. A fast design (coherent-warp scheduling, nodes in shared memory,
-// cp.async) is later work.
+// What bounds them on an H100: each step is a dependent load of one
+// 64-byte node row (and, at a leaf, one 512-byte leaf row), then a few
+// dozen flops. The tables of a small scene are small (arch-40k: about
+// 0.5 MB of nodes and 2 MB of leaves) and stay in the 50 MB L2; a 960x540
+// wave is about 15 MB of ray input, read once. So the kernels are bound
+// by load latency and warp divergence, not by bytes or flops: a warp runs
+// every kind of step its lanes need (a node's box test, a leaf's up to 14
+// triangle tests) for as many steps as its longest ray.
+// K2 answers latency with occupancy (128 threads a block), and threads of
+// a warp whose rays share a pixel tile read the same rows, which L1
+// serves once. K3 was redesigned for that divergence (each choice timed
+// on the card against its alternatives; PERF.md has the numbers):
+//  - Leaf rows wait: a lane walks internal nodes until it reaches a hit
+//    leaf, and the warp tests leaves when every lane holds one or is done,
+//    so the triangle loop runs with the lanes together. Each ray's own
+//    order of nodes is the twin's pre-order; only the blocked bit leaves
+//    the kernel, and it does not depend on the order anyway.
+//  - A leaf's triangles are read as 16-byte words: triangle 4g + k starts
+//    at float 36g + 9k, so three aligned float4 loads from float4 9g + 2k
+//    hold it at offset k (three loads a triangle in place of nine).
+//  - Blocks of 64 threads. A near-first order with a stack, and a warp
+//    that visits one node a step for all its lanes (the TPU kernel's
+//    shape), were slower.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py). --fmad=false keeps every product
@@ -48,6 +61,8 @@ namespace {
 constexpr int kStackMax = 128;  // ops/bvh2.py raises for a deeper scene
 constexpr int kLeafCap = 14;
 constexpr float kTMin = 1e-4f;
+constexpr int kOccThreads = 64;  // K3's block
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float safe_inv(float d) {
   const float s = fabsf(d) > 1e-20f ? d : (d >= 0.0f ? 1e-20f : -1e-20f);
@@ -120,6 +135,48 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
 }
 
+// K3's triangle test: triangle at float offset S of the 12 floats
+// q[0..2], the arithmetic of tri_hit.
+template <int S>
+__device__ __forceinline__ bool tri_window(const float4* q, const Ray& r,
+                                           float bound) {
+  const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+  const float w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                       b.z, b.w, c.x, c.y, c.z, c.w};
+  const float p0x = w[S], p0y = w[S + 1], p0z = w[S + 2];
+  const float e1x = w[S + 3], e1y = w[S + 4], e1z = w[S + 5];
+  const float e2x = w[S + 6], e2y = w[S + 7], e2z = w[S + 8];
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - p0x, tvy = r.oy - p0y, tvz = r.oz - p0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
+}
+
+// True where one of the leaf row's first n triangles blocks [kTMin,
+// bound). Triangle 4g + k starts at float 36g + 9k = 4 (9g + 2k) + k.
+__device__ __forceinline__ bool leaf_blocks(const float* __restrict__ leaf,
+                                            int n, const Ray& r,
+                                            float bound) {
+  const float4* q = reinterpret_cast<const float4*>(leaf);
+  n = n < kLeafCap ? n : kLeafCap;
+  for (int g = 0; 4 * g < n; ++g, q += 9) {
+    if (tri_window<0>(q, r, bound)) return true;
+    if (4 * g + 1 < n && tri_window<1>(q + 2, r, bound)) return true;
+    if (4 * g + 2 < n && tri_window<2>(q + 4, r, bound)) return true;
+    if (4 * g + 3 < n && tri_window<3>(q + 6, r, bound)) return true;
+  }
+  return false;
+}
+
 template <bool kAnyHit>
 __global__ void __launch_bounds__(128)
     bvh2_trace_kernel(const float* __restrict__ node_rows,
@@ -188,7 +245,12 @@ __global__ void __launch_bounds__(128)
   tri_out[i] = best_tri;
 }
 
-__global__ void __launch_bounds__(128)
+// K3. node: the next node of the ray's pre-order walk (-1: the walk has
+// ended); ln > 0: a hit leaf (row lrow, ln triangles) waits to be tested.
+// A lane steps only with no leaf waiting, so a leaf visited before the
+// step bound is tested before the bound can stop the ray: the counts and
+// the blocked bits are the twin's.
+__global__ void __launch_bounds__(kOccThreads)
     bvh2_occluded_kernel(const float* __restrict__ node_rows,
                          const float* __restrict__ leaf_rows,
                          const float* __restrict__ ro,
@@ -198,37 +260,48 @@ __global__ void __launch_bounds__(128)
                          int32_t* __restrict__ blocked_out,
                          int32_t* __restrict__ capped, int n_rays,
                          int max_steps, int end_index) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  int blocked = 0;
-  if (active[i]) {
-    const Ray r = load_ray(ro, rd, i);
-    const float t0 = tmax[i];
-    int node = 0;
-    for (int steps = 0;; ++steps) {
-      if (steps == max_steps) {
-        atomicAdd(capped, 1);
-        break;
-      }
-      int4 ints;  // count, miss, slot8, slot9
-      const bool hit = slab(node_rows, node, r, t0, &ints);
-      if (hit && ints.x > 0) {
-        const float* leaf = leaf_rows + static_cast<size_t>(ints.z) * 128;
-        for (int k = 0; k < ints.x && k < kLeafCap; ++k) {
-          float u, v, t;
-          if (tri_hit(leaf + 9 * k, r, t0, &u, &v, &t)) {
-            blocked = 1;
-            break;
+  // Every lane of the warp stays to the end: the loops vote.
+  const int i = blockIdx.x * kOccThreads + threadIdx.x;
+  const bool in = i < n_rays;
+  int node = (in && active[i]) ? 0 : -1;
+  Ray r = {};
+  float t0 = 0.0f;
+  if (node == 0) {
+    r = load_ray(ro, rd, i);
+    t0 = tmax[i];
+  }
+  int lrow = 0, ln = 0, steps = 0, blocked = 0;
+  for (;;) {
+    // Walk internal nodes until every lane holds a leaf or is done.
+    while (__any_sync(kFull, node >= 0 && ln == 0)) {
+      if (node >= 0 && ln == 0) {
+        if (steps == max_steps) {  // the reference's silent step bound
+          atomicAdd(capped, 1);
+          node = -1;
+        } else {
+          ++steps;
+          int4 ints;  // count, miss, slot8, slot9
+          const bool hit = slab(node_rows, node, r, t0, &ints);
+          if (hit && ints.x > 0) {
+            lrow = ints.z;
+            ln = ints.x;
           }
+          const int next = (hit && ints.x == 0) ? node + 1 : ints.y;
+          node = next < end_index ? next : -1;
         }
-        if (blocked) break;
       }
-      const int next = (hit && ints.x == 0) ? node + 1 : ints.y;
-      if (next >= end_index) break;
-      node = next;
+    }
+    if (!__any_sync(kFull, ln > 0)) break;
+    if (ln > 0) {
+      if (leaf_blocks(leaf_rows + static_cast<size_t>(lrow) * 128, ln, r,
+                      t0)) {
+        blocked = 1;
+        node = -1;
+      }
+      ln = 0;
     }
   }
-  blocked_out[i] = blocked;
+  if (in) blocked_out[i] = blocked;
 }
 
 }  // namespace
@@ -273,8 +346,8 @@ extern "C" int bvh2_occluded(const void* node_rows, const void* leaf_rows,
                              void* capped, int n_rays, int max_steps,
                              int end_index, void* stream) {
   if (n_rays <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n_rays + 127) / 128);
+  const dim3 block(kOccThreads);
+  const dim3 grid((n_rays + kOccThreads - 1) / kOccThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bvh2_occluded_kernel<<<grid, block, 0, s>>>(
       static_cast<const float*>(node_rows),

@@ -10,6 +10,13 @@ frontier hit with every slot full parks the ray at END, its walk
 incomplete (the pipeline sends such rays, ``npend == PEND_CAP``, down the
 fallback). Inactive rays return ``npend = 0``. The step bound is
 ``4 * num_top + 64``; rays that reach it are counted.
+
+The kernel has two epilogues. Per ray (``lane_top_trace``, the
+reference's contract): ``pend`` and ``npend``. Compacting
+(``lane_top_pairs``, what the pipeline runs): the (subtree, ray) pairs
+laid out in ``PAIR_BUDGET * R`` slots by an exclusive scan over the rays,
+with the rays that fall back flagged; its plain version is
+``lane_top_plain`` followed by ``compact_pairs``.
 """
 
 from __future__ import annotations
@@ -23,9 +30,17 @@ from ..ops.intersect import DeviceCounter, check_args, on_card
 from ..ops.wide import _safe_inv
 from .build import ID_MASK, PEND_CAP, TOP_ID_BITS
 
-# Launches of E6 on the card; chip_smoke.py zeroes it before the main path
-# and reads it after.
-launches = 0
+# Pair-budget factor: the pair array holds PAIR_BUDGET * R slots; rays
+# whose pairs do not fit fall back to the non-treelet traversal.
+PAIR_BUDGET = 4
+# Rays a block takes at a time (csrc/treelet_traverse.cu: kTopThreads); the
+# compacting epilogue keeps one scan word a tile of this many rays.
+TILE_RAYS = 256
+
+# Launches of E6 on the card by epilogue, "per_ray" or "pairs" (the
+# compacting one); chip_smoke.py zeroes them before the main path and reads
+# them after.
+launches = {"per_ray": 0, "pairs": 0}
 
 _capped = DeviceCounter()  # rays stopped by the step bound, per device
 
@@ -37,8 +52,8 @@ def capped_rays(device) -> int:
 
 
 def reset_counters() -> None:
-    global launches
-    launches = 0
+    for k in launches:
+        launches[k] = 0
     _capped.reset()
 
 
@@ -97,7 +112,52 @@ def lane_top_plain(top_fields, ro, rd, tmax, active, num_top: int,
     return pend, npend
 
 
-def _launch(top_fields, ro, rd, tmax, active, num_top: int):
+def compact_pairs(pend, npend, act, *, S: int):
+    """Plain version of the compacting epilogue's layout: the (ray,
+    subtree) pairs in ``PAIR_BUDGET * R`` slots by a per-ray exclusive
+    scan of the pending counts. Returns (key (P_pad,) int32, the dump key
+    ``S`` in every slot without a pair; ray_of (P_pad,) int32, 0 there;
+    fallback (R,) bool)."""
+    R = pend.shape[0]
+    dev = pend.device
+    P_pad = PAIR_BUDGET * R
+    np_eff = torch.where(act, torch.clamp_max(npend, PEND_CAP), 0).to(
+        torch.int64)
+    ray_base = torch.cumsum(np_eff, 0) - np_eff
+    # npend == PEND_CAP may be an incomplete walk, even where nothing was
+    # dropped: such rays fall back, as do rays past the budget.
+    fallback = ((ray_base + np_eff > P_pad) | (npend >= PEND_CAP)) & act
+    keep = act & ~fallback
+    slot = torch.arange(PEND_CAP, device=dev)[None, :]
+    valid = (slot < np_eff[:, None]) & (pend >= 0) & keep[:, None]
+    # Slot P_pad is a dump for every invalid entry; it is sliced off.
+    dest = torch.where(valid, ray_base[:, None] + slot, P_pad).reshape(-1)
+    key = torch.full((P_pad + 1,), S, dtype=torch.int32, device=dev)
+    key[dest] = torch.where(valid, pend, S).reshape(-1)
+    ray_of = torch.zeros(P_pad + 1, dtype=torch.int32, device=dev)
+    ray_of[dest] = torch.arange(R, dtype=torch.int32, device=dev)[
+        :, None].expand(R, PEND_CAP).reshape(-1)
+    return key[:P_pad], ray_of[:P_pad], fallback
+
+
+def lane_top_pairs_plain(top_fields, ro, rd, tmax, active, num_top: int,
+                         S: int):
+    """Plain version of the compacting epilogue: ``lane_top_plain``, then
+    ``compact_pairs``."""
+    pend, npend = lane_top_plain(top_fields, ro, rd, tmax, active, num_top)
+    return compact_pairs(pend, npend, active, S=S)
+
+
+def _entry(name, n_ptrs, n_ints):
+    fn = getattr(_build.load("treelet_traverse"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _check(top_fields, ro, rd, tmax, active):
     dev = ro.device
     R = ro.shape[0]
     tab = top_fields.reshape(8, -1)
@@ -106,25 +166,74 @@ def _launch(top_fields, ro, rd, tmax, active, num_top: int):
                      ("rd", rd, torch.float32, (R, 3)),
                      ("tmax", tmax, torch.float32, (R,)),
                      ("active", active, torch.bool, (R,))))
-    lib = _build.load("treelet_traverse")
-    fn = lib.lane_top
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    if tab.shape[1] % 1024 or tab.shape[1] > 1 << TOP_ID_BITS:
+        raise ValueError("top_fields: need (8, tiles * 1024) with at most "
+                         f"{1 << TOP_ID_BITS} entries")
+    if PAIR_BUDGET * R >= 1 << 31:
+        raise ValueError(f"lane_top: {R} rays need {PAIR_BUDGET * R} pair "
+                         "slots, past int32")
+    return dev, R, tab
+
+
+def _launch(top_fields, ro, rd, tmax, active, num_top: int):
+    dev, R, tab = _check(top_fields, ro, rd, tmax, active)
     pend = torch.empty((R, PEND_CAP), dtype=torch.int32, device=dev)
     npend = torch.empty(R, dtype=torch.int32, device=dev)
-    err = fn(tab.data_ptr(), tab.shape[1], ro.data_ptr(), rd.data_ptr(),
-             tmax.data_ptr(), active.data_ptr(), pend.data_ptr(),
-             npend.data_ptr(), _capped.tensor(dev).data_ptr(), R,
-             max_steps(num_top), torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry("lane_top", 7, 2)(
+        tab.data_ptr(), tab.shape[1], ro.data_ptr(), rd.data_ptr(),
+        tmax.data_ptr(), active.data_ptr(), pend.data_ptr(),
+        npend.data_ptr(), _capped.tensor(dev).data_ptr(), R,
+        max_steps(num_top), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_top launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    launches["per_ray"] += 1
     return pend, npend
 
 
+def _launch_pairs(top_fields, ro, rd, tmax, active, num_top: int, S: int):
+    dev, R, tab = _check(top_fields, ro, rd, tmax, active)
+    P_pad = PAIR_BUDGET * R
+    key = torch.empty(P_pad, dtype=torch.int32, device=dev)
+    ray_of = torch.empty(P_pad, dtype=torch.int32, device=dev)
+    fallback = torch.empty(R, dtype=torch.bool, device=dev)
+    # One scan word a tile of TILE_RAYS rays, then the tile ticket: zero
+    # at every launch.
+    state = torch.zeros(-(-R // TILE_RAYS) + 1, dtype=torch.int64,
+                        device=dev)
+    err = _entry("lane_top_pairs", 9, 4)(
+        tab.data_ptr(), tab.shape[1], ro.data_ptr(), rd.data_ptr(),
+        tmax.data_ptr(), active.data_ptr(), key.data_ptr(),
+        ray_of.data_ptr(), fallback.data_ptr(), state.data_ptr(),
+        _capped.tensor(dev).data_ptr(), R, max_steps(num_top), int(S),
+        P_pad, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lane_top_pairs launch failed: CUDA error {err}")
+    launches["pairs"] += 1
+    return key, ray_of, fallback
+
+
+def grid_blocks(top_fields, n_rays: int, compact: bool) -> int:
+    """Blocks the kernel launches for ``n_rays`` rays (card only); each
+    stages the top table once, which its bound counts."""
+    fn = _build.load("treelet_traverse").lane_top_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    n = fn(top_fields.reshape(8, -1).shape[1], int(n_rays), int(compact))
+    if n < 1:
+        raise RuntimeError(f"lane_top_grid failed: CUDA error {-n}")
+    return n
+
+
 def lane_top_trace(top_fields, ro, rd, tmax, active, num_top: int):
-    """E6 on CUDA tensors, the plain twin on CPU tensors."""
+    """E6 with the per-ray epilogue on CUDA tensors, the plain twin on CPU
+    tensors. Returns (pend (R, PEND_CAP) int32, npend (R,) int32)."""
     fn = _launch if on_card(ro) else lane_top_plain
     return fn(top_fields, ro, rd, tmax, active, num_top)
+
+
+def lane_top_pairs(top_fields, ro, rd, tmax, active, num_top: int, S: int):
+    """E6 with the compacting epilogue on CUDA tensors, its plain version
+    on CPU tensors. Returns (key, ray_of, fallback) as ``compact_pairs``
+    does, for ``S`` subtrees (the dump key)."""
+    fn = _launch_pairs if on_card(ro) else lane_top_pairs_plain
+    return fn(top_fields, ro, rd, tmax, active, num_top, S)

@@ -3,6 +3,9 @@
   phase 1  lane_top.py (E6)     every ray walks the threaded top of the
                                 BVH2 and collects the ids of the subtrees
                                 whose root boxes it enters (<= PEND_CAP);
+                                its compacting epilogue lays the (subtree,
+                                ray) pairs out in PAIR_BUDGET * R slots and
+                                flags the rays that fall back;
   binning  regroup="count"      (subtree, ray) pairs are grouped by subtree
                                 into 1024-pair single-subtree blocks: slab
                                 sort (K4), batched searchsorted, run
@@ -32,14 +35,10 @@ import torch
 from ..ops.bvh2 import bvh2_trace
 from ..ops.intersect import DeviceCounter, Hit, _bvh2, ray_args, recompute_uv
 from ..ops.wide import wide_trace
-from .build import PEND_CAP, TILE
+from .build import TILE
 from .lane_bottom import lane_bottom_rays, unpack_hits
-from .lane_top import lane_top_trace
+from .lane_top import lane_top_pairs
 from .regroup import _no_mark, block_regroup
-
-# Pair-budget factor: the pair array holds PAIR_BUDGET * R slots; rays
-# whose pairs do not fit fall back to the non-treelet traversal.
-PAIR_BUDGET = 4
 
 _fallback = DeviceCounter(torch.int64)  # fallback rays, per device
 
@@ -54,38 +53,12 @@ def reset_counters() -> None:
     _fallback.reset()
 
 
-def _compact_pairs(pend, npend, act, *, S: int):
-    """Compact the (ray, subtree) pairs into PAIR_BUDGET * R slots by a
-    per-ray exclusive scan. Returns (key, ray_of, fallback); empty slots
-    hold the dump key S."""
-    R = pend.shape[0]
-    dev = pend.device
-    P_pad = PAIR_BUDGET * R
-    np_eff = torch.where(act, torch.clamp_max(npend, PEND_CAP), 0).to(
-        torch.int64)
-    ray_base = torch.cumsum(np_eff, 0) - np_eff
-    # npend == PEND_CAP may be an incomplete walk, even where nothing was
-    # dropped: such rays fall back, as do rays past the budget.
-    fallback = ((ray_base + np_eff > P_pad) | (npend >= PEND_CAP)) & act
-    keep = act & ~fallback
-    slot = torch.arange(PEND_CAP, device=dev)[None, :]
-    valid = (slot < np_eff[:, None]) & (pend >= 0) & keep[:, None]
-    # Slot P_pad is a dump for every invalid entry; it is sliced off.
-    dest = torch.where(valid, ray_base[:, None] + slot, P_pad).reshape(-1)
-    key = torch.full((P_pad + 1,), S, dtype=torch.int32, device=dev)
-    key[dest] = torch.where(valid, pend, S).reshape(-1)
-    ray_of = torch.zeros(P_pad + 1, dtype=torch.int32, device=dev)
-    ray_of[dest] = torch.arange(R, dtype=torch.int32, device=dev)[
-        :, None].expand(R, PEND_CAP).reshape(-1)
-    return key[:P_pad], ray_of[:P_pad], fallback
-
-
 def _bin_pairs_sort(key, ray_of, fallback, *, R: int, S: int):
     """The sort binning: sort pairs by subtree, rank within runs, scatter
     into TILE-padded single-subtree blocks. Returns (pair_ray, pair_sid,
     pair_on, fallback)."""
     dev = key.device
-    P_pad = PAIR_BUDGET * R
+    P_pad = key.shape[0]
     key_s, order = torch.sort(key, stable=True)
     ray_s = ray_of[order]
     ar = torch.arange(P_pad, device=dev)
@@ -131,13 +104,12 @@ def _phase2_combine(td, ro, rd, t0, pair_ray, pair_on, sid_blocks, *,
     return out
 
 
-def _bin_and_walk(td, ro, rd, t0, act, pend, npend, *, any_hit: bool,
+def _bin_and_walk(td, ro, rd, t0, key, ray_of, fallback, *, any_hit: bool,
                   regroup: str, mark=_no_mark):
-    """Binning and phase 2. Returns (t, tri, fallback)."""
+    """Binning and phase 2 of the pairs that E6's compacting epilogue laid
+    out. Returns (t, tri, fallback)."""
     R = ro.shape[0]
     S = td.num_subtrees
-    key, ray_of, fallback = _compact_pairs(pend, npend, act, S=S)
-    mark("binning")
     if regroup == "count":
         # Regions are tile-aligned over PAIR_BUDGET * R pairs with room to
         # spare, so no further fallback arises here.
@@ -193,9 +165,10 @@ def treelet_intersect(scene, ro, rd, tmax=None, active=None,
         empty = torch.zeros(0, dtype=torch.float32, device=ro.device)
         return Hit(empty, torch.zeros(0, dtype=torch.int32,
                                       device=ro.device), empty, empty)
-    pend, npend = lane_top_trace(td.top_fields, ro, rd, t0, act, td.num_top)
+    key, ray_of, fallback = lane_top_pairs(td.top_fields, ro, rd, t0, act,
+                                           td.num_top, td.num_subtrees)
     mark("E6")
-    t, tri, fallback = _bin_and_walk(td, ro, rd, t0, act, pend, npend,
+    t, tri, fallback = _bin_and_walk(td, ro, rd, t0, key, ray_of, fallback,
                                      any_hit=any_hit, regroup=regroup,
                                      mark=mark)
     fb_act = fallback & act

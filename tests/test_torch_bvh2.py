@@ -238,3 +238,105 @@ def test_step_bound_stops_and_counts_rays(soup):
                           False, port.num_nodes, port.stack_depth, stats)
     assert bvh2.capped_rays("cpu") == 0
     assert stats["visits"] >= 256 and stats["tri_tests"] > 0
+
+
+def _k3_kernel_model(port, ro, rd, tmax, active, steps_max):
+    """csrc/bvh2_traverse.cu::bvh2_occluded_kernel in torch, warp by warp
+    (32 consecutive rays): a lane walks the pre-order until it holds a hit
+    leaf, and a warp tests its lanes' leaves only when none of them needs
+    another step. Returns (blocked (R,) bool, capped rays, node visits)."""
+    R = ro.shape[0]
+    W = -(-R // 32) * 32
+    pad = W - R
+    ro, rd = (torch.cat([x, torch.zeros(pad, 3)]) for x in (ro, rd))
+    tmax = torch.cat([tmax, torch.zeros(pad)])
+    active = torch.cat([active, torch.zeros(pad, dtype=torch.bool)])
+    rows_i = port.node_rows.view(torch.int32)
+    inv = [wide._safe_inv(rd[:, a]) for a in range(3)]
+    node = torch.where(active, 0, -1).to(torch.int64)
+    ln = torch.zeros(W, dtype=torch.int64)
+    lrow = torch.zeros(W, dtype=torch.int64)
+    steps = torch.zeros(W, dtype=torch.int64)
+    blocked = torch.zeros(W, dtype=torch.bool)
+    capped = 0
+    while bool(((node >= 0) | (ln > 0)).any()):
+        need = (node >= 0) & (ln == 0)
+        warp_need = need.view(-1, 32).any(1).repeat_interleave(32)
+        cap = need & (steps == steps_max)
+        capped += int(cap.sum())
+        node[cap] = -1
+        go = torch.nonzero(need & ~cap).flatten()
+        if go.numel():
+            n = node[go]
+            ints = rows_i[n]
+            hit = bvh2._slab(port.node_rows[n], tuple(ro[go, a] for a in range(3)),
+                             tuple(x[go] for x in inv), tmax[go])
+            steps[go] += 1
+            leaf = hit & (ints[:, 6] > 0)
+            lrow[go[leaf]] = ints[leaf, 8].to(torch.int64)
+            ln[go[leaf]] = ints[leaf, 6].to(torch.int64)
+            nxt = torch.where(hit & (ints[:, 6] == 0), n + 1,
+                              ints[:, 7].to(torch.int64))
+            node[go] = torch.where(nxt < port.end_index, nxt, -1)
+        test = torch.nonzero((ln > 0) & ~warp_need).flatten()
+        if test.numel():
+            ok = bvh2._leaf(port.leaf_rows, lrow[test], ln[test],
+                            tuple(ro[test, a] for a in range(3)),
+                            tuple(rd[test, a] for a in range(3)),
+                            tmax[test])[0].any(dim=1)
+            blocked[test[ok]] = True
+            node[test[ok]] = -1
+            ln[test] = 0
+    return blocked[:R], capped, int(steps.sum())
+
+
+@pytest.mark.parametrize("bound", ["sound", "capped"])
+def test_k3_waiting_leaf_rows_keep_the_twins_bits_and_counts(soup, bound):
+    """K3's schedule (leaf rows wait for the warp) against
+    bvh2_occluded_plain: the blocked bits equal on every ray, and the rays
+    stopped by the step bound and the node visits the same, at the real
+    bound and at a bound of 4 visits (num_nodes -15) that stops most rays
+    (a leaf visited before the bound is tested before the bound stops the
+    ray, as in the twin)."""
+    _, port, tris = soup
+    ro, rd = (_t(x) for x in random_rays(tris, 1000, seed=87))
+    rng = np.random.default_rng(88)
+    tmax = torch.from_numpy(np.where(rng.random(1000) < 0.5, 3.0, 1e30)
+                            .astype(np.float32))
+    active = torch.from_numpy(rng.random(1000) < 0.9)
+    num_nodes = port.num_nodes if bound == "sound" else -15
+    bvh2.reset_counters()
+    stats = {}
+    want = bvh2.bvh2_occluded_plain(port.node_rows, port.leaf_rows, ro, rd,
+                                    tmax, active, port.end_index, num_nodes,
+                                    stats=stats) > 0
+    got, capped, visits = _k3_kernel_model(port, ro, rd, tmax, active,
+                                           bvh2.max_steps(num_nodes))
+    assert torch.equal(got, want)
+    assert capped == bvh2.capped_rays("cpu")
+    assert visits == stats["visits"]
+    if bound == "sound":
+        assert capped == 0 and 0 < float(got.float().mean()) < 1
+    else:
+        assert 100 < capped < int(active.sum())
+
+
+def test_k3_float4_windows_hold_each_triangle():
+    """K3 reads triangle 4g + k of a leaf row from the three float4 words
+    at float4 9g + 2k, at offset k: for every count of 1-14 triangles the
+    windows hold exactly each triangle's 9 floats and stay in the row's
+    128 floats."""
+    row = np.arange(128)
+    for count in range(1, bvh2.LEAF_CAP + 1):
+        seen = []
+        for g in range(-(-count // 4)):
+            for k in range(4):
+                if 4 * g + k < count:
+                    q = 9 * g + 2 * k
+                    window = row[4 * q:4 * q + 12]
+                    assert 4 * q + 12 <= 128
+                    tri = 4 * g + k
+                    np.testing.assert_array_equal(window[k:k + 9],
+                                                  row[9 * tri:9 * tri + 9])
+                    seen.append(tri)
+        assert seen == list(range(count))

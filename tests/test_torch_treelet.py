@@ -31,6 +31,7 @@ from experiments.treelet.lane_bottom import \
     lane_bottom_trace as ref_lane_bottom  # noqa: E402
 from experiments.treelet.lane_top import TopTables  # noqa: E402
 from experiments.treelet.lane_top import lane_top_trace as ref_lane_top  # noqa: E402
+from experiments.treelet import pipeline as ref_pipeline  # noqa: E402
 from experiments.treelet.regroup import block_regroup as ref_block  # noqa: E402
 from experiments.treelet.regroup import counting_regroup as ref_counting  # noqa: E402
 from experiments.treelet.regroup import scatter_runs as ref_scatter  # noqa: E402
@@ -42,7 +43,7 @@ from loupiote_tpu_torch import build_scene_buffers, from_reference  # noqa: E402
 from loupiote_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from loupiote_tpu_torch.treelet import build as tb  # noqa: E402
 from loupiote_tpu_torch.treelet import lane_bottom, lane_top, regroup  # noqa: E402
-from loupiote_tpu_torch.treelet.pipeline import _compact_pairs  # noqa: E402
+from loupiote_tpu_torch.treelet.lane_top import compact_pairs  # noqa: E402
 from torch_port_helpers import (assert_same_hits, numpy_bvh,  # noqa: E402
                                 random_rays, random_tris, soup_scene)
 
@@ -158,6 +159,152 @@ def test_lane_top_matches_reference_exactly(soup, cap):
     assert lane_top.capped_rays("cpu") == 0
 
 
+def _pend_lists(R, S, seed):
+    """Random pending lists as E6 leaves them: a quarter of the rays at
+    npend == PEND_CAP, the others in [0, 4), ids in [0, S) below npend and
+    -1 past it, and an active mask (inactive rays have npend 0)."""
+    rng = np.random.default_rng(seed)
+    act = rng.random(R) > 0.15
+    npend = np.where(rng.random(R) < 0.25, tb.PEND_CAP,
+                     rng.integers(0, 4, R)).astype(np.int32)
+    npend[~act] = 0
+    ids = rng.integers(0, S, (R, tb.PEND_CAP)).astype(np.int32)
+    pend = np.where(np.arange(tb.PEND_CAP)[None, :] < npend[:, None], ids,
+                    -1).astype(np.int32)
+    return pend, npend, act
+
+
+def _compacting_kernel_model(pend, npend, act, S, budget):
+    """The compacting epilogue as csrc/treelet_traverse.cu runs it, in
+    numpy: tiles of TILE_RAYS rays in ticket order, each tile's pair count
+    added to the prefix of the tiles before it (the look-back), then each
+    ray writes its own slots (its pairs, or the dump key and ray 0 where it
+    falls back) and the slots from the total on get the dump key and 0."""
+    R = pend.shape[0]
+    T = lane_top.TILE_RAYS
+    pad = budget * R
+    key = np.full(pad, -7, np.int64)  # every slot must be written once
+    ray_of = np.full(pad, -7, np.int64)
+    fallback = np.zeros(R, bool)
+    prefix = 0
+    for tile in range(-(-R // T)):
+        rays = np.arange(tile * T, min((tile + 1) * T, R))
+        n = np.where(act[rays], npend[rays], 0).astype(np.int64)
+        base = prefix + np.cumsum(n) - n
+        prefix += int(n.sum())
+        for r, b, c in zip(rays, base, n):
+            fb = bool(act[r]) and (b + c > pad or c >= tb.PEND_CAP)
+            fallback[r] = fb
+            for k in range(c):
+                if b + k < pad:
+                    assert key[b + k] == -7
+                    key[b + k] = S if fb else pend[r, k]
+                    ray_of[b + k] = 0 if fb else r
+    tail = np.arange(pad) >= prefix
+    assert (key[tail] == -7).all()
+    key[tail], ray_of[tail] = S, 0
+    assert (key != -7).all() and (ray_of != -7).all()
+    return key.astype(np.int32), ray_of.astype(np.int32), fallback
+
+
+@pytest.mark.parametrize("budget", [4, 2, 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compact_pairs_matches_reference_and_kernel_model(monkeypatch, budget,
+                                                          seed):
+    """The plain compaction (lane_top.compact_pairs, the compacting
+    epilogue's plain version) against the reference's _compact_pairs and
+    against a model of the kernel's tiled scan, bit for bit: rays at
+    npend == PEND_CAP fall back, and a PAIR_BUDGET below the default makes
+    the budget fallback fire (the rays past it, and the active rays after
+    them with no pairs)."""
+    R, S = 1000, 37
+    pend, npend, act = _pend_lists(R, S, seed)
+    monkeypatch.setattr(lane_top, "PAIR_BUDGET", budget)
+    monkeypatch.setattr(ref_pipeline, "PAIR_BUDGET", budget)
+    got = lane_top.compact_pairs(torch.from_numpy(pend),
+                                 torch.from_numpy(npend),
+                                 torch.from_numpy(act), S=S)
+    want = [np.asarray(x) for x in ref_pipeline._compact_pairs(
+        jnp.asarray(pend), jnp.asarray(npend), jnp.asarray(act), S=S)]
+    model = _compacting_kernel_model(pend, npend, act, S, budget)
+    for g, w, m in zip(got, want, model):
+        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g.numpy(), m)
+    fb = got[2].numpy()
+    at_cap = act & (npend == tb.PEND_CAP)
+    assert fb[at_cap].all() and at_cap.sum() > 100
+    over_budget = fb & ~at_cap
+    assert over_budget.any() == (budget < 4)
+    assert (got[0].numpy() < S).sum() == np.where(act & ~fb, npend, 0).sum()
+
+
+def test_lane_top_pairs_on_the_cpu_is_top_walk_then_compaction(soup):
+    """E6's compacting entry point on CPU tensors: lane_top_plain, then
+    compact_pairs; a tensor on another device raises."""
+    tris, _, _, port_t = soup
+    ro, rd, tmax, active = (torch.from_numpy(x)
+                            for x in _rays(tris, 2048, seed=9))
+    top = torch.from_numpy(port_t.top_fields)
+    S = port_t.num_subtrees
+    pend, npend = lane_top.lane_top_trace(top, ro, rd, tmax, active,
+                                          port_t.num_top)
+    want = compact_pairs(pend, npend, active, S=S)
+    got = lane_top.lane_top_pairs(top, ro, rd, tmax, active, port_t.num_top,
+                                  S)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[0].shape == (lane_top.PAIR_BUDGET * 2048,)
+    assert (got[0] < S).sum() > 500
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no traversal"):
+        lane_top.lane_top_pairs(top, meta, meta, meta[:, 0], None,
+                                port_t.num_top, S)
+
+
+@pytest.mark.parametrize("epilogue", ["per_ray", "pairs"])
+def test_lane_top_counts_launches_by_epilogue(monkeypatch, epilogue):
+    """E6's launch sites count each launch under its own epilogue, so a run
+    can tell which one a path launched. The C entry points are replaced by
+    stubs that record their names and step bound; the compacting one gets
+    a zeroed scan state of one word a TILE_RAYS tile and a ticket."""
+    calls = []
+
+    def stub(name):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(lane_top._build, "load", lambda name: SimpleNamespace(
+        lane_top=stub("lane_top"), lane_top_pairs=stub("lane_top_pairs")))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    R = 100
+    top = torch.zeros((8, 1024), dtype=torch.float32)
+    ray = torch.zeros((R, 3), dtype=torch.float32)
+    t0 = torch.zeros(R, dtype=torch.float32)
+    act = torch.ones(R, dtype=torch.bool)
+    lane_top.reset_counters()
+    for _ in range(3):
+        if epilogue == "per_ray":
+            pend, npend = lane_top._launch(top, ray, ray, t0, act, 5)
+            assert pend.shape == (R, tb.PEND_CAP) and npend.shape == (R,)
+        else:
+            key, ray_of, fb = lane_top._launch_pairs(top, ray, ray, t0, act,
+                                                     5, 9)
+            assert key.shape == ray_of.shape == (lane_top.PAIR_BUDGET * R,)
+            assert fb.shape == (R,) and fb.dtype == torch.bool
+    assert lane_top.launches == {k: 3 * (k == epilogue)
+                                 for k in lane_top.launches}
+    name = "lane_top" if epilogue == "per_ray" else "lane_top_pairs"
+    assert [c[0] for c in calls] == [name] * 3
+    assert all(lane_top.max_steps(5) in c[1] for c in calls)
+    lane_top.reset_counters()
+    assert not any(lane_top.launches.values())
+    with pytest.raises(ValueError, match="top_fields"):
+        lane_top._launch(top[:, :1000].contiguous(), ray, ray, t0, act, 5)
+
+
 def _pair_blocks(soup_tables, tris, n_blocks=8, seed=5):
     """A few 1024-pair blocks of the port's phase-2 layout (E6 + regroup on
     the CPU): (sid_blocks, pair ro, rd, tmax, on) as numpy arrays."""
@@ -167,7 +314,7 @@ def _pair_blocks(soup_tables, tris, n_blocks=8, seed=5):
     pend, npend = lane_top.lane_top_plain(
         torch.from_numpy(soup_tables.top_fields), t["ro"], t["rd"],
         t["tmax"], t["active"], soup_tables.num_top)
-    key, ray_of, _ = _compact_pairs(pend, npend, t["active"],
+    key, ray_of, _ = compact_pairs(pend, npend, t["active"],
                                     S=soup_tables.num_subtrees)
     ray, sid, on = regroup.block_regroup(key, ray_of,
                                          soup_tables.num_subtrees,
@@ -225,7 +372,7 @@ def test_lane_bottom_rays_combines_per_ray_on_the_cpu_only(soup, any_hit):
                             .astype(np.int32))
     pend, npend = lane_top.lane_top_plain(top, ro, rd, tmax, active,
                                           port_t.num_top)
-    key, ray_of, _ = _compact_pairs(pend, npend, active,
+    key, ray_of, _ = compact_pairs(pend, npend, active,
                                     S=port_t.num_subtrees)
     pray, sid, on = regroup.block_regroup(key, ray_of, port_t.num_subtrees,
                                           slab_log=10)

@@ -35,7 +35,7 @@ from loupiote_tpu_torch.ops import bvh2  # noqa: E402
 from loupiote_tpu_torch.ops.intersect import (DeviceCounter,  # noqa: E402
                                               full_device, intersect_any)
 from loupiote_tpu_torch.render.integrator import draw_uniforms  # noqa: E402
-from loupiote_tpu_torch.treelet import pipeline  # noqa: E402
+from loupiote_tpu_torch.treelet import lane_top, pipeline  # noqa: E402
 from loupiote_tpu_torch.treelet.pipeline import (treelet_intersect,  # noqa: E402
                                                  treelet_occluded)
 from torch_port_helpers import (assert_same_hits, numpy_bvh,  # noqa: E402
@@ -115,7 +115,7 @@ def test_starved_budget_falls_back_and_matches(scene, monkeypatch):
     soup is under 8,192 BVH2 nodes); the hits still match."""
     ref, port, rays = scene
     want = _reference(scene, monkeypatch, "xla", False)
-    monkeypatch.setattr(pipeline, "PAIR_BUDGET", 1)
+    monkeypatch.setattr(lane_top, "PAIR_BUDGET", 1)
     pipeline.reset_counters()
     for regroup in ("count", "sort"):
         _check(ref, rays, want, _port(port, rays, False, regroup), False)
@@ -264,16 +264,41 @@ def test_per_ray_epilogue_matches_the_old_chain(scene, monkeypatch, regroup,
     """Binning and phase 2 with the per-ray plain version
     (lane_bottom_rays_plain, then unpack_hits) against the chain it
     replaces, bit for bit, under both binnings and in both modes."""
-    from loupiote_tpu_torch.treelet.lane_top import lane_top_trace
-
     _, port, (ro, rd, tmax, active) = scene
     ro, rd, t0, act = (torch.from_numpy(x) for x in (ro, rd, tmax, active))
     td = port.treelet
-    pend, npend = lane_top_trace(td.top_fields, ro, rd, t0, act, td.num_top)
-    args = (td, ro, rd, t0, act, pend, npend)
+    pairs = lane_top.lane_top_pairs(td.top_fields, ro, rd, t0, act,
+                                    td.num_top, td.num_subtrees)
+    args = (td, ro, rd, t0, *pairs)
     got = pipeline._bin_and_walk(*args, any_hit=any_hit, regroup=regroup)
     monkeypatch.setattr(pipeline, "_phase2_combine", _old_phase2_combine)
     want = pipeline._bin_and_walk(*args, any_hit=any_hit, regroup=regroup)
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert (got[1] >= 0).sum() > 100
+
+
+def test_pipeline_takes_the_compacting_epilogue_on_the_card_only(
+        scene, monkeypatch):
+    """treelet_intersect asks E6 for pairs (lane_top_pairs): on CPU tensors
+    that runs the compacting epilogue's plain version; where lane_top sees
+    a card's tensor (on_card patched to say so) it launches the compacting
+    epilogue, and the per-ray one on neither. The hits are the same."""
+    _, port, rays = scene
+    ro, rd, tmax, active = (torch.from_numpy(x) for x in rays)
+    calls = []
+    plain = lane_top.lane_top_pairs_plain
+    monkeypatch.setattr(lane_top, "_launch",
+                        lambda *a: calls.append("per_ray"))
+    monkeypatch.setattr(lane_top, "lane_top_pairs_plain",
+                        lambda *a: calls.append("plain") or plain(*a))
+    monkeypatch.setattr(lane_top, "_launch_pairs",
+                        lambda *a: calls.append("pairs") or plain(*a))
+    want = treelet_intersect(port, ro, rd, tmax=tmax, active=active)
+    assert calls == ["plain"]
+    calls.clear()
+    monkeypatch.setattr(lane_top, "on_card", lambda x: True)
+    got = treelet_intersect(port, ro, rd, tmax=tmax, active=active)
+    assert calls == ["pairs"]
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.t, want.t)
+    assert (got.tri >= 0).sum() > 100
