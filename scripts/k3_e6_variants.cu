@@ -473,7 +473,7 @@ __device__ __forceinline__ unsigned long long ld_state(
   return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-template <bool kEntryMajor, bool kCompact, int kThreads>
+template <bool kEntryMajor, bool kCompact, int kThreads, int kDiag = 0>
 __global__ void __launch_bounds__(kThreads)
     e6_new(const float* __restrict__ top, int top_stride,
            const float* __restrict__ ro, const float* __restrict__ rd,
@@ -546,8 +546,8 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned agg = __shfl_sync(kFull, w, kWarps - 1);
       if (lane < kWarps) s_warp[lane] = w;  // inclusive warp sums
       unsigned excl = 0;
-      if (tile == 0) {
-        if (lane == 0) atomicExch(state, (2ull << 32) | agg);
+      if (tile == 0 || kDiag == 1) {
+        if (lane == 0) atomicExch(state + tile, (2ull << 32) | agg);
       } else {
         if (lane == 0) atomicExch(state + tile, (1ull << 32) | agg);
         for (int pred = tile - 1;; pred -= 32) {
@@ -585,6 +585,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (i < n_rays) fb_out[i] = fb;
   }
+  if (kDiag != 0) return;
   // The slots past the last pair: the dump key and ray 0.
   __shared__ unsigned s_total;
   if (threadIdx.x == 0) {
@@ -614,13 +615,13 @@ int grid_for(K kernel, int threads, size_t smem, int n_tiles) {
   return g < n_tiles ? g : n_tiles;
 }
 
-template <bool kEntryMajor, bool kCompact, int kThreads>
+template <bool kEntryMajor, bool kCompact, int kThreads, int kDiag = 0>
 int run_e6(const float* top, int top_stride, const float* ro, const float* rd,
            const float* tmax, const uint8_t* act, int32_t* pend,
            int32_t* npend, int32_t* key, int32_t* ray, uint8_t* fb,
            unsigned long long* state, int32_t* capped, int n, int max_steps,
            int n_sub, int p_pad, cudaStream_t s) {
-  auto kernel = e6_new<kEntryMajor, kCompact, kThreads>;
+  auto kernel = e6_new<kEntryMajor, kCompact, kThreads, kDiag>;
   const size_t smem = static_cast<size_t>(top_stride) * 32;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -990,7 +991,10 @@ extern "C" int k3_variant(int v, const void* node_rows, const void* leaf_rows,
 // threads, field-major 128 / 256); 5-8 compacting (the same four); 9-11
 // compacting with a tile a warp (256, 128, 512 threads, entry-major);
 // 12-15 compacting with staged, coalesced slot writes (a tile a warp at
-// 256 threads, a tile a block at 256, a tile a warp at 128, a block at 512).
+// 256 threads, a tile a block at 256, a tile a warp at 128, a block at 512);
+// 16-17 diagnostics of 6 that leave their output wrong: both skip the
+// fill of the slots past the last pair, and 16 also waits for no other
+// tile (each tile's own count stands for its prefix).
 extern "C" int e6_variant(int v, const void* top, int top_stride,
                           const void* ro, const void* rd, const void* tmax,
                           const void* active, void* pend, void* npend,
@@ -1031,6 +1035,8 @@ extern "C" int e6_variant(int v, const void* top, int top_stride,
     case 13: return run_e6s<false, 256>(t, top_stride, o, d, tm, a, pe, np, k, r, f, st, c, n, max_steps, n_sub, p_pad, s);
     case 14: return run_e6s<true, 128>(t, top_stride, o, d, tm, a, pe, np, k, r, f, st, c, n, max_steps, n_sub, p_pad, s);
     case 15: return run_e6s<false, 512>(t, top_stride, o, d, tm, a, pe, np, k, r, f, st, c, n, max_steps, n_sub, p_pad, s);
+    case 16: return run_e6<true, true, 256, 1>(t, top_stride, o, d, tm, a, pe, np, k, r, f, st, c, n, max_steps, n_sub, p_pad, s);
+    case 17: return run_e6<true, true, 256, 2>(t, top_stride, o, d, tm, a, pe, np, k, r, f, st, c, n, max_steps, n_sub, p_pad, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
