@@ -568,6 +568,9 @@ __global__ void __launch_bounds__(kThreads)
         }
         if (lane == 0) atomicExch(state + tile, (2ull << 32) | (excl + agg));
       }
+      // The no-wait diagnostic writes each tile at its share of the
+      // budget (4 slots a ray), so tiles do not write over each other.
+      if (kDiag == 1) excl = static_cast<unsigned>(tile) * 4u * kThreads;
       if (lane == 0) s_excl = excl;
     }
     __syncthreads();
@@ -994,7 +997,8 @@ extern "C" int k3_variant(int v, const void* node_rows, const void* leaf_rows,
 // 256 threads, a tile a block at 256, a tile a warp at 128, a block at 512);
 // 16-17 diagnostics of 6 that leave their output wrong: both skip the
 // fill of the slots past the last pair, and 16 also waits for no other
-// tile (each tile's own count stands for its prefix).
+// tile (each tile writes from tile * 4 * kThreads, its share of the
+// budget).
 extern "C" int e6_variant(int v, const void* top, int top_stride,
                           const void* ro, const void* rd, const void* tmax,
                           const void* active, void* pend, void* npend,
