@@ -233,14 +233,14 @@ def compare_wide(name, scene, closest, shadow, rows, stats=None,
     return ok, t_err, b_err
 
 
-def compare_bvh2(name, scene, closest, shadow, rows, stats=None, runs=3):
+def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
     """K2 (both modes) and K3 against their twins on one wave.
 
     ``closest``: (ro, rd, active) for K2 closest-hit; ``shadow``: (ro, rd,
     tmax, active) for K2 any-hit and K3. K2 is compared on SUBSET strided
     rays: tri agree 1.0 except t-ties, t within 2 ulp, u and v equal where
     the triangle is the same, blocked bits equal. K3 is compared on every
-    ray, ``runs`` kernel runs against one of the twin: blocked bits equal.
+    ray, three kernel runs against one of the twin: blocked bits equal.
     ``stats``: receives the twins' work counts, by mode (K3's on the whole
     wave). Returns (ok, errors by mode).
     """
@@ -261,7 +261,7 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None, runs=3):
     k_out = bvh2.bvh2_trace(*tables, ro, rd, tfar, active, False, *trace)
     k_any = bvh2.bvh2_trace(*tables, *shadow, True, *trace)[3] >= 0
     k_occ = [bvh2.bvh2_occluded(*tables, *shadow, *occ) > 0
-             for _ in range(runs)]
+             for _ in range(3)]
     sub = [x[idx].contiguous() for x in (ro, rd, tfar, active)]
     ssub = [x[idx].contiguous() for x in shadow]
     p_out = bvh2.bvh2_trace_plain(*tables, *sub, False, *trace,

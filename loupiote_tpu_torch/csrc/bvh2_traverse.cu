@@ -109,14 +109,13 @@ __device__ __forceinline__ bool slab(const float* __restrict__ node_rows,
   return tf >= fmaxf(tn, 0.0f) && tn < bound;
 }
 
-// Moller-Trumbore of triangle k of a leaf row, products in the reference's
-// order. Returns true where it is a hit in (kTMin, bound).
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
-                                        const Ray& r, float bound, float* uo,
-                                        float* vo, float* to) {
-  const float p0x = __ldg(tr + 0), p0y = __ldg(tr + 1), p0z = __ldg(tr + 2);
-  const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
-  const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
+// Moller-Trumbore, products in the reference's order. Returns true where
+// it is a hit in (kTMin, bound).
+__device__ __forceinline__ bool mt_hit(float p0x, float p0y, float p0z,
+                                       float e1x, float e1y, float e1z,
+                                       float e2x, float e2y, float e2z,
+                                       const Ray& r, float bound, float* uo,
+                                       float* vo, float* to) {
   const float pvx = r.dy * e2z - r.dz * e2y;
   const float pvy = r.dz * e2x - r.dx * e2z;
   const float pvz = r.dx * e2y - r.dy * e2x;
@@ -135,30 +134,25 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
 }
 
-// K3's triangle test: triangle at float offset S of the 12 floats
-// q[0..2], the arithmetic of tri_hit.
+// Triangle k of a leaf row (K2), nine scalar loads.
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
+                                        const Ray& r, float bound, float* uo,
+                                        float* vo, float* to) {
+  return mt_hit(__ldg(tr), __ldg(tr + 1), __ldg(tr + 2), __ldg(tr + 3),
+                __ldg(tr + 4), __ldg(tr + 5), __ldg(tr + 6), __ldg(tr + 7),
+                __ldg(tr + 8), r, bound, uo, vo, to);
+}
+
+// K3's triangle: the one at float offset S of the 12 floats q[0..2].
 template <int S>
 __device__ __forceinline__ bool tri_window(const float4* q, const Ray& r,
                                            float bound) {
   const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
   const float w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
                        b.z, b.w, c.x, c.y, c.z, c.w};
-  const float p0x = w[S], p0y = w[S + 1], p0z = w[S + 2];
-  const float e1x = w[S + 3], e1y = w[S + 4], e1z = w[S + 5];
-  const float e2x = w[S + 6], e2y = w[S + 7], e2z = w[S + 8];
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-  const float tvx = r.ox - p0x, tvy = r.oy - p0y, tvz = r.oz - p0z;
-  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
-  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
+  float u, v, t;
+  return mt_hit(w[S], w[S + 1], w[S + 2], w[S + 3], w[S + 4], w[S + 5],
+                w[S + 6], w[S + 7], w[S + 8], r, bound, &u, &v, &t);
 }
 
 // True where one of the leaf row's first n triangles blocks [kTMin,

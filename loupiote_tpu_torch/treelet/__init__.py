@@ -4,9 +4,9 @@
 and lays the (subtree, ray) pairs out; ``regroup.py`` (K4 through
 ``ops/slab_sort.py``, then E5) groups the pairs by subtree;
 ``lane_bottom.py`` (E7) walks them; ``pipeline.py`` ties the phases
-together with a fallback to the non-treelet traversal. Opt in with ``build_scene_buffers(scene,
-treelets=True)``: ``intersect_any`` then sends every closest-hit wave
-through ``treelet_intersect``.
+together with a fallback to the non-treelet traversal. Opt in with
+``build_scene_buffers(scene, treelets=True)``: ``intersect_any`` then
+sends every closest-hit wave through ``treelet_intersect``.
 """
 
 from .build import TreeletDevice, build_treelet_device, build_treelets
