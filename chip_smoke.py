@@ -135,6 +135,28 @@ def cuda_ms(fn, reps, warm=True):
     return timed(fn, reps, warm)[0]
 
 
+def device_kernels(fn):
+    """(name, ms) of each device kernel of one call of fn, from
+    torch.profiler: fn runs twice under the profiler's schedule, a warm-up
+    step that is traced and dropped, then the step that is read (on the
+    card, a second profiler session in one process has missed the first
+    kernels it should have recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.extend(p.events())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in got
+            if e.device_type == DeviceType.CUDA]
+
+
 def bound_of(nbytes, ops):
     """(ms, which): the larger of the bytes over the memory rate and the
     operations over the float32 rate."""
@@ -891,18 +913,14 @@ def main():
 
     # K3's device time in one interactive frame (torch.profiler): the sum
     # over the frame's launches (its NEE and final-gather shadow waves).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    view[0, 3] += 1e-3
-    n_k3, cap0 = bvh2.launches_occluded, bvh2.capped_rays(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def next_frame():
+        view[0, 3] += 1e-3
         inter.raytrace(view)
-        torch.cuda.synchronize()
-    k3_frame = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                if e.device_type == DeviceType.CUDA
-                and "bvh2_occluded_kernel" in e.name]
-    n_k3 = bvh2.launches_occluded - n_k3
+
+    n_k3, cap0 = bvh2.launches_occluded, bvh2.capped_rays(dev)
+    k3_frame = [ms for name, ms in device_kernels(next_frame)
+                if "bvh2_occluded_kernel" in name]
+    n_k3 = (bvh2.launches_occluded - n_k3) // 2  # the frame read, of two
     k3_frame_capped = bvh2.capped_rays(dev) - cap0
     k3_frame_ms = sum(k3_frame)
     print(f"K3 in one interactive frame (torch.profiler): {n_k3} launches, "
@@ -1350,21 +1368,13 @@ def main():
     # Phase 2 on the card, under torch.profiler: its device kernels, by
     # name. E7 gathers each pair's ray and combines per ray itself, so no
     # gather (index) or scatter_reduce kernel may run in it.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def phase2():
         return pipeline._phase2_combine(td, pro, prd, tfar, pray, on, sid,
                                         any_hit=False)
 
-    phase2()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        phase2()
-        torch.cuda.synchronize()
     kernels_run = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels_run[e.name] = kernels_run.get(e.name, 0) + 1
+    for name, _ in device_kernels(phase2):
+        kernels_run[name] = kernels_run.get(name, 0) + 1
     print(f"phase 2 of one primary wave (_phase2_combine): device kernels "
           f"{kernels_run}")
     if not kernels_run:
