@@ -1295,9 +1295,9 @@ def main():
               f"{e6_bound[epi][0]:.4f} ms ({e6_bound[epi][1]}; "
               f"{lane_top.grid_blocks(td.top_fields, N, epi == 'pairs')} "
               f"blocks; twin work on the wave: {e6_stats})")
-    print(f"E6 per ray + compact_pairs (the parent's chain, with this "
-          f"kernel) {et['per_ray'] + et['compact_pairs']:.4f} ms against "
-          f"the compacting epilogue {et['pairs']:.4f} ms")
+    print(f"E6 per ray, then compact_pairs in torch: "
+          f"{et['per_ray'] + et['compact_pairs']:.4f} ms, against the "
+          f"compacting epilogue's {et['pairs']:.4f} ms")
     print("E6/E7 ptxas (registers, stack frame, spills):\n" + "\n".join(
         line for line in _build.build_info["treelet_traverse"]["log"]
         .splitlines() if "Used" in line or "stack frame" in line))
