@@ -1263,17 +1263,16 @@ def main():
                          "version at the path's shapes, or lanes reached a "
                          "step bound")
     # E6 reads the active flag of every ray, ro, rd and tmax of the active
-    # ones and the top table once a block; per ray it writes 32 bytes of
-    # ids and npend a ray, compacting 8 bytes a pair slot (key, ray_of) and
-    # the fallback flag a ray.
+    # ones and the top table once (its blocks' re-reads of the table are the
+    # design's, served from L2); per ray it writes 32 bytes of ids and npend
+    # a ray, compacting 8 bytes a pair slot (key, ray_of) and the fallback
+    # flag a ray.
     n_act = int(pact.sum())
-    e6_in = {c: N + n_act * (RAY_IN_BYTES - 1)
-             + lane_top.grid_blocks(td.top_fields, N, c) * top_bytes
-             for c in (False, True)}
+    e6_in = N + n_act * (RAY_IN_BYTES - 1) + top_bytes
     e6_bound = {
-        "per_ray": bound_of(e6_in[False] + N * 36,
+        "per_ray": bound_of(e6_in + N * 36,
                             e6_stats["box_tests"] * OPS_BOX),
-        "pairs": bound_of(e6_in[True] + lane_top.PAIR_BUDGET * N * 8 + N,
+        "pairs": bound_of(e6_in + lane_top.PAIR_BUDGET * N * 8 + N,
                           e6_stats["box_tests"] * OPS_BOX)}
     # E7 per pair reads tmax and the active flag of every slot and ro, rd
     # only for walked pairs, and writes t and tri of every slot. Per ray it
@@ -1292,9 +1291,8 @@ def main():
     for epi in ("per_ray", "pairs"):
         print(f"E6 {epi} on the 1080p primary wave ({N} rays, K "
               f"{td.num_top}): kernel {et[epi]:.4f} ms, bound "
-              f"{e6_bound[epi][0]:.4f} ms ({e6_bound[epi][1]}; "
-              f"{lane_top.grid_blocks(td.top_fields, N, epi == 'pairs')} "
-              f"blocks; twin work on the wave: {e6_stats})")
+              f"{e6_bound[epi][0]:.4f} ms ({e6_bound[epi][1]}; twin work "
+              f"on the wave: {e6_stats})")
     print(f"E6 per ray, then compact_pairs in torch: "
           f"{et['per_ray'] + et['compact_pairs']:.4f} ms, against the "
           f"compacting epilogue's {et['pairs']:.4f} ms")

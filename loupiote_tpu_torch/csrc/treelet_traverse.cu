@@ -353,11 +353,14 @@ int top_grid(int top_stride, int n_rays) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTopThreads,
-                                                smem);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kTopThreads, smem)) != cudaSuccess)
+    return -static_cast<int>(err);
+  if (sms < 1 || per_sm < 1)
+    return -static_cast<int>(cudaErrorInvalidConfiguration);
   const int n_tiles = (n_rays + kTopThreads - 1) / kTopThreads;
   return n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
 }
@@ -370,7 +373,9 @@ int launch_top(const float* top, int top_stride, const float* ro,
                int n_rays, int max_steps, int n_sub, int p_pad,
                cudaStream_t s) {
   const int blocks = top_grid<kCompact>(top_stride, n_rays);
-  if (blocks < 1) return -blocks;
+  if (blocks < 1)
+    return blocks == 0 ? static_cast<int>(cudaErrorInvalidConfiguration)
+                       : -blocks;
   lane_top_kernel<kCompact><<<blocks, kTopThreads, top_stride * 32, s>>>(
       top, top_stride, ro, rd, tmax, active, pend, npend, key, ray, fb, state,
       capped, n_rays, max_steps, n_sub, p_pad);
@@ -602,13 +607,6 @@ extern "C" int lane_top(const void* top, int top_stride, const void* ro,
       static_cast<int32_t*>(pend), static_cast<int32_t*>(npend), nullptr,
       nullptr, nullptr, nullptr, static_cast<int32_t*>(capped), n_rays,
       max_steps, 0, 0, static_cast<cudaStream_t>(stream));
-}
-
-// The blocks lane_top (compact == 0) or lane_top_pairs launches for n_rays
-// rays, each staging the table once; or minus a CUDA error.
-extern "C" int lane_top_grid(int top_stride, int n_rays, int compact) {
-  return compact ? top_grid<true>(top_stride, n_rays)
-                 : top_grid<false>(top_stride, n_rays);
 }
 
 // lane_top_pairs (compacting): key, ray_of (p_pad,) i32; fallback (n,)

@@ -212,18 +212,6 @@ def _launch_pairs(top_fields, ro, rd, tmax, active, num_top: int, S: int):
     return key, ray_of, fallback
 
 
-def grid_blocks(top_fields, n_rays: int, compact: bool) -> int:
-    """Blocks the kernel launches for ``n_rays`` rays (card only); each
-    stages the top table once, which its bound counts."""
-    fn = _build.load("treelet_traverse").lane_top_grid
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3
-    n = fn(top_fields.reshape(8, -1).shape[1], int(n_rays), int(compact))
-    if n < 1:
-        raise RuntimeError(f"lane_top_grid failed: CUDA error {-n}")
-    return n
-
-
 def lane_top_trace(top_fields, ro, rd, tmax, active, num_top: int):
     """E6 with the per-ray epilogue on CUDA tensors, the plain twin on CPU
     tensors. Returns (pend (R, PEND_CAP) int32, npend (R,) int32)."""
