@@ -18,10 +18,14 @@ Phases, each timed:
   4. K2/K3     - kernels K2 and K3 (csrc/bvh2_traverse.cu) against their
                  twins on the random-4k scene, the arch-40k 960x540 primary
                  wave with its NEE wave and an arch-40k diffuse wave (its
-                 shadow wave: tmax 25); K2 on strided rays, K3 on every ray
-                 of the three shadow waves, three runs each, 0 rays at the
-                 step bound; K2, K3 and K1 times on the same arch-40k waves
-                 (K3 and K1 any-hit on the NEE and the diffuse shadow wave);
+                 shadow wave: tmax 25); K2 in both modes (closest-hit on
+                 the random, primary and diffuse rays, any-hit on the
+                 three shadow waves) and K3 on every ray of each wave,
+                 three runs each, 0 rays at the step bound; K2's and K3's
+                 ptxas report; K2, K3 and K1 times on the same arch-40k
+                 waves (K2 and K1 closest-hit on the primary and the
+                 diffuse wave, K3 and K1 any-hit on the NEE and the
+                 diffuse shadow wave);
   5. headline  - arch-260k at 1920x1080, 3 bounces, NEE, 1 spp, pathtrace,
                  through Renderer.set_resources -> raytrace -> blit, with
                  the kernels' launch counts read around it, and a small
@@ -29,9 +33,10 @@ Phases, each timed:
   6. interactive - arch-40k in a 1920x1080 window with RenderConfig()
                  (960x540 internal, 3 bounces, NEE, A-SVGF) and
                  DENOISED_PATHTRACE, the camera moving every frame, with
-                 the launch counts read around it; K3's device time summed
-                 over one frame's launches (torch.profiler), none of them
-                 stopping rays at the step bound; A-SVGF timed alone;
+                 the launch counts read around it; K2's and K3's device
+                 time summed over one frame's launches (torch.profiler),
+                 none of them stopping rays at the step bound; A-SVGF
+                 timed alone;
                  every blit mode; a small denoised frame pair on the card
                  held against the CPU path;
   7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
@@ -43,9 +48,16 @@ Phases, each timed:
                  uint32 keys with DEAD_KEYs, and one slab above a
                  cluster's span (global passes) of 2^20 keys with two,
                  three and four payloads and of 2^22 keys alone; timed
-                 beside torch.sort + gather; the run scatter E5
-                 (csrc/regroup.cu) against its twin on the same wave's
-                 regroup;
+                 beside torch.sort + gather; E5 (csrc/regroup.cu) on the
+                 primary and the sorted diffuse wave's pairs, three runs
+                 each: the path's entry (regroup_blocks, K4's sorted
+                 matrix to block_regroup's layout) against its plain
+                 version and the grouped (key, ray) multiset, the
+                 run-list entry (scatter_runs) against its twin; both
+                 timed beside the parent's binning; block_regroup's
+                 device kernels under torch.profiler (after K4 only E5's
+                 three: no torch gather, scatter, searchsorted or
+                 repeat_interleave);
   8. E6, E7    - the treelet walks (csrc/treelet_traverse.cu) against
                  their twins on strided rays of the primary and a diffuse
                  wave, E7 in both modes; E6's two epilogues (per ray;
@@ -61,8 +73,9 @@ Phases, each timed:
                  scatter_reduce);
  10. treelet   - the headline frame on the treelet tables through
                  Renderer, launch counts read around it (E6, K4, E5, E7 3
-                 each a frame, E6's all compacting and E7's all per ray;
-                 K4's CUDA launches as its C entry point counts them), and
+                 each a frame, E6's all compacting, E5's all the path's
+                 entry and E7's all per ray; K4's and E5's CUDA launches
+                 as their C entry points count them), and
                  a small frame held against the K1 path's;
  11. E1        - kernel_probe.main (the step-cost probe, csrc/kernel_probe.cu)
                  on the sorted arch-260k 1080p diffuse wave, its five
@@ -90,6 +103,7 @@ line, then {"ok": true, "device": {...}} as the last line.
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -136,11 +150,11 @@ def cuda_ms(fn, reps, warm=True):
 
 
 def device_kernels(fn):
-    """(name, ms) of each device kernel of one call of fn, from
-    torch.profiler: fn runs twice under the profiler's schedule, a warm-up
-    step that is traced and dropped, then the step that is read (on the
-    card, a second profiler session in one process has missed the first
-    kernels it should have recorded)."""
+    """(name, ms) of each device kernel of one call of fn, in the order
+    they started, from torch.profiler: fn runs twice under the profiler's
+    schedule, a warm-up step that is traced and dropped, then the step
+    that is read (on the card, a second profiler session in one process
+    has missed the first kernels it should have recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -153,8 +167,15 @@ def device_kernels(fn):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in got
-            if e.device_type == DeviceType.CUDA]
+    got = sorted((e for e in got if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in got]
+
+
+def kernel_name(name):
+    """The last ``*_kernel`` identifier in a profiler's kernel name."""
+    found = re.findall(r"\w+_kernel", name)
+    return found[-1] if found else name
 
 
 def bound_of(nbytes, ops):
@@ -256,15 +277,16 @@ def compare_wide(name, scene, closest, shadow, rows, stats=None,
 
 
 def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
-    """K2 (both modes) and K3 against their twins on one wave.
+    """K2 (both modes) and K3 against their twins on every ray of one wave,
+    three kernel runs of each against one run of the twin.
 
     ``closest``: (ro, rd, active) for K2 closest-hit; ``shadow``: (ro, rd,
-    tmax, active) for K2 any-hit and K3. K2 is compared on SUBSET strided
-    rays: tri agree 1.0 except t-ties, t within 2 ulp, u and v equal where
-    the triangle is the same, blocked bits equal. K3 is compared on every
-    ray, three kernel runs against one of the twin: blocked bits equal.
-    ``stats``: receives the twins' work counts, by mode (K3's on the whole
-    wave). Returns (ok, errors by mode).
+    tmax, active) for K2 any-hit and K3. K2, each mode: tri agree 1.0
+    except t-ties, t within 2 ulp, u and v equal where the triangle is the
+    same (and, as both follow one visit order, every output bit-equal,
+    which the row reports). K3: blocked bits equal. ``stats``: receives
+    the twins' work counts on the whole wave, by mode. Returns (ok, errors
+    by mode).
     """
     import torch
 
@@ -272,7 +294,6 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
 
     ro, rd, active = closest
     R = ro.shape[0]
-    idx = strided(R, ro.device)
     tfar = torch.full((R,), 1e30, device=ro.device)
     tables = (scene.node_rows, scene.leaf_rows)
     trace = (scene.num_nodes, scene.stack_depth)
@@ -280,43 +301,85 @@ def compare_bvh2(name, scene, closest, shadow, rows, stats=None):
     stats = {} if stats is None else stats
     for k in ("closest", "anyhit", "occluded"):
         stats.setdefault(k, {})
-    k_out = bvh2.bvh2_trace(*tables, ro, rd, tfar, active, False, *trace)
-    k_any = bvh2.bvh2_trace(*tables, *shadow, True, *trace)[3] >= 0
+    modes = {"closest": (ro, rd, tfar, active), "anyhit": shadow}
+    k_out = {m: [bvh2.bvh2_trace(*tables, *w, m == "anyhit", *trace)
+                 for _ in range(3)] for m, w in modes.items()}
     k_occ = [bvh2.bvh2_occluded(*tables, *shadow, *occ) > 0
              for _ in range(3)]
-    sub = [x[idx].contiguous() for x in (ro, rd, tfar, active)]
-    ssub = [x[idx].contiguous() for x in shadow]
-    p_out = bvh2.bvh2_trace_plain(*tables, *sub, False, *trace,
-                                  stats=stats["closest"])
-    p_any = bvh2.bvh2_trace_plain(*tables, *ssub, True, *trace,
-                                  stats=stats["anyhit"])[3] >= 0
+    p_out = {m: bvh2.bvh2_trace_plain(*tables, *w, m == "anyhit", *trace,
+                                      stats=stats[m])
+             for m, w in modes.items()}
     p_occ = bvh2.bvh2_occluded_plain(*tables, *shadow, *occ,
                                      stats=stats["occluded"]) > 0
     torch.cuda.synchronize()
-    kt, ku, kv, ktri = (x[idx] for x in k_out)
-    pt, pu, pv, ptri = p_out
-    agree, ties, max_ulp, same = hits_agree(scene, sub[0], sub[1], kt, ktri,
-                                            pt, ptri)
-    uv_same = bool((ku[same] == pu[same]).all() & (kv[same] == pv[same]).all())
-    any_agree = float((k_any[idx] == p_any).float().mean())
+    ok, cells, errs = True, [], {}
+    for m, w in modes.items():
+        pt, pu, pv, ptri = p_out[m]
+        agree_min, ties_max, ulp_max, uv_all = 1.0, 0, 0, True
+        err, exact = 0.0, []
+        for kt, ku, kv, ktri in k_out[m]:
+            agree, ties, max_ulp, same = hits_agree(scene, w[0], w[1], kt,
+                                                    ktri, pt, ptri)
+            uv_same = bool((ku[same] == pu[same]).all()
+                           & (kv[same] == pv[same]).all())
+            ok &= agree == 1.0 and max_ulp <= 2 and uv_same
+            uv_all &= uv_same
+            agree_min = min(agree_min, agree)
+            ties_max, ulp_max = max(ties_max, ties), max(ulp_max, max_ulp)
+            exact.append(all(bits_equal(a, b) for a, b in
+                             zip((kt, ku, kv, ktri), p_out[m])))
+            if same.any():
+                err = max(err, float((kt[same] - pt[same]).abs().max()))
+        errs[m] = err
+        cells.append(f"{agree_min:.6f} ({ties_max} ties) / {ulp_max} / "
+                     f"{uv_all} / {exact}")
     occ_equal = [bool(torch.equal(k, p_occ)) for k in k_occ]
+    ok &= all(occ_equal)
+    errs["occluded"] = max(float((k.int() - p_occ.int()).abs().max())
+                           for k in k_occ)
+    k_any = k_out["anyhit"][0][3] >= 0
     cross = float((k_any == k_occ[0]).float().mean())
-    ok = (agree == 1.0 and max_ulp <= 2 and uv_same and any_agree == 1.0
-          and all(occ_equal))
-    rows.append(f"| {name} | {len(idx)} of {R} | {agree:.6f} ({ties} ties) "
-                f"| {max_ulp} | {uv_same} | {any_agree:.6f} | "
-                f"all {R}: {occ_equal} | {cross:.6f} | "
-                f"{float((ktri >= 0).float().mean()):.3f} / "
-                f"{float(k_occ[0].float().mean()):.3f} | "
+    rows.append(f"| {name} | {R} | {cells[0]} | {cells[1]} | {occ_equal} | "
+                f"{cross:.6f} | "
+                f"{float((k_out['closest'][0][3] >= 0).float().mean()):.3f} "
+                f"/ {float(k_occ[0].float().mean()):.3f} | "
                 f"{'PASS' if ok else 'FAIL'} |")
-    errs = {
-        "closest": (float((kt[same] - pt[same]).abs().max())
-                    if same.any() else 0.0),
-        "anyhit": float((k_any[idx].int() - p_any.int()).abs().max()),
-        "occluded": max(float((k.int() - p_occ.int()).abs().max())
-                        for k in k_occ),
-    }
     return ok, errs
+
+
+def short_name(mangled):
+    """A kernel's name and template arguments from its mangled name, as
+    ``bvh2_trace_kernel<false>``."""
+    i = mangled.find("_ZN") + 3
+    name = mangled
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] == "I":
+        args = re.findall(r"L([bi])(\d+)E", mangled[i:mangled.find("EE", i)
+                                                     + 2])
+        name += "<" + ", ".join(("false", "true")[int(v)] if t == "b" else v
+                                for t, v in args) + ">"
+    return name
+
+
+def ptxas_lines(name):
+    """ptxas's report (registers, stack frame, spills) of each kernel of
+    ``csrc/<name>.cu``, a line a kernel."""
+    from loupiote_tpu_torch import _build
+
+    out, entry = {}, None
+    for line in _build.build_info[name]["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = short_name(line.split("'")[1] if "'" in line else line)
+        elif entry and ("Used" in line or "stack frame" in line):
+            out.setdefault(entry, []).append(
+                line.split(":", 1)[-1].strip() if "Used" in line
+                else line.strip())
+    return "\n".join(f"  {k}: {'; '.join(v)}" for k, v in out.items())
 
 
 def random_scene(device, copies=1):
@@ -679,11 +742,11 @@ def main():
 
     # -- K2 and K3 against their plain twins --------------------------------
     t0 = time.perf_counter()
-    rows = ["| wave | rays compared | K2 tri agree (ties) | t max ulp | "
-            "u,v equal | K2 any-hit agree | K3 bits equal, 3 runs | "
-            "K2 any-hit = K3 | "
-            "hit / blocked frac | verdict |",
-            "|---|---|---|---|---|---|---|---|---|---|"]
+    rows = ["| wave | rays | K2 closest, 3 runs: tri agree (ties) / t max "
+            "ulp / u,v equal / bits equal | K2 any-hit, the same | K3 bits "
+            "equal, 3 runs | K2 any-hit = K3 | hit / blocked frac | "
+            "verdict |",
+            "|---|---|---|---|---|---|---|---|"]
     ok, k23_err = compare_bvh2("random-4k / random rays (shadow: tmax 25)",
                                rscene, (ro, rd, on), r_shadow, rows)
     scene40 = lt.build_arch_scene(40_000)
@@ -716,9 +779,8 @@ def main():
                 f"all waves): {capped}")
     ok &= capped == 0
     print("\n".join(rows), flush=True)
-    print("K2/K3 ptxas (registers, stack frame, spills):\n" + "\n".join(
-        line for line in _build.build_info["bvh2_traverse"]["log"]
-        .splitlines() if "Used" in line or "stack frame" in line))
+    print("K2/K3 ptxas (registers, stack frame, spills; bvh2_trace_kernel "
+          "is K2, bvh2_occluded_kernel K3):\n" + ptxas_lines("bvh2_traverse"))
     phase("K2/K3: three waves", t0)
     if not ok:
         raise SystemExit("chip_smoke: K2 or K3 disagrees with its plain "
@@ -733,9 +795,13 @@ def main():
     tb40 = (arch40.node_rows, arch40.leaf_rows)
     tr40 = (arch40.num_nodes, arch40.stack_depth)
     oc40 = (arch40.end_index, arch40.num_nodes)
+    d40 = (diff40[0], diff40[1], tfar40, diff40[2])
     calls = {
         "K2 closest": (lambda: bvh2.bvh2_trace(*tb40, *p40, False, *tr40),
                        lambda: bvh2.bvh2_trace_plain(*tb40, *p40, False,
+                                                     *tr40)),
+        "K2 diffuse": (lambda: bvh2.bvh2_trace(*tb40, *d40, False, *tr40),
+                       lambda: bvh2.bvh2_trace_plain(*tb40, *d40, False,
                                                      *tr40)),
         "K2 any-hit": (lambda: bvh2.bvh2_trace(*tb40, *nee40, True, *tr40),
                        lambda: bvh2.bvh2_trace_plain(*tb40, *nee40, True,
@@ -754,19 +820,22 @@ def main():
     k1_40 = {
         "closest": cuda_ms(lambda: wide.wide_trace(*wide40, *p40, False,
                                                    *ws40), 20),
+        "diffuse": cuda_ms(lambda: wide.wide_trace(*wide40, *d40, False,
+                                                   *ws40), 20),
         "anyhit": cuda_ms(lambda: wide.wide_trace(*wide40, *nee40, True,
                                                   *ws40), 20),
         "anyhit diffuse": cuda_ms(lambda: wide.wide_trace(
             *wide40, *dshadow40, True, *ws40), 20),
     }
-    n40 = len(strided(N40, dev))
-    # K2's work counted on the subset, K3's on every ray of its wave (its
-    # walk is the twin's pre-order, so the twin's counts are its own).
+    # The twins' work on every ray of each wave (K2 and K3 walk each ray's
+    # nodes in the twin's order, so the twin's counts are their own).
     k23_bound = {
         "K2 closest": bound(N40, 16, tables40,
-                            ops_of(k23_stats["closest"], n40, N40)),
+                            ops_of(k23_stats["closest"], N40, N40)),
+        "K2 diffuse": bound(N40, 16, tables40,
+                            ops_of(diff_stats["closest"], N40, N40)),
         "K2 any-hit": bound(N40, 16, tables40,
-                            ops_of(k23_stats["anyhit"], n40, N40)),
+                            ops_of(k23_stats["anyhit"], N40, N40)),
         "K3": bound(N40, 4, tables40,
                     ops_of(k23_stats["occluded"], N40, N40)),
         "K3 diffuse": bound(N40, 4, tables40,
@@ -774,14 +843,15 @@ def main():
     }
     for name, (k_ms, p_ms) in k23_timing.items():
         b_ms, b_by = k23_bound[name]
-        wave = {"K2 closest": "primary", "K3 diffuse": "diffuse shadow"}.get(
-            name, "NEE")
+        wave = {"K2 closest": "primary", "K2 diffuse": "diffuse",
+                "K3 diffuse": "diffuse shadow"}.get(name, "NEE")
         print(f"{name} on the arch-40k {w40}x{h40} {wave} wave ({N40} "
               f"rays): kernel {k_ms:.4f} ms, plain torch {p_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
     print(f"dispatch comparison on the same arch-40k waves: K1 closest-hit "
           f"{k1_40['closest']:.4f} ms vs K2 {k23_timing['K2 closest'][0]:.4f}"
-          f" ms; K1 any-hit {k1_40['anyhit']:.4f} ms vs K3 "
+          f" ms (primary), {k1_40['diffuse']:.4f} ms vs "
+          f"{k23_timing['K2 diffuse'][0]:.4f} ms (diffuse); K1 any-hit {k1_40['anyhit']:.4f} ms vs K3 "
           f"{k23_timing['K3'][0]:.4f} ms (NEE), K1 any-hit "
           f"{k1_40['anyhit diffuse']:.4f} ms vs K3 "
           f"{k23_timing['K3 diffuse'][0]:.4f} ms (diffuse shadow) ({smi})",
@@ -911,29 +981,38 @@ def main():
           f"fps {1e3 / ims:.2f}; host-clock frame with blit {host_ms:.3f} "
           f"ms", flush=True)
 
-    # K3's device time in one interactive frame (torch.profiler): the sum
-    # over the frame's launches (its NEE and final-gather shadow waves).
+    # K2's and K3's device time in one interactive frame (torch.profiler):
+    # the sum over the frame's launches (K2: its closest-hit waves; K3: its
+    # NEE and final-gather shadow waves).
     def next_frame():
         view[0, 3] += 1e-3
         inter.raytrace(view)
 
-    n_k3, cap0 = bvh2.launches_occluded, bvh2.capped_rays(dev)
-    k3_frame = [ms for name, ms in device_kernels(next_frame)
+    n_k2, n_k3 = bvh2.launches_closest, bvh2.launches_occluded
+    cap0 = bvh2.capped_rays(dev)
+    frame_kernels = device_kernels(next_frame)
+    k2_frame = [ms for name, ms in frame_kernels
+                if "bvh2_trace_kernel" in name]
+    k3_frame = [ms for name, ms in frame_kernels
                 if "bvh2_occluded_kernel" in name]
-    n_k3 = (bvh2.launches_occluded - n_k3) // 2  # the frame read, of two
-    k3_frame_capped = bvh2.capped_rays(dev) - cap0
-    k3_frame_ms = sum(k3_frame)
-    print(f"K3 in one interactive frame (torch.profiler): {n_k3} launches, "
-          f"{len(k3_frame)} kernels recorded, "
-          f"{[round(x, 4) for x in k3_frame]} ms, sum {k3_frame_ms:.4f} ms; "
-          f"rays stopped by the step bound {k3_frame_capped} ({smi})",
-          flush=True)
-    if n_k3 == 0 or len(k3_frame) != n_k3:
-        raise SystemExit("chip_smoke: the profiler did not record each K3 "
-                         "launch of the interactive frame")
-    if k3_frame_capped:
-        raise SystemExit("chip_smoke: a K3 launch of the interactive frame "
-                         "stopped rays at the step bound")
+    n_k2 = (bvh2.launches_closest - n_k2) // 2  # the frame read, of two
+    n_k3 = (bvh2.launches_occluded - n_k3) // 2
+    frame_capped = bvh2.capped_rays(dev) - cap0
+    k2_frame_ms, k3_frame_ms = sum(k2_frame), sum(k3_frame)
+    for kname, n_k, got, total in (("K2", n_k2, k2_frame, k2_frame_ms),
+                                   ("K3", n_k3, k3_frame, k3_frame_ms)):
+        print(f"{kname} in one interactive frame (torch.profiler): {n_k} "
+              f"launches, {len(got)} kernels recorded, "
+              f"{[round(x, 4) for x in got]} ms, sum {total:.4f} ms ({smi})",
+              flush=True)
+        if n_k == 0 or len(got) != n_k:
+            raise SystemExit(f"chip_smoke: the profiler did not record each "
+                             f"{kname} launch of the interactive frame")
+    print(f"rays stopped by the step bound in the profiled frame (K2 and "
+          f"K3): {frame_capped}")
+    if frame_capped:
+        raise SystemExit("chip_smoke: a K2 or K3 launch of the interactive "
+                         "frame stopped rays at the step bound")
 
     # One more frame by hand, to time A-SVGF alone on its own inputs and
     # read the 1-spp sample.
@@ -1109,33 +1188,110 @@ def main():
           f"({smi})", flush=True)
     phase("K4: seven inputs + timing", t0)
 
-    # E5 against its twin on the same wave's block_regroup inputs.
+    # E5, both entries, on the (subtree, ray) pairs of the primary and the
+    # sorted diffuse wave, three kernel runs each: the path's entry
+    # (regroup_blocks: K4's sorted matrix to block_regroup's layout)
+    # against its plain version (block_runs + scatter_runs_plain +
+    # block_layout) and the grouped (key, ray) multiset; the run-list entry
+    # (scatter_runs) against scatter_runs_plain.
     t0 = time.perf_counter()
-    e5_args, (starts, counts) = regroup.block_runs(
-        *regroup.sort_pairs(key, ray_of), key.shape[0], S)
-    out_k = regroup.scatter_runs(*e5_args)
-    out_p = regroup.scatter_runs_plain(*e5_args)
-    torch.cuda.synchronize()
-    e5_same = bits_equal(out_k, out_p)
-    e5_err = float((out_k - out_p).abs().max())
-    pray, sid, on = regroup.block_layout(out_k, starts, counts, N)
-    grouped = pair_multiset_equal(key, ray_of, S, pray, sid, on, N)
-    e5_ms = cuda_ms(lambda: regroup.scatter_runs(*e5_args), 20)
-    e5_plain = cuda_ms(lambda: regroup.scatter_runs_plain(*e5_args), 1)
-    # Bytes E5 moves: the copied pairs read once, the whole output written
-    # once, nruns and the three run-table entries of each live run.
-    data2, nruns = e5_args[0], e5_args[1]
-    e5_bytes = (int(counts.sum()) + e5_args[5] + nruns.numel()
-                + 3 * int(nruns.sum())) * 4
-    e5_bound = bound_of(e5_bytes, 0)
-    print(f"E5 on the primary wave's block_regroup inputs ({data2.shape[0]} "
-          f"slabs, {int(counts.sum())} pairs, {S} keys, out_rows "
-          f"{e5_args[5]}): output equal {e5_same}, grouped (key, ray) "
-          f"multiset equal {grouped}; kernel {e5_ms:.4f} ms (with the zero "
-          f"fill), plain torch {e5_plain:.3f} ms, bound {e5_bound[0]:.4f} "
-          f"ms ({e5_bound[1]})", flush=True)
-    if not (e5_same and grouped):
+    dkey, dray_of, _ = lane_top.lane_top_pairs(td.top_fields, diff260[0],
+                                               diff260[1], tfar, diff260[2],
+                                               td.num_top, S)
+    e5_err = {"blocks": 0.0, "runs": 0.0}
+    e5_timing, e5_rows, e5_ok = {}, [], True
+    for wname, (wkey, wray) in (("primary", (key, ray_of)),
+                                ("diffuse, sorted", (dkey, dray_of))):
+        P = wkey.shape[0]
+        mat5, c5 = regroup.sort_pairs(wkey, wray)
+        want = regroup.regroup_blocks_plain(mat5, c5, P, S)
+        got = [regroup.regroup_blocks(mat5, c5, P, S) for _ in range(3)]
+        runs_args, (starts, counts) = regroup.block_runs(mat5, c5, P, S)
+        want_r = regroup.scatter_runs_plain(*runs_args)
+        got_r = [regroup.scatter_runs(*runs_args) for _ in range(3)]
+        torch.cuda.synchronize()
+        same = [all(bits_equal(x, y) for x, y in zip(o, want)) for o in got]
+        same_r = [bits_equal(o, want_r) for o in got_r]
+        grouped = pair_multiset_equal(wkey, wray, S, *want, N)
+        e5_err["blocks"] = max(e5_err["blocks"], max(
+            float((x - y).abs().max()) for o in got for x, y in zip(o, want)))
+        e5_err["runs"] = max(e5_err["runs"], max(
+            float((o - want_r).abs().max()) for o in got_r))
+        e5_ok &= all(same) and all(same_r) and grouped
+        t = {"blocks": cuda_ms(lambda: regroup.regroup_blocks(mat5, c5, P, S),
+                               20),
+             "runs": cuda_ms(lambda: regroup.scatter_runs(*runs_args), 20),
+             # The parent's binning: the torch glue, the run-list kernel and
+             # the block layout.
+             "chain": cuda_ms(lambda: regroup.block_layout(
+                 regroup.scatter_runs(*regroup.block_runs(
+                     mat5, c5, P, S)[0]), starts, counts, P), 10)}
+        if wname == "primary":
+            t["blocks_plain"] = cuda_ms(lambda: regroup.regroup_blocks_plain(
+                mat5, c5, P, S), 1)
+            t["runs_plain"] = cuda_ms(lambda: regroup.scatter_runs_plain(
+                *runs_args), 1)
+            t["by_launch"] = [(kernel_name(n), ms)
+                              for n, ms in device_kernels(
+                                  lambda: regroup.regroup_blocks(mat5, c5, P,
+                                                                 S))]
+            pray, sid, on = got[0]
+            e5_mat, e5_args, e5_live = mat5, runs_args, int(counts.sum())
+        e5_timing[wname] = t
+        e5_rows.append(
+            f"E5 on the {wname} wave's pairs ({int(counts.sum())} live of "
+            f"{P}, {mat5.shape[1] >> c5} slabs, {S} keys, out_rows "
+            f"{want[0].numel()}): regroup_blocks, three runs bit-equal to "
+            f"its plain version {same}, grouped (key, ray) multiset equal "
+            f"{grouped}; scatter_runs, three runs bit-equal to "
+            f"scatter_runs_plain {same_r}; regroup_blocks {t['blocks']:.4f} "
+            f"ms, scatter_runs {t['runs']:.4f} ms (with the zero fill), the "
+            f"parent's binning (block_runs + scatter_runs + block_layout) "
+            f"{t['chain']:.4f} ms")
+    print("\n".join(e5_rows), flush=True)
+    if not e5_ok:
         raise SystemExit("chip_smoke: E5 disagrees with its plain version")
+    # Bytes the path entry must move: the sorted keys and rays read once,
+    # ray_out and on written over every output slot, sid_blocks once. The
+    # run-list entry: the copied pairs read once, the whole output written
+    # once, nruns and the three run-table entries of each live run.
+    e5_bound = {
+        "blocks": bound_of((e5_mat.numel() + 2 * pray.numel() + sid.numel())
+                           * 4, 0),
+        "runs": bound_of((e5_live + e5_args[5] + e5_args[1].numel()
+                          + 3 * int(e5_args[1].sum())) * 4, 0)}
+    t = e5_timing["primary"]
+    print(f"E5 regroup_blocks on the primary wave: {t['blocks']:.4f} ms "
+          f"(three launches: {[(n, round(ms, 4)) for n, ms in t['by_launch']]}"
+          f" ms, torch.profiler), plain torch {t['blocks_plain']:.3f} ms, "
+          f"bound {e5_bound['blocks'][0]:.4f} ms ({e5_bound['blocks'][1]}); "
+          f"scatter_runs {t['runs']:.4f} ms, plain torch "
+          f"{t['runs_plain']:.3f} ms, bound {e5_bound['runs'][0]:.4f} ms "
+          f"({e5_bound['runs'][1]})")
+    print("E5 ptxas (registers, stack frame, spills):\n"
+          + ptxas_lines("regroup"))
+    # block_regroup on the card under torch.profiler: the packing of the
+    # pairs, K4's launch, then E5's three and nothing else, so no torch
+    # searchsorted, repeat_interleave, gather or scatter kernel runs
+    # between K4 and E7.
+    br_kernels = [n for n, _ in device_kernels(
+        lambda: regroup.block_regroup(key, ray_of, S))]
+    print(f"block_regroup on the card (torch.profiler): {len(br_kernels)} "
+          f"device kernels {br_kernels}")
+    k4_at = [i for i, n in enumerate(br_kernels)
+             if "cluster_kernel" in n or "global_kernel" in n]
+    after = br_kernels[k4_at[0]:] if k4_at else []
+    e5_names = ("runs_kernel", "layout_kernel", "place_kernel")
+    glue = [n for n in after if not any(
+        w in n for w in ("cluster_kernel", "global_kernel") + e5_names)]
+    glue += [n for n in br_kernels if any(
+        w in n.lower() for w in ("searchsorted", "repeat_interleave",
+                                 "gather", "scatter", "index"))]
+    if (not k4_at or glue
+            or [sum(w in n for n in after) for w in e5_names] != [1, 1, 1]):
+        raise SystemExit(f"chip_smoke: block_regroup ran torch glue {glue} "
+                         f"after K4, or not E5's three launches once each")
+    print(smi, flush=True)
     phase("E5: check + timing", t0)
 
     # E6 and E7 against their twins on two waves, then their times at the
@@ -1407,11 +1563,12 @@ def main():
         frame_ms.append(start.elapsed_time(end))
     img = rt.blit()
     n_frames = 6
-    k4_cuda = ss.cuda_launched
+    k4_cuda, e5_cuda = ss.cuda_launched, regroup.cuda_launched
     t_launches = {"E6": lane_top.launches["pairs"],
                   "E6 per ray": lane_top.launches["per_ray"],
                   "K4": ss.launches,
-                  "E5": regroup.launches,
+                  "E5": regroup.launches["blocks"],
+                  "E5 runs": regroup.launches["runs"],
                   "E7 closest": lane_bottom.launches[("per_ray", "closest")],
                   "E7 any-hit": lane_bottom.launches[("per_ray", "anyhit")],
                   "E7 per pair": lane_bottom.launches[("per_pair",
@@ -1426,7 +1583,8 @@ def main():
     n_fb = pipeline.fallback_rays(dev)
     per_frame = {k: v / n_frames for k, v in t_launches.items()}
     print(f"treelet path: {n_frames} frames; launches {t_launches} "
-          f"({per_frame} a frame); K4's CUDA launches {k4_cuda}; "
+          f"({per_frame} a frame); K4's CUDA launches {k4_cuda}, E5's "
+          f"{e5_cuda}; "
           f"fallback rays {n_fb} ({n_fb / n_frames:.0f} a frame, "
           f"{n_fb / (n_frames * BOUNCES * N):.4%} of the closest-hit ray "
           f"slots); lanes stopped by a step bound {capped}")
@@ -1434,9 +1592,10 @@ def main():
         if t_launches[k] != BOUNCES * n_frames:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
                              f"{t_launches[k]} times, not {BOUNCES} a frame")
-    # Every E6 launch of the frame is the compacting epilogue, every E7
-    # launch the per-ray epilogue in closest-hit mode.
-    for k in ("E6 per ray", "E7 any-hit", "E7 per pair",
+    # Every E6 launch of the frame is the compacting epilogue, every E5
+    # launch the path's entry, every E7 launch the per-ray epilogue in
+    # closest-hit mode.
+    for k in ("E6 per ray", "E5 runs", "E7 any-hit", "E7 per pair",
               "E7 per pair any-hit"):
         if t_launches[k]:
             raise SystemExit(f"chip_smoke: the treelet path launched {k} "
@@ -1445,6 +1604,9 @@ def main():
     if k4_cuda != t_launches["K4"] * ss.cuda_launches(16, 1):
         raise SystemExit(f"chip_smoke: K4's {t_launches['K4']} sorts made "
                          f"{k4_cuda} CUDA launches, not their plans'")
+    if e5_cuda != 3 * t_launches["E5"]:
+        raise SystemExit(f"chip_smoke: E5's {t_launches['E5']} calls made "
+                         f"{e5_cuda} CUDA launches, not 3 each")
     if capped:
         raise SystemExit("chip_smoke: lanes reached a step bound")
     if not (torch.isfinite(rt.accum).all() and img.shape ==
@@ -1692,13 +1854,27 @@ def main():
             "ms": k23_timing[key][0], "plain_ms": k23_timing[key][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if name == "bvh2_trace":
-            # K2's any-hit mode: checked and timed here, not on the path.
-            entry["modes"] = {"anyhit": {
-                "launches": launches["K2 any-hit"],
-                "max_abs_err": k23_err["anyhit"], "ms": any_ms,
-                "plain_ms": any_plain,
-                "bound_ms": k23_bound["K2 any-hit"][0],
-                "bound_by": k23_bound["K2 any-hit"][1]}}
+            # K2's top-level numbers are the primary wave's; the diffuse
+            # wave's beside them, the interactive frame's launches summed
+            # (torch.profiler), and the any-hit mode, checked and timed
+            # here, not on the path.
+            entry["modes"] = {
+                "diffuse": {
+                    "ms": k23_timing["K2 diffuse"][0],
+                    "plain_ms": k23_timing["K2 diffuse"][1],
+                    "bound_ms": k23_bound["K2 diffuse"][0],
+                    "bound_by": k23_bound["K2 diffuse"][1],
+                    "k1_closest_ms": k1_40["diffuse"]},
+                "frame": {"launches": n_k2, "ms": k2_frame_ms,
+                          "ms_by_launch": k2_frame,
+                          "capped": frame_capped},
+                "anyhit": {
+                    "launches": launches["K2 any-hit"],
+                    "max_abs_err": k23_err["anyhit"], "ms": any_ms,
+                    "plain_ms": any_plain,
+                    "bound_ms": k23_bound["K2 any-hit"][0],
+                    "bound_by": k23_bound["K2 any-hit"][1]}}
+            entry["k1_closest_ms"] = k1_40["closest"]
         else:
             # K3's top-level numbers are the NEE wave's; the diffuse shadow
             # wave's beside them, and the interactive frame's launches
@@ -1712,7 +1888,7 @@ def main():
                     "k1_anyhit_ms": k1_40["anyhit diffuse"]},
                 "frame": {"launches": n_k3, "ms": k3_frame_ms,
                           "ms_by_launch": k3_frame,
-                          "capped": k3_frame_capped}}
+                          "capped": frame_capped}}
             entry["k1_anyhit_ms"] = k1_40["anyhit"]
         kernels.append(entry)
     kernels.append({
@@ -1723,13 +1899,27 @@ def main():
         "max_abs_err": k4_err, "ms": k4_ms,
         "plain_ms": k4_plain, "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1], "library_ms": k4_lib})
+    # E5's path entry is what the treelet path runs (its plain version:
+    # block_runs + scatter_runs_plain + block_layout); the run-list entry
+    # (the TPU kernel's own function, counting_regroup's) is checked and
+    # timed here, off the path (its launches on the path are counted: 0).
+    et5 = e5_timing["primary"]
     kernels.append({
-        "name": "scatter_runs", "route": "cuda",
+        "name": "regroup_blocks", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/regroup.cu",
         "replaces": "experiments/treelet/regroup.py:53",
-        "launches": t_launches["E5"], "max_abs_err": e5_err, "ms": e5_ms,
-        "plain_ms": e5_plain, "bound_ms": e5_bound[0],
-        "bound_by": e5_bound[1], "library_ms": None})
+        "launches": t_launches["E5"], "cuda_launches": e5_cuda,
+        "max_abs_err": e5_err["blocks"], "ms": et5["blocks"],
+        "plain_ms": et5["blocks_plain"], "bound_ms": e5_bound["blocks"][0],
+        "bound_by": e5_bound["blocks"][1], "library_ms": None,
+        "diffuse_ms": e5_timing["diffuse, sorted"]["blocks"],
+        "ms_by_launch": et5["by_launch"],
+        "parent_binning_ms": et5["chain"],
+        "modes": {"scatter_runs": {
+            "launches": t_launches["E5 runs"],
+            "max_abs_err": e5_err["runs"], "ms": et5["runs"],
+            "plain_ms": et5["runs_plain"], "bound_ms": e5_bound["runs"][0],
+            "bound_by": e5_bound["runs"][1], "library_ms": None}}})
     # E6's compacting epilogue is what the path runs (its plain version:
     # the plain walk, then compact_pairs); the per-ray one is checked and
     # timed here, off the path (its launches on the path are counted: 0).

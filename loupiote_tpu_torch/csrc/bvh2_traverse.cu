@@ -31,22 +31,24 @@
 // wave is about 15 MB of ray input, read once. So the kernels are bound
 // by load latency and warp divergence, not by bytes or flops: a warp runs
 // every kind of step its lanes need (a node's box test, a leaf's up to 14
-// triangle tests) for as many steps as its longest ray.
-// K2 answers latency with occupancy (128 threads a block), and threads of
-// a warp whose rays share a pixel tile read the same rows, which L1
-// serves once. K3 was redesigned for that divergence (each choice timed
-// on the card against its alternatives; PERF.md has the numbers):
+// triangle tests) for as many steps as its longest ray. Both kernels were
+// redesigned for that divergence (K3 in PR 7, K2 in PR 8; each choice
+// timed on the card against its alternatives; PERF.md has the numbers):
 //  - Leaf rows wait: a lane walks internal nodes until it reaches a hit
 //    leaf, and the warp tests leaves when every lane holds one or is done,
-//    so the triangle loop runs with the lanes together. Each ray's own
-//    order of nodes is the twin's pre-order; only the blocked bit leaves
-//    the kernel, and it does not depend on the order anyway.
+//    so the triangle loop runs with the lanes together. A waiting lane
+//    takes no step, so each ray's own order of nodes, the bound of each of
+//    its box tests (K2's best t) and its step count are the twin's.
 //  - A leaf's triangles are read as 16-byte words: triangle 4g + k starts
 //    at float 36g + 9k, so three aligned float4 loads from float4 9g + 2k
 //    hold it at offset k (three loads a triangle in place of nine).
-//  - Blocks of 64 threads. A near-first order with a stack, and a warp
-//    that visits one node a step for all its lanes (the TPU kernel's
-//    shape), were slower.
+//  - K2 keeps its stack in a 128-entry local array (a 512-byte frame that
+//    L1 serves): a shared-memory stack sized to the table's depth (one
+//    word a level, no bank conflicts) was 2.5% slower on the interactive
+//    frame's waves, and a 32-entry local array no faster.
+//  - Blocks of 64 threads for both. A near-first order with a stack, and
+//    a warp that visits one node a step for all its lanes (the TPU
+//    kernel's shape), were slower for K3.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py). --fmad=false keeps every product
@@ -61,6 +63,7 @@ namespace {
 constexpr int kStackMax = 128;  // ops/bvh2.py raises for a deeper scene
 constexpr int kLeafCap = 14;
 constexpr float kTMin = 1e-4f;
+constexpr int kTraceThreads = 64;  // K2's block
 constexpr int kOccThreads = 64;  // K3's block
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -134,25 +137,59 @@ __device__ __forceinline__ bool mt_hit(float p0x, float p0y, float p0z,
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin && t < bound;
 }
 
-// Triangle k of a leaf row (K2), nine scalar loads.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
-                                        const Ray& r, float bound, float* uo,
-                                        float* vo, float* to) {
-  return mt_hit(__ldg(tr), __ldg(tr + 1), __ldg(tr + 2), __ldg(tr + 3),
-                __ldg(tr + 4), __ldg(tr + 5), __ldg(tr + 6), __ldg(tr + 7),
-                __ldg(tr + 8), r, bound, uo, vo, to);
-}
-
-// K3's triangle: the one at float offset S of the 12 floats q[0..2].
+// The triangle at float offset S of the 12 floats q[0..2]: three aligned
+// 16-byte loads. Returns true where it is a hit in (kTMin, bound).
 template <int S>
 __device__ __forceinline__ bool tri_window(const float4* q, const Ray& r,
-                                           float bound) {
+                                           float bound, float* u, float* v,
+                                           float* t) {
   const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
   const float w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
                        b.z, b.w, c.x, c.y, c.z, c.w};
-  float u, v, t;
   return mt_hit(w[S], w[S + 1], w[S + 2], w[S + 3], w[S + 4], w[S + 5],
-                w[S + 6], w[S + 7], w[S + 8], r, bound, &u, &v, &t);
+                w[S + 6], w[S + 7], w[S + 8], r, bound, u, v, t);
+}
+
+template <int S>
+__device__ __forceinline__ bool tri_window(const float4* q, const Ray& r,
+                                           float bound) {
+  float u, v, t;
+  return tri_window<S>(q, r, bound, &u, &v, &t);
+}
+
+// K2's fold of triangle `tri` (the window at q): the strict t < best keeps
+// the earlier of two triangles at the same t, as the twin's first minimum
+// does.
+template <int S>
+__device__ __forceinline__ bool fold_tri(const float4* q, const Ray& r,
+                                         int tri, float* best, float* bu,
+                                         float* bv, int* btri) {
+  float u, v, t;
+  if (!tri_window<S>(q, r, *best, &u, &v, &t)) return false;
+  *best = t;
+  *bu = u;
+  *bv = v;
+  *btri = tri;
+  return true;
+}
+
+// K2: the leaf row's first n triangles (ids from `first`) folded into the
+// ray's closest hit, in the row's order. Returns true where one hit.
+__device__ __forceinline__ bool leaf_closest(const float* __restrict__ leaf,
+                                             int n, int first, const Ray& r,
+                                             float* best, float* bu,
+                                             float* bv, int* btri) {
+  const float4* q = reinterpret_cast<const float4*>(leaf);
+  n = n < kLeafCap ? n : kLeafCap;
+  bool hit = false;
+  for (int g = 0; 4 * g < n; ++g, q += 9) {
+    const int k = first + 4 * g;
+    hit |= fold_tri<0>(q, r, k, best, bu, bv, btri);
+    if (4 * g + 1 < n) hit |= fold_tri<1>(q + 2, r, k + 1, best, bu, bv, btri);
+    if (4 * g + 2 < n) hit |= fold_tri<2>(q + 4, r, k + 2, best, bu, bv, btri);
+    if (4 * g + 3 < n) hit |= fold_tri<3>(q + 6, r, k + 3, best, bu, bv, btri);
+  }
+  return hit;
 }
 
 // True where one of the leaf row's first n triangles blocks [kTMin,
@@ -171,8 +208,17 @@ __device__ __forceinline__ bool leaf_blocks(const float* __restrict__ leaf,
   return false;
 }
 
+// K2. node: the next node of the ray's near-first walk (-1: the walk has
+// ended); ln > 0: a hit leaf (row lrow, ln triangles from id lfirst) waits
+// to be tested. At a hit leaf the lane pops its next node at once (the pop
+// does not read best) but takes no step until the warp has tested the
+// leaf, so its next box test reads the best t the leaf left, and a leaf
+// visited before the step bound is tested before the bound can stop the
+// ray: the hits and the counts are the twin's. An any-hit lane ends at a
+// leaf with a hit, after the whole leaf, whose closest hit it returns as
+// the twin does.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kTraceThreads)
     bvh2_trace_kernel(const float* __restrict__ node_rows,
                       const float* __restrict__ leaf_rows,
                       const float* __restrict__ ro,
@@ -184,59 +230,63 @@ __global__ void __launch_bounds__(128)
                       int32_t* __restrict__ tri_out,
                       int32_t* __restrict__ capped, int n_rays,
                       int max_steps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  float best = tmax[i], best_u = 0.0f, best_v = 0.0f;
+  // Every lane of the warp stays to the end: the loops vote.
+  const int i = blockIdx.x * kTraceThreads + threadIdx.x;
+  const bool in = i < n_rays;
+  float best = in ? tmax[i] : 0.0f, best_u = 0.0f, best_v = 0.0f;
   int best_tri = -1;
-  if (active[i]) {
-    const Ray r = load_ray(ro, rd, i);
-    int stack[kStackMax];
-    int sp = 0;
-    int node = 0;
-    for (int steps = 0;; ++steps) {
-      if (steps == max_steps) {  // the reference's silent step bound
-        atomicAdd(capped, 1);
-        break;
-      }
-      int4 ints;  // count, miss, slot8, slot9
-      const bool hit = slab(node_rows, node, r, best, &ints);
-      int next = -1;  // -1: pop the stack
-      bool done = false;
-      if (hit && ints.x > 0) {
-        // Leaf: the strict t < best keeps the earlier of two triangles
-        // at the same t, as the reference's fold does.
-        const float* leaf = leaf_rows + static_cast<size_t>(ints.z) * 128;
-        for (int k = 0; k < ints.x && k < kLeafCap; ++k) {
-          float u, v, t;
-          if (tri_hit(leaf + 9 * k, r, best, &u, &v, &t)) {
-            best = t;
-            best_u = u;
-            best_v = v;
-            best_tri = ints.w + k;
-            done = kAnyHit;
+  int node = (in && active[i]) ? 0 : -1;
+  Ray r = {};
+  if (node == 0) r = load_ray(ro, rd, i);
+  int stack[kStackMax];
+  int sp = 0, lrow = 0, ln = 0, lfirst = 0, steps = 0;
+  for (;;) {
+    // Walk internal nodes until every lane holds a leaf or is done.
+    while (__any_sync(kFull, node >= 0 && ln == 0)) {
+      if (node >= 0 && ln == 0) {
+        if (steps == max_steps) {  // the reference's silent step bound
+          atomicAdd(capped, 1);
+          node = -1;
+        } else {
+          ++steps;
+          int4 ints;  // count, miss, slot8, slot9
+          const bool hit = slab(node_rows, node, r, best, &ints);
+          if (hit && ints.x == 0) {
+            // Internal: near child first by the direction sign on the
+            // split axis; the far one waits on the stack.
+            const float dax =
+                ints.w == 0 ? r.dx : (ints.w == 1 ? r.dy : r.dz);
+            const int left = node + 1, right = ints.z;
+            const bool pos = dax >= 0.0f;
+            stack[sp++] = pos ? right : left;
+            node = pos ? left : right;
+          } else {
+            if (hit) {
+              lrow = ints.z;
+              ln = ints.x;
+              lfirst = ints.w;
+            }
+            node = sp > 0 ? stack[--sp] : -1;
           }
         }
-      } else if (hit) {
-        // Internal: near child first by the direction sign on the split
-        // axis; the far one waits on the stack.
-        const float dax = ints.w == 0 ? r.dx : (ints.w == 1 ? r.dy : r.dz);
-        const int left = node + 1, right = ints.z;
-        const bool pos = dax >= 0.0f;
-        stack[sp++] = pos ? right : left;
-        next = pos ? left : right;
       }
-      if (done) break;
-      if (next < 0) {
-        if (sp == 0) break;
-        next = stack[--sp];
+    }
+    if (!__any_sync(kFull, ln > 0)) break;
+    if (ln > 0) {
+      if (leaf_closest(leaf_rows + static_cast<size_t>(lrow) * 128, ln,
+                       lfirst, r, &best, &best_u, &best_v, &best_tri) &&
+          kAnyHit) {
+        node = -1;
       }
-      node = next;
+      ln = 0;
     }
   }
-  t_out[i] = best;
-  u_out[i] = best_u;
-  v_out[i] = best_v;
-  tri_out[i] = best_tri;
+  if (in) {
+    t_out[i] = best;
+    u_out[i] = best_u;
+    v_out[i] = best_v;
+    tri_out[i] = best_tri;
+  }
 }
 
 // K3. node: the next node of the ray's pre-order walk (-1: the walk has
@@ -310,8 +360,8 @@ extern "C" int bvh2_trace(const void* node_rows, const void* leaf_rows,
                           int n_rays, int max_steps, int any_hit,
                           void* stream) {
   if (n_rays <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((n_rays + 127) / 128);
+  const dim3 block(kTraceThreads);
+  const dim3 grid((n_rays + kTraceThreads - 1) / kTraceThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* nr = static_cast<const float*>(node_rows);
   auto* lr = static_cast<const float*>(leaf_rows);

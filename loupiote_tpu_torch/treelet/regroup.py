@@ -1,27 +1,32 @@
-"""Exact group-by-key regroup: slab sort (K4) + run scatter (E5, kernel in
-``csrc/regroup.cu``), and its plain torch twin.
+"""Exact group-by-key regroup: slab sort (K4) + the scatter (E5, kernels in
+``csrc/regroup.cu``), and their plain torch twins.
 
 Counterpart of ``experiments/treelet/regroup.py`` (``scatter_runs``,
 ``counting_regroup``, ``block_regroup``). Pipeline for keys in [0, K):
 
   1. ``ops/slab_sort.py`` sorts each 2**16-key slab by key (K4).
-  2. Torch glue: per-slab per-key counts C[g, k] by a batched
-     ``torch.searchsorted`` over the sorted (G, slab) rows; the global
-     histogram H; per-key output regions; per-(slab, key) destination
-     bases by an exclusive scan over slabs; compacted per-slab run lists.
-  3. ``scatter_runs`` (E5) copies each slab's runs to their bases.
+  2. Per-slab per-key counts C[g, k] (a searchsorted on the sorted slabs);
+     the global histogram H; per-key output regions; per-(slab, key)
+     destination bases by an exclusive scan over slabs.
+  3. The copy of each slab's key runs to their bases.
 
-E5 copies exactly ``len`` elements of each run into an output the wrapper
-zero-fills. The TPU kernel instead copies 256-element chunks and lets the
-last chunk of a run spill up to 255 junk elements past its end, which is
-safe there only because grid cells run in order, so a later cell
-overwrites the spill. Blocks of a GPU grid run concurrently, and a spill
-would race with another slab's copy. Without it the destinations are
-disjoint and the kernel is race-free. The output equals the reference's
-inside every key region (``starts[k] .. starts[k] + counts[k]``); outside
-them the reference leaves junk and the port zeros. The region layout
-(with the reference's spill gaps) is kept, so ``starts`` and the block
-layout are the reference's.
+E5 has two entries. ``scatter_runs`` is the TPU kernel's function (step
+3 on run lists that torch glue builds: ``block_runs``), used by
+``counting_regroup``. ``regroup_blocks`` is the treelet path's whole
+binning after K4 (steps 2 and 3 and ``block_regroup``'s block layout) in
+three launches and no torch glue; its plain version,
+``regroup_blocks_plain``, is the composition ``block_runs`` +
+``scatter_runs_plain`` + ``block_layout``.
+
+Neither copies past a run's end. The TPU kernel copies 256-element chunks
+and lets the last chunk of a run spill up to 255 junk elements past its
+end, which is safe there only because grid cells run in order, so a later
+cell overwrites the spill. Blocks of a GPU grid run concurrently, and a
+spill would race with another slab's copy. The output equals the
+reference's inside every key region (``starts[k] .. starts[k] +
+counts[k]``); outside them the reference leaves junk and the port zeros.
+The region layout (with the reference's spill gaps) is kept, so
+``starts`` and the block layout are the reference's.
 """
 
 from __future__ import annotations
@@ -36,14 +41,19 @@ from ..ops.slab_sort import pack, sort_matrix
 
 CHUNK = 256  # the reference's copy granule; also its per-key gap size
 
-# Launches of E5 on the card; chip_smoke.py zeroes it before the main path
-# and reads it after. E5 has no step bound, so no capped-lane counter.
-launches = 0
+# Launches of E5 on the card by entry ("runs": scatter_runs, "blocks":
+# regroup_blocks), and the CUDA launches regroup_blocks' C entry point
+# made (three a call); chip_smoke.py zeroes them before the main path and
+# reads them after. E5 has no step bound, so no capped-lane counter.
+launches = {"runs": 0, "blocks": 0}
+cuda_launched = 0
 
 
 def reset_counters() -> None:
-    global launches
-    launches = 0
+    global cuda_launched
+    for k in launches:
+        launches[k] = 0
+    cuda_launched = 0
 
 
 def scatter_runs_plain(data2, nruns, src, dst, lens, out_rows: int):
@@ -89,8 +99,7 @@ def _launch(data2, nruns, src, dst, lens, out_rows: int):
              out_rows, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_runs launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    launches["runs"] += 1
     return out
 
 
@@ -171,6 +180,13 @@ def counting_regroup(key, payload, n_keys: int, slab_log: int = 16,
     return out, starts, H
 
 
+def out_rows_of(R: int, n_keys: int, tile: int = 1024,
+                chunk: int = CHUNK) -> int:
+    """``block_regroup``'s static output size: sum(region) <= R +
+    n_keys * (tile + chunk), plus a tile, in whole tiles."""
+    return -(-(R + int(n_keys) * (tile + chunk) + tile) // tile) * tile
+
+
 def block_runs(mat, c_log: int, R: int, n_keys: int, tile: int = 1024,
                chunk: int = CHUNK):
     """The glue between K4 and E5 of ``block_regroup``: from the sorted
@@ -186,7 +202,7 @@ def block_runs(mat, c_log: int, R: int, n_keys: int, tile: int = 1024,
                         torch.cumsum(region, 0, dtype=torch.int32)[:-1]])
     nruns, pos, cell_base = _run_lists(C, starts)
     # Static capacity: sum(region) <= R + K*(tile + chunk) <= out_rows.
-    out_rows = -(-(R + K * (tile + chunk) + tile) // tile) * tile
+    out_rows = out_rows_of(R, K, tile, chunk)
     args = (pay3, nruns, _compact(src_all, pos), _compact(cell_base, pos),
             _compact(C, pos), out_rows)
     return args, (starts, H)
@@ -213,10 +229,70 @@ def _no_mark(stage: str) -> None:
     pass
 
 
+def regroup_blocks_plain(mat, c_log: int, R: int, n_keys: int,
+                         tile: int = 1024, chunk: int = CHUNK,
+                         mark=_no_mark):
+    """Plain twin of E5's path entry: ``block_runs``, ``scatter_runs_plain``
+    and ``block_layout``. ``mark("binning")`` is called where the glue
+    before the copy ends."""
+    args, (starts, counts) = block_runs(mat, c_log, R, n_keys, tile, chunk)
+    mark("binning")
+    out = scatter_runs_plain(*args)
+    return block_layout(out, starts, counts, R, tile)
+
+
+def _launch_blocks(mat, c_log: int, R: int, n_keys: int, tile: int,
+                   chunk: int, mark=_no_mark):
+    K = int(n_keys)
+    dev = mat.device
+    G = mat.shape[-1] >> c_log
+    check_args(dev, (("mat", mat, torch.int32, (2, G << c_log)),))
+    if G <= 0 or K <= 0 or tile <= 0 or tile % 4:
+        raise ValueError("regroup_blocks: need a slab of keys, n_keys > 0 "
+                         "and a tile of a multiple of 4 slots")
+    out_rows = out_rows_of(R, K, tile, chunk)
+    B = out_rows // tile
+    scratch = torch.empty(2 * (G + 1) * K, dtype=torch.int32, device=dev)
+    first, pre, counts, starts = torch.split(scratch,
+                                             [G * K, G * K, K, K])
+    sid_blocks = torch.empty(B, dtype=torch.int32, device=dev)
+    ray_out = torch.empty(out_rows, dtype=torch.int32, device=dev)
+    on = torch.empty(out_rows, dtype=torch.int32, device=dev)
+    mark("binning")
+    lib = _build.load("regroup")
+    fn = lib.regroup_blocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    made = ctypes.c_int(0)
+    err = fn(mat.data_ptr(), first.data_ptr(), pre.data_ptr(),
+             counts.data_ptr(), starts.data_ptr(), sid_blocks.data_ptr(),
+             ray_out.data_ptr(), on.data_ptr(), G, K, c_log, tile, chunk, B,
+             R, torch.cuda.current_stream(dev).cuda_stream,
+             ctypes.byref(made))
+    global cuda_launched
+    cuda_launched += made.value
+    if err != 0:
+        raise RuntimeError(f"regroup_blocks launch failed: CUDA error {err}")
+    launches["blocks"] += 1
+    return ray_out, sid_blocks, on
+
+
+def regroup_blocks(mat, c_log: int, R: int, n_keys: int, tile: int = 1024,
+                   chunk: int = CHUNK, mark=_no_mark):
+    """E5's path entry on a CUDA matrix, its plain twin on a CPU one: from
+    K4's sorted (2, G << c_log) matrix of R (key, ray) pairs,
+    ``block_regroup``'s (ray_out, sid_blocks, on). ``mark("binning")`` is
+    called where the work before the kernels (on the card: allocation
+    only) ends."""
+    fn = _launch_blocks if on_card(mat) else regroup_blocks_plain
+    return fn(mat, c_log, R, n_keys, tile, chunk, mark=mark)
+
+
 def block_regroup(key, ray, n_keys: int, tile: int = 1024,
                   chunk: int = CHUNK, slab_log: int = 16, mark=_no_mark):
     """Group (key, ray) pairs into single-key blocks of ``tile`` pairs, the
-    phase-2 layout: K4, ``block_runs``, E5, ``block_layout``. Keys >=
+    phase-2 layout: K4, then E5's path entry (``regroup_blocks``). Keys >=
     n_keys (the pipeline's dump key) are dropped. Every block holds pairs
     of one key; padding lanes carry on = 0. Returns (ray_out (B*tile,),
     sid_blocks (B,), on (B*tile,)) int32 with
@@ -227,9 +303,7 @@ def block_regroup(key, ray, n_keys: int, tile: int = 1024,
     """
     mat, c_log = sort_pairs(key, ray, slab_log)
     mark("K4")
-    args, (starts, counts) = block_runs(mat, c_log, key.shape[0], n_keys,
-                                        tile, chunk)
-    mark("binning")
-    out = scatter_runs(*args)
+    out = regroup_blocks(mat, c_log, key.shape[0], n_keys, tile, chunk,
+                         mark=mark)
     mark("E5")
-    return block_layout(out, starts, counts, key.shape[0], tile)
+    return out

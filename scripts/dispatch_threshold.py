@@ -9,9 +9,10 @@ BVH2 nodes to K2 (closest-hit) and K3 (shadow rays), larger ones to K1.
 For each ``build_arch_scene`` size (default 10k, 20k, 40k, 80k and 160k
 triangles) this builds the 960x540 waves of ``chip_smoke.py`` (the primary
 wave in tile order, its NEE wave, and the diffuse wave's shadow rays with
-tmax 25) and times K2 against K1 closest-hit on the primary wave, and K3
-against K1 any-hit on the two shadow waves (CUDA events, mean of 20 after
-a warm-up). Beside the times, how far the two kernels' answers agree: the
+tmax 25) and times K2 against K1 closest-hit on the primary wave and on
+the (unsorted) diffuse wave, the kind of the interactive frame's bounce
+waves, and K3 against K1 any-hit on the two shadow waves (CUDA events,
+mean of 20 after a warm-up). Beside the times, how far the two kernels' answers agree: the
 share of closest hits on the same triangle or a t-tie within 2 ulp, and
 the share of equal blocked bits (two trees over the same triangles; the
 kernels are held to their own twins by chip_smoke.py). Prints one table
@@ -47,15 +48,17 @@ def main(argv=None):
     w, h = 960, 540
     N = w * h
     rows = ["| triangles | BVH2 nodes | dispatch | K2 closest | K1 closest | "
-            "K3 NEE | K1 any-hit NEE | K3 diffuse shadow | K1 any-hit "
-            "diffuse shadow | closest / NEE / diffuse agree |",
-            "|---" * 10 + "|"]
+            "K2 diffuse | K1 diffuse | K3 NEE | K1 any-hit NEE | K3 diffuse "
+            "shadow | K1 any-hit diffuse shadow | closest / NEE / diffuse "
+            "agree |",
+            "|---" * 12 + "|"]
     for n in sizes:
         scene = lt.build_scene_buffers(lt.build_arch_scene(n))
         prim, nee, diff = cs.waves(scene, cam, w, h, seed=1)
         tfar = torch.full((N,), 1e30, device=dev)
         p = (prim[0], prim[1], tfar, prim[2])
         ds = (diff[0], diff[1], torch.full((N,), 25.0, device=dev), diff[2])
+        dc = (diff[0], diff[1], tfar, diff[2])
         tb = (scene.node_rows, scene.leaf_rows)
         tr = (scene.num_nodes, scene.stack_depth)
         oc = (scene.end_index, scene.num_nodes)
@@ -64,6 +67,8 @@ def main(argv=None):
         calls = [
             lambda: bvh2.bvh2_trace(*tb, *p, False, *tr),
             lambda: wide.wide_trace(*tw, *p, False, *ws),
+            lambda: bvh2.bvh2_trace(*tb, *dc, False, *tr),
+            lambda: wide.wide_trace(*tw, *dc, False, *ws),
             lambda: bvh2.bvh2_occluded(*tb, *nee, *oc),
             lambda: wide.wide_trace(*tw, *nee, True, *ws),
             lambda: bvh2.bvh2_occluded(*tb, *ds, *oc),
@@ -73,9 +78,9 @@ def main(argv=None):
         k1 = calls[1]()
         agree = cs.hits_agree(scene, prim[0], prim[1], k2[0], k2[3], k1[0],
                               k1[1])[0]
-        same = [float(((calls[2]() > 0) == (calls[3]()[1] > 0)).float()
+        same = [float(((calls[4]() > 0) == (calls[5]()[1] > 0)).float()
                       .mean()),
-                float(((calls[4]() > 0) == (calls[5]()[1] > 0)).float()
+                float(((calls[6]() > 0) == (calls[7]()[1] > 0)).float()
                       .mean())]
         path = ("K2/K3" if scene.num_nodes < intersect._WIDE_MIN_NODES
                 else "K1")

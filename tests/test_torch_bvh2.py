@@ -12,6 +12,7 @@ Blocked bits (K3, K2's any-hit mode) are equal.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +25,11 @@ from loupiote_tpu.ops.pallas_intersect import (intersect_pallas,
 from loupiote_tpu.ops.raygen import generate_rays as ref_generate_rays
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
-from loupiote_tpu_torch import from_reference
+import loupiote_tpu_torch.scene.types as port_types
+from loupiote_tpu_torch import build_scene_buffers, from_reference
+from loupiote_tpu_torch.accel.bvh import bvh_max_depth
 from loupiote_tpu_torch.ops import bvh2, intersect, wide
+from loupiote_tpu_torch.ops.intersect import T_MIN, moller_trumbore
 from torch_port_helpers import (assert_same_hits, numpy_bvh, random_rays,
                                 random_tris, soup_scene, t_of)
 
@@ -215,6 +219,36 @@ def test_kernel_wrapper_refuses_a_deep_stack(soup):
                            bvh2.STACK_MAX * 2)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k2_counts_launches_by_mode(soup, monkeypatch, any_hit):
+    """K2's launch site counts each launch under its mode and passes the
+    C entry point the ray count, the step bound and the mode. The entry
+    point is replaced by a stub that records them."""
+    _, port, _ = soup
+    calls = []
+
+    def stub(*args):
+        calls.append(args[-4:-1])  # n_rays, max_steps, any_hit
+        return 0
+
+    monkeypatch.setattr(bvh2._build, "load",
+                        lambda name: SimpleNamespace(bvh2_trace=stub))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    x, t0 = torch.zeros((5, 3)), torch.zeros(5)
+    bvh2.reset_counters()
+    for _ in range(2):
+        t, u, v, tri = bvh2._launch_trace(
+            port.node_rows, port.leaf_rows, x, x, t0, t0 > 0, any_hit,
+            port.num_nodes, port.stack_depth)
+        assert t.shape == u.shape == v.shape == tri.shape == (5,)
+    assert calls == [(5, bvh2.max_steps(port.num_nodes), int(any_hit))] * 2
+    assert (bvh2.launches_closest, bvh2.launches_anyhit,
+            bvh2.launches_occluded) == ((0, 2, 0) if any_hit else (2, 0, 0))
+    bvh2.reset_counters()
+    assert bvh2.launches_closest == bvh2.launches_anyhit == 0
+
+
 def test_step_bound_stops_and_counts_rays(soup):
     """A ray still traversing at the step bound stops and is counted, in
     both twins, as the kernels' capped counter does."""
@@ -340,3 +374,164 @@ def test_k3_float4_windows_hold_each_triangle():
                                                   row[9 * tri:9 * tri + 9])
                     seen.append(tri)
         assert seen == list(range(count))
+
+
+def _dup_soup():
+    """The soup with every triangle twice, under two indices: every hit is
+    an exact tie, and the winner shows the visit order."""
+    tris = tuple(np.concatenate([a, a]) for a in random_tris(seed=1234,
+                                                             n=300))
+    return build_scene_buffers(soup_scene(port_types, *tris),
+                               device="cpu"), tris
+
+
+def _k2_kernel_model(port, ro, rd, tmax, active, any_hit, steps_max):
+    """csrc/bvh2_traverse.cu::bvh2_trace_kernel in torch, warp by warp (32
+    consecutive rays): a lane walks near-first with its own stack of
+    STACK_MAX entries until it holds a hit leaf (it pops its next node at
+    once), and a warp tests its lanes' leaves only when none of them needs
+    another step; a leaf folds its triangles in the row's order with a
+    strict t < best, as the float4 windows do. Returns (t, u, v, tri,
+    capped rays, node visits, most stack entries held)."""
+    R = ro.shape[0]
+    W = -(-R // 32) * 32
+    pad = W - R
+    ro, rd = (torch.cat([x, torch.zeros(pad, 3)]) for x in (ro, rd))
+    best = torch.cat([tmax, torch.zeros(pad)])
+    active = torch.cat([active, torch.zeros(pad, dtype=torch.bool)])
+    rows_i = port.node_rows.view(torch.int32)
+    inv = [wide._safe_inv(rd[:, a]) for a in range(3)]
+    node = torch.where(active, 0, -1).to(torch.int64)
+    stack = torch.full((W, bvh2.STACK_MAX), -7, dtype=torch.int64)
+    sp = torch.zeros(W, dtype=torch.int64)
+    ln, lrow, lfirst, steps = (torch.zeros(W, dtype=torch.int64)
+                               for _ in range(4))
+    bu, bv = torch.zeros(W), torch.zeros(W)
+    btri = torch.full((W,), -1, dtype=torch.int32)
+    capped = most = 0
+    while bool(((node >= 0) | (ln > 0)).any()):
+        need = (node >= 0) & (ln == 0)
+        warp_need = need.view(-1, 32).any(1).repeat_interleave(32)
+        cap = need & (steps == steps_max)
+        capped += int(cap.sum())
+        node[cap] = -1
+        go = torch.nonzero(need & ~cap).flatten()
+        if go.numel():
+            n = node[go]
+            ints = rows_i[n]
+            hit = bvh2._slab(port.node_rows[n],
+                             tuple(ro[go, a] for a in range(3)),
+                             tuple(x[go] for x in inv), best[go])
+            steps[go] += 1
+            inner = hit & (ints[:, 6] == 0)
+            gi = go[inner]
+            if gi.numel():
+                axis = ints[inner, 9].to(torch.int64)
+                dax = rd[gi].gather(1, axis[:, None])[:, 0]
+                left = n[inner] + 1
+                right = ints[inner, 8].to(torch.int64)
+                pos = dax >= 0.0
+                stack[gi, sp[gi]] = torch.where(pos, right, left)
+                sp[gi] += 1
+                most = max(most, int(sp[gi].max()))
+                node[gi] = torch.where(pos, left, right)
+            leaf = hit & (ints[:, 6] > 0)
+            lrow[go[leaf]] = ints[leaf, 8].to(torch.int64)
+            ln[go[leaf]] = ints[leaf, 6].to(torch.int64)
+            lfirst[go[leaf]] = ints[leaf, 9].to(torch.int64)
+            po = go[~inner]
+            has = sp[po] > 0
+            sp[po[has]] -= 1
+            node[po] = torch.where(has, stack[po, sp[po].clamp_min(0)], -1)
+        test = torch.nonzero((ln > 0) & ~warp_need).flatten()
+        if test.numel():
+            tr = port.leaf_rows[lrow[test], :9 * bvh2.LEAF_CAP].reshape(
+                -1, bvh2.LEAF_CAP, 9)
+            u, v, t = moller_trumbore(
+                tuple(ro[test, a][:, None] for a in range(3)),
+                tuple(rd[test, a][:, None] for a in range(3)),
+                tuple(tr[:, :, j] for j in range(9)))
+            any_ok = torch.zeros(test.numel(), dtype=torch.bool)
+            for k in range(bvh2.LEAF_CAP):  # the row's order, strict <
+                ok = ((k < ln[test]) & (u[:, k] >= 0.0) & (v[:, k] >= 0.0)
+                      & (u[:, k] + v[:, k] <= 1.0) & (t[:, k] > T_MIN)
+                      & (t[:, k] < best[test]))
+                any_ok |= ok
+                sel = test[ok]
+                best[sel] = t[ok, k]
+                bu[sel] = u[ok, k]
+                bv[sel] = v[ok, k]
+                btri[sel] = (lfirst[sel] + k).to(torch.int32)
+            if any_hit:
+                node[test[any_ok]] = -1
+            ln[test] = 0
+    return (best[:R], bu[:R], bv[:R], btri[:R], capped, int(steps.sum()),
+            most)
+
+
+@pytest.mark.parametrize("bound", ["sound", "capped"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", ["soup", "dup"])
+def test_k2_waiting_leaf_rows_keep_the_twins_bits_and_counts(soup, name,
+                                                             any_hit, bound):
+    """K2's schedule (leaf rows wait for the warp) against
+    bvh2_trace_plain: t, u, v and tri bit for bit on every ray, ties
+    included (the dup soup has every triangle twice), the rays stopped by
+    the step bound and the node visits the same, at the real bound and at
+    a bound of 4 visits (num_nodes -15) that stops most rays; the stack
+    never holds more entries than the tree's depth."""
+    port, tris = (soup[1], soup[2]) if name == "soup" else _dup_soup()
+    ro, rd = (_t(x) for x in random_rays(tris, 1000, seed=95))
+    rng = np.random.default_rng(96)
+    tmax = torch.from_numpy(np.where(rng.random(1000) < 0.5, 8.0, 1e30)
+                            .astype(np.float32))
+    active = torch.from_numpy(rng.random(1000) < 0.9)
+    num_nodes = port.num_nodes if bound == "sound" else -15
+    ints = port.node_rows.view(torch.int32)[:port.num_nodes].numpy()
+    depth = bvh_max_depth(ints[:, 6], ints[:, 7])
+    bvh2.reset_counters()
+    stats = {}
+    want = bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd,
+                                 tmax, active, any_hit, num_nodes,
+                                 port.stack_depth, stats=stats)
+    *got, capped, visits, most = _k2_kernel_model(
+        port, ro, rd, tmax, active, any_hit, bvh2.max_steps(num_nodes))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert capped == bvh2.capped_rays("cpu")
+    assert visits == stats["visits"]
+    assert most <= depth <= bvh2.STACK_MAX
+    hits = want[3] >= 0
+    if bound == "sound":
+        assert capped == 0 and 0.02 < float(hits.float().mean()) < 1
+        if name == "dup" and not any_hit:  # the first copy of a tie wins
+            n = tris[0].shape[0] // 2
+            assert (want[3][hits] < n).any()
+    else:
+        assert 100 < capped < int(active.sum())
+
+
+def test_k2_float4_windows_fold_each_triangle_in_order(soup):
+    """K2 reads triangle 4g + k of a leaf row from the three float4 words
+    at float4 9g + 2k, at offset k, and folds them in the row's order: on
+    every leaf row of the soup the windows give each triangle's 9 floats,
+    ids first + 0 .. first + count - 1 in that order."""
+    _, port, _ = soup
+    ints = port.node_rows.view(torch.int32)[:port.num_nodes]
+    leaves = torch.nonzero(ints[:, 6] > 0).flatten()
+    words = port.leaf_rows.reshape(port.leaf_rows.shape[0], 32, 4)
+    for nd in leaves.tolist():
+        count, lrow, first = (int(ints[nd, c]) for c in (6, 8, 9))
+        n = min(count, bvh2.LEAF_CAP)
+        ids = []
+        for g in range(-(-n // 4)):
+            for k in range(4):
+                if 4 * g + k < n:
+                    q = 9 * g + 2 * k
+                    window = words[lrow, q:q + 3].reshape(-1)
+                    tri = 4 * g + k
+                    assert torch.equal(window[k:k + 9],
+                                       port.leaf_rows[lrow, 9 * tri:9 * tri + 9])
+                    ids.append(first + tri)
+        assert ids == list(range(first, first + n))

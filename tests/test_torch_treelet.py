@@ -462,7 +462,8 @@ def test_scatter_runs_matches_reference_inside_regions():
                                  out_rows=out_rows, interpret=True))
     regroup.reset_counters()
     out = regroup.scatter_runs(data2, nruns, src, dst, lens, out_rows).numpy()
-    assert regroup.launches == 0  # CPU tensors: the twin, no launch
+    # CPU tensors: the twin, no launch of either entry
+    assert not any(regroup.launches.values())
     inside = np.zeros(out_rows, bool)
     for s, h in zip(starts.tolist(), H.tolist()):
         inside[s:s + h] = True
@@ -521,3 +522,155 @@ def test_block_regroup_matches_reference(R, K, seed):
     for k in range(K):
         got = sorted(p_ray[on & (sid_of == k)].tolist())
         assert got == sorted(ray[keys == k].tolist())
+
+
+# E5's path entry: (R, K) with keys in [0, K] (K: the dump key, dropped),
+# slabs of 2^10. "spans": every key spans all five slabs, R not a multiple
+# of the slab; "empty": one slab, most of its 300 keys empty; "exact": R a
+# multiple of the slab.
+E5_CASES = {"spans": (5000, 5, 11), "empty": (1000, 300, 12),
+            "exact": (2048, 37, 13)}
+
+
+def _e5_input(case):
+    R, K, seed = E5_CASES[case]
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, K + 1, R).astype(np.int32)
+    if case == "empty":
+        keys = np.where(keys % 7 == 0, keys, K).astype(np.int32)
+    ray = rng.integers(0, R, R).astype(np.int32)
+    mat, c_log = regroup.sort_pairs(torch.from_numpy(keys),
+                                    torch.from_numpy(ray), slab_log=10)
+    return keys, ray, mat, c_log, R, K
+
+
+def _e5_model(mat, c_log, R, K, tile=1024, chunk=regroup.CHUNK):
+    """csrc/regroup.cu::regroup_blocks in numpy, pass by pass: (1) a key's
+    run in each slab by two binary searches and its exclusive prefix over
+    slabs, (2) the tile-aligned regions, their starts and sid_blocks, (3)
+    four slots a thread: the slab of the first by a binary search over the
+    prefixes, a step to the next slab where a run ends inside the four."""
+    mat = mat.numpy()
+    G = mat.shape[1] >> c_log
+    keys, rays = mat[0].reshape(G, -1), mat[1].reshape(G, -1)
+    first = np.zeros((G, K), np.int64)
+    pre = np.zeros((G, K), np.int64)
+    counts = np.zeros(K, np.int64)
+    for k in range(K):  # 1. one block a key, one thread a slab
+        lo = np.array([np.searchsorted(keys[g], k, "left") for g in range(G)])
+        c = np.array([np.searchsorted(keys[g], k + 1, "left")
+                      for g in range(G)]) - lo
+        first[:, k], pre[:, k], counts[k] = lo, np.cumsum(c) - c, c.sum()
+    region = (counts + chunk + tile - 1) // tile * tile  # 2. one block
+    starts = np.cumsum(region) - region
+    B = regroup.out_rows_of(R, K, tile, chunk) // tile
+    sid = np.full(B, K - 1, np.int32)
+    for k in range(K):
+        sid[starts[k] // tile:(starts[k] + region[k]) // tile] = k
+    ray_out = np.zeros(B * tile, np.int32)
+    on = np.zeros(B * tile, np.int32)
+    for s in range(0, B * tile, 4):  # 3. four slots a thread
+        k = sid[s // tile]
+        o, h = s - starts[k], counts[k]
+        if o >= h:
+            continue
+        g = int(np.nonzero(pre[:, k] <= o)[0].max())
+        for j in range(4):
+            if o + j < h:
+                while g + 1 < G and o + j >= pre[g + 1, k]:
+                    g += 1
+                ray_out[s + j] = np.clip(
+                    rays[g, first[g, k] + o + j - pre[g, k]], 0, R - 1)
+                on[s + j] = 1
+    return ray_out, sid, on
+
+
+@pytest.mark.parametrize("case", sorted(E5_CASES))
+def test_regroup_blocks_plain_is_the_composition_and_the_reference(case):
+    """E5's path entry on the CPU (its plain version) is bit-equal to
+    block_runs + scatter_runs_plain + block_layout, and to the reference's
+    block_regroup (interpret mode) on sid_blocks, on and the rays of every
+    live slot; every live pair lands once, in a block of its key."""
+    keys, ray, mat, c_log, R, K = _e5_input(case)
+    regroup.reset_counters()
+    got = regroup.regroup_blocks(mat, c_log, R, K)
+    assert not any(regroup.launches.values()) and regroup.cuda_launched == 0
+    args, (starts, counts) = regroup.block_runs(mat, c_log, R, K)
+    want = regroup.block_layout(regroup.scatter_runs_plain(*args), starts,
+                                counts, R)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+    r_ray, r_sid, r_on = (np.asarray(x) for x in ref_block(
+        jnp.asarray(keys), jnp.asarray(ray), K, slab_log=10,
+        interpret=True))
+    p_ray, p_sid, p_on = (x.numpy() for x in got)
+    np.testing.assert_array_equal(p_sid, r_sid)
+    np.testing.assert_array_equal(p_on, r_on)
+    on = p_on > 0
+    np.testing.assert_array_equal(p_ray[on], r_ray[on])
+    assert (p_ray[~on] == 0).all()
+    assert on.sum() == (keys < K).sum()
+    sid_of = np.repeat(p_sid, 1024)
+    for k in range(K):
+        assert sorted(p_ray[on & (sid_of == k)].tolist()) == \
+            sorted(ray[keys == k].tolist())
+    if case == "spans":
+        G = mat.shape[1] >> c_log
+        assert G == 5 and R % (1 << c_log)
+    if case == "empty":
+        assert (counts == 0).sum() > K // 2
+
+
+@pytest.mark.parametrize("case", sorted(E5_CASES))
+def test_regroup_blocks_three_pass_model(case):
+    """The kernel's three passes, modelled in numpy, give the plain
+    version's (ray_out, sid_blocks, on) bit for bit."""
+    _, _, mat, c_log, R, K = _e5_input(case)
+    want = regroup.regroup_blocks_plain(mat, c_log, R, K)
+    for a, b in zip(_e5_model(mat, c_log, R, K), want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("entry", ["runs", "blocks"])
+def test_e5_counts_launches_by_entry(monkeypatch, entry):
+    """E5's launch sites count each call under its own entry, and the path
+    entry adds the CUDA launches its C entry point reports (three). The C
+    entry points are replaced by stubs that record their sizes."""
+    calls = []
+
+    def runs(*args):
+        calls.append(("runs", args[6:10]))
+        return 0
+
+    def blocks(*args):
+        calls.append(("blocks", args[8:15]))
+        args[-1]._obj.value = 3
+        return 0
+
+    monkeypatch.setattr(regroup._build, "load", lambda name: SimpleNamespace(
+        scatter_runs=runs, regroup_blocks=blocks))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    _, _, mat, c_log, R, K = _e5_input("spans")
+    regroup.reset_counters()
+    for _ in range(2):
+        if entry == "runs":
+            z = torch.zeros((3, 4), dtype=torch.int32)
+            out = regroup._launch(z, z[:, 0].contiguous(), z, z, z, 50)
+            assert out.shape == (50,)
+        else:
+            ray_out, sid, on = regroup._launch_blocks(mat, c_log, R, K, 1024,
+                                                      regroup.CHUNK)
+            B = regroup.out_rows_of(R, K) // 1024
+            assert ray_out.shape == on.shape == (B * 1024,)
+            assert sid.shape == (B,)
+    assert regroup.launches == {k: 2 * (k == entry) for k in regroup.launches}
+    assert regroup.cuda_launched == (6 if entry == "blocks" else 0)
+    G = mat.shape[1] >> c_log
+    assert calls == [(entry, (3, 4, 4, 50) if entry == "runs" else
+                      (G, K, c_log, 1024, regroup.CHUNK,
+                       regroup.out_rows_of(R, K) // 1024, R))] * 2
+    regroup.reset_counters()
+    assert not any(regroup.launches.values()) and regroup.cuda_launched == 0
+    with pytest.raises(ValueError, match="tile"):
+        regroup._launch_blocks(mat, c_log, R, K, 1022, regroup.CHUNK)
