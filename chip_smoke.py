@@ -374,7 +374,7 @@ def ptxas_lines(name):
     out, entry = {}, None
     for line in _build.build_info[name]["log"].splitlines():
         if "Compiling entry function" in line:
-            entry = short_name(line.split("'")[1] if "'" in line else line)
+            entry = short_name(line.split("'")[1])
         elif entry and ("Used" in line or "stack frame" in line):
             out.setdefault(entry, []).append(
                 line.split(":", 1)[-1].strip() if "Used" in line
@@ -443,11 +443,9 @@ def waves(scene, cam, width, height, seed):
     return (pro, prd, on), nee, (pos.contiguous(), drd.contiguous(), hitm)
 
 
-def ops_of(stats, n_compared, n_rays, box_key="visits"):
-    """Operations of a whole wave from the twin's work counts on the
-    compared subset, scaled by rays."""
-    ops = stats[box_key] * OPS_BOX + stats["tri_tests"] * OPS_TRI
-    return ops * n_rays / max(n_compared, 1)
+def ops_of(stats, box_key="visits"):
+    """Operations of a whole wave from the twin's work counts on it."""
+    return stats[box_key] * OPS_BOX + stats["tri_tests"] * OPS_TRI
 
 
 def bits_equal(a, b):
@@ -730,7 +728,7 @@ def main():
               f"{k1_timing[mode][0]:.3f} ms, plain torch "
               f"{k1_timing[mode][1]:.3f} ms", flush=True)
     k1_bound = {m: bound(N, 8, trav_bytes,
-                         ops_of(k1_stats[m], N, N, box_key="box_tests"))
+                         ops_of(k1_stats[m], box_key="box_tests"))
                 for m in ("closest", "anyhit")}
     for m, (b_ms, b_by) in k1_bound.items():
         print(f"K1 {m} bound on the 1080p wave: {b_ms:.4f} ms ({b_by}; "
@@ -830,16 +828,11 @@ def main():
     # The twins' work on every ray of each wave (K2 and K3 walk each ray's
     # nodes in the twin's order, so the twin's counts are their own).
     k23_bound = {
-        "K2 closest": bound(N40, 16, tables40,
-                            ops_of(k23_stats["closest"], N40, N40)),
-        "K2 diffuse": bound(N40, 16, tables40,
-                            ops_of(diff_stats["closest"], N40, N40)),
-        "K2 any-hit": bound(N40, 16, tables40,
-                            ops_of(k23_stats["anyhit"], N40, N40)),
-        "K3": bound(N40, 4, tables40,
-                    ops_of(k23_stats["occluded"], N40, N40)),
-        "K3 diffuse": bound(N40, 4, tables40,
-                            ops_of(diff_stats["occluded"], N40, N40)),
+        "K2 closest": bound(N40, 16, tables40, ops_of(k23_stats["closest"])),
+        "K2 diffuse": bound(N40, 16, tables40, ops_of(diff_stats["closest"])),
+        "K2 any-hit": bound(N40, 16, tables40, ops_of(k23_stats["anyhit"])),
+        "K3": bound(N40, 4, tables40, ops_of(k23_stats["occluded"])),
+        "K3 diffuse": bound(N40, 4, tables40, ops_of(diff_stats["occluded"])),
     }
     for name, (k_ms, p_ms) in k23_timing.items():
         b_ms, b_by = k23_bound[name]
@@ -851,8 +844,9 @@ def main():
     print(f"dispatch comparison on the same arch-40k waves: K1 closest-hit "
           f"{k1_40['closest']:.4f} ms vs K2 {k23_timing['K2 closest'][0]:.4f}"
           f" ms (primary), {k1_40['diffuse']:.4f} ms vs "
-          f"{k23_timing['K2 diffuse'][0]:.4f} ms (diffuse); K1 any-hit {k1_40['anyhit']:.4f} ms vs K3 "
-          f"{k23_timing['K3'][0]:.4f} ms (NEE), K1 any-hit "
+          f"{k23_timing['K2 diffuse'][0]:.4f} ms (diffuse); K1 any-hit "
+          f"{k1_40['anyhit']:.4f} ms vs K3 {k23_timing['K3'][0]:.4f} ms "
+          f"(NEE), K1 any-hit "
           f"{k1_40['anyhit diffuse']:.4f} ms vs K3 "
           f"{k23_timing['K3 diffuse'][0]:.4f} ms (diffuse shadow) ({smi})",
           flush=True)
@@ -1441,7 +1435,7 @@ def main():
                 "per ray": P * 4 + walked_pairs * 4 + rays_paired * 28
                 + (S + 1) * 4 + N * 8 + walk_bytes}
     e7_bound = {k: bound_of(e7_bytes[k[0]],
-                            ops_of(e7_stats[k[1]], P, P, box_key="box_tests"))
+                            ops_of(e7_stats[k[1]], box_key="box_tests"))
                 for k in e7_timing}
     et = e6_timing["primary"]
     for epi in ("per_ray", "pairs"):

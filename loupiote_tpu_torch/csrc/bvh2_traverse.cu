@@ -44,8 +44,9 @@
 //    hold it at offset k (three loads a triangle in place of nine).
 //  - K2 keeps its stack in a 128-entry local array (a 512-byte frame that
 //    L1 serves): a shared-memory stack sized to the table's depth (one
-//    word a level, no bank conflicts) was 2.5% slower on the interactive
-//    frame's waves, and a 32-entry local array no faster.
+//    word a level, no bank conflicts) was 2.6% slower on the interactive
+//    frame's waves, and a 32-entry local array no faster (NVIDIA H100
+//    80GB HBM3, 700 W; PERF.md, PR 8).
 //  - Blocks of 64 threads for both. A near-first order with a stack, and
 //    a warp that visits one node a step for all its lanes (the TPU
 //    kernel's shape), were slower for K3.

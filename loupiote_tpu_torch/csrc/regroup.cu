@@ -25,7 +25,9 @@
 //
 // What bounds them on an H100: bytes. Each pair is read once and each
 // output slot written once, with no arithmetic to speak of (8.3 M pairs
-// into 8.9 M slots on the treelet path: ~137 MB, ~0.04 ms at 3.35 TB/s).
+// into 8.9 M slots on the treelet path: ~138 MB, so ~0.041 ms at the
+// H100 SXM's 3.35 TB/s; the path entry takes 0.073-0.085 ms on an NVIDIA
+// H100 80GB HBM3 at 700 W, PERF.md, PR 8).
 //
 // scatter_runs: one block a slab walks its runs in order, its threads
 // striding over each run (short runs leave threads idle; 127 slabs fill

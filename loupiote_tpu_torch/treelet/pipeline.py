@@ -8,8 +8,11 @@
                                 flags the rays that fall back;
   binning  regroup="count"      (subtree, ray) pairs are grouped by subtree
                                 into 1024-pair single-subtree blocks: slab
-                                sort (K4), batched searchsorted, run
-                                scatter (E5); regroup="sort" does it with
+                                sort (K4), then E5's path entry
+                                (regroup_blocks: each key's runs, the
+                                regions, the placement; on the CPU its
+                                plain version, searchsorted, run lists and
+                                the run scatter); regroup="sort" does it with
                                 one stable torch.sort, a rank within runs
                                 and a padded scatter (the reference's
                                 ``xla`` binning);

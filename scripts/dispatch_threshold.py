@@ -12,9 +12,9 @@ wave in tile order, its NEE wave, and the diffuse wave's shadow rays with
 tmax 25) and times K2 against K1 closest-hit on the primary wave and on
 the (unsorted) diffuse wave, the kind of the interactive frame's bounce
 waves, and K3 against K1 any-hit on the two shadow waves (CUDA events,
-mean of 20 after a warm-up). Beside the times, how far the two kernels' answers agree: the
-share of closest hits on the same triangle or a t-tie within 2 ulp, and
-the share of equal blocked bits (two trees over the same triangles; the
+mean of 20 after a warm-up). Beside the times, how far the two kernels'
+answers agree: the share of closest hits on the same triangle or a t-tie
+within 2 ulp, and the share of equal blocked bits (two trees over the same triangles; the
 kernels are held to their own twins by chip_smoke.py). Prints one table
 row a size, and the card's name and power limit.
 """

@@ -531,7 +531,7 @@ def test_k2_float4_windows_fold_each_triangle_in_order(soup):
                     q = 9 * g + 2 * k
                     window = words[lrow, q:q + 3].reshape(-1)
                     tri = 4 * g + k
-                    assert torch.equal(window[k:k + 9],
-                                       port.leaf_rows[lrow, 9 * tri:9 * tri + 9])
+                    want = port.leaf_rows[lrow, 9 * tri:9 * tri + 9]
+                    assert torch.equal(window[k:k + 9], want)
                     ids.append(first + tri)
         assert ids == list(range(first, first + n))
