@@ -32,8 +32,8 @@
 // by load latency and warp divergence, not by bytes or flops: a warp runs
 // every kind of step its lanes need (a node's box test, a leaf's up to 14
 // triangle tests) for as many steps as its longest ray. Both kernels were
-// redesigned for that divergence (K3 in PR 7, K2 in PR 8; each choice
-// timed on the card against its alternatives; PERF.md has the numbers):
+// redesigned for that divergence (each choice timed on the card against
+// its alternatives; PERF.md has the numbers):
 //  - Leaf rows wait: a lane walks internal nodes until it reaches a hit
 //    leaf, and the warp tests leaves when every lane holds one or is done,
 //    so the triangle loop runs with the lanes together. A waiting lane
@@ -46,7 +46,7 @@
 //    L1 serves): a shared-memory stack sized to the table's depth (one
 //    word a level, no bank conflicts) was 2.6% slower on the interactive
 //    frame's waves, and a 32-entry local array no faster (NVIDIA H100
-//    80GB HBM3, 700 W; PERF.md, PR 8).
+//    80GB HBM3, 700 W; PERF.md).
 //  - Blocks of 64 threads for both. A near-first order with a stack, and
 //    a warp that visits one node a step for all its lanes (the TPU
 //    kernel's shape), were slower for K3.

@@ -27,13 +27,13 @@
 // output slot written once, with no arithmetic to speak of (8.3 M pairs
 // into 8.9 M slots on the treelet path: ~138 MB, so ~0.041 ms at the
 // H100 SXM's 3.35 TB/s; the path entry takes 0.073-0.085 ms on an NVIDIA
-// H100 80GB HBM3 at 700 W, PERF.md, PR 8).
+// H100 80GB HBM3 at 700 W, PERF.md).
 //
 // scatter_runs: one block a slab walks its runs in order, its threads
 // striding over each run (short runs leave threads idle; 127 slabs fill
 // less than one block an SM). The wrapper zero-fills the output.
 //
-// regroup_blocks (PR 8) needs no atomics, no run lists and no fill, in
+// regroup_blocks needs no atomics, no run lists and no fill, in
 // three launches:
 //  1. runs: one block a key k, one thread a slab g. Two binary searches in
 //     the sorted slab (torch.searchsorted's left side) give the key's run,
