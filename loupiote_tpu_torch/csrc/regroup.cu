@@ -23,11 +23,13 @@
 // entries write each run's elements exactly, and outside the key regions
 // write 0, so the result does not depend on the order blocks run in.
 //
-// What bounds them on an H100: bytes. Each pair is read once and each
-// output slot written once, with no arithmetic to speak of (8.3 M pairs
-// into 8.9 M slots on the treelet path: ~138 MB, so ~0.041 ms at the
-// H100 SXM's 3.35 TB/s; the path entry takes 0.073-0.085 ms on an NVIDIA
-// H100 80GB HBM3 at 700 W, PERF.md).
+// What bounds them on an H100: bytes. Each live pair's ray is read once
+// and each output slot written once, with no arithmetic to speak of; the
+// dump key's pairs and the padding need not be read, and the key runs are
+// found by binary searches (5.7 M live pairs of 8.3 M into 8.9 M slots on
+// the treelet path's primary wave: ~94 MB, so ~0.028 ms at the H100 SXM's
+// 3.35 TB/s; the path entry takes 0.073-0.085 ms on an NVIDIA H100 80GB
+// HBM3 at 700 W, PERF.md).
 //
 // scatter_runs: one block a slab walks its runs in order, its threads
 // striding over each run (short runs leave threads idle; 127 slabs fill
