@@ -83,15 +83,18 @@ Phases, each timed:
                  on the sorted arch-260k 1080p diffuse wave, its five
                  variants timed with launch counts read around it (K1's
                  too, which traces the primary wave on the way); each
-                 held against probe_trace_plain on the card (t, u, v, tri,
-                 steps bit-equal, dropped pushes equal, 0 but for
+                 variant's last path run and three more kernel runs held
+                 against one run of probe_trace_plain on the card (t, u,
+                 v, tri, steps bit-equal, dropped pushes equal, 0 but for
                  nofetch); full against K1's closest hits;
  12. E2        - lane_gather_bench.main (csrc/lane_gather.cu) at 64, 512
                  and 4,096 steps with launch counts; the kernel against
                  its twin at 128 x 1,024 lanes and 512 steps, bit-equal;
  13. E3        - r3_probes.main all (csrc/r3_probes.cu): ten slopes between
                  30,000 and 230,000 steps with launch counts; each probe
-                 against its twin at 256 steps, bit-equal;
+                 against its twin, bit-equal, in three runs at 256 steps
+                 and one at 1,024; the ptxas report of E1's and E3's
+                 sources;
  14. E4        - device_sort_bench.main (K4's network over one 2^23-key
                  slab) against torch.sort + gather, with K4's launches
                  and CUDA launches counted; device_sort against slab_sort_plain at c_log 23
@@ -1653,21 +1656,31 @@ def main():
     e1_args = e1["inputs"]
     G1 = e1_args[1].shape[0]
     N1 = G1 * 1024
-    rows = ["| variant | kernel ms | twin ms | t,u,v,tri,steps equal | "
-            "dropped pushes (kernel / twin) | steps mean / max | hit frac | "
-            "bound ms (which) | verdict |",
+    rows = ["| variant | kernel ms | twin ms | t,u,v,tri,steps equal (3 "
+            "runs) | dropped pushes (kernel / twin) | steps mean / max | "
+            "hit frac | bound ms (which) | verdict |",
             "|---|---|---|---|---|---|---|---|---|"]
     e1_res, ok = {}, True
     for probe, res in e1["probes"].items():
         st = {}
+        kw = kernel_probe.probe_kwargs(arch, probe)
         d0 = kernel_probe.dropped_pushes(dev)
         p_ms, pout = timed(lambda: kernel_probe.probe_trace_plain(
-            *e1_args, **kernel_probe.probe_kwargs(arch, probe), stats=st), 1,
-            warm=False)
+            *e1_args, **kw, stats=st), 1, warm=False)
         p_drop = kernel_probe.dropped_pushes(dev) - d0
         kout = res["outputs"]
-        same = all(bits_equal(a, b) for a, b in zip(kout, pout))
-        drop_ok = (p_drop == res["dropped"]
+        # Three more kernel runs, each held to the twin's one run: the
+        # packet's state is shared across lanes, and no race checker runs
+        # on the card.
+        same = [all(bits_equal(a, b) for a, b in zip(kout, pout))]
+        drops = [res["dropped"]]
+        for _ in range(3):
+            d0 = kernel_probe.dropped_pushes(dev)
+            again = kernel_probe.probe_trace(*e1_args, **kw)
+            torch.cuda.synchronize()
+            drops.append(kernel_probe.dropped_pushes(dev) - d0)
+            same.append(all(bits_equal(a, b) for a, b in zip(again, pout)))
+        drop_ok = (all(d == p_drop for d in drops)
                    and (probe == "nofetch" or p_drop == 0))
         # Bytes: each lane's rays (24), t0, act in and t, u, v, tri out
         # once, the steps once, the table once.
@@ -1676,13 +1689,14 @@ def main():
                               st["box_tests"] * OPS_BOX
                               + st["tri_tests"] * OPS_TRI)
         err = float((kout[0] - pout[0]).abs().max())
-        ok_p = same and drop_ok
+        ok_p = all(same) and drop_ok
         ok &= ok_p
         e1_res[probe] = {"ms": res["ms"], "plain_ms": p_ms,
                          "bound": (b_ms, b_by), "err": err, "res": res}
-        rows.append(f"| {probe} | {res['ms']:.3f} | {p_ms:.1f} | {same} | "
-                    f"{res['dropped']} / {p_drop} | {res['steps_mean']:.1f}"
-                    f" / {res['steps_max']} | "
+        rows.append(f"| {probe} | {res['ms']:.3f} | {p_ms:.1f} | "
+                    f"{'/'.join(str(x) for x in same)} | "
+                    f"{'/'.join(str(d) for d in drops)} / {p_drop} | "
+                    f"{res['steps_mean']:.1f} / {res['steps_max']} | "
                     f"{float((kout[3] >= 0).float().mean()):.4f} | "
                     f"{b_ms:.4f} ({b_by}) | {'PASS' if ok_p else 'FAIL'} |")
     # full's closest hits against K1 on the same rays.
@@ -1744,15 +1758,22 @@ def main():
         raise SystemExit("chip_smoke: the E3 path did not launch every probe")
     x3 = r3_probes.tile(dev)
     rows = ["| probe | ns / step (slope) | kernel ms (256 steps) | twin ms | "
-            "bound ms (operations, one SM) | equal | verdict |",
+            "bound ms (operations, one SM) | equal (3 runs at 256 steps; "
+            "1,024 steps) | verdict |",
             "|---|---|---|---|---|---|---|"]
     e3_res, ok = {}, True
     for name in r3_probes.PROBES:
         k_ms, k3 = timed(lambda: r3_probes.run_probe_kernel(name, x3, 256), 5)
         p_ms, p3 = timed(lambda: r3_probes.probe_plain(name, x3, 256), 1,
                          warm=False)
-        same = bits_equal(k3, p3)
-        ok &= same
+        # Two more runs at 256 steps, and one at 1,024 against its own
+        # twin, so that a drift that needs many steps shows.
+        same = [bits_equal(k3, p3)] + [
+            bits_equal(r3_probes.run_probe_kernel(name, x3, 256), p3)
+            for _ in range(2)]
+        same.append(bits_equal(r3_probes.run_probe_kernel(name, x3, 1024),
+                               r3_probes.probe_plain(name, x3, 1024)))
+        ok &= all(same)
         # One block runs on one SM: its share of the FP32 rate.
         ops = 256 * 1024 * r3_probes.OPS_PER_ELEMENT[name]
         b_ms = ops / (PEAK_FLOP_S / 132) * 1e3
@@ -1760,10 +1781,14 @@ def main():
                         "err": float((k3 - p3).abs().max()),
                         "ns": e3[name]["ns_per_step"]}
         rows.append(f"| {name} | {e3[name]['ns_per_step']:.3f} | {k_ms:.4f} | "
-                    f"{p_ms:.1f} | {b_ms:.5f} | {same} | "
-                    f"{'PASS' if same else 'FAIL'} |")
+                    f"{p_ms:.1f} | {b_ms:.5f} | "
+                    f"{'/'.join(str(x) for x in same)} | "
+                    f"{'PASS' if all(same) else 'FAIL'} |")
     print("\n".join(rows), flush=True)
     print(f"E3 path launches {e3_launches} ({smi})", flush=True)
+    print("ptxas, csrc/kernel_probe.cu:\n" + ptxas_lines("kernel_probe")
+          + "\nptxas, csrc/r3_probes.cu:\n" + ptxas_lines("r3_probes"),
+          flush=True)
     if not ok:
         raise SystemExit("chip_smoke: E3 disagrees with its plain version")
     phase("E3: path + ten probes vs twin", t0)

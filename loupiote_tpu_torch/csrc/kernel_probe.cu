@@ -24,19 +24,36 @@
 // slot and is left alone), so the full probe returns the closest hits.
 // The row's kind still comes from float 127.
 //
-// Design. One block of 128 threads per sub-packet, one thread per lane.
-// Each step the block stages the 512-byte row in shared memory; every
-// thread runs its lane's leaf tests or its eight slab tests; eight
-// block-wide minima (warp shuffles, then the four warp partials) give the
-// children's packet distances; thread 0 ranks the children, pushes and
-// pops the stack (stack_size ints of dynamic shared memory) and publishes
-// the next row. The variant is a template parameter.
+// Design: one warp walks one packet, with no block barrier. Lane l holds
+// rays l, 32 + l, 64 + l and 96 + l; the warp keeps the packet's row (one
+// float4 a lane, staged in its own slice of shared memory), stack, cursor
+// and stack pointer, every lane alike. At an internal row:
+// - a child with a negative pointer (an empty slot) is not tested: the
+//   hit mask excludes it whatever its box gives;
+// - where every active ray of the packet has finite origin components and
+//   one sign of each inverse direction component (the sorted wave is
+//   octant-major), and a child's box has min <= max on each axis, the
+//   slab test takes the packet's near and far planes: for ix > 0,
+//   (b0 - ox) * ix <= (b3 - ox) * ix because rounding is monotone, so
+//   min and max of the pair are the near and the far term (equal values;
+//   a zero's sign may differ, which only < and == read). That saves six
+//   min/max of each ray's box test, and a row whose valid children all
+//   qualify runs its eight children unrolled;
+// - each lane takes the fminf of its rays' hit distances and the warp the
+//   minimum of one order-preserving key a lane (redux.sync): unsigned
+//   order is float order, -0 read as +0, so ranks and hits are the twin's;
+// - lane c ranks child c against the others' keys (shuffles), a ballot of
+//   the lanes with rank 0 names the nearest child, the lanes of the others
+//   push them, and a ballot counts the pushes past the stack.
+// A leaf row's triangles are tested by every lane for its four rays.
 //
-// What bounds it on an H100: the steps are serial, each a dependent row
-// load (through L2: the arch-260k table is 15.6 MB) plus three block
-// barriers and thread 0's serial ranking; the arithmetic per step is a
-// few hundred operations per lane. So it is latency bound, and the
-// 16,200 blocks of a 1080p wave are what keep the SMs busy.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, E1):
+// instruction issue. A leaf step issues ~65 instructions a ray and
+// triangle (the twin's unfused products and adds, --fmad=false, and the
+// reciprocal), an internal step ~22 a ray and child; the row loads hide
+// behind the other warps. The redesign cut the internal step's issue (no
+// shuffle trees, no serial tail, no per-axis min/max on coherent packets,
+// no empty slots); the leaf tests are the twin's own arithmetic.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py).
@@ -46,23 +63,148 @@
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
+constexpr int kLanes = 128;  // rays a packet
+constexpr int kRays = 4;     // rays a lane
+constexpr int kPackets = 4;  // packets (warps) a block
 constexpr int kWidth = 8;
 constexpr int kLeafTag = 1 << 30;
 constexpr int kLeafMask = kLeafTag - 1;
 constexpr float kBig = 3e30f;
 constexpr float kTMin = 1e-4f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxStack = 2048;
 
-enum Probe { kFull = 0, kNoMt = 1, kNoOrder = 2, kNoStack = 3, kNoFetch = 4 };
+enum Probe { kFullProbe = 0, kNoMt = 1, kNoOrder = 2, kNoStack = 3, kNoFetch = 4 };
 
 __device__ __forceinline__ float safe_inv(float d) {
   const float s = fabsf(d) > 1e-20f ? d : (d >= 0.0f ? 1e-20f : -1e-20f);
   return 1.0f / s;
 }
 
+// Unsigned order of the key = float order of a non-NaN distance, with -0
+// read as +0 (the ranking compares distances with < and ==, where the two
+// zeros are equal).
+__device__ __forceinline__ unsigned dist_key(float f) {
+  unsigned b = __float_as_uint(f);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, t, u, v;
+  int tri;
+  bool a;
+};
+
+// Moller-Trumbore as the twin writes it, on a triangle in shared memory.
+__device__ __forceinline__ void tri_test(Ray& r, const float* tr, int id) {
+  const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
+  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - p0x, tvy = r.oy - p0y, tvz = r.oz - p0z;
+  const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float vv = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  if (r.a && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
+      tt < r.t) {
+    r.t = tt;
+    r.u = uu;
+    r.v = vv;
+    r.tri = id;
+  }
+}
+
+// m = min(m, tn) where ray y hits the box nearer than its best t. tn and
+// tf from the packet's near planes (nx, ny, nz) and far planes.
+__device__ __forceinline__ void box_planes(const Ray& y, float nx, float ny,
+                                           float nz, float fx, float fy,
+                                           float fz, float& m) {
+  const float tn = fmaxf(fmaxf((nx - y.ox) * y.ix, (ny - y.oy) * y.iy),
+                         (nz - y.oz) * y.iz);
+  const float tf = fminf(fminf((fx - y.ox) * y.ix, (fy - y.oy) * y.iy),
+                         (fz - y.oz) * y.iz);
+  if (y.a && tf >= fmaxf(tn, 0.0f) && tn < y.t) m = fminf(m, tn);
+}
+
+// The same from both slabs of box b, as the twin writes it.
+__device__ __forceinline__ void box_slabs(const Ray& y, const float* b,
+                                          float& m) {
+  const float t1x = (b[0] - y.ox) * y.ix, t2x = (b[3] - y.ox) * y.ix;
+  const float t1y = (b[1] - y.oy) * y.iy, t2y = (b[4] - y.oy) * y.iy;
+  const float t1z = (b[2] - y.oz) * y.iz, t2z = (b[5] - y.oz) * y.iz;
+  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                         fminf(t1z, t2z));
+  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                         fmaxf(t1z, t2z));
+  if (y.a && tf >= fmaxf(tn, 0.0f) && tn < y.t) m = fminf(m, tn);
+}
+
+// One packet's traversal state, the same in every lane of its warp.
+struct Walk {
+  int cur, ptr, done, n_dropped;
+};
+
+// Rank the hit children on lanes 0-7 (lane c: child c; lanes 8-31 repeat
+// them), push all but the nearest, and return the number of hit children;
+// `near` gets the nearest one's pointer. `kc`: this lane's child's packet
+// key; `cp`: its raw pointer.
 template <int kProbe>
-__global__ void __launch_bounds__(kLanes)
+__device__ __forceinline__ int rank_and_push(unsigned kc, int cp, int lane,
+                                             Walk& w, int* stack,
+                                             int stack_size, int& near) {
+  const int c = lane & 7;
+  const bool h = kc < dist_key(kBig) && cp >= 0;
+  const unsigned hit = __ballot_sync(kFull, h) & 0xffu;
+  const int nchild = __popc(hit);
+  int r = 0;
+  if (kProbe == kNoOrder) {
+    r = __popc(hit & ((1u << c) - 1u));
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWidth; ++q) {
+      const unsigned kq = __shfl_sync(kFull, kc, q);
+      r += ((hit >> q) & 1u) && (kq < kc || (kq == kc && q < c));
+    }
+  }
+  const int pc = cp >= 0 ? (cp & kLeafMask) : cp;
+  const unsigned first = __ballot_sync(kFull, h && r == 0) & 0xffu;
+  near = __shfl_sync(kFull, pc, first ? __ffs(first) - 1 : 0);
+  if (kProbe != kNoStack) {
+    const int pos = w.ptr + nchild - 1 - r;
+    const bool push = lane < kWidth && h && r >= 1;
+    if (push && pos < stack_size) stack[pos] = pc;
+    w.n_dropped += __popc(__ballot_sync(kFull, push && pos >= stack_size));
+  }
+  return nchild;
+}
+
+// Descend to the nearest hit child, else pop (as the twin does).
+template <int kProbe>
+__device__ __forceinline__ void advance(Walk& w, int nchild, int near,
+                                        const int* stack, int stack_size,
+                                        int end_index) {
+  const bool descend = nchild > 0;
+  const int pos = kProbe != kNoStack && descend ? w.ptr + nchild - 1 : w.ptr;
+  const int top = pos - 1 > 0 ? pos - 1 : 0;
+  const int popped = top < stack_size ? stack[top] : 0;
+  const int nxt = descend ? near : (pos > 0 ? popped : end_index);
+  w.ptr = descend ? pos : top;
+  const bool fin = nxt >= end_index;
+  w.cur = fin ? 0 : nxt;
+  w.done = fin;
+}
+
+// Five blocks an SM: at most 96 registers a thread, 20 warps an SM.
+template <int kProbe>
+__global__ void __launch_bounds__(32 * kPackets, 5)
     probe_kernel(const float* __restrict__ rows, const float* __restrict__ ox_,
                  const float* __restrict__ oy_, const float* __restrict__ oz_,
                  const float* __restrict__ dx_, const float* __restrict__ dy_,
@@ -70,156 +212,139 @@ __global__ void __launch_bounds__(kLanes)
                  const int32_t* __restrict__ act_, float* __restrict__ t_out,
                  float* __restrict__ u_out, float* __restrict__ v_out,
                  int32_t* __restrict__ tri_out, int32_t* __restrict__ steps_out,
-                 int32_t* __restrict__ dropped, int end_index, int max_steps,
-                 int leaf_cap, int stack_size) {
-  extern __shared__ int32_t s_stack[];
-  __shared__ float s_row[kLanes];
-  __shared__ float s_part[kWarps][kWidth];
-  __shared__ int s_cur, s_done;
-
-  const int lane = threadIdx.x;
-  const int warp = lane >> 5;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kLanes + lane;
-  const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
-  const float dx = dx_[i], dy = dy_[i], dz = dz_[i];
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const bool a = act_[i] != 0;
-  float t = t0_[i], u = 0.0f, v = 0.0f;
-  int tri = -1;
-  for (int s = lane; s < stack_size; s += kLanes) s_stack[s] = 0;
+                 int32_t* __restrict__ dropped, int n_packets, int end_index,
+                 int max_steps, int leaf_cap, int stack_size) {
+  extern __shared__ int32_t s_stacks[];
+  __shared__ __align__(16) float s_rows[kPackets][kLanes];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kPackets + warp;
+  if (p >= n_packets) return;
+  float* s_row = s_rows[warp];
+  int* stack = s_stacks + warp * stack_size;
+  Ray r[kRays];
+  bool any = false, finite = true;
+  bool neg[3] = {false, false, false}, pos[3] = {false, false, false};
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t i = static_cast<size_t>(p) * kLanes + 32 * k + lane;
+    Ray& y = r[k];
+    y.ox = ox_[i];
+    y.oy = oy_[i];
+    y.oz = oz_[i];
+    y.dx = dx_[i];
+    y.dy = dy_[i];
+    y.dz = dz_[i];
+    y.ix = safe_inv(y.dx);
+    y.iy = safe_inv(y.dy);
+    y.iz = safe_inv(y.dz);
+    y.t = t0_[i];
+    y.u = 0.0f;
+    y.v = 0.0f;
+    y.tri = -1;
+    y.a = act_[i] != 0;
+    if (y.a) {
+      any = true;
+      finite &= isfinite(y.ox) && isfinite(y.oy) && isfinite(y.oz);
+      neg[0] |= y.ix < 0.0f;
+      neg[1] |= y.iy < 0.0f;
+      neg[2] |= y.iz < 0.0f;
+      pos[0] |= y.ix > 0.0f;
+      pos[1] |= y.iy > 0.0f;
+      pos[2] |= y.iz > 0.0f;
+    }
+  }
+  // The packet's planes: axis a's near plane is box float a for ix > 0,
+  // a + 3 for ix < 0 (inverse components are never 0).
+  bool coherent = __all_sync(kFull, finite);
+  int off[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const bool n = __any_sync(kFull, neg[a]);
+    coherent &= !(n && __any_sync(kFull, pos[a]));
+    off[a] = n ? 3 : 0;
+  }
+  for (int s = lane; s < stack_size; s += 32) stack[s] = 0;
   const int caps = kProbe == kNoMt ? 0 : leaf_cap;
-  int ptr = 0, n_dropped = 0;  // thread 0's
-  int done = !__syncthreads_or(a);
-  int cur = 0, steps = 0;
-  while (!done && steps < max_steps) {
-    const int row = kProbe == kNoFetch ? 0 : cur;
-    s_row[lane] = rows[static_cast<size_t>(row) * kLanes + lane];
-    __syncthreads();
-    const bool leaf = __float_as_int(s_row[127]) == 1;
-    int nchild = 0, near = 0;  // thread 0's
-    if (leaf) {
+  Walk w{0, 0, !__any_sync(kFull, any), 0};
+  int steps = 0;
+  while (!w.done && steps < max_steps) {
+    const int row = kProbe == kNoFetch ? 0 : w.cur;
+    const float4 q = __ldg(reinterpret_cast<const float4*>(rows) +
+                           static_cast<size_t>(row) * 32 + lane);
+    __syncwarp();
+    reinterpret_cast<float4*>(s_row)[lane] = q;
+    __syncwarp();
+    if (__float_as_int(s_row[127]) == 1) {
       const int fc = __float_as_int(s_row[126]);
-      const int lcount = fc & 15;
-      const int lfirst = fc >> 4;
-      if (a) {
-        for (int k = 0; k < caps && k < lcount; ++k) {
-          const float* tr = s_row + 9 * k;
-          const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
-          const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-          const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-          const float pvx = dy * e2z - dz * e2y;
-          const float pvy = dz * e2x - dx * e2z;
-          const float pvz = dx * e2y - dy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-          const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-          const float qvx = tvy * e1z - tvz * e1y;
-          const float qvy = tvz * e1x - tvx * e1z;
-          const float qvz = tvx * e1y - tvy * e1x;
-          const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-          const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-          if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > kTMin &&
-              tt < t) {
-            t = tt;
-            u = uu;
-            v = vv;
-            tri = lfirst + k;
-          }
-        }
+      const int lcount = fc & 15, lfirst = fc >> 4;
+      for (int k = 0; k < caps && k < lcount; ++k) {
+#pragma unroll
+        for (int j = 0; j < kRays; ++j) tri_test(r[j], s_row + 9 * k, lfirst + k);
       }
+      advance<kProbe>(w, 0, 0, stack, stack_size, end_index);
     } else {
-      float m[kWidth];
-#pragma unroll
-      for (int c = 0; c < kWidth; ++c) {
-        const float* b = s_row + 16 * c;
-        const float t1x = (b[0] - ox) * ix, t2x = (b[3] - ox) * ix;
-        const float t1y = (b[1] - oy) * iy, t2y = (b[4] - oy) * iy;
-        const float t1z = (b[2] - oz) * iz, t2z = (b[5] - oz) * iz;
-        const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                               fminf(t1z, t2z));
-        const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                               fmaxf(t1z, t2z));
-        m[c] = (a && tf >= fmaxf(tn, 0.0f) && tn < t) ? tn : kBig;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          m[c] = fminf(m[c], __shfl_xor_sync(0xffffffffu, m[c], o));
-        }
-      }
-      if ((lane & 31) == 0) {
-#pragma unroll
-        for (int c = 0; c < kWidth; ++c) s_part[warp][c] = m[c];
-      }
-      __syncthreads();
-      if (lane == 0) {
-        // Children's packet distances, hit mask and untagged pointers.
-        float tnc[kWidth];
-        int ptrs[kWidth];
-        int hit = 0;
+      const float* bl = s_row + 16 * (lane & 7);
+      const int cp = __float_as_int(bl[6]);
+      const unsigned valid = __ballot_sync(kFull, cp >= 0) & 0xffu;
+      const unsigned fast =
+          coherent ? __ballot_sync(kFull, cp >= 0 && bl[0] <= bl[3] &&
+                                              bl[1] <= bl[4] && bl[2] <= bl[5]) &
+                         0xffu
+                   : 0u;
+      unsigned kc = dist_key(kBig);
+      if (fast == valid) {
+        // Every valid child on the packet's planes: all eight, unrolled;
+        // the empty slots' keys are dropped.
 #pragma unroll
         for (int c = 0; c < kWidth; ++c) {
-          float x = s_part[0][c];
+          const float* b = s_row + 16 * c;
+          const float nx = b[off[0]], ny = b[1 + off[1]], nz = b[2 + off[2]];
+          const float fx = b[3 - off[0]], fy = b[4 - off[1]],
+                      fz = b[5 - off[2]];
+          float m = kBig;
 #pragma unroll
-          for (int w = 1; w < kWarps; ++w) x = fminf(x, s_part[w][c]);
-          tnc[c] = x;
-          const int cp = __float_as_int(s_row[16 * c + 6]);
-          ptrs[c] = cp >= 0 ? (cp & kLeafMask) : cp;
-          if (x < kBig && cp >= 0) hit |= 1 << c;
+          for (int j = 0; j < kRays; ++j) box_planes(r[j], nx, ny, nz, fx, fy, fz, m);
+          const unsigned red = __reduce_min_sync(kFull, dist_key(m));
+          if ((lane & 7) == c && ((valid >> c) & 1u)) kc = red;
         }
-        nchild = __popc(hit);
-        // Rank each hit child; descend the nearest, push the others
-        // farthest-first above the stack pointer.
+      } else {
+        for (unsigned mm = valid; mm; mm &= mm - 1) {
+          const int c = __ffs(mm) - 1;
+          const float* b = s_row + 16 * c;
+          float m = kBig;
+          if ((fast >> c) & 1u) {
+            const float nx = b[off[0]], ny = b[1 + off[1]], nz = b[2 + off[2]];
+            const float fx = b[3 - off[0]], fy = b[4 - off[1]],
+                        fz = b[5 - off[2]];
 #pragma unroll
-        for (int c = 0; c < kWidth; ++c) {
-          if (!((hit >> c) & 1)) continue;
-          int r = 0;
-          if (kProbe == kNoOrder) {
-            r = __popc(hit & ((1 << c) - 1));
+            for (int j = 0; j < kRays; ++j) box_planes(r[j], nx, ny, nz, fx, fy, fz, m);
           } else {
 #pragma unroll
-            for (int q = 0; q < kWidth; ++q) {
-              if (((hit >> q) & 1) &&
-                  (tnc[q] < tnc[c] || (tnc[q] == tnc[c] && q < c))) {
-                ++r;
-              }
-            }
+            for (int j = 0; j < kRays; ++j) box_slabs(r[j], b, m);
           }
-          if (r == 0) {
-            near = ptrs[c];
-          } else if (kProbe != kNoStack) {
-            const int pc = ptr + nchild - 1 - r;
-            if (pc < stack_size) {
-              s_stack[pc] = ptrs[c];
-            } else {
-              ++n_dropped;
-            }
-          }
+          const unsigned red = __reduce_min_sync(kFull, dist_key(m));
+          if ((lane & 7) == c) kc = red;
         }
       }
+      int near;
+      const int nchild =
+          rank_and_push<kProbe>(kc, cp, lane, w, stack, stack_size, near);
+      __syncwarp();
+      advance<kProbe>(w, nchild, near, stack, stack_size, end_index);
     }
-    if (lane == 0) {
-      const bool descend = nchild > 0;
-      const int pos = kProbe != kNoStack && descend ? ptr + nchild - 1 : ptr;
-      const int top = pos - 1 > 0 ? pos - 1 : 0;
-      const int popped = top < stack_size ? s_stack[top] : 0;
-      const int nxt = descend ? near : (pos > 0 ? popped : end_index);
-      ptr = descend ? pos : top;
-      const bool fin = nxt >= end_index;
-      s_cur = fin ? 0 : nxt;
-      s_done = fin;
-    }
-    __syncthreads();
-    cur = s_cur;
-    done = s_done;
     ++steps;
   }
-  t_out[i] = t;
-  u_out[i] = u;
-  v_out[i] = v;
-  tri_out[i] = tri;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t i = static_cast<size_t>(p) * kLanes + 32 * k + lane;
+    t_out[i] = r[k].t;
+    u_out[i] = r[k].u;
+    v_out[i] = r[k].v;
+    tri_out[i] = r[k].tri;
+  }
   if (lane == 0) {
-    steps_out[blockIdx.x] = steps;
-    if (n_dropped) atomicAdd(dropped, n_dropped);
+    steps_out[p] = steps;
+    if (w.n_dropped) atomicAdd(dropped, w.n_dropped);
   }
 }
 
@@ -227,15 +352,16 @@ template <int kProbe>
 int launch(const void* rows, const void* const* in, void* const* out,
            void* dropped, int n_packets, int end_index, int max_steps,
            int leaf_cap, int stack_size, cudaStream_t s) {
-  const size_t smem = sizeof(int32_t) * stack_size;
+  const size_t smem = sizeof(int32_t) * stack_size * kPackets;
   auto f = [&](int k) { return static_cast<const float*>(in[k]); };
   auto o = [&](int k) { return static_cast<float*>(out[k]); };
-  probe_kernel<kProbe><<<n_packets, kLanes, smem, s>>>(
+  probe_kernel<kProbe><<<(n_packets + kPackets - 1) / kPackets, 32 * kPackets,
+                         smem, s>>>(
       static_cast<const float*>(rows), f(0), f(1), f(2), f(3), f(4), f(5),
       f(6), static_cast<const int32_t*>(in[7]), o(0), o(1), o(2),
       static_cast<int32_t*>(out[3]), static_cast<int32_t*>(out[4]),
-      static_cast<int32_t*>(dropped), end_index, max_steps, leaf_cap,
-      stack_size);
+      static_cast<int32_t*>(dropped), n_packets, end_index, max_steps,
+      leaf_cap, stack_size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,7 +371,8 @@ int launch(const void* rows, const void* const* in, void* const* out,
 // oz, dx, dy, dz, t0) and int32 (act); outputs t, u, v (float32), tri
 // (int32) of the same shape and steps (n_packets,) int32; ``dropped`` a
 // one-int32 counter. ``probe``: 0 full, 1 nomt, 2 noorder, 3 nostack,
-// 4 nofetch. Returns cudaGetLastError() after the launch; allocates
+// 4 nofetch. ``stack_size`` at most 2048 (a stack a warp in shared
+// memory). Returns cudaGetLastError() after the launch; allocates
 // nothing, does not sync.
 extern "C" int kernel_probe(const void* rows, const void* ox, const void* oy,
                             const void* oz, const void* dx, const void* dy,
@@ -256,14 +383,14 @@ extern "C" int kernel_probe(const void* rows, const void* ox, const void* oy,
                             int leaf_cap, int stack_size, int probe,
                             void* stream) {
   if (n_packets <= 0) return 0;
-  if (stack_size < 1 || stack_size > 8192) return cudaErrorInvalidValue;
+  if (stack_size < 1 || stack_size > kMaxStack) return cudaErrorInvalidValue;
   const void* in[8] = {ox, oy, oz, dx, dy, dz, t0, act};
   void* out[5] = {t_out, u_out, v_out, tri_out, steps_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (probe) {
-    case kFull:
-      return launch<kFull>(rows, in, out, dropped, n_packets, end_index,
-                           max_steps, leaf_cap, stack_size, s);
+    case kFullProbe:
+      return launch<kFullProbe>(rows, in, out, dropped, n_packets, end_index,
+                                max_steps, leaf_cap, stack_size, s);
     case kNoMt:
       return launch<kNoMt>(rows, in, out, dropped, n_packets, end_index,
                            max_steps, leaf_cap, stack_size, s);

@@ -24,9 +24,12 @@ rounds twice: measured, 1 ulp on 1 of 1,024 elements of seggather after
 import os
 import sys
 
+import hypothesis.extra.numpy as hnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _ROOT not in sys.path:
@@ -233,3 +236,367 @@ def test_r3_probe_matches_reference(name):
     assert out.shape == (1, 8, 128)
     np.testing.assert_allclose(out, ref, rtol=1e-6)
     assert (out == ref).mean() >= 0.99
+
+
+# -- E3's warp-per-row schedule (csrc/r3_probes.cu), modelled on the CPU ----
+# Warp w holds row w of the tile; lane l holds four of its elements in
+# registers x[l, j]: column 32 j + l (strided), or 4 l + j (contiguous:
+# cgather28, mxu, roll, segmin). A read of another element is a shuffle of
+# one register from a source lane, as the kernel issues it, or, for the
+# three ordered sums, a read of the per-warp scratch slice the warp writes
+# that step (lanes 0-3 run the sums, one a segment, four terms a load). A
+# sum the reference starts from x * 0 starts from +0 and each element adds
+# its own x * 0 to it: the two differ at most in the sign of a zero sum,
+# which the step's last add of i * 1e-9 (+0 or more) erases, and an
+# infinite or NaN x still gives NaN. mxu exchanges its tile through shared
+# memory. The model is held bit-equal to the twin's _step.
+
+E3_CONTIGUOUS = ("cgather28", "mxu", "roll", "segmin")
+LANES = np.arange(32)
+
+
+def _e3_cols(name):
+    j = np.arange(4)
+    if name in E3_CONTIGUOUS:
+        return 4 * LANES[:, None] + j[None, :]
+    return 32 * j[None, :] + LANES[:, None]
+
+
+def _shfl(v, src):
+    """__shfl_sync of the per-lane values v (8 warps, 32 lanes) from the
+    source lanes src (32,)."""
+    return v[:, src]
+
+
+def _quad_sums(sc, starts, n, m=None):
+    """Lanes 0-3's sums of n terms of the scratch slices sc (8, 160) from
+    starts[g] (a multiple of 4: LDS.128), times m[g] where given, in
+    order; (8, 4)."""
+    sums = torch.zeros(8, 4)
+    for g in range(4):
+        for f in range(n):
+            v = sc[:, starts[g] + f]
+            sums[:, g] = sums[:, g] + (v if m is None else v * m[g])
+    return sums
+
+
+def _e3_model_step(name, x, i):
+    """One step of probe ``name`` on the registers x (8, 32, 4)."""
+    f32 = np.float32
+    fi = torch.tensor(f32(i))
+    fi9 = fi * torch.tensor(f32(1e-9))
+    x = x.clone()
+    if name == "repeat":
+        d = (_shfl(x[..., 0], LANES & 3) + fi) * f32(1e-6)
+        return x + d[..., None]
+    if name in ("bdim", "seggather1"):
+        v = torch.stack([_shfl(x[..., 0], np.full(32, j)) for j in range(4)],
+                        dim=-1)
+        if name == "bdim":
+            return x + (v + fi) * f32(1e-6)
+        return x + v * f32(1e-7) + fi9
+    if name in ("seggather", "selmerge", "cgather28"):
+        sc = torch.zeros(8, 160)
+        if name == "seggather":  # copy j: sc[36 j + m] = row[j + m]
+            for j in range(4):
+                sc[:, 36 * j + LANES[j:] - j] = x[:, j:, 0]
+            sums = _quad_sums(sc, [36 * g for g in range(4)], 28)
+        elif name == "selmerge":  # sc[f] = row[2 f]
+            for j in range(4):
+                sc[:, 16 * j + LANES[::2] // 2] = x[:, ::2, j]
+            m = np.array([1.0, 1.0000001, 1.0000002, 1.0000003], f32)
+            sums = _quad_sums(sc, [0] * 4, 56, [torch.tensor(v) for v in m])
+        else:  # the row, 4 floats of padding a segment: segment g at 36 g
+            for j in range(4):
+                sc[:, 4 * (LANES + (LANES >> 3)) + j] = x[..., j]
+            sums = _quad_sums(sc, [36 * g for g in range(4)], 28)
+        if name == "cgather28":  # element (l, j) in segment l / 8
+            seg = sums[:, LANES >> 3][..., None].expand(8, 32, 4)
+        else:  # element (l, j) in segment j
+            seg = sums[:, None, :].expand(8, 32, 4)
+        scale = f32(1e-7) if name == "seggather" else f32(1e-9)
+        return x + (x * f32(0.0) + seg) * scale + fi9
+    if name == "mxu":  # the tile through shared memory, one barrier a step
+        tile = torch.empty(8, 128)
+        cols = torch.from_numpy(_e3_cols(name))
+        for w in range(8):
+            tile[w, cols] = x[w]
+        off = fi * f32(1e-9)
+        a = tile[:, :8].T + off  # a[w, k] = x[k, w] + off
+        col = tile[:, cols]  # (k, 32, 4)
+        s = a[:, 0, None, None] * col[0]
+        for k in range(1, 8):
+            s = s + a[:, k, None, None] * col[k]
+        return x + s * f32(1e-7)
+    if name == "transpose":
+        return x + x * f32(1e-7) + fi9
+    if name == "roll":  # i = 4 q + s: x[(j - s) % 4] of lane l - q - (j < s)
+        q, s = (i >> 2) & 31, i & 3
+        v = torch.stack([_shfl(x[..., (j - s) & 3],
+                               (LANES - q - int(j < s)) & 31)
+                         for j in range(4)], -1)
+        return x + v * f32(1e-7)
+    if name == "segmin":  # contiguous: a segment is 8 lanes
+        seg = LANES & ~7
+        n1, n2, n4 = (seg | ((LANES + d) & 7) for d in (1, 2, 4))
+        m = x + fi9
+        y = torch.stack([torch.fmin(m[..., 0], m[..., 1]),
+                         torch.fmin(m[..., 1], m[..., 2]),
+                         torch.fmin(m[..., 2], m[..., 3]),
+                         torch.fmin(m[..., 3], _shfl(m[..., 0], n1))], -1)
+        m = torch.stack([torch.fmin(y[..., 0], y[..., 2]),
+                         torch.fmin(y[..., 1], y[..., 3]),
+                         torch.fmin(y[..., 2], _shfl(y[..., 0], n1)),
+                         torch.fmin(y[..., 3], _shfl(y[..., 1], n1))], -1)
+        for src in (n1, n2, n4):
+            m = torch.stack([torch.fmin(m[..., j], _shfl(m[..., j], src))
+                             for j in range(4)], -1)
+        return x + m * f32(1e-9)
+    raise ValueError(name)
+
+
+def _signed_tile():
+    """A tile with negative values, both zeros, a row of -0 (whose sums
+    from x * 0 are -0 where the model's are +0) and an infinite element
+    (whose x * 0 is NaN)."""
+    x = r3.tile("cpu").clone().reshape(8, 128) - 0.5
+    x[0, :9] = torch.tensor([0.0, -0.0] * 4 + [0.0])
+    x[3, 40:50] = -0.0
+    x[5] = -0.0
+    x[6, 100] = float("inf")
+    return x.reshape(1, 8, 128)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["tile", "signed"])
+@pytest.mark.parametrize("name", r3.PROBES)
+def test_r3_warp_schedule_matches_twin(name, signed):
+    x = _signed_tile() if signed else r3.tile("cpu")
+    cols = torch.from_numpy(_e3_cols(name))
+    y = x.reshape(8, 128)
+    regs = y[:, cols]  # (8 warps, 32 lanes, 4)
+    for i in range(12):
+        y = r3._step(name, y, i)
+        regs = _e3_model_step(name, regs, i)
+        back = torch.empty(8, 128)
+        for w in range(8):
+            back[w, cols] = regs[w]
+        assert torch.equal(back.view(torch.int32), y.view(torch.int32)), (
+            name, i)
+
+
+# -- E1's warp-a-packet schedule (csrc/kernel_probe.cu), modelled on the CPU -
+# One warp walks one packet: lane l holds rays l, 32 + l, 64 + l and 96 + l,
+# and the warp keeps the packet's row, stack, cursor and stack pointer. At
+# an internal row, children with a negative pointer are not tested; where
+# the packet is octant-coherent (every active ray with finite origin and
+# one sign of each inverse direction component) a child whose box has
+# min <= max on each axis is tested against the packet's near and far
+# planes, else by min / max of both slabs; each lane takes the fminf of its
+# rays' hit distances, the warp the minimum of the lanes' order-preserving
+# keys (redux.sync); lane c ranks child c against the others' keys
+# (shuffles), the ballot of the lanes with rank 0 names the nearest child,
+# the lanes of the others push them, and the ballot of the pushes past the
+# stack counts the dropped ones. At a leaf row the pop comes before the
+# triangle tests (the next row's load is issued there). Held to the twin
+# probe_trace_plain: t, u, v, tri, steps bit-equal, dropped pushes equal.
+
+BIG_KEY = None  # set below from dist_key(BIG)
+
+
+def dist_key(f):
+    """The kernel's key of float32 distances: unsigned order = float order
+    of non-NaN values, -0 read as +0."""
+    b = np.asarray(f, np.float32).view(np.uint32).copy()
+    b[b == 0x80000000] = 0
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+BIG_KEY = int(dist_key(np.float32(kp.BIG)))
+
+
+def _rank_lanes(kc, cp, noorder):
+    """Lanes 0-7 of the kernel's rank step: child c's hit bit, its rank
+    among the hit children by (key, index) (noorder: by index), the hit
+    mask and the nearest child's lane (-1 if none)."""
+    c = np.arange(8)
+    h = (kc < BIG_KEY) & (cp >= 0)
+    if noorder:
+        r = np.array([h[:q].sum() for q in c])
+    else:
+        kq, kcc = kc[None, :], kc[:, None]
+        nearer = (kq < kcc) | ((kq == kcc) & (c[None, :] < c[:, None]))
+        r = (nearer & h[None, :]).sum(axis=1)
+    first = np.flatnonzero(h & (r == 0))
+    return h, r, (int(first[0]) if first.size else -1)
+
+
+def _e1_model(bufs, args, probe, max_steps):
+    kw = kp.probe_kwargs(bufs, probe)
+    end, caps_in, S = kw["end_index"], kw["leaf_cap"], kw["stack_size"]
+    caps = 0 if probe == "nomt" else caps_in
+    rows = bufs.trav_rows
+    rows_i = rows.view(torch.int32)
+    G = args[1].shape[0]
+    flat = [a.reshape(G * 8, 128) for a in args[1:]]
+    outs = [torch.empty(G * 8, 128) for _ in range(3)]
+    tri_o = torch.empty(G * 8, 128, dtype=torch.int32)
+    steps_o = torch.zeros(G * 8, dtype=torch.int32)
+    dropped = 0
+    from loupiote_tpu_torch.ops.intersect import moller_trumbore
+    from loupiote_tpu_torch.ops.wide import _safe_inv
+    for p in range(G * 8):
+        o = [flat[a][p] for a in range(3)]
+        d = [flat[a][p] for a in range(3, 6)]
+        inv = [_safe_inv(x) for x in d]
+        t, a = flat[6][p].clone(), flat[7][p] != 0
+        u, v = torch.zeros(128), torch.zeros(128)
+        tri = torch.full((128,), -1, dtype=torch.int32)
+        fin = torch.stack([torch.isfinite(x) for x in o]).all(0)
+        coherent = bool(fin[a].all())
+        off = []
+        for ax in range(3):
+            neg, pos = (inv[ax] < 0) & a, (inv[ax] > 0) & a
+            coherent &= not (bool(neg.any()) and bool(pos.any()))
+            off.append(3 if bool(neg.any()) else 0)
+        stack = np.zeros(S, np.int64)
+        cur = ptr = steps = 0
+        done = not bool(a.any())
+
+        def advance(nchild, near):
+            nonlocal cur, ptr, done
+            desc = nchild > 0
+            pos = ptr + nchild - 1 if probe != "nostack" and desc else ptr
+            top = max(pos - 1, 0)
+            popped = int(stack[top]) if top < S else 0
+            nxt = near if desc else (popped if pos > 0 else end)
+            ptr = pos if desc else top
+            done = nxt >= end
+            cur = 0 if done else nxt
+
+        while not done and steps < max_steps:
+            row = 0 if probe == "nofetch" else cur
+            rs, ri = rows[row], rows_i[row]
+            if int(ri[127]) == 1:
+                fc = int(ri[126])
+                advance(0, 0)  # the pop comes first: the next row's load
+                for k in range(min(caps, fc & 15)):
+                    uu, vv, tt = moller_trumbore(
+                        o, d, tuple(rs[9 * k + j] for j in range(9)))
+                    ok = (a & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                          & (tt > kp.T_MIN) & (tt < t))
+                    t = torch.where(ok, tt, t)
+                    u = torch.where(ok, uu, u)
+                    v = torch.where(ok, vv, v)
+                    tri = torch.where(ok, (fc >> 4) + k, tri)
+            else:
+                box = rs.view(8, 16)
+                cp = ri.view(8, 16)[:, 6].numpy().astype(np.int64)
+                kc = np.full(8, BIG_KEY, np.uint32)  # lane c's key
+                for c in np.flatnonzero(cp >= 0):
+                    b = box[c]
+                    fast = coherent and bool((b[:3] <= b[3:6]).all())
+                    if fast:
+                        tn = torch.fmax(torch.fmax(
+                            (b[off[0]] - o[0]) * inv[0],
+                            (b[1 + off[1]] - o[1]) * inv[1]),
+                            (b[2 + off[2]] - o[2]) * inv[2])
+                        tf = torch.fmin(torch.fmin(
+                            (b[3 - off[0]] - o[0]) * inv[0],
+                            (b[4 - off[1]] - o[1]) * inv[1]),
+                            (b[5 - off[2]] - o[2]) * inv[2])
+                    else:
+                        t1 = [(b[x] - o[x]) * inv[x] for x in range(3)]
+                        t2 = [(b[x + 3] - o[x]) * inv[x] for x in range(3)]
+                        tn = torch.fmax(torch.fmax(
+                            torch.fmin(t1[0], t2[0]),
+                            torch.fmin(t1[1], t2[1])), torch.fmin(t1[2], t2[2]))
+                        tf = torch.fmin(torch.fmin(
+                            torch.fmax(t1[0], t2[0]),
+                            torch.fmax(t1[1], t2[1])), torch.fmax(t1[2], t2[2]))
+                    hit = a & (tf >= torch.fmax(tn, torch.tensor(0.0))) & (
+                        tn < t)
+                    # Each lane's fminf over its rays 32 j + lane, then the
+                    # warp's minimum key.
+                    tnv, hv = tn.view(4, 32), hit.view(4, 32)
+                    m = torch.full((32,), kp.BIG)
+                    for j in range(4):
+                        m = torch.where(hv[j], torch.fmin(m, tnv[j]), m)
+                    kc[c] = dist_key(m.numpy()).min()
+                h, r, first = _rank_lanes(kc, cp, probe == "noorder")
+                nchild = int(h.sum())
+                ptrs = np.where(cp >= 0, cp & int(LEAF_TAG - 1), cp)
+                near = int(ptrs[first]) if first >= 0 else 0
+                if probe != "nostack":
+                    for c in np.flatnonzero(h & (r >= 1)):
+                        pos = ptr + nchild - 1 - int(r[c])
+                        if pos < S:
+                            stack[pos] = ptrs[c]
+                        else:
+                            dropped += 1
+                advance(nchild, near)
+            steps += 1
+        outs[0][p], outs[1][p], outs[2][p], tri_o[p] = t, u, v, tri
+        steps_o[p] = steps
+    shp = (G, 8, 128)
+    return ((outs[0].view(shp), outs[1].view(shp), outs[2].view(shp),
+             tri_o.view(shp), steps_o.view(G, 8)), dropped)
+
+
+@pytest.mark.parametrize("probe", kp.PROBES)
+def test_probe_warp_schedule_matches_twin(arch, probe):
+    bufs, _, args = arch
+    kw = _kwargs(bufs, probe)
+    d0 = kp.dropped_pushes("cpu")
+    ref = kp.probe_trace_plain(*args, **kw)
+    ref_drop = kp.dropped_pushes("cpu") - d0
+    got, dropped = _e1_model(bufs, args, probe, kw["max_steps"])
+    for g, r_ in zip(got, ref):
+        if g.dtype == torch.float32:
+            g, r_ = g.view(torch.int32), r_.view(torch.int32)
+        assert torch.equal(g, r_)
+    assert dropped == ref_drop
+    if probe == "nofetch":
+        assert dropped > 0
+
+
+_DISTANCES = st.one_of(
+    st.sampled_from([0.0, -0.0, 1.0, -1.0, 2.5, -2.5, 1e30, -1e30, kp.BIG,
+                     np.inf, -np.inf]),
+    st.floats(width=32, allow_nan=False))
+
+
+@settings(max_examples=400, deadline=None)
+@given(hnp.arrays(np.float32, (8, 6), elements=_DISTANCES),
+       hnp.arrays(np.bool_, (8, 6)),
+       hnp.arrays(np.int64, 8, elements=st.integers(-1, 3)), st.booleans())
+def test_key_minimum_ranks_children_as_fminf(tn, hit, cp, noorder):
+    """Six lanes' distances to eight children (kBig where a lane misses):
+    the minimum of the order-preserving keys ranks the children, names the
+    nearest and finds the hit mask exactly as the fminf minimum of the
+    distances does under the twin's rule (< and == on floats, ties by
+    index), with -0 and +0, negative distances, equal distances and kBig
+    among them."""
+    masked = np.where(hit, tn, np.float32(kp.BIG))
+    tnc = np.fmin.reduce(masked, axis=1)
+    c = np.arange(8)
+    hf = (tnc < np.float32(kp.BIG)) & (cp >= 0)
+    if noorder:
+        rf = np.cumsum(hf) - hf
+    else:
+        a_, b_ = tnc[None, :], tnc[:, None]
+        nearer = (a_ < b_) | ((a_ == b_) & (c[None, :] < c[:, None]))
+        rf = (nearer & hf[None, :]).sum(axis=1)
+    h, r, first = _rank_lanes(dist_key(masked).min(axis=1), cp, noorder)
+    assert (h == hf).all()
+    assert (r[h] == rf[hf]).all()
+    nearest = np.flatnonzero(hf & (rf == 0))
+    assert first == (int(nearest[0]) if nearest.size else -1)
+
+
+@settings(max_examples=400, deadline=None)
+@given(_DISTANCES, _DISTANCES)
+def test_dist_key_preserves_order(a, b):
+    a, b = np.float32(a), np.float32(b)
+    ka, kb = dist_key(a), dist_key(b)
+    assert (ka < kb) == (a < b)
+    assert (ka == kb) == (a == b)
