@@ -47,13 +47,19 @@
 //   push them, and a ballot counts the pushes past the stack.
 // A leaf row's triangles are tested by every lane for its four rays.
 //
-// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, E1):
-// instruction issue. A leaf step issues ~65 instructions a ray and
-// triangle (the twin's unfused products and adds, --fmad=false, and the
-// reciprocal), an internal step ~22 a ray and child; the row loads hide
-// behind the other warps. The redesign cut the internal step's issue (no
-// shuffle trees, no serial tail, no per-axis min/max on coherent packets,
-// no empty slots); the leaf tests are the twin's own arithmetic.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W, SM clock 1,980
+// MHz under this kernel; PERF.md, E1): instruction issue, and the wave's
+// tail. A leaf step issues ~65 instructions a ray and triangle (the
+// twin's unfused products and adds, --fmad=false, and the reciprocal),
+// an internal step ~22 a ray and child plus ~15 a child for the warp;
+// the row loads hide behind the other warps. The redesign took out the
+// parent's per-step overheads (shuffle trees, thread 0's serial ranking,
+// three barriers) and, on coherent packets, six of the eleven min/max of
+// each box test; the leaf tests are the twin's own arithmetic. Packets
+// take 2-3x the mean on the long end, so the last ~15% of a call runs
+// with fewer than half the packets resident; fewer resident packets, a
+// persistent grid and several warps a packet did not shorten it (the
+// sweep in PERF.md).
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py).

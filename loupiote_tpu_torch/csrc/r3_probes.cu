@@ -43,12 +43,15 @@
 //   double-buffered, with one block barrier a step.
 //
 // What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, E3):
-// each step is a dependent chain within a warp: a shuffle or a shared-
-// memory round trip and the body's own chain of adds (28 or 56 deep for
-// the sums). The design keeps the shuffle and shared-memory pipes off the
-// critical path (one shuffle, or one LDS.128, a term at most, and four
-// terms a load for the sums) and the 1,024-thread barrier out of every
-// body but mxu's, whose tile reads bound it.
+// each step's dependent chain within a warp. For the light bodies that is
+// a shuffle and two or three dependent float operations (16-27 ns a
+// step); for the sums, their 28 or 56 dependent adds (seggather and
+// cgather28 140-153 ns, selmerge 241 ns); segmin's five rounds of shuffle
+// and min (94 ns); mxu's whole-tile reads from shared memory, 4 KB a warp
+// a step (217 ns). The design takes the 1,024-thread barrier and the
+// shared-memory round trip out of every body but mxu's, and reads a
+// sum's terms four at a time so that the shuffle and load pipes stay off
+// the critical path.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py).

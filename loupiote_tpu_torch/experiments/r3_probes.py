@@ -33,12 +33,21 @@ SEED = 0
 SLOPE_REPS = 3  # timed calls at each end of the slope, after a warm-up
 TORCH_REPS = 3  # timed calls of each plain torch probe, after a warm-up
 
-# Float operations of one element's step as the body is written (adds,
-# multiplies, minima and selects; gathers and index arithmetic not
-# counted), for the operation bound.
-OPS_PER_ELEMENT = {"repeat": 3, "bdim": 3, "seggather": 33, "seggather1": 4,
-                   "mxu": 18, "transpose": 4, "selmerge": 232,
-                   "cgather28": 33, "roll": 2, "segmin": 9}
+# Float operations one step of the (8, 128) tile needs, for the operation
+# bound: adds, multiplies and minima; a term that every element of a row,
+# or of a 32-column segment of it, shares is counted once (the shared sums
+# of seggather, selmerge and cgather28, the gathered terms of repeat,
+# bdim and seggather1, segmin's segment minimum, mxu's x[k, r] + i*1e-9);
+# gathers, selects and index arithmetic are not counted. Per element:
+# seggather, selmerge and cgather28 5 (x * 0, its add to the sum, the
+# scale, two adds), repeat and bdim 1, seggather1 2, transpose 3, roll 2,
+# segmin 3, mxu 17 (8 products, 7 adds, the scale and the add).
+OPS_PER_STEP = {"repeat": 32 * 2 + 1024, "bdim": 32 * 2 + 1024,
+                "seggather": 32 * 28 + 1024 * 5, "seggather1": 32 + 1024 * 2,
+                "mxu": 64 + 1024 * 17, "transpose": 1024 * 3,
+                "selmerge": 8 * (56 + 3 * 112) + 1024 * 5,
+                "cgather28": 32 * 28 + 1024 * 5, "roll": 1024 * 2,
+                "segmin": 32 * 31 + 1024 * 3}
 
 # Launches of E3 by probe; each call that launches the kernel adds one.
 launches = {p: 0 for p in PROBES}
