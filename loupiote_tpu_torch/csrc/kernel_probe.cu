@@ -24,7 +24,8 @@
 // slot and is left alone), so the full probe returns the closest hits.
 // The row's kind still comes from float 127.
 //
-// Design: one warp walks one packet, with no block barrier. Lane l holds
+// Design: one warp walks one packet at a time, with no block barrier, on a
+// persistent grid whose warps take packets from a counter. Lane l holds
 // rays l, 32 + l, 64 + l and 96 + l; the warp keeps the packet's row (one
 // float4 a lane, staged in its own slice of shared memory), stack, cursor
 // and stack pointer, every lane alike. At an internal row:
@@ -57,9 +58,10 @@
 // three barriers) and, on coherent packets, six of the eleven min/max of
 // each box test; the leaf tests are the twin's own arithmetic. Packets
 // take 2-3x the mean on the long end, so the last ~15% of a call runs
-// with fewer than half the packets resident; fewer resident packets, a
-// persistent grid and several warps a packet did not shorten it (the
-// sweep in PERF.md).
+// with fewer than half the packets resident. The persistent grid, whose
+// warps take the next packet as soon as theirs ends, gained ~3% over a
+// block of four packets; fewer resident packets and several warps a
+// packet lost (the sweep in PERF.md).
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py).
@@ -71,7 +73,8 @@ namespace {
 
 constexpr int kLanes = 128;  // rays a packet
 constexpr int kRays = 4;     // rays a lane
-constexpr int kPackets = 4;  // packets (warps) a block
+constexpr int kPackets = 4;  // warps a block, each walking its own packets
+constexpr int kBlocksPerSm = 5;
 constexpr int kWidth = 8;
 constexpr int kLeafTag = 1 << 30;
 constexpr int kLeafMask = kLeafTag - 1;
@@ -208,25 +211,18 @@ __device__ __forceinline__ void advance(Walk& w, int nchild, int near,
   w.done = fin;
 }
 
-// Five blocks an SM: at most 96 registers a thread, 20 warps an SM.
+// Packet p, walked by one warp; `s_row` and `stack` are the warp's.
 template <int kProbe>
-__global__ void __launch_bounds__(32 * kPackets, 5)
-    probe_kernel(const float* __restrict__ rows, const float* __restrict__ ox_,
-                 const float* __restrict__ oy_, const float* __restrict__ oz_,
-                 const float* __restrict__ dx_, const float* __restrict__ dy_,
-                 const float* __restrict__ dz_, const float* __restrict__ t0_,
-                 const int32_t* __restrict__ act_, float* __restrict__ t_out,
-                 float* __restrict__ u_out, float* __restrict__ v_out,
-                 int32_t* __restrict__ tri_out, int32_t* __restrict__ steps_out,
-                 int32_t* __restrict__ dropped, int n_packets, int end_index,
-                 int max_steps, int leaf_cap, int stack_size) {
-  extern __shared__ int32_t s_stacks[];
-  __shared__ __align__(16) float s_rows[kPackets][kLanes];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kPackets + warp;
-  if (p >= n_packets) return;
-  float* s_row = s_rows[warp];
-  int* stack = s_stacks + warp * stack_size;
+__device__ __forceinline__ void walk_packet(
+    int p, int lane, float* s_row, int* stack, const float* __restrict__ rows,
+    const float* __restrict__ ox_, const float* __restrict__ oy_,
+    const float* __restrict__ oz_, const float* __restrict__ dx_,
+    const float* __restrict__ dy_, const float* __restrict__ dz_,
+    const float* __restrict__ t0_, const int32_t* __restrict__ act_,
+    float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int32_t* __restrict__ tri_out,
+    int32_t* __restrict__ steps_out, int32_t* __restrict__ dropped,
+    int end_index, int max_steps, int leaf_cap, int stack_size) {
   Ray r[kRays];
   bool any = false, finite = true;
   bool neg[3] = {false, false, false}, pos[3] = {false, false, false};
@@ -269,7 +265,9 @@ __global__ void __launch_bounds__(32 * kPackets, 5)
     coherent &= !(n && __any_sync(kFull, pos[a]));
     off[a] = n ? 3 : 0;
   }
+  __syncwarp();  // the warp's previous packet is done with the stack
   for (int s = lane; s < stack_size; s += 32) stack[s] = 0;
+  __syncwarp();
   const int caps = kProbe == kNoMt ? 0 : leaf_cap;
   Walk w{0, 0, !__any_sync(kFull, any), 0};
   int steps = 0;
@@ -354,20 +352,59 @@ __global__ void __launch_bounds__(32 * kPackets, 5)
   }
 }
 
+// A persistent grid, five blocks an SM (20 warps; at most 96 registers a
+// thread): each warp takes the next packet from `next` (zero at launch)
+// until none is left, so a warp whose packet ends starts another at once
+// instead of idling until its block's longest packet ends.
+template <int kProbe>
+__global__ void __launch_bounds__(32 * kPackets, kBlocksPerSm)
+    probe_kernel(const float* __restrict__ rows, const float* __restrict__ ox_,
+                 const float* __restrict__ oy_, const float* __restrict__ oz_,
+                 const float* __restrict__ dx_, const float* __restrict__ dy_,
+                 const float* __restrict__ dz_, const float* __restrict__ t0_,
+                 const int32_t* __restrict__ act_, float* __restrict__ t_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out,
+                 int32_t* __restrict__ tri_out, int32_t* __restrict__ steps_out,
+                 int32_t* __restrict__ dropped, unsigned* __restrict__ next,
+                 int n_packets, int end_index, int max_steps, int leaf_cap,
+                 int stack_size) {
+  extern __shared__ int32_t s_stacks[];
+  __shared__ __align__(16) float s_rows[kPackets][kLanes];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (;;) {
+    unsigned p = 0;
+    if (lane == 0) p = atomicAdd(next, 1u);
+    p = __shfl_sync(kFull, p, 0);
+    if (p >= static_cast<unsigned>(n_packets)) return;
+    walk_packet<kProbe>(static_cast<int>(p), lane, s_rows[warp],
+                        s_stacks + warp * stack_size, rows, ox_, oy_, oz_,
+                        dx_, dy_, dz_, t0_, act_, t_out, u_out, v_out,
+                        tri_out, steps_out, dropped, end_index, max_steps,
+                        leaf_cap, stack_size);
+  }
+}
+
 template <int kProbe>
 int launch(const void* rows, const void* const* in, void* const* out,
-           void* dropped, int n_packets, int end_index, int max_steps,
-           int leaf_cap, int stack_size, cudaStream_t s) {
+           void* dropped, void* next, int n_packets, int end_index,
+           int max_steps, int leaf_cap, int stack_size, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (n_packets + kPackets - 1) / kPackets;
+  const int grid = blocks < sms * kBlocksPerSm ? blocks : sms * kBlocksPerSm;
   const size_t smem = sizeof(int32_t) * stack_size * kPackets;
   auto f = [&](int k) { return static_cast<const float*>(in[k]); };
   auto o = [&](int k) { return static_cast<float*>(out[k]); };
-  probe_kernel<kProbe><<<(n_packets + kPackets - 1) / kPackets, 32 * kPackets,
-                         smem, s>>>(
+  probe_kernel<kProbe><<<grid, 32 * kPackets, smem, s>>>(
       static_cast<const float*>(rows), f(0), f(1), f(2), f(3), f(4), f(5),
       f(6), static_cast<const int32_t*>(in[7]), o(0), o(1), o(2),
       static_cast<int32_t*>(out[3]), static_cast<int32_t*>(out[4]),
-      static_cast<int32_t*>(dropped), n_packets, end_index, max_steps,
-      leaf_cap, stack_size);
+      static_cast<int32_t*>(dropped), static_cast<unsigned*>(next),
+      n_packets, end_index, max_steps, leaf_cap, stack_size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,18 +413,19 @@ int launch(const void* rows, const void* const* in, void* const* out,
 // C entry point (ctypes). Ray inputs are (n_packets, 128) float32 (ox, oy,
 // oz, dx, dy, dz, t0) and int32 (act); outputs t, u, v (float32), tri
 // (int32) of the same shape and steps (n_packets,) int32; ``dropped`` a
-// one-int32 counter. ``probe``: 0 full, 1 nomt, 2 noorder, 3 nostack,
-// 4 nofetch. ``stack_size`` at most 2048 (a stack a warp in shared
-// memory). Returns cudaGetLastError() after the launch; allocates
+// one-int32 counter; ``next`` a one-int32 packet counter, zero at the
+// launch. ``probe``: 0 full, 1 nomt, 2 noorder, 3 nostack, 4 nofetch.
+// ``stack_size`` at most 2048 (a stack a warp in shared memory). Returns
+// the first CUDA error of the device queries and the launch; allocates
 // nothing, does not sync.
 extern "C" int kernel_probe(const void* rows, const void* ox, const void* oy,
                             const void* oz, const void* dx, const void* dy,
                             const void* dz, const void* t0, const void* act,
                             void* t_out, void* u_out, void* v_out,
                             void* tri_out, void* steps_out, void* dropped,
-                            int n_packets, int end_index, int max_steps,
-                            int leaf_cap, int stack_size, int probe,
-                            void* stream) {
+                            void* next, int n_packets, int end_index,
+                            int max_steps, int leaf_cap, int stack_size,
+                            int probe, void* stream) {
   if (n_packets <= 0) return 0;
   if (stack_size < 1 || stack_size > kMaxStack) return cudaErrorInvalidValue;
   const void* in[8] = {ox, oy, oz, dx, dy, dz, t0, act};
@@ -395,20 +433,20 @@ extern "C" int kernel_probe(const void* rows, const void* ox, const void* oy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (probe) {
     case kFullProbe:
-      return launch<kFullProbe>(rows, in, out, dropped, n_packets, end_index,
-                                max_steps, leaf_cap, stack_size, s);
+      return launch<kFullProbe>(rows, in, out, dropped, next, n_packets,
+                                end_index, max_steps, leaf_cap, stack_size, s);
     case kNoMt:
-      return launch<kNoMt>(rows, in, out, dropped, n_packets, end_index,
+      return launch<kNoMt>(rows, in, out, dropped, next, n_packets, end_index,
                            max_steps, leaf_cap, stack_size, s);
     case kNoOrder:
-      return launch<kNoOrder>(rows, in, out, dropped, n_packets, end_index,
-                              max_steps, leaf_cap, stack_size, s);
+      return launch<kNoOrder>(rows, in, out, dropped, next, n_packets,
+                              end_index, max_steps, leaf_cap, stack_size, s);
     case kNoStack:
-      return launch<kNoStack>(rows, in, out, dropped, n_packets, end_index,
-                              max_steps, leaf_cap, stack_size, s);
+      return launch<kNoStack>(rows, in, out, dropped, next, n_packets,
+                              end_index, max_steps, leaf_cap, stack_size, s);
     case kNoFetch:
-      return launch<kNoFetch>(rows, in, out, dropped, n_packets, end_index,
-                              max_steps, leaf_cap, stack_size, s);
+      return launch<kNoFetch>(rows, in, out, dropped, next, n_packets,
+                              end_index, max_steps, leaf_cap, stack_size, s);
     default:
       return cudaErrorInvalidValue;
   }

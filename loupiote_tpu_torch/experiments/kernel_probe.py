@@ -223,18 +223,20 @@ def _launch(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *, end_index: int,
     lib = _build.load("kernel_probe")
     fn = lib.kernel_probe
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     tri = torch.empty(shape, dtype=torch.int32, device=dev)
     steps = torch.empty(shape[:2], dtype=torch.int32, device=dev)
+    # The persistent grid's packet counter.
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)
     err = fn(trav_rows.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
              dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), t0.data_ptr(),
              act.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
              tri.data_ptr(), steps.data_ptr(), _dropped.tensor(dev).data_ptr(),
-             shape[0] * SUB, int(end_index), int(max_steps), int(leaf_cap),
+             nxt.data_ptr(), shape[0] * SUB, int(end_index), int(max_steps), int(leaf_cap),
              int(stack_size), PROBES.index(probe),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
