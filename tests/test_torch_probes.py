@@ -386,7 +386,9 @@ def test_r3_warp_schedule_matches_twin(name, signed):
 
 # -- E1's warp-a-packet schedule (csrc/kernel_probe.cu), modelled on the CPU -
 # One warp walks one packet: lane l holds rays l, 32 + l, 64 + l and 96 + l,
-# and the warp keeps the packet's row, stack, cursor and stack pointer. At
+# and the warp keeps the packet's row, stack, cursor and stack pointer (on
+# the card the warps of a persistent grid take packets from a counter, one
+# after another; no packet's result depends on which warp walks it). At
 # an internal row, children with a negative pointer are not tested; where
 # the packet is octant-coherent (every active ray with finite origin and
 # one sign of each inverse direction component) a child whose box has
