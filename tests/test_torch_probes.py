@@ -398,8 +398,8 @@ def test_r3_warp_schedule_matches_twin(name, signed):
 # keys (redux.sync); lane c ranks child c against the others' keys
 # (shuffles), the ballot of the lanes with rank 0 names the nearest child,
 # the lanes of the others push them, and the ballot of the pushes past the
-# stack counts the dropped ones. At a leaf row the pop comes before the
-# triangle tests (the next row's load is issued there). Held to the twin
+# stack counts the dropped ones. At a leaf row the pop follows the
+# triangle tests. Held to the twin
 # probe_trace_plain: t, u, v, tri, steps bit-equal, dropped pushes equal.
 
 BIG_KEY = None  # set below from dist_key(BIG)
@@ -480,7 +480,6 @@ def _e1_model(bufs, args, probe, max_steps):
             rs, ri = rows[row], rows_i[row]
             if int(ri[127]) == 1:
                 fc = int(ri[126])
-                advance(0, 0)  # the pop comes first: the next row's load
                 for k in range(min(caps, fc & 15)):
                     uu, vv, tt = moller_trumbore(
                         o, d, tuple(rs[9 * k + j] for j in range(9)))
@@ -490,6 +489,7 @@ def _e1_model(bufs, args, probe, max_steps):
                     u = torch.where(ok, uu, u)
                     v = torch.where(ok, vv, v)
                     tri = torch.where(ok, (fc >> 4) + k, tri)
+                advance(0, 0)
             else:
                 box = rs.view(8, 16)
                 cp = ri.view(8, 16)[:, 6].numpy().astype(np.int64)
