@@ -121,10 +121,13 @@ SUBSET = 65_536  # rays the plain traversals replay of each full wave
 # Bounds: H100 SXM peaks (HBM3 rate and dense FP32 rate), float32 outside the
 # tensor cores, and the float operations of one box test (6 sub, 6 mul,
 # 6 min/max of the slab pairs, 4 to combine, the clamp and 2 compares) and
-# of one Moller-Trumbore test (46 arithmetic, 7 compares).
+# of one Moller-Trumbore test (46 arithmetic, 7 compares). A box test
+# against a packet's near and far planes (E1 on an octant-coherent packet)
+# needs none of the 6 min/max of the slab pairs.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
 OPS_BOX, OPS_TRI = 25, 53
+OPS_PLANE = OPS_BOX - 6
 RAY_IN_BYTES = 12 + 12 + 4 + 1  # ro, rd, tmax, active
 
 
@@ -154,7 +157,7 @@ def cuda_ms(fn, reps, warm=True):
     return timed(fn, reps, warm)[0]
 
 
-def device_kernels(fn, complete=None, tries=3):
+def device_kernels(fn, complete=None):
     """(name, ms) of each device kernel of one call of fn, in the order
     they started, from torch.profiler: fn runs twice under the profiler's
     schedule, a warm-up step that is traced and dropped, then the step
@@ -162,13 +165,14 @@ def device_kernels(fn, complete=None, tries=3):
     has missed the first kernels it should have recorded). ``complete``:
     a test of that list which a whole step passes (a kernel fn always
     launches); where given, a profile that fails it is taken again, up to
-    ``tries`` profiles, because the read step too has missed its first
+    three profiles, because the read step too has missed its first
     kernels on the card (E7 in phase 2, in two runs of four in one call).
     Returns the last profile's list."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    tries = 3
     for attempt in range(1, tries + 1):
         got = []
         with profile(activities=[ProfilerActivity.CUDA],
@@ -1677,8 +1681,8 @@ def main():
     N1 = G1 * 1024
     rows = ["| variant | kernel ms | twin ms | t,u,v,tri,steps equal (3 "
             "runs) | dropped pushes (kernel / twin) | steps mean / max | "
-            "hit frac | bound ms (which) | verdict |",
-            "|---|---|---|---|---|---|---|---|---|"]
+            "hit frac | box tests (on planes) | bound ms (which) | verdict |",
+            "|---|---|---|---|---|---|---|---|---|---|"]
     e1_res, ok = {}, True
     for probe, res in e1["probes"].items():
         st = {}
@@ -1702,10 +1706,14 @@ def main():
         drop_ok = (all(d == p_drop for d in drops)
                    and (probe == "nofetch" or p_drop == 0))
         # Bytes: each lane's rays (24), t0, act in and t, u, v, tri out
-        # once, the steps once, the table once.
+        # once, the steps once, the table once. Operations: the box tests
+        # of children with a pointer, those on the packet's planes at
+        # OPS_PLANE, and the triangle tests.
+        planes = st["plane_tests"]
         b_ms, b_by = bound_of(N1 * (24 + 4 + 4 + 16) + G1 * 8 * 4
                               + trav_bytes,
-                              st["box_tests"] * OPS_BOX
+                              (st["box_tests"] - planes) * OPS_BOX
+                              + planes * OPS_PLANE
                               + st["tri_tests"] * OPS_TRI)
         err = float((kout[0] - pout[0]).abs().max())
         ok_p = all(same) and drop_ok
@@ -1717,7 +1725,8 @@ def main():
                     f"{'/'.join(str(d) for d in drops)} / {p_drop} | "
                     f"{res['steps_mean']:.1f} / {res['steps_max']} | "
                     f"{float((kout[3] >= 0).float().mean()):.4f} | "
-                    f"{b_ms:.4f} ({b_by}) | {'PASS' if ok_p else 'FAIL'} |")
+                    f"{st['box_tests']} ({planes / max(st['box_tests'], 1):.4f})"
+                    f" | {b_ms:.4f} ({b_by}) | {'PASS' if ok_p else 'FAIL'} |")
     # full's closest hits against K1 on the same rays.
     dro1 = torch.stack([e1_args[a].reshape(-1) for a in (1, 2, 3)], 1)
     drd1 = torch.stack([e1_args[a].reshape(-1) for a in (4, 5, 6)], 1)

@@ -37,6 +37,9 @@ from . import require_card, time_probe
 from .measure_traversal import build, make_waves
 
 SUB, SUBP, WIDTH = 8, 128, 8
+# Entries of a packet's stack at most (csrc/kernel_probe.cu: kMaxStack):
+# each warp keeps its packet's stack in shared memory.
+STACK_MAX = 2048
 TILE = SUB * SUBP
 BIG = 3e30
 PROBES = ("full", "nomt", "noorder", "nostack", "nofetch")
@@ -77,8 +80,13 @@ def probe_trace_plain(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *,
     Inputs (G, 8, 128): ray components and ``t0`` float32, ``act`` int32.
     Returns ``(t, u, v, tri, steps)``: (G, 8, 128) float32 t, u, v, int32
     tri (-1 where no hit) and (G, 8) int32 steps per packet. ``stats``:
-    receives ``box_tests`` (8 per active lane at an internal row) and
-    ``tri_tests`` (triangles an active lane tested at a leaf row).
+    receives ``box_tests`` (at an internal row, one per active lane and
+    child with a non-negative pointer: an empty slot needs no test),
+    ``plane_tests`` (those of ``box_tests`` that the packet's near and far
+    planes decide: its active rays have finite origins and one sign of
+    each inverse direction component, and the child's box has min <= max
+    on each axis) and ``tri_tests`` (triangles an active lane tested at a
+    leaf row).
     """
     if probe not in PROBES:
         raise ValueError(f"unknown probe {probe!r}")
@@ -102,8 +110,15 @@ def probe_trace_plain(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *,
     idx = torch.arange(WIDTH, device=dev)
     caps = 0 if probe == "nomt" else leaf_cap
     live = torch.nonzero(act_l.any(dim=1)).flatten()
+    # Packets whose active rays share an octant and have finite origins.
+    coherent = torch.ones(n, dtype=torch.bool, device=dev)
+    for a in range(3):
+        coherent &= (torch.isfinite(o[a]) | ~act_l).all(dim=1)
+        coherent &= ~(((inv[a] < 0) & act_l).any(dim=1)
+                      & ((inv[a] > 0) & act_l).any(dim=1))
     # Work counts kept on the device, read once at the end.
     box_tests = torch.zeros((), dtype=torch.int64, device=dev)
+    plane_tests = torch.zeros_like(box_tests)
     tri_tests = torch.zeros_like(box_tests)
     dropped = torch.zeros_like(box_tests)
     for _ in range(max_steps):
@@ -154,7 +169,12 @@ def probe_trace_plain(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *,
                                              torch.maximum(t1[1], t2[1])),
                                torch.maximum(t1[2], t2[2]))
             na = act_l[ni][:, None, :]
-            box_tests += WIDTH * na.sum()
+            nact = act_l[ni].sum(dim=1)
+            tested = cptr >= 0
+            planes = (tested & coherent[ni][:, None]
+                      & (box[:, :, :3] <= box[:, :, 3:6]).all(dim=2))
+            box_tests += (tested.sum(dim=1) * nact).sum()
+            plane_tests += (planes.sum(dim=1) * nact).sum()
             rhit = ((tf >= torch.clamp_min(tn, 0.0)) & (tn < t[ni][:, None, :])
                     & na)
             tnc = torch.where(rhit, tn, BIG).amin(dim=2)  # (nn, 8)
@@ -199,6 +219,7 @@ def probe_trace_plain(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *,
     _dropped.tensor(dev).add_(dropped)
     if stats is not None:
         stats["box_tests"] = int(box_tests)
+        stats["plane_tests"] = int(plane_tests)
         stats["tri_tests"] = int(tri_tests)
     return (t.view(G, SUB, SUBP), u.view(G, SUB, SUBP), v.view(G, SUB, SUBP),
             tri.view(G, SUB, SUBP), steps.view(G, SUB))
@@ -220,6 +241,9 @@ def _launch(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *, end_index: int,
                + [("act", act, torch.int32, shape)])
     if trav_rows.dim() != 2 or trav_rows.shape[1] != 128:
         raise ValueError("trav_rows: need shape (rows, 128)")
+    if not 1 <= stack_size <= STACK_MAX:
+        raise ValueError(f"kernel_probe: stack_size {stack_size} outside "
+                         f"1..{STACK_MAX}")
     lib = _build.load("kernel_probe")
     fn = lib.kernel_probe
     fn.restype = ctypes.c_int

@@ -444,6 +444,9 @@ def _e1_model(bufs, args, probe, max_steps):
     tri_o = torch.empty(G * 8, 128, dtype=torch.int32)
     steps_o = torch.zeros(G * 8, dtype=torch.int32)
     dropped = 0
+    # Work the kernel does for active rays: box tests (a child with a
+    # pointer), those on the packet's planes, triangle tests.
+    work = {"box_tests": 0, "plane_tests": 0, "tri_tests": 0}
     from loupiote_tpu_torch.ops.intersect import moller_trumbore
     from loupiote_tpu_torch.ops.wide import _safe_inv
     for p in range(G * 8):
@@ -462,6 +465,7 @@ def _e1_model(bufs, args, probe, max_steps):
             off.append(3 if bool(neg.any()) else 0)
         stack = np.zeros(S, np.int64)
         cur = ptr = steps = 0
+        n_act = int(a.sum())
         done = not bool(a.any())
 
         def advance(nchild, near):
@@ -480,6 +484,7 @@ def _e1_model(bufs, args, probe, max_steps):
             rs, ri = rows[row], rows_i[row]
             if int(ri[127]) == 1:
                 fc = int(ri[126])
+                work["tri_tests"] += n_act * min(caps, fc & 15)
                 for k in range(min(caps, fc & 15)):
                     uu, vv, tt = moller_trumbore(
                         o, d, tuple(rs[9 * k + j] for j in range(9)))
@@ -497,6 +502,8 @@ def _e1_model(bufs, args, probe, max_steps):
                 for c in np.flatnonzero(cp >= 0):
                     b = box[c]
                     fast = coherent and bool((b[:3] <= b[3:6]).all())
+                    work["box_tests"] += n_act
+                    work["plane_tests"] += n_act * fast
                     if fast:
                         tn = torch.fmax(torch.fmax(
                             (b[off[0]] - o[0]) * inv[0],
@@ -541,7 +548,19 @@ def _e1_model(bufs, args, probe, max_steps):
         steps_o[p] = steps
     shp = (G, 8, 128)
     return ((outs[0].view(shp), outs[1].view(shp), outs[2].view(shp),
-             tri_o.view(shp), steps_o.view(G, 8)), dropped)
+             tri_o.view(shp), steps_o.view(G, 8)), dropped, work)
+
+
+_E1_MODEL_RUNS = {}
+
+
+def _e1_model_of(arch, probe):
+    """_e1_model on the fixture's blocks, once a variant for the module."""
+    if probe not in _E1_MODEL_RUNS:
+        bufs, _, args = arch
+        _E1_MODEL_RUNS[probe] = _e1_model(bufs, args, probe,
+                                          _kwargs(bufs, probe)["max_steps"])
+    return _E1_MODEL_RUNS[probe]
 
 
 @pytest.mark.parametrize("probe", kp.PROBES)
@@ -551,7 +570,7 @@ def test_probe_warp_schedule_matches_twin(arch, probe):
     d0 = kp.dropped_pushes("cpu")
     ref = kp.probe_trace_plain(*args, **kw)
     ref_drop = kp.dropped_pushes("cpu") - d0
-    got, dropped = _e1_model(bufs, args, probe, kw["max_steps"])
+    got, dropped, _ = _e1_model_of(arch, probe)
     for g, r_ in zip(got, ref):
         if g.dtype == torch.float32:
             g, r_ = g.view(torch.int32), r_.view(torch.int32)
@@ -559,6 +578,40 @@ def test_probe_warp_schedule_matches_twin(arch, probe):
     assert dropped == ref_drop
     if probe == "nofetch":
         assert dropped > 0
+
+
+@pytest.mark.parametrize("stack_size", [0, kp.STACK_MAX + 1])
+def test_probe_wrapper_refuses_a_stack_it_cannot_hold(arch, stack_size):
+    """E1 keeps each packet's stack in shared memory, kMaxStack entries at
+    most: the wrapper raises for a stack_size outside 1..STACK_MAX before
+    anything is built or launched, and STACK_MAX is the kernel's limit."""
+    bufs, _, args = arch
+    kw = dict(kp.probe_kwargs(bufs, "full"), stack_size=stack_size)
+    with pytest.raises(ValueError, match="stack_size"):
+        kp._launch(*args, **kw)
+    src = os.path.join(_ROOT, "loupiote_tpu_torch", "csrc",
+                       "kernel_probe.cu")
+    with open(src) as f:
+        assert f"kMaxStack = {kp.STACK_MAX};" in f.read()
+    assert bufs.wide_stack <= kp.STACK_MAX
+
+
+@pytest.mark.parametrize("probe", kp.PROBES)
+def test_probe_twin_counts_the_kernels_work(arch, probe):
+    """The twin's work counts, which E1's bound reads, are the tests the
+    kernel's schedule makes for active rays: a box test for each child with
+    a pointer (none for an empty slot), the plane tests among them, and
+    the triangle tests."""
+    bufs, _, args = arch
+    stats = {}
+    kp.probe_trace_plain(*args, **_kwargs(bufs, probe), stats=stats)
+    work = _e1_model_of(arch, probe)[2]
+    assert stats == work
+    # nomt tests no triangle, and nofetch reads the root (internal) row.
+    assert (work["tri_tests"] > 0) == (probe not in ("nomt", "nofetch"))
+    # The sorted wave's packets take the plane test for most children, not
+    # for all.
+    assert 0 < work["plane_tests"] < work["box_tests"]
 
 
 _DISTANCES = st.one_of(
