@@ -39,7 +39,8 @@
 //   min and max of the pair are the near and the far term (equal values;
 //   a zero's sign may differ, which only < and == read). That saves six
 //   min/max of each ray's box test, and a row whose valid children all
-//   qualify runs its eight children unrolled;
+//   qualify runs its eight children unrolled (one helper, child_key,
+//   tests a child either way);
 // - each lane takes the fminf of its rays' hit distances and the warp the
 //   minimum of one order-preserving key a lane (redux.sync): unsigned
 //   order is float order, -0 read as +0, so ranks and hits are the twin's;
@@ -55,8 +56,10 @@
 // an internal step ~22 a ray and child plus ~15 a child for the warp;
 // the row loads hide behind the other warps. The redesign took out the
 // parent's per-step overheads (shuffle trees, thread 0's serial ranking,
-// three barriers) and, on coherent packets, six of the eleven min/max of
-// each box test; the leaf tests are the twin's own arithmetic. Packets
+// three barriers) and, on coherent packets (99.97% of the sorted wave's
+// box tests), six of the eleven min/max of each box test; without the
+// unrolled row the loop read 3% slower on full, 5% on nomt and 15% on
+// nofetch. The leaf tests are the twin's own arithmetic. Packets
 // take 2-3x the mean on the long end, so the last ~15% of a call runs
 // with fewer than half the packets resident. The persistent grid, whose
 // warps take the next packet as soon as theirs ends, gained ~3% over a
@@ -154,6 +157,25 @@ __device__ __forceinline__ void box_slabs(const Ray& y, const float* b,
   const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
                          fmaxf(t1z, t2z));
   if (y.a && tf >= fmaxf(tn, 0.0f) && tn < y.t) m = fminf(m, tn);
+}
+
+// The packet's key of one child: each lane's fminf of its rays' hit
+// distances to box b, by the packet's planes (`off`: the near plane's
+// offset on each axis) where `planes`, else by both slabs; then the warp's
+// minimum key.
+__device__ __forceinline__ unsigned child_key(const Ray* r, const float* b,
+                                              const int* off, bool planes) {
+  float m = kBig;
+  if (planes) {
+    const float nx = b[off[0]], ny = b[1 + off[1]], nz = b[2 + off[2]];
+    const float fx = b[3 - off[0]], fy = b[4 - off[1]], fz = b[5 - off[2]];
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) box_planes(r[j], nx, ny, nz, fx, fy, fz, m);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) box_slabs(r[j], b, m);
+  }
+  return __reduce_min_sync(kFull, dist_key(m));
 }
 
 // One packet's traversal state, the same in every lane of its warp.
@@ -301,32 +323,14 @@ __device__ __forceinline__ void walk_packet(
         // the empty slots' keys are dropped.
 #pragma unroll
         for (int c = 0; c < kWidth; ++c) {
-          const float* b = s_row + 16 * c;
-          const float nx = b[off[0]], ny = b[1 + off[1]], nz = b[2 + off[2]];
-          const float fx = b[3 - off[0]], fy = b[4 - off[1]],
-                      fz = b[5 - off[2]];
-          float m = kBig;
-#pragma unroll
-          for (int j = 0; j < kRays; ++j) box_planes(r[j], nx, ny, nz, fx, fy, fz, m);
-          const unsigned red = __reduce_min_sync(kFull, dist_key(m));
+          const unsigned red = child_key(r, s_row + 16 * c, off, true);
           if ((lane & 7) == c && ((valid >> c) & 1u)) kc = red;
         }
       } else {
         for (unsigned mm = valid; mm; mm &= mm - 1) {
           const int c = __ffs(mm) - 1;
-          const float* b = s_row + 16 * c;
-          float m = kBig;
-          if ((fast >> c) & 1u) {
-            const float nx = b[off[0]], ny = b[1 + off[1]], nz = b[2 + off[2]];
-            const float fx = b[3 - off[0]], fy = b[4 - off[1]],
-                        fz = b[5 - off[2]];
-#pragma unroll
-            for (int j = 0; j < kRays; ++j) box_planes(r[j], nx, ny, nz, fx, fy, fz, m);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kRays; ++j) box_slabs(r[j], b, m);
-          }
-          const unsigned red = __reduce_min_sync(kFull, dist_key(m));
+          const unsigned red =
+              child_key(r, s_row + 16 * c, off, (fast >> c) & 1u);
           if ((lane & 7) == c) kc = red;
         }
       }
