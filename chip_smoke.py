@@ -166,7 +166,8 @@ def device_kernels(fn, complete=None):
     a test of that list which a whole step passes (a kernel fn always
     launches); where given, a profile that fails it is taken again, up to
     three profiles, because the read step too has missed its first
-    kernels on the card (E7 in phase 2, in two runs of four in one call).
+    kernels on the card (E7 in phase 2, in two runs of four in one call;
+    a K2 launch of the interactive frame in one run of four in another).
     Returns the last profile's list."""
     import torch
     from torch.autograd import DeviceType
@@ -987,20 +988,29 @@ def main():
 
     # K2's and K3's device time in one interactive frame (torch.profiler):
     # the sum over the frame's launches (K2: its closest-hit waves; K3: its
-    # NEE and final-gather shadow waves).
+    # NEE and final-gather shadow waves). `frame_launches`: the launches of
+    # the last frame, the one the profiler's step reads.
+    frame_launches = {}
+
     def next_frame():
         view[0, 3] += 1e-3
+        k2, k3 = bvh2.launches_closest, bvh2.launches_occluded
         inter.raytrace(view)
+        frame_launches["K2"] = bvh2.launches_closest - k2
+        frame_launches["K3"] = bvh2.launches_occluded - k3
 
-    n_k2, n_k3 = bvh2.launches_closest, bvh2.launches_occluded
+    def frame_complete(ks):
+        return all(sum(w in n for n, _ in ks) == frame_launches[k]
+                   for k, w in (("K2", "bvh2_trace_kernel"),
+                                ("K3", "bvh2_occluded_kernel")))
+
     cap0 = bvh2.capped_rays(dev)
-    frame_kernels = device_kernels(next_frame)
+    frame_kernels = device_kernels(next_frame, frame_complete)
     k2_frame = [ms for name, ms in frame_kernels
                 if "bvh2_trace_kernel" in name]
     k3_frame = [ms for name, ms in frame_kernels
                 if "bvh2_occluded_kernel" in name]
-    n_k2 = (bvh2.launches_closest - n_k2) // 2  # the frame read, of two
-    n_k3 = (bvh2.launches_occluded - n_k3) // 2
+    n_k2, n_k3 = frame_launches["K2"], frame_launches["K3"]
     frame_capped = bvh2.capped_rays(dev) - cap0
     k2_frame_ms, k3_frame_ms = sum(k2_frame), sum(k3_frame)
     for kname, n_k, got, total in (("K2", n_k2, k2_frame, k2_frame_ms),
@@ -1012,7 +1022,7 @@ def main():
         if n_k == 0 or len(got) != n_k:
             raise SystemExit(f"chip_smoke: the profiler did not record each "
                              f"{kname} launch of the interactive frame")
-    print(f"rays stopped by the step bound in the profiled frame (K2 and "
+    print(f"rays stopped by the step bound in the profiled frames (K2 and "
           f"K3): {frame_capped}")
     if frame_capped:
         raise SystemExit("chip_smoke: a K2 or K3 launch of the interactive "
