@@ -89,7 +89,13 @@ Phases, each timed:
                  nofetch); full against K1's closest hits;
  12. E2        - lane_gather_bench.main (csrc/lane_gather.cu) at 64, 512
                  and 4,096 steps with launch counts; the kernel against
-                 its twin at 128 x 1,024 lanes and 512 steps, bit-equal;
+                 its twin, bit-equal with NaN counted equal: three runs at
+                 128 x 1,024 lanes and 512 steps and one at 4,096, the
+                 edge-case input (links with bits above 1,023, non-finite
+                 origins and directions) at 128 x 1,024 lanes, and 1 and
+                 3 x 1,024 lanes; ptxas's report, the launch's blocks and
+                 SMs, the SM clock while it runs and its on-chip gather
+                 floor;
  13. E3        - r3_probes.main all (csrc/r3_probes.cu): ten slopes between
                  30,000 and 230,000 steps with launch counts; each probe
                  against its twin, bit-equal, in three runs at 256 steps
@@ -462,6 +468,42 @@ def bits_equal(a, b):
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b))
+
+
+def nan_equal(a, b):
+    """Bit equality of two float32 tensors, NaN counted equal to NaN."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def smi_during(fn, seconds=1.0):
+    """(median SM clock in MHz, median power drawn in W) of nvidia-smi's
+    samples every 100 ms while fn runs over and over for ``seconds``; the
+    sampler is stopped before this returns."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = np.array([[float(x) for x in ln.split(",")]
+                     for ln in text.splitlines()
+                     if ln.strip() and "N/A" not in ln])
+    if rows.size == 0:
+        raise SystemExit("chip_smoke: nvidia-smi gave no SM clock sample")
+    return float(np.median(rows[:, 0])), float(np.median(rows[:, 1]))
 
 
 def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
@@ -1767,23 +1809,62 @@ def main():
         raise SystemExit("chip_smoke: the E2 path did not launch E2")
     e2_args = [torch.from_numpy(a).to(dev)
                for a in lane_gather_bench.inputs()]
-    k2 = lane_gather_bench.run(*e2_args, steps=512)
     e2_plain, p2 = timed(lambda: lane_gather_bench.lane_gather_plain(
         *e2_args, steps=512), 1, warm=False)
-    e2_same = bits_equal(k2, p2)
-    e2_err = float((k2 - p2).abs().max())
+    # Three kernel runs at 512 steps and one at 4,096, each held to the
+    # twin, NaN counted equal; then the edge-case input (links with bits
+    # above 1,023, non-finite origins and directions) at the path's width
+    # and G = 1 and 3, at 512 steps.
+    k2 = [lane_gather_bench.run(*e2_args, steps=512) for _ in range(3)]
+    e2_same = [nan_equal(k, p2) for k in k2]
+    e2_same.append(nan_equal(
+        lane_gather_bench.run(*e2_args, steps=4096),
+        lane_gather_bench.lane_gather_plain(*e2_args, steps=4096)))
+    e2_cases = {}
+    for label, G, kw in (
+            ("edge", lane_gather_bench.BLOCKS,
+             {"high_links": True, "nonfinite": True}),
+            ("G=1", 1, {}), ("G=3", 3, {})):
+        a = [torch.from_numpy(x).to(dev)
+             for x in lane_gather_bench.inputs(G, **kw)]
+        ke = lane_gather_bench.run(*a, steps=512)
+        pe = lane_gather_bench.lane_gather_plain(*a, steps=512)
+        e2_cases[label] = (nan_equal(ke, pe),
+                           float(torch.isnan(pe).float().mean()))
+    e2_err = float((k2[0] - p2).abs().max())
     lanes2 = e2_args[1].numel()
     # Bytes: the table, each lane's rays in and its sum out once.
     e2_bound = bound_of(7 * 1024 * 4 + lanes2 * 7 * 4,
                         lanes2 * 512 * OPS_BOX)
-    print(f"E2 path launches {e2_launches}; at {e2_args[1].shape[0]} x 1024 "
-          f"lanes and 512 steps: output equal {e2_same}; kernel "
-          f"{e2['ms'][512]:.4f} ms, plain torch {e2_plain:.3f} ms, bound "
-          f"{e2_bound[0]:.4f} ms ({e2_bound[1]}); slope "
-          f"{e2['per_step_ns']:.3f} ns a step of all lanes (the reference's "
-          f"per-block figure {e2['ref_per_block_ns']:.3f} ns) ({smi})",
+    # The on-chip gather floor: each lane-step reads its 28-byte entry
+    # from shared memory, 128 bytes a clock an SM, at the SM clock read
+    # while E2 runs.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    e2_mhz, e2_watts = smi_during(
+        lambda: lane_gather_bench.run(*e2_args, steps=4096))
+    e2_floor = lanes2 * 512 * 28 / (n_sm * 128 * e2_mhz * 1e6) * 1e3
+    e2_info = lane_gather_bench.info()
+    e2_blocks = lane_gather_bench.launch_plan(lanes2, n_sm)
+    print("ptxas, csrc/lane_gather.cu:\n" + ptxas_lines("lane_gather"),
           flush=True)
-    if not e2_same:
+    print(f"E2 launch: {e2_blocks} blocks of {lane_gather_bench.THREADS} "
+          f"threads for {lanes2} lanes; {e2_info['shared_bytes']} bytes of "
+          f"dynamic shared memory a block, {e2_info['blocks_per_sm']} block(s) "
+          f"an SM by the occupancy query, so "
+          f"{min(e2_blocks, n_sm * e2_info['blocks_per_sm'])} blocks at once "
+          f"on {min(e2_blocks, n_sm)} of the {n_sm} SMs", flush=True)
+    print(f"E2 path launches {e2_launches}; at {e2_args[1].shape[0]} x 1024 "
+          f"lanes: equal at 512 steps (3 runs) and 4,096 "
+          f"{'/'.join(str(x) for x in e2_same)}; "
+          + "; ".join(f"{k} equal {v[0]} (NaN share {v[1]:.4f})"
+                      for k, v in e2_cases.items())
+          + f"; kernel {e2['ms'][512]:.4f} ms at 512 steps, plain torch "
+          f"{e2_plain:.3f} ms, bound {e2_bound[0]:.4f} ms ({e2_bound[1]}), "
+          f"gather floor {e2_floor:.4f} ms at {e2_mhz:.0f} MHz "
+          f"({e2_watts:.0f} W drawn); slope {e2['per_step_ns']:.3f} ns a "
+          f"step of all lanes (the reference's per-block figure "
+          f"{e2['ref_per_block_ns']:.3f} ns) ({smi})", flush=True)
+    if not (all(e2_same) and all(v[0] for v in e2_cases.values())):
         raise SystemExit("chip_smoke: E2 disagrees with its plain version")
     phase("E2: path + check", t0)
 
@@ -2042,7 +2123,9 @@ def main():
         "ms": e2["ms"][512], "plain_ms": e2_plain, "bound_ms": e2_bound[0],
         "bound_by": e2_bound[1], "library_ms": None,
         "ms_by_steps": e2["ms"], "per_step_ns": e2["per_step_ns"],
-        "ref_per_block_ns": e2["ref_per_block_ns"]})
+        "ref_per_block_ns": e2["ref_per_block_ns"],
+        "gather_floor_ms": e2_floor, "sm_clock_mhz": e2_mhz,
+        "blocks": e2_blocks, "shared_bytes": e2_info["shared_bytes"]})
     kernels.append({
         "name": "r3_probes", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/r3_probes.cu",

@@ -7,17 +7,34 @@
 // adds tn to its accumulator and moves to the hit link on a hit, else to
 // the miss link, modulo 1,024. The plain torch twin is
 // loupiote_tpu_torch/experiments/lane_gather_bench.py::lane_gather_plain;
-// both add in the same order, so the card's check is bit equality.
+// both add in the same order and take min / max that return NaN where an
+// operand is NaN (torch.minimum / maximum), so the card's check is bit
+// equality, NaN counted equal to NaN.
 //
-// Design. One block of 1,024 threads per (8, 128) grid cell, one thread
-// per lane; the (7, 1024) table (28 KB) is staged in shared memory, the
-// counterpart of the reference's VMEM-resident table, so each step's
-// seven gathers are shared-memory loads at data-dependent addresses.
+// What bounds it on an H100: each step of each lane reads one entry at a
+// data-dependent index from shared memory, so a warp's 32 lanes fall on
+// random banks; the seven 4-byte loads of the first design took ~24
+// wavefronts a warp-step (one 128-byte wavefront a clock an SM), and the
+// shared-memory pipe set the pace. The steps are serial per lane, and the
+// card holds every lane of the probe's 128 x 1,024 at once (~31 warps an
+// SM), so no other parallelism hides that.
 //
-// What bounds it on an H100: the steps are serial per lane and each waits
-// on its link load from shared memory; the slab test is 25 operations a
-// step. With 128 blocks of 1,024 threads the card holds every lane at
-// once, so the time is one lane's chain of steps: latency bound.
+// Design. The table is staged once per block in dynamic shared memory,
+// packed as three arrays read with one 16-, one 8- and one 4-byte load a
+// step: (minx, miny, minz, maxx), (maxy, maxz) and hit | miss << 16, the
+// links masked to 1,024 and scaled to element indices when staged. Each
+// array holds kCopies copies, interleaved entry by entry (copy c of entry
+// e is element e * kCopies + c), and lane l reads copy l mod kCopies: the
+// eight lanes of a quarter-warp each read their own 16-byte bank group,
+// which leaves the 8- and 4-byte loads as the only ones that conflict,
+// ~11 wavefronts a warp-step (28 bytes x 1,024 entries x 8 copies =
+// 229,376 bytes, one block an SM). The grid is about one block an SM (the
+// wrapper's launch_plan), and the lanes are split evenly between the
+// blocks, so every SM works; a lane's start is its global index & 127.
+// min / max are PTX min.NaN / max.NaN. A step is then ~35 instructions,
+// 17 of them on the ALU pipe, which runs 16 lanes a clock a scheduler
+// (11 FMNMX, 3 LEA, 2 for the link's halves, FSETP): that pipe and the
+// shared-memory pipe now bound it about equally.
 //
 // Build: nvcc -O3 -std=c++17 --fmad=false -gencode arch=compute_90a,code=sm_90a
 // (loupiote_tpu_torch/_build.py).
@@ -28,13 +45,27 @@
 namespace {
 
 constexpr int kEntries = 1024;
-constexpr int kFields = 7;
+constexpr int kThreads = 1024;
+constexpr int kCopies = 8;
+constexpr int kSmemBytes = (16 + 8 + 4) * kCopies * kEntries;
 
 __device__ __forceinline__ float inv(float d) {
   return 1.0f / (fabsf(d) > 1e-20f ? d : 1e-20f);
 }
 
-__global__ void __launch_bounds__(kEntries)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
     lane_gather_kernel(const float* __restrict__ tab,
                        const float* __restrict__ ox_,
                        const float* __restrict__ oy_,
@@ -42,31 +73,53 @@ __global__ void __launch_bounds__(kEntries)
                        const float* __restrict__ dx_,
                        const float* __restrict__ dy_,
                        const float* __restrict__ dz_, float* __restrict__ out,
-                       int steps) {
-  __shared__ float s_tab[kFields][kEntries];
-  const int e = threadIdx.x;
-  for (int f = 0; f < kFields; ++f) s_tab[f][e] = tab[f * kEntries + e];
+                       long long n_lanes, int steps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* s_lo = reinterpret_cast<float4*>(smem);
+  float2* s_hi = reinterpret_cast<float2*>(s_lo + kCopies * kEntries);
+  int* s_link = reinterpret_cast<int*>(s_hi + kCopies * kEntries);
+  // Thread x stages element x of each array, so a warp's stores are
+  // consecutive; copies of one entry read its fields from L1.
+  for (int x = threadIdx.x; x < kCopies * kEntries; x += blockDim.x) {
+    const int e = x / kCopies;
+    s_lo[x] = make_float4(tab[e], tab[kEntries + e], tab[2 * kEntries + e],
+                          tab[3 * kEntries + e]);
+    s_hi[x] = make_float2(tab[4 * kEntries + e], tab[5 * kEntries + e]);
+    const int link = __float_as_int(tab[6 * kEntries + e]);
+    const int hit = (link & (kEntries - 1)) * kCopies;
+    const int miss = ((link >> 16) & (kEntries - 1)) * kCopies;
+    s_link[x] = hit | (miss << 16);
+  }
   __syncthreads();
-  const size_t i = static_cast<size_t>(blockIdx.x) * kEntries + e;
+  // Block b walks lanes [b * n / nb, (b + 1) * n / nb): at most kThreads.
+  const long long first = blockIdx.x * n_lanes / gridDim.x;
+  const long long end = (blockIdx.x + 1LL) * n_lanes / gridDim.x;
+  const long long i = first + threadIdx.x;
+  if (i >= end) return;
   const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
   const float ix = inv(dx_[i]), iy = inv(dy_[i]), iz = inv(dz_[i]);
-  int cur = e & 127;
+  const int copy = threadIdx.x % kCopies;
+  // cur: the entry's first element, entry * kCopies.
+  int cur = static_cast<int>(i & 127) * kCopies;
   float acc = 0.0f;
   for (int s = 0; s < steps; ++s) {
-    const float t1x = (s_tab[0][cur] - ox) * ix;
-    const float t2x = (s_tab[3][cur] - ox) * ix;
-    const float t1y = (s_tab[1][cur] - oy) * iy;
-    const float t2y = (s_tab[4][cur] - oy) * iy;
-    const float t1z = (s_tab[2][cur] - oz) * iz;
-    const float t2z = (s_tab[5][cur] - oz) * iz;
-    const int link = __float_as_int(s_tab[6][cur]);
-    const float tn =
-        fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-    const float tf =
-        fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-    const int nxt = tf >= fmaxf(tn, 0.0f) ? (link & 0xFFFF)
-                                          : ((link >> 16) & 0xFFFF);
-    cur = nxt & (kEntries - 1);
+    const float4 lo = s_lo[cur + copy];
+    const float2 hi = s_hi[cur + copy];
+    const int link = s_link[cur + copy];
+    const float t1x = (lo.x - ox) * ix;
+    const float t2x = (lo.w - ox) * ix;
+    const float t1y = (lo.y - oy) * iy;
+    const float t2y = (hi.x - oy) * iy;
+    const float t1z = (lo.z - oz) * iz;
+    const float t2z = (hi.y - oz) * iz;
+    const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                             min_nan(t1z, t2z));
+    const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                             max_nan(t1z, t2z));
+    // A NaN tn or tf fails the test: the miss link, as in the twin.
+    cur = tf >= max_nan(tn, 0.0f)
+              ? (link & 0xFFFF)
+              : static_cast<int>(static_cast<unsigned>(link) >> 16);
     acc = acc + tn;
   }
   out[i] = acc;
@@ -75,17 +128,39 @@ __global__ void __launch_bounds__(kEntries)
 }  // namespace
 
 // C entry point (ctypes). ``tab``: (7, 1024) float32 (the link field's
-// bits an int32); rays and ``out``: (n_blocks, 1024) float32. Returns
-// cudaGetLastError() after the launch; allocates nothing, does not sync.
+// bits an int32); rays and ``out``: ``n_lanes`` float32 each; ``n_blocks``
+// blocks of 1,024 threads, with n_lanes <= 1,024 * n_blocks. Sets the
+// kernel's dynamic shared memory limit and returns its error if that is
+// refused, else cudaGetLastError() after the launch; allocates nothing,
+// does not sync.
 extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
                            const void* oz, const void* dx, const void* dy,
-                           const void* dz, void* out, int n_blocks, int steps,
-                           void* stream) {
-  if (n_blocks <= 0) return 0;
+                           const void* dz, void* out, long long n_lanes,
+                           int n_blocks, int steps, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (n_blocks <= 0 || n_lanes > static_cast<long long>(n_blocks) * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  lane_gather_kernel<<<n_blocks, kEntries, 0,
+  lane_gather_kernel<<<n_blocks, kThreads, kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       f(tab), f(ox), f(oy), f(oz), f(dx), f(dy), f(dz),
-      static_cast<float*>(out), steps);
+      static_cast<float*>(out), n_lanes, steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's dynamic shared memory a block, and the blocks one SM holds
+// at once by CUDA's occupancy query. Returns the CUDA error, or 0.
+extern "C" int lane_gather_info(int* shared_bytes, int* blocks_per_sm) {
+  *shared_bytes = kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, lane_gather_kernel, kThreads, kSmemBytes);
+  return static_cast<int>(err);
 }

@@ -8,7 +8,9 @@ Each lane of an (8, 128) block walks its own node sequence over a
 accumulates, moving to the hit link on a hit and to the miss link
 otherwise, modulo 1,024. Every lane starts at its index within its
 128-lane row, so the 8 rows of a block start alike. ``inv`` keeps no
-sign: ``1 / where(|d| > 1e-20, d, 1e-20)``.
+sign: ``1 / where(|d| > 1e-20, d, 1e-20)``. min and max return NaN where
+an operand is NaN, as the reference's ``jnp.minimum`` / ``maximum`` do, so
+a lane with a NaN slab term takes the miss link and sums NaN.
 
 Run on the card:
 ``python -m loupiote_tpu_torch.experiments.lane_gather_bench``.
@@ -27,10 +29,14 @@ from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
 ENTRIES = SUB * SUBP
+THREADS = 1024  # threads of an E2 block
 STEPS = (64, 512, 4096)
 BLOCKS = 128  # the reference's grid: 128 blocks of 1,024 lanes
 SEED = 3
 REPS = 4  # timed calls at each step count, after one warm-up
+# The values inputs(nonfinite=True) puts in some lanes.
+ORIGIN_EDGES = (np.inf, -np.inf, np.nan)
+DIR_EDGES = (np.inf, -np.inf, -0.0, 1e-30, -1e-30)
 
 # Launches of E2 on the card; each call that launches the kernel adds one.
 launches = 0
@@ -74,6 +80,45 @@ def lane_gather_plain(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     return acc.view(shape)
 
 
+def launch_plan(n_lanes: int, n_sm: int) -> int:
+    """Blocks of E2's launch for ``n_lanes`` lanes on a card of ``n_sm``
+    SMs: as many waves of one 1,024-thread block an SM as the lanes need,
+    but no more blocks than warps of lanes. The kernel splits the lanes
+    evenly between the blocks (block b walks lanes [b n / nb, (b + 1) n /
+    nb)), at most 1,024 a block."""
+    waves = -(-n_lanes // (n_sm * THREADS))
+    return max(1, min(n_sm * waves, -(-n_lanes // 32)))
+
+
+def block_lanes(n_lanes: int, n_blocks: int, b: int) -> range:
+    """The lanes block ``b`` of ``n_blocks`` walks, in the kernel's integer
+    arithmetic."""
+    return range(b * n_lanes // n_blocks, (b + 1) * n_lanes // n_blocks)
+
+
+def _lib():
+    lib = _build.load("lane_gather")
+    lib.lane_gather.restype = ctypes.c_int
+    lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lane_gather_info.restype = ctypes.c_int
+    lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
+    return lib
+
+
+def info() -> dict:
+    """The kernel's dynamic shared memory a block (``shared_bytes``) and
+    the blocks one SM holds at once (``blocks_per_sm``, CUDA's occupancy
+    query); needs a card, raises on a CUDA error."""
+    shared, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = _lib().lane_gather_info(ctypes.addressof(shared),
+                                  ctypes.addressof(per_sm))
+    if err != 0:
+        raise RuntimeError(f"lane_gather occupancy query failed: CUDA error "
+                           f"{err}")
+    return {"shared_bytes": shared.value, "blocks_per_sm": per_sm.value}
+
+
 def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     dev = ox.device
     shape = tuple(ox.shape)
@@ -83,15 +128,15 @@ def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
                + [(nm, x, torch.float32, shape) for nm, x in
                   (("ox", ox), ("oy", oy), ("oz", oz), ("dx", dx), ("dy", dy),
                    ("dz", dz))])
-    lib = _build.load("lane_gather")
-    fn = lib.lane_gather
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
+    lib = _lib()
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    err = fn(tab.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
-             dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(),
-             shape[0], int(steps), torch.cuda.current_stream(dev).cuda_stream)
+    n_lanes = ox.numel()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = lib.lane_gather(
+        tab.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
+        dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(), n_lanes,
+        launch_plan(n_lanes, n_sm), int(steps),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_gather launch failed: CUDA error {err}")
     global launches
@@ -105,10 +150,17 @@ def run(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     return fn(tab, ox, oy, oz, dx, dy, dz, steps=steps)
 
 
-def inputs(G: int = BLOCKS):
+def inputs(G: int = BLOCKS, *, high_links: bool = False,
+           nonfinite: bool = False):
     """The reference's numpy inputs (``default_rng(SEED)``, drawn in its
     order): the (7, 8, 128) table with random links and (G, 8, 128)
-    origins in [0, 1) and directions in [-0.5, 0.5)."""
+    origins in [0, 1) and directions in [-0.5, 0.5).
+
+    Edge cases, drawn after those from ``default_rng(SEED + 1)``:
+    ``high_links`` gives every link half random bits above 1,023 (the walk
+    keeps ``& 1023`` of each); ``nonfinite`` sets about one lane in eight
+    of each origin component to +inf, -inf or NaN and of each direction
+    component to +inf, -inf, -0, 1e-30 or -1e-30."""
     rng = np.random.default_rng(SEED)
     tab = rng.random((7, SUB, SUBP), np.float32)
     links = (rng.integers(0, 1024, (SUB, SUBP)).astype(np.uint32)
@@ -117,6 +169,17 @@ def inputs(G: int = BLOCKS):
     shp = (G, SUB, SUBP)
     ox, oy, oz = (rng.random(shp, np.float32) for _ in range(3))
     dx, dy, dz = (rng.random(shp, np.float32) - 0.5 for _ in range(3))
+    edge = np.random.default_rng(SEED + 1)
+    if high_links:
+        hi = edge.integers(1, 64, (2, SUB, SUBP)).astype(np.uint32) << 10
+        tab[6] = (links | hi[0] | (hi[1] << 16)).view(np.float32)
+    if nonfinite:
+        for arr, vals in ((ox, ORIGIN_EDGES), (oy, ORIGIN_EDGES),
+                          (oz, ORIGIN_EDGES), (dx, DIR_EDGES),
+                          (dy, DIR_EDGES), (dz, DIR_EDGES)):
+            pick = edge.random(shp) < 0.125
+            arr[pick] = edge.choice(np.array(vals, np.float32),
+                                    int(pick.sum()))
     return tab, ox, oy, oz, dx, dy, dz
 
 
