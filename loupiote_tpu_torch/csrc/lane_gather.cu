@@ -125,14 +125,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   out[i] = acc;
 }
 
+// Raises the kernel's dynamic shared memory limit to kSmemBytes on the
+// current device, once a device; returns the CUDA error, or 0.
+cudaError_t allow_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(lane_gather_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 // C entry point (ctypes). ``tab``: (7, 1024) float32 (the link field's
 // bits an int32); rays and ``out``: ``n_lanes`` float32 each; ``n_blocks``
 // blocks of 1,024 threads, with n_lanes <= 1,024 * n_blocks. Sets the
-// kernel's dynamic shared memory limit and returns its error if that is
-// refused, else cudaGetLastError() after the launch; allocates nothing,
-// does not sync.
+// kernel's dynamic shared memory limit (once a device) and returns its
+// error if that is refused, else cudaGetLastError() after the launch;
+// allocates nothing, does not sync.
 extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
                            const void* oz, const void* dx, const void* dy,
                            const void* dz, void* out, long long n_lanes,
@@ -140,9 +156,7 @@ extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
   if (n_lanes <= 0) return 0;
   if (n_blocks <= 0 || n_lanes > static_cast<long long>(n_blocks) * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+  const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   lane_gather_kernel<<<n_blocks, kThreads, kSmemBytes,
@@ -156,9 +170,7 @@ extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
 // at once by CUDA's occupancy query. Returns the CUDA error, or 0.
 extern "C" int lane_gather_info(int* shared_bytes, int* blocks_per_sm) {
   *shared_bytes = kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+  cudaError_t err = allow_smem();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, lane_gather_kernel, kThreads, kSmemBytes);

@@ -96,14 +96,28 @@ def block_lanes(n_lanes: int, n_blocks: int, b: int) -> range:
     return range(b * n_lanes // n_blocks, (b + 1) * n_lanes // n_blocks)
 
 
+_lib_cache = []
+_sm_count: dict = {}  # device index -> SMs
+
+
 def _lib():
-    lib = _build.load("lane_gather")
-    lib.lane_gather.restype = ctypes.c_int
-    lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.lane_gather_info.restype = ctypes.c_int
-    lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
-    return lib
+    """The built library with its entry points typed, built at first use."""
+    if not _lib_cache:
+        lib = _build.load("lane_gather")
+        lib.lane_gather.restype = ctypes.c_int
+        lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lane_gather_info.restype = ctypes.c_int
+        lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
+        _lib_cache.append(lib)
+    return _lib_cache[0]
+
+
+def _sms(dev: torch.device) -> int:
+    if dev.index not in _sm_count:
+        _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_count[dev.index]
 
 
 def info() -> dict:
@@ -131,11 +145,10 @@ def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     lib = _lib()
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     n_lanes = ox.numel()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     err = lib.lane_gather(
         tab.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
         dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(), n_lanes,
-        launch_plan(n_lanes, n_sm), int(steps),
+        launch_plan(n_lanes, _sms(dev)), int(steps),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_gather launch failed: CUDA error {err}")

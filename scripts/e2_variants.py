@@ -17,8 +17,9 @@ compares) with the port's nvcc flags, then for each variant:
 - prints ptxas's report and, from ``cuobjdump -sass``, the step loop's
   instructions: its LDS by width, FMNMX and all.
 The port's own kernel (``lane_gather_bench.run``) is timed and checked the
-same way, as the last row. The SM clock and power are sampled with
-nvidia-smi while the packed variants run.
+same way, as the last row, and its path ``lane_gather_bench.main`` run
+three times. The SM clock and power are sampled with nvidia-smi while the
+packed variants run.
 """
 
 import ctypes
@@ -306,6 +307,14 @@ def main():
     for v, (mhz, w) in clocks.items():
         print(f"variant {v}: SM clock {mhz:.0f} MHz, {w:.0f} W drawn "
               f"(median of nvidia-smi samples)")
+    # The probe's path as a user calls it: lane_gather_bench.main times
+    # single calls (best of 4), so its 64- and 512-step figures include
+    # the wrapper's host work between the two events.
+    for rep in range(3):
+        res = lg.main()
+        print(f"lane_gather_bench.main run {rep}: "
+              + ", ".join(f"{k} steps {v:.4f} ms" for k, v in res["ms"].items())
+              + f"; slope {res['per_step_ns']:.3f} ns")
 
 
 if __name__ == "__main__":
