@@ -126,19 +126,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Raises the kernel's dynamic shared memory limit to kSmemBytes on the
-// current device, once a device; returns the CUDA error, or 0.
+// current device.
 cudaError_t allow_smem() {
-  constexpr int kMaxDevices = 64;
-  static bool done[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(lane_gather_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
+  return cudaFuncSetAttribute(lane_gather_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemBytes);
 }
 
 }  // namespace
@@ -146,9 +138,9 @@ cudaError_t allow_smem() {
 // C entry point (ctypes). ``tab``: (7, 1024) float32 (the link field's
 // bits an int32); rays and ``out``: ``n_lanes`` float32 each; ``n_blocks``
 // blocks of 1,024 threads, with n_lanes <= 1,024 * n_blocks. Sets the
-// kernel's dynamic shared memory limit (once a device) and returns its
-// error if that is refused, else cudaGetLastError() after the launch;
-// allocates nothing, does not sync.
+// kernel's dynamic shared memory limit and returns its error if that is
+// refused, else cudaGetLastError() after the launch; allocates nothing,
+// does not sync.
 extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
                            const void* oz, const void* dx, const void* dy,
                            const void* dz, void* out, long long n_lanes,

@@ -19,6 +19,7 @@ Run on the card:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,9 +35,6 @@ STEPS = (64, 512, 4096)
 BLOCKS = 128  # the reference's grid: 128 blocks of 1,024 lanes
 SEED = 3
 REPS = 4  # timed calls at each step count, after one warm-up
-# The values inputs(nonfinite=True) puts in some lanes.
-ORIGIN_EDGES = (np.inf, -np.inf, np.nan)
-DIR_EDGES = (np.inf, -np.inf, -0.0, 1e-30, -1e-30)
 
 # Launches of E2 on the card; each call that launches the kernel adds one.
 launches = 0
@@ -90,34 +88,21 @@ def launch_plan(n_lanes: int, n_sm: int) -> int:
     return max(1, min(n_sm * waves, -(-n_lanes // 32)))
 
 
-def block_lanes(n_lanes: int, n_blocks: int, b: int) -> range:
-    """The lanes block ``b`` of ``n_blocks`` walks, in the kernel's integer
-    arithmetic."""
-    return range(b * n_lanes // n_blocks, (b + 1) * n_lanes // n_blocks)
-
-
-_lib_cache = []
-_sm_count: dict = {}  # device index -> SMs
-
-
+@functools.cache
 def _lib():
     """The built library with its entry points typed, built at first use."""
-    if not _lib_cache:
-        lib = _build.load("lane_gather")
-        lib.lane_gather.restype = ctypes.c_int
-        lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lane_gather_info.restype = ctypes.c_int
-        lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
-        _lib_cache.append(lib)
-    return _lib_cache[0]
+    lib = _build.load("lane_gather")
+    lib.lane_gather.restype = ctypes.c_int
+    lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lane_gather_info.restype = ctypes.c_int
+    lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
+    return lib
 
 
+@functools.cache
 def _sms(dev: torch.device) -> int:
-    if dev.index not in _sm_count:
-        _sm_count[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _sm_count[dev.index]
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def info() -> dict:
@@ -187,12 +172,12 @@ def inputs(G: int = BLOCKS, *, high_links: bool = False,
         hi = edge.integers(1, 64, (2, SUB, SUBP)).astype(np.uint32) << 10
         tab[6] = (links | hi[0] | (hi[1] << 16)).view(np.float32)
     if nonfinite:
-        for arr, vals in ((ox, ORIGIN_EDGES), (oy, ORIGIN_EDGES),
-                          (oz, ORIGIN_EDGES), (dx, DIR_EDGES),
-                          (dy, DIR_EDGES), (dz, DIR_EDGES)):
+        origins = np.array([np.inf, -np.inf, np.nan], np.float32)
+        dirs = np.array([np.inf, -np.inf, -0.0, 1e-30, -1e-30], np.float32)
+        for arr, vals in ((ox, origins), (oy, origins), (oz, origins),
+                          (dx, dirs), (dy, dirs), (dz, dirs)):
             pick = edge.random(shp) < 0.125
-            arr[pick] = edge.choice(np.array(vals, np.float32),
-                                    int(pick.sum()))
+            arr[pick] = edge.choice(vals, int(pick.sum()))
     return tab, ox, oy, oz, dx, dy, dz
 
 

@@ -257,7 +257,7 @@ def _e2_model(ins, steps, n_sm, minimum=np.minimum, maximum=np.maximum):
     walked = np.zeros(n, np.int64)
     with np.errstate(all="ignore"):
         for b in range(nb):
-            lanes = np.array(lg.block_lanes(n, nb, b), np.int64)
+            lanes = np.arange(b * n // nb, (b + 1) * n // nb)
             assert 0 < lanes.size <= lg.THREADS
             copy = np.arange(lanes.size) % E2_COPIES
             ox, oy, oz = (x[lanes] for x in o)
@@ -325,7 +325,8 @@ def test_lane_gather_launch_plan(n_lanes, n_sm, blocks):
     assert f"kThreads = {lg.THREADS};" in text
     assert f"kCopies = {E2_COPIES};" in text
     assert lg.launch_plan(n_lanes, n_sm) == blocks
-    spans = [lg.block_lanes(n_lanes, blocks, b) for b in range(blocks)]
+    spans = [range(b * n_lanes // blocks, (b + 1) * n_lanes // blocks)
+             for b in range(blocks)]
     assert [x for r in spans for x in r] == list(range(n_lanes))
     sizes = [len(r) for r in spans]
     assert max(sizes) <= lg.THREADS and max(sizes) - min(sizes) <= 1
