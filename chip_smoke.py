@@ -93,9 +93,8 @@ Phases, each timed:
                  128 x 1,024 lanes and 512 steps and one at 4,096, the
                  edge-case input (links with bits above 1,023, non-finite
                  origins and directions) at 128 x 1,024 lanes, and 1 and
-                 3 x 1,024 lanes; ptxas's report, the launch's blocks and
-                 SMs, the SM clock while it runs and its on-chip gather
-                 floor;
+                 3 x 1,024 lanes; ptxas's report and the launch's blocks
+                 as launch_plan computes them;
  13. E3        - r3_probes.main all (csrc/r3_probes.cu): ten slopes between
                  30,000 and 230,000 steps with launch counts; each probe
                  against its twin, bit-equal, in three runs at 256 steps
@@ -478,32 +477,6 @@ def nan_equal(a, b):
         return False
     same = a.view(torch.int32) == b.view(torch.int32)
     return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
-
-
-def smi_during(fn, seconds=1.0):
-    """(median SM clock in MHz, median power drawn in W) of nvidia-smi's
-    samples every 100 ms while fn runs over and over for ``seconds``; the
-    sampler is stopped before this returns."""
-    import torch
-
-    proc = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        t_end = time.perf_counter() + seconds
-        while time.perf_counter() < t_end:
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        proc.terminate()
-        text = proc.communicate(timeout=30)[0]
-    rows = np.array([[float(x) for x in ln.split(",")]
-                     for ln in text.splitlines()
-                     if ln.strip() and "N/A" not in ln])
-    if rows.size == 0:
-        raise SystemExit("chip_smoke: nvidia-smi gave no SM clock sample")
-    return float(np.median(rows[:, 0])), float(np.median(rows[:, 1]))
 
 
 def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
@@ -1836,32 +1809,22 @@ def main():
     # Bytes: the table, each lane's rays in and its sum out once.
     e2_bound = bound_of(7 * 1024 * 4 + lanes2 * 7 * 4,
                         lanes2 * 512 * OPS_BOX)
-    # The on-chip gather floor: each lane-step reads its 28-byte entry
-    # from shared memory, 128 bytes a clock an SM, at the SM clock read
-    # while E2 runs.
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    e2_mhz, e2_watts = smi_during(
-        lambda: lane_gather_bench.run(*e2_args, steps=4096))
-    e2_floor = lanes2 * 512 * 28 / (n_sm * 128 * e2_mhz * 1e6) * 1e3
-    e2_info = lane_gather_bench.info()
     e2_blocks = lane_gather_bench.launch_plan(lanes2, n_sm)
     print("ptxas, csrc/lane_gather.cu:\n" + ptxas_lines("lane_gather"),
           flush=True)
-    print(f"E2 launch: {e2_blocks} blocks of {lane_gather_bench.THREADS} "
-          f"threads for {lanes2} lanes; {e2_info['shared_bytes']} bytes of "
-          f"dynamic shared memory a block, {e2_info['blocks_per_sm']} block(s) "
-          f"an SM by the occupancy query, so "
-          f"{min(e2_blocks, n_sm * e2_info['blocks_per_sm'])} blocks at once "
-          f"on {min(e2_blocks, n_sm)} of the {n_sm} SMs", flush=True)
+    print(f"E2 launch, as launch_plan computes it (not read on the card): "
+          f"{e2_blocks} blocks of {lane_gather_bench.THREADS} threads for "
+          f"{lanes2} lanes on a card of {n_sm} SMs, one block an SM by the "
+          f"kernel's dynamic shared memory", flush=True)
     print(f"E2 path launches {e2_launches}; at {e2_args[1].shape[0]} x 1024 "
           f"lanes: equal at 512 steps (3 runs) and 4,096 "
           f"{'/'.join(str(x) for x in e2_same)}; "
           + "; ".join(f"{k} equal {v[0]} (NaN share {v[1]:.4f})"
                       for k, v in e2_cases.items())
           + f"; kernel {e2['ms'][512]:.4f} ms at 512 steps, plain torch "
-          f"{e2_plain:.3f} ms, bound {e2_bound[0]:.4f} ms ({e2_bound[1]}), "
-          f"gather floor {e2_floor:.4f} ms at {e2_mhz:.0f} MHz "
-          f"({e2_watts:.0f} W drawn); slope {e2['per_step_ns']:.3f} ns a "
+          f"{e2_plain:.3f} ms, bound {e2_bound[0]:.4f} ms ({e2_bound[1]}); "
+          f"slope {e2['per_step_ns']:.3f} ns a "
           f"step of all lanes (the reference's per-block figure "
           f"{e2['ref_per_block_ns']:.3f} ns) ({smi})", flush=True)
     if not (all(e2_same) and all(v[0] for v in e2_cases.values())):
@@ -2123,9 +2086,7 @@ def main():
         "ms": e2["ms"][512], "plain_ms": e2_plain, "bound_ms": e2_bound[0],
         "bound_by": e2_bound[1], "library_ms": None,
         "ms_by_steps": e2["ms"], "per_step_ns": e2["per_step_ns"],
-        "ref_per_block_ns": e2["ref_per_block_ns"],
-        "gather_floor_ms": e2_floor, "sm_clock_mhz": e2_mhz,
-        "blocks": e2_blocks, "shared_bytes": e2_info["shared_bytes"]})
+        "ref_per_block_ns": e2["ref_per_block_ns"]})
     kernels.append({
         "name": "r3_probes", "route": "cuda",
         "source": "loupiote_tpu_torch/csrc/r3_probes.cu",

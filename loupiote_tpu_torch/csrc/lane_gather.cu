@@ -125,14 +125,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   out[i] = acc;
 }
 
-// Raises the kernel's dynamic shared memory limit to kSmemBytes on the
-// current device.
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(lane_gather_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
-}
-
 }  // namespace
 
 // C entry point (ctypes). ``tab``: (7, 1024) float32 (the link field's
@@ -148,7 +140,9 @@ extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
   if (n_lanes <= 0) return 0;
   if (n_blocks <= 0 || n_lanes > static_cast<long long>(n_blocks) * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem();
+  const cudaError_t err = cudaFuncSetAttribute(
+      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   lane_gather_kernel<<<n_blocks, kThreads, kSmemBytes,
@@ -158,13 +152,3 @@ extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's dynamic shared memory a block, and the blocks one SM holds
-// at once by CUDA's occupancy query. Returns the CUDA error, or 0.
-extern "C" int lane_gather_info(int* shared_bytes, int* blocks_per_sm) {
-  *shared_bytes = kSmemBytes;
-  cudaError_t err = allow_smem();
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, lane_gather_kernel, kThreads, kSmemBytes);
-  return static_cast<int>(err);
-}

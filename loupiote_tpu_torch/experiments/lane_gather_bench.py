@@ -90,32 +90,17 @@ def launch_plan(n_lanes: int, n_sm: int) -> int:
 
 @functools.cache
 def _lib():
-    """The built library with its entry points typed, built at first use."""
+    """The built library with its entry point typed, built at first use."""
     lib = _build.load("lane_gather")
     lib.lane_gather.restype = ctypes.c_int
     lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.lane_gather_info.restype = ctypes.c_int
-    lib.lane_gather_info.argtypes = [ctypes.c_void_p] * 2
     return lib
 
 
 @functools.cache
 def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def info() -> dict:
-    """The kernel's dynamic shared memory a block (``shared_bytes``) and
-    the blocks one SM holds at once (``blocks_per_sm``, CUDA's occupancy
-    query); needs a card, raises on a CUDA error."""
-    shared, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    err = _lib().lane_gather_info(ctypes.addressof(shared),
-                                  ctypes.addressof(per_sm))
-    if err != 0:
-        raise RuntimeError(f"lane_gather occupancy query failed: CUDA error "
-                           f"{err}")
-    return {"shared_bytes": shared.value, "blocks_per_sm": per_sm.value}
 
 
 def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
