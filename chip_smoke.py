@@ -93,8 +93,7 @@ Phases, each timed:
                  128 x 1,024 lanes and 512 steps and one at 4,096, the
                  edge-case input (links with bits above 1,023, non-finite
                  origins and directions) at 128 x 1,024 lanes, and 1 and
-                 3 x 1,024 lanes; ptxas's report and the launch's blocks
-                 as launch_plan computes them;
+                 3 x 1,024 lanes; ptxas's report and the launch's blocks;
  13. E3        - r3_probes.main all (csrc/r3_probes.cu): ten slopes between
                  30,000 and 230,000 steps with launch counts; each probe
                  against its twin, bit-equal, in three runs at 256 steps
@@ -1810,13 +1809,12 @@ def main():
     e2_bound = bound_of(7 * 1024 * 4 + lanes2 * 7 * 4,
                         lanes2 * 512 * OPS_BOX)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    e2_blocks = lane_gather_bench.launch_plan(lanes2, n_sm)
     print("ptxas, csrc/lane_gather.cu:\n" + ptxas_lines("lane_gather"),
           flush=True)
-    print(f"E2 launch, as launch_plan computes it (not read on the card): "
-          f"{e2_blocks} blocks of {lane_gather_bench.THREADS} threads for "
-          f"{lanes2} lanes on a card of {n_sm} SMs, one block an SM by the "
-          f"kernel's dynamic shared memory", flush=True)
+    print(f"E2 launch: {e2_args[1].shape[0]} blocks of 1,024 lanes, one "
+          f"block an SM by the kernel's dynamic shared memory, so on "
+          f"{min(e2_args[1].shape[0], n_sm)} of the card's {n_sm} SMs "
+          f"(computed, not read on the card)", flush=True)
     print(f"E2 path launches {e2_launches}; at {e2_args[1].shape[0]} x 1024 "
           f"lanes: equal at 512 steps (3 runs) and 4,096 "
           f"{'/'.join(str(x) for x in e2_same)}; "

@@ -16,7 +16,7 @@
 // random banks; the seven 4-byte loads of the first design took ~24
 // wavefronts a warp-step (one 128-byte wavefront a clock an SM), and the
 // shared-memory pipe set the pace. The steps are serial per lane, and the
-// card holds every lane of the probe's 128 x 1,024 at once (~31 warps an
+// card holds every lane of the probe's 128 x 1,024 at once (32 warps an
 // SM), so no other parallelism hides that.
 //
 // Design. The table is staged once per block in dynamic shared memory,
@@ -28,9 +28,10 @@
 // eight lanes of a quarter-warp each read their own 16-byte bank group,
 // which leaves the 8- and 4-byte loads as the only ones that conflict,
 // ~11 wavefronts a warp-step (28 bytes x 1,024 entries x 8 copies =
-// 229,376 bytes, one block an SM). The grid is about one block an SM (the
-// wrapper's launch_plan), and the lanes are split evenly between the
-// blocks, so every SM works; a lane's start is its global index & 127.
+// 229,376 bytes, one block an SM). The grid is the reference's, G blocks
+// of 1,024 lanes: 128 x 1,024 lanes make 4,096 warps, so some SM holds 32
+// of them however the lanes are split over the card's 132, and a split
+// over every SM measured no faster.
 // min / max are PTX min.NaN / max.NaN. A step is then ~35 instructions,
 // 17 of them on the ALU pipe, which runs 16 lanes a clock a scheduler
 // (11 FMNMX, 3 LEA, 2 for the link's halves, FSETP): that pipe and the
@@ -73,7 +74,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const float* __restrict__ dx_,
                        const float* __restrict__ dy_,
                        const float* __restrict__ dz_, float* __restrict__ out,
-                       long long n_lanes, int steps) {
+                       int steps) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* s_lo = reinterpret_cast<float4*>(smem);
   float2* s_hi = reinterpret_cast<float2*>(s_lo + kCopies * kEntries);
@@ -91,11 +92,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     s_link[x] = hit | (miss << 16);
   }
   __syncthreads();
-  // Block b walks lanes [b * n / nb, (b + 1) * n / nb): at most kThreads.
-  const long long first = blockIdx.x * n_lanes / gridDim.x;
-  const long long end = (blockIdx.x + 1LL) * n_lanes / gridDim.x;
-  const long long i = first + threadIdx.x;
-  if (i >= end) return;
+  const long long i = blockIdx.x * static_cast<long long>(kThreads)
+                      + threadIdx.x;
   const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
   const float ix = inv(dx_[i]), iy = inv(dy_[i]), iz = inv(dz_[i]);
   const int copy = threadIdx.x % kCopies;
@@ -128,18 +126,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // C entry point (ctypes). ``tab``: (7, 1024) float32 (the link field's
-// bits an int32); rays and ``out``: ``n_lanes`` float32 each; ``n_blocks``
-// blocks of 1,024 threads, with n_lanes <= 1,024 * n_blocks. Sets the
+// bits an int32); rays and ``out``: (n_blocks, 1024) float32. Sets the
 // kernel's dynamic shared memory limit and returns its error if that is
 // refused, else cudaGetLastError() after the launch; allocates nothing,
 // does not sync.
 extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
                            const void* oz, const void* dx, const void* dy,
-                           const void* dz, void* out, long long n_lanes,
-                           int n_blocks, int steps, void* stream) {
-  if (n_lanes <= 0) return 0;
-  if (n_blocks <= 0 || n_lanes > static_cast<long long>(n_blocks) * kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
+                           const void* dz, void* out, int n_blocks, int steps,
+                           void* stream) {
+  if (n_blocks <= 0) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
       lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
@@ -148,7 +143,7 @@ extern "C" int lane_gather(const void* tab, const void* ox, const void* oy,
   lane_gather_kernel<<<n_blocks, kThreads, kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       f(tab), f(ox), f(oy), f(oz), f(dx), f(dy), f(dz),
-      static_cast<float*>(out), n_lanes, steps);
+      static_cast<float*>(out), steps);
   return static_cast<int>(cudaGetLastError());
 }
 

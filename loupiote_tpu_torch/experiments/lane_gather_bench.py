@@ -30,7 +30,6 @@ from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
 ENTRIES = SUB * SUBP
-THREADS = 1024  # threads of an E2 block
 STEPS = (64, 512, 4096)
 BLOCKS = 128  # the reference's grid: 128 blocks of 1,024 lanes
 SEED = 3
@@ -78,29 +77,14 @@ def lane_gather_plain(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     return acc.view(shape)
 
 
-def launch_plan(n_lanes: int, n_sm: int) -> int:
-    """Blocks of E2's launch for ``n_lanes`` lanes on a card of ``n_sm``
-    SMs: as many waves of one 1,024-thread block an SM as the lanes need,
-    but no more blocks than warps of lanes. The kernel splits the lanes
-    evenly between the blocks (block b walks lanes [b n / nb, (b + 1) n /
-    nb)), at most 1,024 a block."""
-    waves = -(-n_lanes // (n_sm * THREADS))
-    return max(1, min(n_sm * waves, -(-n_lanes // 32)))
-
-
 @functools.cache
 def _lib():
     """The built library with its entry point typed, built at first use."""
     lib = _build.load("lane_gather")
     lib.lane_gather.restype = ctypes.c_int
     lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
-
-
-@functools.cache
-def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
@@ -114,12 +98,10 @@ def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
                    ("dz", dz))])
     lib = _lib()
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    n_lanes = ox.numel()
     err = lib.lane_gather(
         tab.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
-        dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(), n_lanes,
-        launch_plan(n_lanes, _sms(dev)), int(steps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(),
+        shape[0], int(steps), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lane_gather launch failed: CUDA error {err}")
     global launches

@@ -226,11 +226,11 @@ def test_lane_gather_matches_reference(steps, edge):
 # (maxy, maxz) and the link word hit | miss << 16 with each link masked to
 # 1,024 and scaled to an element index, each holding E2_COPIES copies
 # interleaved entry by entry (element e * E2_COPIES + c is copy c of entry
-# e). launch_plan gives the blocks; block b walks lanes [b n / nb,
-# (b + 1) n / nb), thread t lane first + t, reading copy t mod E2_COPIES
-# and starting at element (lane & 127) * E2_COPIES. min / max return NaN
-# where an operand is NaN (PTX min.NaN / max.NaN). Held to the twin
-# lane_gather_plain: bit-equal, NaN counted equal.
+# e). Block b walks lanes [1,024 b, 1,024 (b + 1)), thread t lane
+# 1,024 b + t, reading copy t mod E2_COPIES and starting at element
+# (lane & 127) * E2_COPIES. min / max return NaN where an operand is NaN
+# (PTX min.NaN / max.NaN). Held to the twin lane_gather_plain: bit-equal,
+# NaN counted equal.
 
 E2_COPIES = 8
 
@@ -246,56 +246,44 @@ def _e2_stage(tab):
     return s_lo, s_hi, (hit | (miss << 16)).astype(np.int32)
 
 
-def _e2_model(ins, steps, n_sm, minimum=np.minimum, maximum=np.maximum):
+def _e2_model(ins, steps, minimum=np.minimum, maximum=np.maximum):
     tab, *rays = ins
-    o = [r.reshape(-1) for r in rays[:3]]
-    d = [r.reshape(-1) for r in rays[3:]]
-    n = o[0].size
+    ox, oy, oz = (r.reshape(-1) for r in rays[:3])
     s_lo, s_hi, s_link = _e2_stage(tab)
-    nb = lg.launch_plan(n, n_sm)
-    out = np.zeros(n, np.float32)
-    walked = np.zeros(n, np.int64)
+    lane = np.arange(ox.size)
+    thread = lane % lg.ENTRIES
+    copy = thread % E2_COPIES
     with np.errstate(all="ignore"):
-        for b in range(nb):
-            lanes = np.arange(b * n // nb, (b + 1) * n // nb)
-            assert 0 < lanes.size <= lg.THREADS
-            copy = np.arange(lanes.size) % E2_COPIES
-            ox, oy, oz = (x[lanes] for x in o)
-            ix, iy, iz = (np.float32(1) / np.where(np.abs(x[lanes])
-                                                   > np.float32(1e-20),
-                                                   x[lanes],
-                                                   np.float32(1e-20))
-                          for x in d)
-            cur = (lanes & 127).astype(np.int32) * E2_COPIES
-            acc = np.zeros(lanes.size, np.float32)
-            for _ in range(steps):
-                lo, hi = s_lo[cur + copy], s_hi[cur + copy]
-                lw = s_link[cur + copy]
-                t1x, t2x = (lo[:, 0] - ox) * ix, (lo[:, 3] - ox) * ix
-                t1y, t2y = (lo[:, 1] - oy) * iy, (hi[:, 0] - oy) * iy
-                t1z, t2z = (lo[:, 2] - oz) * iz, (hi[:, 1] - oz) * iz
-                tn = maximum(maximum(minimum(t1x, t2x), minimum(t1y, t2y)),
-                             minimum(t1z, t2z))
-                tf = minimum(minimum(maximum(t1x, t2x), maximum(t1y, t2y)),
-                             maximum(t1z, t2z))
-                hit = tf >= maximum(tn, np.float32(0))
-                cur = np.where(hit, lw & 0xFFFF,
-                               (lw.view(np.uint32) >> 16).astype(np.int32))
-                acc = acc + tn
-            out[lanes] = acc
-            walked[lanes] += 1
-    assert (walked == 1).all()  # every lane in exactly one block
-    return out.reshape(rays[0].shape)
+        ix, iy, iz = (np.float32(1) / np.where(np.abs(x) > np.float32(1e-20),
+                                               x, np.float32(1e-20))
+                      for x in (r.reshape(-1) for r in rays[3:]))
+        cur = (lane & 127).astype(np.int32) * E2_COPIES
+        acc = np.zeros(ox.size, np.float32)
+        for _ in range(steps):
+            lo, hi = s_lo[cur + copy], s_hi[cur + copy]
+            lw = s_link[cur + copy]
+            t1x, t2x = (lo[:, 0] - ox) * ix, (lo[:, 3] - ox) * ix
+            t1y, t2y = (lo[:, 1] - oy) * iy, (hi[:, 0] - oy) * iy
+            t1z, t2z = (lo[:, 2] - oz) * iz, (hi[:, 1] - oz) * iz
+            tn = maximum(maximum(minimum(t1x, t2x), minimum(t1y, t2y)),
+                         minimum(t1z, t2z))
+            tf = minimum(minimum(maximum(t1x, t2x), maximum(t1y, t2y)),
+                         maximum(t1z, t2z))
+            hit = tf >= maximum(tn, np.float32(0))
+            cur = np.where(hit, lw & 0xFFFF,
+                           (lw.view(np.uint32) >> 16).astype(np.int32))
+            acc = acc + tn
+    return acc.reshape(rays[0].shape)
 
 
 @pytest.mark.parametrize("edge", [False, True], ids=["inputs", "edge"])
-@pytest.mark.parametrize("n_sm", [132, 2])
+@pytest.mark.parametrize("steps", [1, 64])
 @pytest.mark.parametrize("G", [1, 2, 3])
-def test_e2_block_schedule_matches_twin(G, n_sm, edge):
+def test_e2_block_schedule_matches_twin(G, steps, edge):
     ins = lg.inputs(G, high_links=edge, nonfinite=edge)
     twin = lg.lane_gather_plain(*(torch.from_numpy(a) for a in ins),
-                                steps=64).numpy()
-    assert _nan_equal(_e2_model(ins, 64, n_sm), twin)
+                                steps=steps).numpy()
+    assert _nan_equal(_e2_model(ins, steps), twin)
 
 
 def test_e2_edge_input_tells_nan_dropping_min_max_apart():
@@ -304,32 +292,21 @@ def test_e2_edge_input_tells_nan_dropping_min_max_apart():
     ins = lg.inputs(2, high_links=True, nonfinite=True)
     twin = lg.lane_gather_plain(*(torch.from_numpy(a) for a in ins),
                                 steps=64).numpy()
-    assert not _nan_equal(_e2_model(ins, 64, 132, np.fmin, np.fmax), twin)
+    assert not _nan_equal(_e2_model(ins, 64, np.fmin, np.fmax), twin)
     finite = lg.inputs(2)
     assert _nan_equal(
-        _e2_model(finite, 64, 132, np.fmin, np.fmax),
+        _e2_model(finite, 64, np.fmin, np.fmax),
         lg.lane_gather_plain(*(torch.from_numpy(a) for a in finite),
                              steps=64).numpy())
 
 
-@pytest.mark.parametrize("n_lanes, n_sm, blocks", [
-    (128 * 1024, 132, 132), (128 * 1024, 114, 228), (1024, 132, 32),
-    (3 * 1024, 132, 96), (3 * 1024, 2, 4), (32, 132, 1), (33, 132, 2)])
-def test_lane_gather_launch_plan(n_lanes, n_sm, blocks):
-    """About one block an SM (no more blocks than warps of lanes), every
-    lane in one block, at most 1,024 a block, sizes within one; the
-    kernel's block size and copies are the ones this file models."""
+def test_e2_model_constants_match_source():
+    """The kernel's block size and copies are the ones this file models."""
     src = os.path.join(_ROOT, "loupiote_tpu_torch", "csrc", "lane_gather.cu")
     with open(src) as f:
         text = f.read()
-    assert f"kThreads = {lg.THREADS};" in text
+    assert f"kThreads = {lg.ENTRIES};" in text
     assert f"kCopies = {E2_COPIES};" in text
-    assert lg.launch_plan(n_lanes, n_sm) == blocks
-    spans = [range(b * n_lanes // blocks, (b + 1) * n_lanes // blocks)
-             for b in range(blocks)]
-    assert [x for r in spans for x in r] == list(range(n_lanes))
-    sizes = [len(r) for r in spans]
-    assert max(sizes) <= lg.THREADS and max(sizes) - min(sizes) <= 1
 
 
 def _ref_r3(name, x, steps):
