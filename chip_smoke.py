@@ -28,10 +28,30 @@ Phases, each timed:
                  waves (K2 and K1 closest-hit on the primary and the
                  diffuse wave, K3 and K1 any-hit on the NEE and the
                  diffuse shadow wave);
+ 4a. non-finite - K1 (both modes), K2 (both modes) and K3 against their
+                 twins on every ray of the random-4k rays and of a
+                 primary wave with +-inf / NaN origin and +-inf, -0 and
+                 +-1e-30 direction components in one ray in eight
+                 (nonfinite_rays): NaN-equal t, u, v, equal tri and
+                 blocked bits, 0 rays at a step bound;
   5. headline  - arch-260k at 1920x1080, 3 bounces, NEE, 1 spp, pathtrace,
                  through Renderer.set_resources -> raytrace -> blit, with
                  the kernels' launch counts read around it, and a small
                  frame held against the same frame traced by the CPU path;
+ 5a. content   - 1920x1080 frames, each a warm-up and 5 timed, K1's
+                 launches a frame held to 3 + 4 (3 + 7 with a probe):
+                 (a) the textured arch-260k hall with 200 props through
+                 Renderer, (b) the same under a 1024x2048 HDR sky with
+                 blue noise and samples_per_frame=4, (c) trace_paths at
+                 spp=4 on arch-260k beside the 1-spp call; K1 against
+                 its twin, exact, on four waves recorded from one more
+                 frame (b): the 8,294,400-slot primary wave, bounce 0's
+                 env-NEE wave (tmax from scene_exit_t), bounce 1's
+                 sorted continuation wave and the final gather; spp=2 in
+                 one wave against the mean of its two 1-spp frames (blue
+                 noise, sort off and on); a textured quad and a textured
+                 arch-20k hall under a sky with blue noise, small, held
+                 against the CPU path;
   6. interactive - arch-40k in a 1920x1080 window with RenderConfig()
                  (960x540 internal, 3 bounces, NEE, A-SVGF) and
                  DENOISED_PATHTRACE, the camera moving every frame, with
@@ -105,8 +125,9 @@ Phases, each timed:
                  (keys and payload bit-equal) and against torch.sort, three
                  times.
 Any disagreement or failure raises, so the run exits non-zero without its
-last line. Prints a JSON line of kernel results, then the card's nvidia-smi
-line, then {"ok": true, "device": {...}} as the last line.
+last line. Prints a JSON line of kernel results (with the frames of 5a
+under "frames"), then the card's nvidia-smi line, then {"ok": true,
+"device": {...}} as the last line.
 """
 
 import dataclasses
@@ -605,6 +626,47 @@ class StageTimer:
         return out
 
 
+def event_ms(fn, n):
+    """Device milliseconds of each of n calls of fn, by CUDA events."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def k1_waves(fn, picks):
+    """Run fn, keeping a copy of the rays K1 is given in the calls picked:
+    ``picks`` maps ("closest" | "anyhit", index among that mode's calls in
+    fn, in call order) to a label. Returns {label: (ro, rd, tmax,
+    active)}. Launches nothing itself."""
+    from loupiote_tpu_torch.ops import wide
+
+    trace, seen, out = wide.wide_trace, {"closest": 0, "anyhit": 0}, {}
+
+    def keep(trav_rows, ro, rd, tmax, active, any_hit, *sizes):
+        mode = "anyhit" if any_hit else "closest"
+        label = picks.get((mode, seen[mode]))
+        if label is not None:
+            out[label] = tuple(x.clone() for x in (ro, rd, tmax, active))
+        seen[mode] += 1
+        return trace(trav_rows, ro, rd, tmax, active, any_hit, *sizes)
+
+    wide.wide_trace = keep
+    try:
+        fn()
+    finally:
+        wide.wide_trace = trace
+    return out
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -628,6 +690,9 @@ def main():
     from loupiote_tpu_torch.render import renderer as rmod
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
                                                       trace_paths)
+    from loupiote_tpu_torch.scene.fixtures import (TEX_CAM, nonfinite_rays,
+                                                   sky_equirect,
+                                                   textured_quad_scene)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -877,6 +942,90 @@ def main():
           flush=True)
     phase("K2/K3 timing", t0)
 
+    # -- K1, K2 and K3 on non-finite rays ------------------------------------
+    # The random-4k rays and 4,096 strided rays of the 1080p arch-260k
+    # (K1) / 960x540 arch-40k (K2, K3) primary wave, with edge cases in
+    # about one ray in eight of each component (nonfinite_rays). Each
+    # kernel against its twin on every ray: K1 closest-hit and K2 (both
+    # modes) t, u, v bits with NaN counted equal and tri; K1 any-hit and
+    # K3 blocked bits; no ray at a step bound. Their slab tests take
+    # NaN-returning min / max, as the twins' torch.minimum / maximum do.
+    # A few of these rays walk far longer than any ray of a frame, and a
+    # twin takes a step for all its rays until the longest ends: on 65,536
+    # rays of the arch waves the twins took 60 s a call (NVIDIA H100 80GB
+    # HBM3, 700 W), so the arch waves give 4,096.
+    t0 = time.perf_counter()
+    rows = ["| kernel | wave | rays (non-finite) | outputs equal | "
+            "hit / blocked frac | kernel + twin s | verdict |",
+            "|---|---|---|---|---|---|---|"]
+    nf_ok, nf_equal = True, {}
+    capped0 = wide.capped_rays(dev) + bvh2.capped_rays(dev)
+    for kname, wname, bufs, base, seed in (
+            ("K1", "random-4k", rscene, (ro, rd), 41),
+            ("K1", "arch-260k primary 1080p, strided", arch, prim[:2], 42),
+            ("K2/K3", "random-4k", rscene, (ro, rd), 43),
+            ("K2/K3", "arch-40k primary 960x540, strided", arch40,
+             prim40[:2], 44)):
+        n = base[0].shape[0]
+        idx = (torch.arange(n, device=dev) if bufs is rscene else
+               torch.arange(0, n, max(n // 4096, 1), device=dev)[:4096])
+        nro, nrd = (x.contiguous() for x in nonfinite_rays(
+            *(b[idx] for b in base), seed))
+        n = nro.shape[0]
+        bad = int((~(torch.isfinite(nro).all(1)
+                     & torch.isfinite(nrd).all(1))).sum())
+        act = torch.ones(n, dtype=torch.bool, device=dev)
+        far = torch.full((n,), 1e30, device=dev)
+        near = torch.full((n,), 25.0, device=dev)
+        if kname == "K1":
+            tw = (bufs.trav_rows,)
+            sz = (bufs.wide_end, bufs.wide_stack)
+            calls = {"closest": (wide.wide_trace, wide.wide_trace_plain,
+                                 (*tw, nro, nrd, far, act, False, *sz)),
+                     "any-hit": (wide.wide_trace, wide.wide_trace_plain,
+                                 (*tw, nro, nrd, near, act, True, *sz))}
+        else:
+            tb = (bufs.node_rows, bufs.leaf_rows)
+            tr = (bufs.num_nodes, bufs.stack_depth)
+            oc = (bufs.end_index, bufs.num_nodes)
+            calls = {
+                "K2 closest": (bvh2.bvh2_trace, bvh2.bvh2_trace_plain,
+                               (*tb, nro, nrd, far, act, False, *tr)),
+                "K2 any-hit": (bvh2.bvh2_trace, bvh2.bvh2_trace_plain,
+                               (*tb, nro, nrd, near, act, True, *tr)),
+                "K3": (bvh2.bvh2_occluded, bvh2.bvh2_occluded_plain,
+                       (*tb, nro, nrd, near, act, *oc))}
+        for mode, (kfn, pfn, args) in calls.items():
+            t1 = time.perf_counter()
+            k_out, p_out = kfn(*args), pfn(*args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            if not isinstance(k_out, tuple):
+                k_out, p_out = (k_out,), (p_out,)
+            same = all(nan_equal(a, b) if a.dtype == torch.float32
+                       else bits_equal(a, b) for a, b in zip(k_out, p_out))
+            # tri >= 0 (K1 closest-hit, K2 in both modes) or a blocked
+            # bit (K1 any-hit, K3).
+            hit = (k_out[-1] >= 0 if mode in ("closest", "K2 closest",
+                                             "K2 any-hit")
+                   else k_out[-1] > 0)
+            frac = float(hit.float().mean())
+            key = f"{kname.split('/')[0]} {mode}" if kname == "K1" else mode
+            nf_equal[key] = nf_equal.get(key, True) and same
+            nf_ok &= same
+            rows.append(f"| {key} | {wname} | {n} ({bad}) | {same} | "
+                        f"{frac:.4f} | {sec:.2f} | "
+                        f"{'PASS' if same else 'FAIL'} |")
+    nf_capped = wide.capped_rays(dev) + bvh2.capped_rays(dev) - capped0
+    rows.append(f"rays stopped by a step bound (kernels and twins, all "
+                f"waves): {nf_capped}")
+    print("\n".join(rows), flush=True)
+    phase("K1/K2/K3 on non-finite rays", t0)
+    if not nf_ok or nf_capped:
+        raise SystemExit("chip_smoke: a traversal kernel disagrees with its "
+                         "plain version on non-finite rays, or rays reached "
+                         "a step bound")
+
     # -- The headline path ---------------------------------------------------
     t0 = time.perf_counter()
     renderer = lt.Renderer((WIDTH, HEIGHT),
@@ -946,9 +1095,247 @@ def main():
                          "CPU path")
     phase("headline frame vs CPU", t0)
 
-    # -- The interactive path: the app's default frame -----------------------
+    # -- Scene content: textures, the probe, blue noise, spp batching --------
+    # Three 1080p frames through the port's entry points, each timed over 5
+    # warm frames (CUDA events) with K1's launches counted around it:
+    # (a) the textured arch-260k hall with 200 props flattened into its BVH
+    # (bench.py's section_textured) through Renderer, 1 spp; (b) the same
+    # hall under a 1024x2048 HDR sky with a sun, blue noise on and
+    # samples_per_frame=4 (8,294,400 slots a wave); (c) trace_paths on the
+    # untextured arch-260k at spp=4 in one wave (section_spp) beside the
+    # same call at 1 spp. K1 a frame: 3 closest-hit and 4 any-hit waves
+    # (3 light NEE, the final gather), 3 more any-hit with a probe (env NEE).
     t0 = time.perf_counter()
     del renderer
+    torch.cuda.empty_cache()
+    scene_tex = lt.build_arch_scene(260_000, textured=True, props=200)
+    stamps = [time.perf_counter()]
+    tex260 = lt.build_scene_buffers(scene_tex)
+    stamps.append(time.perf_counter())
+    sky_probe = lt.build_probe(sky_equirect(1024, 2048))
+    stamps.append(time.perf_counter())
+    content260 = lt.build_scene_buffers(scene_tex, probe=sky_probe)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    noise_raw = lt.generate_blue_noise()
+    stamps.append(time.perf_counter())
+    sec = [b - a for a, b in zip([t0] + stamps, stamps)]
+    print(f"textured arch-260k + 200 props: {scene_tex.stats()['triangles']}"
+          f" triangles in {scene_tex.stats()['instances']} instances; "
+          f"seconds: scene {sec[0]:.2f}, buffers {sec[1]:.2f}, build_probe "
+          f"(1024x2048) {sec[2]:.2f}, buffers with the probe {sec[3]:.2f}, "
+          f"generate_blue_noise {sec[4]:.2f}; BVH2 nodes {tex260.num_nodes},"
+          f" wide rows {tex260.wide_end}; atlas {tuple(tex260.atlas.shape)} "
+          f"({tex260.atlas.numel()} bytes), {tex260.atlas_blocks.shape[0]} "
+          f"textures; probe {tuple(content260.probe.shape)}, sampling grid "
+          f"{tuple(content260.probe_pdf.shape)}", flush=True)
+    phase("content scene build", t0)
+
+    frames = {}
+
+    def content_frame(name, bufs, cfg, noise=None):
+        """Renderer frames of one configuration: a warm-up frame, then 5
+        timed; checks K1's launches a frame and the image."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = lt.Renderer((WIDTH, HEIGHT), cfg)
+        r.set_resources(bufs)
+        if noise is not None:
+            r.upload_noise_texture(noise)
+            r.use_noise_texture(True)
+        r.accumulate = True
+        view = lt.arch_camera()
+        wide.reset_counters()
+        bvh2.reset_counters()
+        r.raytrace(view)  # warm-up frame; accum == its sample
+        first = r.accum.clone()
+        ms = event_ms(lambda: r.raytrace(view), 5)
+        img = r.blit()
+        nf = 6
+        got = {"closest": wide.launches_closest / nf,
+               "anyhit": wide.launches_anyhit / nf}
+        want = {"closest": BOUNCES,
+                "anyhit": BOUNCES + 1 + (BOUNCES if bufs.has_probe else 0)}
+        capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
+        spp = cfg.samples_per_frame
+        record_frame(name, ms, first.reshape(-1, 3), got, want, capped, spp,
+                     bvh2.launches_closest + bvh2.launches_occluded, img,
+                     r.accum)
+        return r
+
+    def record_frame(name, ms, sample, got, want, capped, spp, k23, img,
+                     accum):
+        mean = float(np.mean(ms))
+        nonzero = float((sample.sum(1) > 0).float().mean())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rays = WIDTH * HEIGHT * BOUNCES * 2 * spp
+        frames[name] = {"ms_mean": mean, "ms_min": min(ms), "ms": ms,
+                        "mrays_s": rays / mean / 1e3, "spp": spp,
+                        "k1_launches_per_frame": got,
+                        "nonzero_pixel_frac": nonzero, "peak_gib": peak}
+        print(f"{name} frame: ms (CUDA events) mean {mean:.3f}, min "
+              f"{min(ms):.3f}, all {[round(x, 3) for x in ms]}; Mrays/s "
+              f"{rays / mean / 1e3:.3f} (pixels x bounces x 2 x spp {spp}); "
+              f"K1 launches a frame {got} (want {want}); K2/K3 launches "
+              f"{k23}; nonzero_pixel_frac {nonzero:.4f}; peak memory "
+              f"{peak:.2f} GiB; rays stopped by a step bound {capped} "
+              f"({smi})", flush=True)
+        if got != want or k23:
+            raise SystemExit(f"chip_smoke: the {name} frame launched K1 "
+                             f"{got} times a frame, not {want}, or K2/K3")
+        if capped:
+            raise SystemExit("chip_smoke: rays reached the step bound")
+        if not (torch.isfinite(accum).all() and
+                (img is None or (img.shape == (HEIGHT, WIDTH, 3)
+                                 and img.dtype == np.uint8))):
+            raise SystemExit(f"chip_smoke: non-finite or misshapen {name} "
+                             f"frame")
+        if nonzero < 0.5:
+            raise SystemExit(f"chip_smoke: the {name} frame is mostly black")
+
+    t0 = time.perf_counter()
+    base_cfg = lt.RenderConfig(downsample_factor=1.0, denoise=False)
+    content_frame("textured", tex260, base_cfg)
+    phase("textured frame (a): warm-up + 5 frames + blit", t0)
+    t0 = time.perf_counter()
+    r_b = content_frame("content", content260,
+                        dataclasses.replace(base_cfg, samples_per_frame=4),
+                        noise=noise_raw)
+    phase("content frame (b): warm-up + 5 frames + blit", t0)
+
+    # K1 against its twin on frame (b)'s own waves, recorded from one more
+    # frame of its renderer (after its launches were read): the textured
+    # hall's BVH at 8,294,400 slots. A frame's K1 calls, in order:
+    # closest-hit, bounces 0-2; any-hit, light NEE and env NEE at each
+    # bounce, then the final gather. Exact, as phase 3.
+    t0 = time.perf_counter()
+    rec = k1_waves(lambda: r_b.raytrace(lt.arch_camera()),
+                   {("closest", 0): "primary", ("anyhit", 1): "env",
+                    ("closest", 1): "bounce1", ("anyhit", 6): "gather"})
+    del r_b
+    torch.cuda.empty_cache()
+    rows = ["| wave | rays compared | tri equal | t max ulp | blocked equal "
+            "| hit / blocked frac | hits won by the copy | verdict |",
+            "|---|---|---|---|---|---|---|---|"]
+    ok = all(bool((rec[w][2] == 1e30).all()) for w in ("primary", "bounce1"))
+    rows.append(f"closest-hit waves traced to T_FAR: {ok}")
+    capped0 = wide.capped_rays(dev)
+    for wname, closest, shadow in (
+            ("content frame (b) / primary, 4 spp (shadow: bounce 0's env "
+             "NEE, tmax from scene_exit_t, self-sorted)", "primary", "env"),
+            ("content frame (b) / bounce 1, sorted (shadow: the final "
+             "gather)", "bounce1", "gather")):
+        ro_, rd_, _, act_ = rec[closest]
+        ok_w, t_e, b_e = compare_wide(wname, content260, (ro_, rd_, act_),
+                                      rec[shadow], rows)
+        ok &= ok_w
+        k1_err[0], k1_err[1] = max(k1_err[0], t_e), max(k1_err[1], b_e)
+    del rec
+    capped = wide.capped_rays(dev) - capped0
+    rows.append(f"rays stopped by the step bound (kernel and twin, these "
+                f"waves): {capped}")
+    print("\n".join(rows), flush=True)
+    phase("K1 on frame (b)'s waves", t0)
+    if not ok or capped:
+        raise SystemExit("chip_smoke: K1 disagrees with its plain version "
+                         "on frame (b)'s waves, or rays reached the step "
+                         "bound")
+
+    # (c): trace_paths on the headline scene, 1 spp then spp=4, one call.
+    t0 = time.perf_counter()
+    g_spp = torch.Generator(device=dev)
+    g_spp.manual_seed(13)
+    for name, spp in (("headline 1 spp (trace_paths)", 1),
+                      ("spp 4 (trace_paths)", 4)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wide.reset_counters()
+        bvh2.reset_counters()
+        sample = trace_paths(arch, cam, WIDTH, HEIGHT, g_spp,
+                             bounces=BOUNCES, spp=spp)[0]
+        ms = event_ms(lambda: trace_paths(arch, cam, WIDTH, HEIGHT, g_spp,
+                                          bounces=BOUNCES, spp=spp), 5)
+        got = {"closest": wide.launches_closest / 6,
+               "anyhit": wide.launches_anyhit / 6}
+        record_frame(name, ms, sample, got,
+                     {"closest": BOUNCES, "anyhit": BOUNCES + 1},
+                     wide.capped_rays(dev) + bvh2.capped_rays(dev), spp,
+                     bvh2.launches_closest + bvh2.launches_occluded, None,
+                     sample)
+    phase("spp frame (c) beside the 1-spp frame: 6 + 6 calls", t0)
+
+    # spp=2 in one wave equals the mean of its two 1-spp frames under blue
+    # noise (sample s at frame fc * 2 + s), on the textured 1080p hall with
+    # the inter-bounce sort off and on (the hall is past its node gate).
+    t0 = time.perf_counter()
+    noise_tex = torch.from_numpy((noise_raw[..., :2].astype(np.float32)
+                                  + 0.5) / 256.0).to(dev)
+    fc = 3
+    for sort in (False, True):
+        kw = dict(bounces=BOUNCES, sort_rays=sort, noise_tex=noise_tex)
+        batched = trace_paths(tex260, cam, WIDTH, HEIGHT, g_spp,
+                              frame_count=fc, spp=2, **kw)[0]
+        singles = [trace_paths(
+            tex260, cam, WIDTH, HEIGHT, g_spp, frame_count=fc * 2 + s,
+            jitter=rmod.blue_noise_uv(noise_tex, fc * 2 + s, WIDTH, HEIGHT,
+                                      dim=0),
+            nee_uv=rmod.blue_noise_uv(noise_tex, fc * 2 + s, WIDTH, HEIGHT,
+                                      dim=1), **kw)[0] for s in range(2)]
+        want = (singles[0] + singles[1]) / 2
+        same = bool(torch.allclose(batched, want, rtol=1e-5, atol=1e-6))
+        err = float((batched - want).abs().max())
+        print(f"spp=2 in one wave vs the mean of its two 1-spp frames, blue "
+              f"noise, sort {'on' if sort else 'off'}: allclose (rtol 1e-5, "
+              f"atol 1e-6) {same}, max |diff| {err:.3e}, mean "
+              f"{float(want.mean()):.5f}")
+        if not same or float(want.mean()) < 1e-3:
+            raise SystemExit("chip_smoke: spp=2 in one wave differs from "
+                             "the mean of its single frames")
+    phase("spp=2 identity, sort off and on", t0)
+
+    # Small frames: the card against the plain CPU path, the same explicit
+    # uniforms: the textured quad (K2/K3 on a 2-triangle scene) and a
+    # textured arch-20k hall with 20 props under a sky, with blue noise.
+    t0 = time.perf_counter()
+    small_probe = lt.build_probe(sky_equirect(64, 128))
+    for name, scene, probe, view, noise in (
+            ("textured quad 64x64", textured_quad_scene(), None, TEX_CAM,
+             False),
+            ("textured arch-20k + 20 props, sky, blue noise 128x64",
+             lt.build_arch_scene(20_000, textured=True, props=20),
+             small_probe, lt.arch_camera(), True)):
+        sw, sh = (64, 64) if probe is None else (128, 64)
+        bufs = lt.build_scene_buffers(scene, probe=probe)
+        bufs_cpu = bufs.to("cpu")
+        gu.manual_seed(9)
+        uni = draw_uniforms(sw * sh, BOUNCES, gu, "cpu", env=bufs.has_probe)
+        v = torch.from_numpy(view)
+        outs = []
+        for b, u, d in ((bufs_cpu, uni, "cpu"), (bufs, uni.to(dev), dev)):
+            kw = {}
+            if noise:
+                nt = noise_tex.to(d)
+                kw = dict(noise_tex=nt, frame_count=fc,
+                          jitter=rmod.blue_noise_uv(nt, fc, sw, sh, dim=0),
+                          nee_uv=rmod.blue_noise_uv(nt, fc, sw, sh, dim=1))
+            outs.append(trace_paths(b, v.to(d), sw, sh, bounces=BOUNCES,
+                                    sort_rays=False, uniforms=u,
+                                    **kw)[0].cpu())
+        ref, out = outs
+        close = float(torch.isclose(out, ref, rtol=1e-4, atol=1e-5).all(1)
+                      .float().mean())
+        rel = abs(float(out.mean()) / max(float(ref.mean()), 1e-12) - 1.0)
+        print(f"small frame {name}: card vs CPU plain path (BVH2 nodes "
+              f"{bufs.num_nodes}: K2/K3), pixels close {close:.5f}, mean rel "
+              f"diff {rel:.2e}, mean {float(ref.mean()):.5f}")
+        if close < 0.995 or rel > 1e-3 or not float(ref.mean()) > 0:
+            raise SystemExit(f"chip_smoke: the card's {name} frame "
+                             f"disagrees with the CPU path")
+    del tex260, content260
+    phase("content small frames vs CPU", t0)
+
+    # -- The interactive path: the app's default frame -----------------------
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     inter = lt.Renderer((WIDTH, HEIGHT), lt.RenderConfig())
@@ -1932,7 +2319,13 @@ def main():
             "replaces": "loupiote_tpu/ops/pallas_wide.py:160",
             "launches": k1_launches[mode], "max_abs_err": err,
             "ms": k1_timing[mode][0], "plain_ms": k1_timing[mode][1],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "nonfinite_equal": nf_equal[
+                "K1 " + mode.replace("anyhit", "any-hit")],
+            # K1's launches a frame on each 1080p frame of this run.
+            "path_launches_per_frame": {
+                name: f["k1_launches_per_frame"][mode]
+                for name, f in frames.items()}})
     any_ms, any_plain = k23_timing["K2 any-hit"]
     for name, line, key, err_key in (
             ("bvh2_trace", 67, "K2 closest", "closest"),
@@ -1944,7 +2337,9 @@ def main():
             "replaces": f"loupiote_tpu/ops/pallas_intersect.py:{line}",
             "launches": launches[key], "max_abs_err": k23_err[err_key],
             "ms": k23_timing[key][0], "plain_ms": k23_timing[key][1],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "nonfinite_equal": nf_equal[key] and (
+                name != "bvh2_trace" or nf_equal["K2 any-hit"])}
         if name == "bvh2_trace":
             # K2's top-level numbers are the primary wave's; the diffuse
             # wave's beside them, the interactive frame's launches summed
@@ -2110,7 +2505,7 @@ def main():
         "ms": e4["device_sort"], "plain_ms": e4_plain,
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
         "library_ms": e4["torch.sort+gather"]})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "frames": frames}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

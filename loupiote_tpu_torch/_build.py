@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use into ``loupiote_tpu_torch/_build/lib<name>_<hash>.so`` (the
-hash is of the source and the flags, so an edit rebuilds). Nothing here
+hash is of the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edit rebuilds). Nothing here
 runs at import time: the CPU tests import every module, on hosts that
 have no nvcc.
 """
@@ -10,6 +11,7 @@ have no nvcc.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -60,8 +62,11 @@ def load(name: str) -> ctypes.CDLL:
 
 def _compile(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The source and the shared headers it may include.
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(out):
         build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)"})

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kStackMax = 128;  // ops/bvh2.py raises for a deeper scene
@@ -106,11 +108,11 @@ __device__ __forceinline__ bool slab(const float* __restrict__ node_rows,
   const float t1x = (a.x - r.ox) * r.ix, t2x = (a.w - r.ox) * r.ix;
   const float t1y = (a.y - r.oy) * r.iy, t2y = (b.x - r.oy) * r.iy;
   const float t1z = (a.z - r.oz) * r.iz, t2z = (b.y - r.oz) * r.iz;
-  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                         fminf(t1z, t2z));
-  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                         fmaxf(t1z, t2z));
-  return tf >= fmaxf(tn, 0.0f) && tn < bound;
+  const float tn = max_nan(
+      max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)), min_nan(t1z, t2z));
+  const float tf = min_nan(
+      min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)), max_nan(t1z, t2z));
+  return tf >= max_nan(tn, 0.0f) && tn < bound;
 }
 
 // Moller-Trumbore, products in the reference's order. Returns true where

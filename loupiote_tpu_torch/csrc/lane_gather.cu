@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kEntries = 1024;
@@ -52,18 +54,6 @@ constexpr int kSmemBytes = (16 + 8 + 4) * kCopies * kEntries;
 
 __device__ __forceinline__ float inv(float d) {
   return 1.0f / (fabsf(d) > 1e-20f ? d : 1e-20f);
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -131,12 +133,12 @@ __device__ __forceinline__ int internal_row(const float* rows, int cur,
     const float t1x = (a.x - ox) * ix, t2x = (a.w - ox) * ix;
     const float t1y = (a.y - oy) * iy, t2y = (b.x - oy) * iy;
     const float t1z = (a.z - oz) * iz, t2z = (b.y - oz) * iz;
-    const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                           fminf(t1z, t2z));
-    const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                           fmaxf(t1z, t2z));
+    const float tn = max_nan(
+        max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)), min_nan(t1z, t2z));
+    const float tf = min_nan(
+        min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)), max_nan(t1z, t2z));
     const int p = c ^ oct;
-    if (ptr != -1 && tf >= fmaxf(tn, 0.0f) && tn < bound) {
+    if (ptr != -1 && tf >= max_nan(tn, 0.0f) && tn < bound) {
       pmask |= 1u << p;
       if (p < near_p) {
         near_p = p;

@@ -2,10 +2,13 @@
 ``loupiote_tpu/ops/shade.py``).
 
 PBR metallic-roughness: a Lambert lobe weighted (1 - metallic)(1 - F) and
-a GGX lobe with Smith G and Schlick F, sampled by visible normals. NEE
-takes one quad-light sample, MIS-weighted (power heuristic) against BSDF
-sampling; quad lights are not in the BVH and BSDF rays hit them
-analytically. Every random number comes in as an explicit (R,) tensor.
+a GGX lobe with Smith G and Schlick F, sampled by visible normals; base
+colour and metallic-roughness may come from the texture atlas. NEE takes
+one quad-light sample and, where a probe is bound, one environment
+sample, each MIS-weighted (power heuristic) against BSDF sampling; quad
+lights are not in the BVH and BSDF rays hit them analytically, and the
+probe lights every geometry miss. Every random number comes in as an
+explicit (R,) tensor.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from .env import env_pdf, eval_env, sample_env
 from .intersect import T_FAR, Hit, occluded
 from .raygen import norm3
 from .sampling import (INV_PI, cosine_sample_hemisphere, dot3,
@@ -21,6 +25,7 @@ from .sampling import (INV_PI, cosine_sample_hemisphere, dot3,
                        power_heuristic, reflect, sample_ggx_vndf, smith_g1,
                        smith_g2, to_world)
 from .sort import ray_sort_key, sort_order
+from .texture import sample_atlas
 
 EPS_OFFSET = 1e-3
 MIN_ALPHA = 1e-3
@@ -59,9 +64,11 @@ class BounceState:
         return [getattr(self, f.name) for f in fields(self)]
 
 
-def decode_surface(scene, ro, rd, hit: Hit) -> Surface:
-    """Interpolated attributes at each hit (untextured; miss rays read
-    triangle 0 and are masked by the caller)."""
+def decode_surface(scene, ro, rd, hit: Hit, textures: bool = True) -> Surface:
+    """Interpolated attributes at each hit (miss rays read triangle 0 and
+    are masked by the caller). ``textures``: multiply the base colour
+    (sRGB) and roughness / metallic (the G and B channels) by the
+    material's atlas textures; a material without one reads white."""
     tri = torch.clamp_min(hit.tri, 0).to(torch.int64)
     w = 1.0 - hit.u - hit.v
     b = (w[:, None], hit.u[:, None], hit.v[:, None])
@@ -82,9 +89,20 @@ def decode_surface(scene, ro, rd, hit: Hit) -> Surface:
     n = torch.where((dot3(n, rd) > 0.0)[:, None], -n, n)
 
     mrow = scene.mat_pack[mat]  # (R, 11)
+    albedo, rough, metal = mrow[:, 0:3], mrow[:, 4], mrow[:, 5]
+    if textures:
+        uv = (srow[:, 9:11] * b[0] + srow[:, 11:13] * b[1]
+              + srow[:, 13:15] * b[2])
+        tex_ids = scene.mat_pack.view(torch.int32)[mat, 9:11]
+        tex_albedo = sample_atlas(scene, tex_ids[:, 0], uv, srgb=True)
+        tex_mra = sample_atlas(scene, tex_ids[:, 1], uv, srgb=False)
+        albedo = albedo * tex_albedo[:, :3]
+        # glTF metallic-roughness: G = roughness, B = metallic.
+        rough = rough * tex_mra[:, 1]
+        metal = metal * tex_mra[:, 2]
     pos = ro + rd * hit.t[:, None]
-    return Surface(pos=pos, n_geom=ng, n_shade=n, albedo=mrow[:, 0:3],
-                   roughness=mrow[:, 4], metallic=mrow[:, 5],
+    return Surface(pos=pos, n_geom=ng, n_shade=n, albedo=albedo,
+                   roughness=rough, metallic=metal,
                    emission=mrow[:, 6:9], inst_id=ids[:, 1])
 
 
@@ -258,22 +276,23 @@ def _shadow(scene, o, d, dist, active):
 
 
 def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,
-               u_lobe, u1, u2, nee: bool = True, last: bool = False):
+               u_lobe, u1, u2, u1_e=None, u2_e=None, nee: bool = True,
+               last: bool = False):
     """Advance every ray one bounce. Returns the new BounceState.
 
     ``u_sel``: light selection; ``u1_l``, ``u2_l``: the point on the
-    light; ``u_lobe``: lobe selection; ``u1``, ``u2``: the BSDF sample.
-    Each is an (R,) tensor of uniforms in slot order.
+    light; ``u_lobe``: lobe selection; ``u1``, ``u2``: the BSDF sample;
+    ``u1_e``, ``u2_e``: the environment sample (needed with a probe and
+    NEE). Each is an (R,) tensor of uniforms in slot order.
 
     ``last``: the path's final vertex. Its continuation ray is not traced
-    against geometry; a final gather tests it against the light quads with
-    one any-hit query, so every MIS pair stays complete.
+    against geometry; a final gather tests it against the light quads and,
+    with a probe, the environment (to the scene's exit) with one any-hit
+    query, so every MIS pair stays complete.
     """
-    if scene.has_probe or scene.has_textures:
-        raise NotImplementedError(
-            "probe and textured shading come with a later slice of the port")
     ro, rd = state.ro, state.rd
     alive = state.alive
+    miss = (hit.tri < 0) & alive
     hit_geo = (hit.tri >= 0) & alive
     radiance = state.radiance
     throughput = state.throughput
@@ -286,7 +305,15 @@ def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,
                                       throughput * l_emit * w_light[:, None],
                                       0.0)
 
-    surf = decode_surface(scene, ro, rd, hit)
+    if scene.has_probe:  # the environment on a geometry miss
+        w_env = torch.where(state.use_mis,
+                            power_heuristic(state.bsdf_pdf,
+                                            env_pdf(scene, rd)), 1.0)
+        radiance = radiance + torch.where(
+            miss[:, None], throughput * eval_env(scene, rd) * w_env[:, None],
+            0.0)
+
+    surf = decode_surface(scene, ro, rd, hit, textures=scene.has_textures)
     wo = -rd
     # Emissive surfaces (no NEE on emissive triangles: full weight).
     radiance = radiance + torch.where(hit_geo[:, None],
@@ -307,6 +334,21 @@ def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,
         radiance = radiance + torch.where((contrib_mask & ~blocked)[:, None],
                                           contrib, 0.0)
 
+    if nee and scene.has_probe:
+        # One environment sample, its shadow ray out to the scene's exit.
+        wi_e, pdf_e = sample_env(scene, u1_e, u2_e)
+        f_e, pdf_b_e = bsdf_eval_pdf(surf, wo, wi_e)
+        cos_e = torch.clamp_min(dot3(surf.n_shade, wi_e), 0.0)
+        mask_e = hit_geo & (pdf_e > 0) & (cos_e > 0) & (luminance(f_e) > 0)
+        shadow_o = surf.pos + surf.n_geom * EPS_OFFSET
+        blocked_e = _shadow(scene, shadow_o, wi_e,
+                            scene_exit_t(scene, shadow_o, wi_e), mask_e)
+        w_e = power_heuristic(pdf_e, pdf_b_e)
+        contrib_e = throughput * f_e * eval_env(scene, wi_e) * (
+            cos_e * w_e / torch.clamp_min(pdf_e, 1e-12))[:, None]
+        radiance = radiance + torch.where((mask_e & ~blocked_e)[:, None],
+                                          contrib_e, 0.0)
+
     # Sample the BSDF for the continuation ray.
     wi, f, pdf = sample_bsdf(surf, wo, u_lobe, u1, u2)
     cos_n = dot3(surf.n_shade, wi)
@@ -319,11 +361,22 @@ def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,
         gro = surf.pos + surf.n_geom * EPS_OFFSET
         g_emit, g_pdf, g_t, g_lhit = intersect_lights(
             scene, gro, wi, torch.full_like(pdf, T_FAR))
-        g_blocked = _shadow(scene, gro, wi, g_t, ok & g_lhit)
+        if scene.has_probe:  # tested to the light, else to the exit
+            g_blocked = _shadow(scene, gro, wi,
+                                torch.where(g_lhit, g_t,
+                                            scene_exit_t(scene, gro, wi)), ok)
+        else:
+            g_blocked = _shadow(scene, gro, wi, g_t, ok & g_lhit)
         w_gl = power_heuristic(pdf, g_pdf) if nee else torch.ones_like(pdf)
         add_l = ok & g_lhit & ~g_blocked
         radiance = radiance + torch.where(
             add_l[:, None], new_throughput * g_emit * w_gl[:, None], 0.0)
+        if scene.has_probe:
+            w_ge = (power_heuristic(pdf, env_pdf(scene, wi)) if nee
+                    else torch.ones_like(pdf))
+            radiance = radiance + torch.where(
+                (ok & ~g_blocked)[:, None],
+                new_throughput * eval_env(scene, wi) * w_ge[:, None], 0.0)
         return BounceState(ro=ro, rd=rd, throughput=throughput,
                            radiance=radiance,
                            alive=torch.zeros_like(alive),

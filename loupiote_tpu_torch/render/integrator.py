@@ -1,10 +1,13 @@
 """Path-tracing integrator: raygen -> [sort -> intersect -> shade] x bounces
-(counterpart of ``loupiote_tpu/render/integrator.py``, one sample per
-pixel, pseudo-random numbers).
+(counterpart of ``loupiote_tpu/render/integrator.py``).
 
-Random numbers come from an explicit ``torch.Generator``. ``FrameUniforms``
-holds every draw of a frame, so a caller can supply its own, as the tests
-do to replay the reference's ``jax.random`` streams.
+``spp`` samples per pixel go through each wave together, sample-major
+(slot s * R + tile pixel). Random numbers come from an explicit
+``torch.Generator``; ``FrameUniforms`` holds every pseudo-random draw of
+a frame, so a caller can supply its own, as the tests do to replay the
+reference's ``jax.random`` streams. With a blue-noise texture the jitter,
+the bounce-0 light sample and every bounce's BSDF and lobe draws come
+from its rotated planes instead (``renderer.blue_noise_uv``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from ..ops.intersect import intersect_any
+from ..ops.intersect import Hit, intersect_any
 from ..ops.raygen import generate_rays
 from ..ops.shade import (SORT_MIN_NODES, BounceState, decode_surface,
                          shade_step)
@@ -61,6 +64,8 @@ class BounceUniforms:
     u_lobe: torch.Tensor  # BSDF lobe selection
     u1: torch.Tensor  # BSDF sample
     u2: torch.Tensor
+    u1_e: Optional[torch.Tensor] = None  # environment sample (a probe)
+    u2_e: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -71,21 +76,26 @@ class FrameUniforms:
     bounces: List[BounceUniforms]
 
     def to(self, device) -> "FrameUniforms":
+        def move(x):
+            return None if x is None else x.to(device)
+
         return FrameUniforms(self.jitter.to(device), [
-            BounceUniforms(*(getattr(b, f.name).to(device)
-                             for f in fields(b))) for b in self.bounces])
+            BounceUniforms(*(move(getattr(b, f.name)) for f in fields(b)))
+            for b in self.bounces])
 
 
 def draw_uniforms(n: int, bounces: int, generator: torch.Generator,
-                  device) -> FrameUniforms:
-    """Draw a frame's uniforms in [0, 1) from ``generator``."""
+                  device, env: bool = False) -> FrameUniforms:
+    """Draw a frame's uniforms in [0, 1) from ``generator``; ``env``:
+    each bounce's environment pair too (a scene with a probe)."""
     def u(*shape):
         return torch.rand(*shape, generator=generator, device=device)
 
     jitter = u(n, 2)
-    return FrameUniforms(jitter, [BounceUniforms(u(n), u(n), u(n), u(n),
-                                                 u(n), u(n))
-                                  for _ in range(bounces)])
+    return FrameUniforms(jitter, [
+        BounceUniforms(u(n), u(n), u(n), u(n), u(n), u(n),
+                       *((u(n), u(n)) if env else ()))
+        for _ in range(bounces)])
 
 
 def _permute_packed(state: BounceState, pid: torch.Tensor,
@@ -120,40 +130,80 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
                 generator: Optional[torch.Generator] = None,
                 bounces: int = 3, vfov: float = 0.7853982, nee: bool = True,
                 sort_rays: bool = True,
-                uniforms: Optional[FrameUniforms] = None):
-    """Trace one sample per pixel. Returns ``(radiance, gbuffer)``:
-    radiance (height * width, 3) and the bounce-0 ``GBuffer``, both
-    pixel-major.
+                uniforms: Optional[FrameUniforms] = None,
+                jitter: Optional[torch.Tensor] = None,
+                nee_uv: Optional[torch.Tensor] = None,
+                noise_tex: Optional[torch.Tensor] = None,
+                frame_count: Optional[int] = None, spp: int = 1):
+    """Trace ``spp`` samples per pixel in one wave. Returns
+    ``(radiance, gbuffer)``: radiance (height * width, 3), the mean of the
+    samples, and the ``GBuffer`` of sample 0, both pixel-major.
 
     ``sort_rays``: between bounces, permute the whole bounce state into
     direction-octant + origin-Morton order (scenes past ``SORT_MIN_NODES``
-    BVH2 nodes), and scatter the radiance back to pixel order at the end.
-    ``uniforms``: the frame's random numbers; drawn from ``generator``
-    when None.
+    BVH2 nodes), and return the radiance to slot order at the end.
+    ``uniforms``: the frame's pseudo-random numbers, (spp * R,) each;
+    drawn from ``generator`` when None.
+    ``jitter`` (R or spp * R, 2) and ``nee_uv`` (R, 2, pixel order): the
+    sub-pixel offsets and the bounce-0 light sample, in place of the
+    uniforms'.
+    ``noise_tex`` (Hn, Wn, 2) and ``frame_count``: every light, BSDF and
+    lobe draw comes from blue noise, dimension ``1 + 3 * bounce`` for the
+    light, ``2 + 3 * bounce`` for the BSDF and ``3 + 3 * bounce`` for the
+    lobe, each plane rotated for its frame; with ``spp`` > 1, sample s
+    draws every dimension, the jitter (dimension 0) included, at the
+    effective frame ``frame_count * spp + s``.
     """
-    if scene.has_probe or scene.has_textures:
-        raise NotImplementedError(
-            "probe and textured scenes come with a later slice of the port")
+    from .renderer import blue_noise_uv
+
     dev = scene.device
-    N = width * height
+    R = width * height
+    N = spp * R
     if uniforms is None:
         if generator is None:
             raise ValueError("trace_paths needs a generator or uniforms")
-        uniforms = draw_uniforms(N, bounces, generator, dev)
+        uniforms = draw_uniforms(N, bounces, generator, dev,
+                                 env=scene.has_probe)
     tiled = _tiles_ok(width, height)
+    noise = noise_tex is not None
 
     def tile(x):
         return to_tile_order(x, width, height) if tiled else x
 
-    ro, rd = generate_rays(cam_to_world.to(dev, torch.float32), width, height,
-                           vfov, uniforms.jitter)
+    def bn(dim):
+        """Blue-noise plane ``dim`` of each sample, slot order."""
+        return torch.cat([tile(blue_noise_uv(
+            noise_tex, frame_count * spp + s if spp > 1 else frame_count,
+            width, height, dim=dim)) for s in range(spp)])
+
+    if spp > 1 and noise:
+        # Each sample its own jitter: tiling one plane would trace every
+        # primary ray spp times.
+        jitter = torch.cat([blue_noise_uv(noise_tex, frame_count * spp + s,
+                                          width, height, dim=0)
+                            for s in range(spp)])
+        nee_uv = None  # bn(1) per sample at bounce 0
+    elif jitter is None:
+        jitter = uniforms.jitter
+    elif jitter.shape[0] != N:
+        jitter = jitter.repeat(spp, 1)
+    cam = cam_to_world.to(dev, torch.float32)
+    ros, rds = [], []
+    for s in range(spp):
+        ro, rd = generate_rays(cam, width, height, vfov,
+                               jitter[s * R:(s + 1) * R])
+        ros.append(tile(ro))
+        rds.append(tile(rd))
+    if nee_uv is not None:
+        nee_uv = tile(nee_uv).repeat(spp, 1)
     state = BounceState(
-        ro=tile(ro).contiguous(), rd=tile(rd).contiguous(),
+        ro=torch.cat(ros).contiguous(), rd=torch.cat(rds).contiguous(),
         throughput=torch.ones((N, 3), dtype=torch.float32, device=dev),
         radiance=torch.zeros((N, 3), dtype=torch.float32, device=dev),
         alive=torch.ones(N, dtype=torch.bool, device=dev),
         bsdf_pdf=torch.zeros(N, dtype=torch.float32, device=dev),
         use_mis=torch.zeros(N, dtype=torch.bool, device=dev))
+    del ros, rds
 
     do_sort = sort_rays and scene.num_nodes > SORT_MIN_NODES
     lo, hi = scene.node_min[0], scene.node_max[0]
@@ -164,24 +214,50 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             state, pid = _permute_packed(state, pid, sort_order(key))
         hit = intersect_any(scene, state.ro, state.rd, active=state.alive)
         if bounce == 0:
-            surf = decode_surface(scene, state.ro, state.rd, hit)
-            missed = hit.tri < 0
+            # Sample 0's slots, [:R]: bounce 0 is not sorted.
+            hit0 = Hit(*(x[:R] for x in hit))
+            surf = decode_surface(scene, state.ro[:R], state.rd[:R], hit0,
+                                  textures=scene.has_textures)
+            missed = hit0.tri < 0
             gbuffer = GBuffer(
                 normal=torch.where(missed[:, None], 0.0, surf.n_shade),
-                depth=hit.t,
+                depth=hit0.t,
                 mesh_id=torch.where(missed, -1, surf.inst_id),
                 albedo=torch.where(missed[:, None], 1.0, surf.albedo),
                 world_pos=surf.pos)
+            del surf
         u = uniforms.bounces[bounce]
-        state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u.u1_l,
-                           u2_l=u.u2_l, u_lobe=u.u_lobe, u1=u.u1, u2=u.u2,
-                           nee=nee, last=(bounce == bounces - 1))
+        u1_l, u2_l, u_lobe, u1, u2 = u.u1_l, u.u2_l, u.u_lobe, u.u1, u.u2
+        light_uv = nee_uv if bounce == 0 else None
+        if noise:
+            # One packed (N, 5) gather takes the bounce's planes through
+            # the sort permutation (planes are in pixel slots, pid maps
+            # each slot to its pixel slot).
+            cols = [bn(1 + 3 * bounce)] if light_uv is None else []
+            cols += [bn(2 + 3 * bounce), bn(3 + 3 * bounce)[:, :1]]
+            mat = torch.cat(cols, dim=1)
+            if do_sort and bounce > 0:
+                mat = mat[pid.to(torch.int64)]
+            if light_uv is None:
+                light_uv, mat = mat[:, 0:2], mat[:, 2:]
+            u1, u2, u_lobe = mat[:, 0], mat[:, 1], mat[:, 2]
+        if light_uv is not None:
+            u1_l, u2_l = light_uv[:, 0], light_uv[:, 1]
+        state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u1_l,
+                           u2_l=u2_l, u_lobe=u_lobe, u1=u1, u2=u2,
+                           u1_e=u.u1_e, u2_e=u.u2_e, nee=nee,
+                           last=(bounce == bounces - 1))
+        del hit
 
     radiance = state.radiance
     if do_sort:
         out = torch.zeros_like(radiance)
         out[pid.to(torch.int64)] = radiance
         radiance = out
+    if spp > 1:
+        # Slot s * R + p holds pixel p's sample s: sum the samples in
+        # order (a deterministic sum, unlike a scatter-add's atomics).
+        radiance = radiance.reshape(spp, R, 3).sum(dim=0) / spp
     if tiled:
         radiance = from_tile_order(radiance, width, height)
         gbuffer = GBuffer(*(from_tile_order(f, width, height)

@@ -9,8 +9,10 @@
 
 State lives on the renderer's device (the card unless the caller names
 another): the running average and frame count, the previous frame's
-world-to-screen matrix, the G-buffer, motion vectors, the A-SVGF history
-and a ``torch.Generator`` seeded from ``seed``.
+world-to-screen matrix, the G-buffer, motion vectors, the blue-noise
+texture, the A-SVGF history and a ``torch.Generator`` seeded from
+``seed``. ``RenderConfig.samples_per_frame`` samples of each pixel go
+through each wave together.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .integrator import accumulate, trace_paths
 @dataclass
 class RenderState:
     """Per-session frame state (the reference's RenderState, without its
-    completion probe and blue-noise texture)."""
+    completion probe)."""
 
     accum: torch.Tensor  # (H, W, 3) running average
     frame_count: int
@@ -43,6 +45,9 @@ class RenderState:
     gb_mesh: torch.Tensor  # (H, W) int32
     gb_albedo: torch.Tensor  # (H, W, 3)
     motion: torch.Tensor  # (H, W, 2) uv motion vectors
+    # (Hn, Wn, 2) blue noise in [0, 1): every sample dimension's base
+    # plane when blue noise is on (rotated per frame, blue_noise_uv).
+    noise_tex: torch.Tensor
     asvgf_illum: torch.Tensor  # (H, W, 3) integrated illumination
     asvgf_moments: torch.Tensor  # (H, W, 2)
     asvgf_history: torch.Tensor  # (H, W)
@@ -63,8 +68,36 @@ def init_state(width: int, height: int, device) -> RenderState:
         gb_normal=z(h, w, 3), gb_depth=z(h, w),
         gb_mesh=torch.full((h, w), -1, dtype=torch.int32, device=device),
         gb_albedo=torch.ones((h, w, 3), dtype=torch.float32, device=device),
-        motion=z(h, w, 2), asvgf_illum=z(h, w, 3), asvgf_moments=z(h, w, 2),
+        motion=z(h, w, 2),
+        noise_tex=torch.full((64, 64, 2), 0.5, dtype=torch.float32,
+                             device=device),
+        asvgf_illum=z(h, w, 3), asvgf_moments=z(h, w, 2),
         asvgf_history=z(h, w), denoised=z(h, w, 3), temporal_rgb=z(h, w, 3))
+
+
+# The R2 sequence's two generators, and the offset between dimensions.
+_R2 = (0.7548776662, 0.5698402910)
+_DIM_STEP = 0.38196601
+
+
+def blue_noise_uv(noise_tex: torch.Tensor, frame_count: int, width: int,
+                  height: int, dim: int = 0) -> torch.Tensor:
+    """(height * width, 2) blue-noise pairs of dimension ``dim`` for frame
+    ``frame_count``: the texture tiled over the image, under an R2
+    Cranley-Patterson rotation of the frame, offset by the dimension.
+    Computed in float32 as the reference: ``frame_count`` is rounded to
+    float32 before the product, ``dim * 0.38196601`` after it."""
+    hn, wn = noise_tex.shape[:2]
+    dev = noise_tex.device
+    yy = torch.arange(height, device=dev) % hn
+    xx = torch.arange(width, device=dev) % wn
+    base = noise_tex[yy[:, None], xx[None, :]].reshape(-1, 2)
+    g = torch.tensor(_R2, dtype=torch.float32, device=dev)
+    rot = torch.remainder(
+        torch.tensor(float(frame_count), dtype=torch.float32, device=dev) * g
+        + torch.tensor(dim * _DIM_STEP, dtype=torch.float32, device=dev),
+        1.0)
+    return torch.remainder(base + rot, 1.0)
 
 
 def project_uv(world_to_screen: torch.Tensor, pos: torch.Tensor):
@@ -107,18 +140,28 @@ def render_frame(scene, state: RenderState, cam_to_world: torch.Tensor,
                  vfov: float, mode: str = "pathtrace",
                  atrous_iterations: int = 4,
                  generator: Optional[torch.Generator] = None,
-                 uniforms=None) -> RenderState:
+                 uniforms=None, use_noise: bool = False,
+                 spp: int = 1) -> RenderState:
     """One frame. Returns the new state.
 
     ``mode``: 'pathtrace' accumulates; 'denoised' runs the whole A-SVGF
     chain; 'temporal' only its temporal pass; 'none' neither (the debug
     blit modes). Every mode writes the G-buffer and motion vectors.
     ``uniforms``: the frame's random numbers (drawn from ``generator``
-    when None).
+    when None). ``use_noise``: the jitter (dimension 0), the bounce-0
+    light sample (dimension 1) and every BSDF and lobe draw come from
+    ``state.noise_tex``. ``spp``: samples per pixel, in one wave.
     """
-    sample, gb = trace_paths(scene, cam_to_world, width, height, generator,
-                             bounces=bounces, vfov=vfov, nee=nee,
-                             uniforms=uniforms)
+    jitter = nee_uv = None
+    if use_noise:
+        fc = state.frame_count
+        jitter = blue_noise_uv(state.noise_tex, fc, width, height, dim=0)
+        nee_uv = blue_noise_uv(state.noise_tex, fc, width, height, dim=1)
+    sample, gb = trace_paths(
+        scene, cam_to_world, width, height, generator, bounces=bounces,
+        vfov=vfov, nee=nee, uniforms=uniforms, jitter=jitter, nee_uv=nee_uv,
+        noise_tex=state.noise_tex if use_noise else None,
+        frame_count=state.frame_count if use_noise else None, spp=spp)
     img = sample.reshape(height, width, 3)
     motion = motion_vectors(state.prev_world_to_screen, gb, width, height)
     normal = gb.normal.reshape(height, width, 3)
@@ -174,10 +217,6 @@ class Renderer:
     def __init__(self, size: tuple, config: Optional[RenderConfig] = None,
                  seed: int = 0, device="cuda"):
         self.config = config or RenderConfig()
-        if self.config.samples_per_frame > 1:
-            raise NotImplementedError(
-                "samples_per_frame > 1 comes with the spp-batching slice of "
-                "the port")
         # An empty tensor names the device in full ("cuda" -> "cuda:0")
         # and raises at once where there is no such device.
         self.device = torch.empty(0, device=device).device
@@ -185,6 +224,8 @@ class Renderer:
         self.accumulate = False
         self.mode = BlitMode.PATHTRACE
         self.scene = None
+        self.use_noise = False
+        self.noise_texture: Optional[np.ndarray] = None
         self._set_size(size)
 
     # -- sizing ----------------------------------------------------------
@@ -196,6 +237,8 @@ class Renderer:
         self.state = init_state(self.size[0], self.size[1], self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self._seed)
+        if self.noise_texture is not None:
+            self.upload_noise_texture(self.noise_texture)
 
     def resize(self, size: tuple) -> None:
         """Reallocate the frame state for a new window size."""
@@ -208,10 +251,6 @@ class Renderer:
     # -- resources -------------------------------------------------------
     def set_resources(self, scene) -> None:
         """Bind a scene on the renderer's device; resets accumulation."""
-        if scene.has_probe or scene.has_textures:
-            raise NotImplementedError(
-                "probe and textured scenes come with a later slice of the "
-                "port")
         if scene.device != self.device:
             raise ValueError(f"the scene is on {scene.device}, the renderer "
                              f"on {self.device}")
@@ -219,12 +258,18 @@ class Renderer:
         self.state = replace(self.state, frame_count=1)
 
     def upload_noise_texture(self, data) -> None:
-        raise NotImplementedError(
-            "blue-noise sampling comes with a later slice of the port")
+        """Bind a blue-noise texture, (Hn, Wn, >= 2) uint8: its first two
+        channels at texel centres, (c + 0.5) / 256. Kept across
+        ``resize``."""
+        self.noise_texture = np.asarray(data, np.uint8)
+        tex = (self.noise_texture[..., :2].astype(np.float32) + 0.5) / 256.0
+        self.state = replace(self.state,
+                             noise_tex=torch.from_numpy(tex).to(self.device))
 
     def use_noise_texture(self, flag: bool) -> None:
-        raise NotImplementedError(
-            "blue-noise sampling comes with a later slice of the port")
+        """Draw the frame's samples from the uploaded blue noise (once one
+        is uploaded) instead of the pseudo-random generator."""
+        self.use_noise = bool(flag)
 
     def set_blit_mode(self, mode: BlitMode) -> None:
         self.mode = BlitMode(mode)
@@ -259,7 +304,9 @@ class Renderer:
             nee=self.config.nee, vfov=math.radians(self.config.vfov_deg),
             mode=_FRAME_MODE[self.mode],
             atrous_iterations=self.config.atrous_iterations,
-            generator=self.generator)
+            generator=self.generator,
+            use_noise=self.use_noise and self.noise_texture is not None,
+            spp=self.config.samples_per_frame)
 
     def measure_passes(self, view_transform, queries=None,
                        method: str = "auto") -> dict:

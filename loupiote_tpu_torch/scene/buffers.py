@@ -23,6 +23,8 @@ import torch
 from ..accel.bvh import LEAF_MAX, build_bvh, bvh_max_depth
 from ..accel.wide import collapse_wide
 from ..treelet.build import TreeletDevice, build_treelet_device
+from .atlas import pack_atlas
+from .hdr import Probe
 from .types import INVALID_INDEX, Scene, pad_rows
 
 _PAD = 128
@@ -56,6 +58,15 @@ class SceneBuffers:
     light_eu: torch.Tensor  # (L, 3)
     light_ev: torch.Tensor  # (L, 3)
     light_emission: torch.Tensor  # (L, 3), premultiplied by intensity
+    # Texture atlas (scene/atlas.py): layers of RGBA8 texels and each
+    # texture's block (x, y, layer, w, h).
+    atlas: torch.Tensor  # (layers, S, S, 4) uint8
+    atlas_blocks: torch.Tensor  # (K, 5) int32
+    # Environment probe (scene/hdr.py); one-texel placeholders without one.
+    probe: torch.Tensor  # (Hp, Wp, 3) radiance
+    probe_cdf_cond: torch.Tensor  # (Hc, Wc) per-row conditional CDF
+    probe_cdf_marg: torch.Tensor  # (Hc,) marginal CDF over rows
+    probe_pdf: torch.Tensor  # (Hc, Wc) solid-angle pdf
     # BVH2 node bounds; row 0 is the scene box (sort keys, scene exit).
     node_min: torch.Tensor  # (N, 3)
     node_max: torch.Tensor  # (N, 3)
@@ -96,10 +107,16 @@ class SceneBuffers:
         return out
 
 
-def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
+def build_scene_buffers(scene: Scene, probe: Optional[Probe] = None,
+                        atlas_size: int = 2048, device="cuda",
+                        use_native: bool = True,
                         treelets: bool = False) -> SceneBuffers:
     """Flatten the scene's instances, build its BVH and upload the tables.
 
+    ``probe``: the environment probe (``scene/hdr.py::build_probe``), lit
+    on a geometry miss and sampled by next-event estimation.
+    ``atlas_size``: the side of the atlas layers the scene's images are
+    packed into.
     ``use_native``: build the BVH2 with the C++ builder (the shipped
     default); False selects the numpy builder, whose tree differs.
     ``treelets``: also build the treelet tables (``treelet/build.py``), so
@@ -263,6 +280,13 @@ def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     treelet = build_treelet_device(bvh, tri9, device) if treelets else None
+    atlas = pack_atlas(scene.images, atlas_size)
+    if probe is not None:
+        tables = (probe.radiance, probe.cdf_cond, probe.cdf_marg, probe.pdf)
+    else:
+        tables = (np.zeros((1, 1, 3), np.float32), np.ones((1, 1), np.float32),
+                  np.ones(1, np.float32),
+                  np.full((1, 1), 1.0 / (4.0 * np.pi), np.float32))
 
     return SceneBuffers(
         trav_rows=dev(trav),
@@ -275,6 +299,12 @@ def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
         light_eu=dev(light_eu),
         light_ev=dev(light_ev),
         light_emission=dev(light_emission),
+        atlas=dev(atlas.texture),
+        atlas_blocks=dev(atlas.blocks),
+        probe=dev(tables[0]),
+        probe_cdf_cond=dev(tables[1]),
+        probe_cdf_marg=dev(tables[2]),
+        probe_pdf=dev(tables[3]),
         node_min=dev(pad_rows(bvh.node_min, Np, 1e30)),
         node_max=dev(pad_rows(bvh.node_max, Np, -1e30)),
         wide_end=int(wide.end_index),
@@ -284,7 +314,7 @@ def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
         end_index=N,
         stack_depth=stack_depth,
         num_lights=len(scene.lights),
-        has_probe=False,
+        has_probe=probe is not None,
         has_textures=len(scene.images) > 0,
         treelet=treelet,
     )
@@ -292,7 +322,9 @@ def build_scene_buffers(scene: Scene, device="cuda", use_native: bool = True,
 
 _TENSOR_FIELDS = ("trav_rows", "node_rows", "leaf_rows", "tri_pack",
                   "tri_shade", "mat_pack", "light_origin", "light_eu",
-                  "light_ev", "light_emission", "node_min", "node_max")
+                  "light_ev", "light_emission", "atlas", "atlas_blocks",
+                  "probe", "probe_cdf_cond", "probe_cdf_marg", "probe_pdf",
+                  "node_min", "node_max")
 
 
 def from_reference(ref, device="cuda") -> SceneBuffers:

@@ -47,6 +47,11 @@ class ImageData:
     width: int
     height: int
 
+    @staticmethod
+    def from_array(arr: np.ndarray) -> "ImageData":
+        assert arr.ndim == 3 and arr.shape[2] == 4 and arr.dtype == np.uint8
+        return ImageData(arr, arr.shape[1], arr.shape[0])
+
 
 @dataclass
 class Mesh:

@@ -30,8 +30,8 @@ from loupiote_tpu_torch import build_scene_buffers, from_reference
 from loupiote_tpu_torch.accel.bvh import bvh_max_depth
 from loupiote_tpu_torch.ops import bvh2, intersect, wide
 from loupiote_tpu_torch.ops.intersect import T_MIN, moller_trumbore
-from torch_port_helpers import (assert_same_hits, numpy_bvh, random_rays,
-                                random_tris, soup_scene, t_of)
+from torch_port_helpers import (assert_same_hits, nonfinite_rays, numpy_bvh,
+                                random_rays, random_tris, soup_scene, t_of)
 
 R = 1024
 
@@ -129,6 +129,42 @@ def test_occluded_matches_pallas_kernel(soup, dist):
     np.testing.assert_array_equal(port_b, ref_b)
     assert 0 < port_b.mean() < 1
     assert not port_b[~active].any()
+
+
+@pytest.mark.parametrize("dist", [3.0, 1e30], ids=["bounded", "unbounded"])
+def test_nonfinite_rays_match_pallas_kernels(soup, dist):
+    """Rays with +-inf or NaN origin components and +-inf, -0 or tiny
+    direction components (lane_gather_bench's edge-case pattern): the
+    twins' slab test, like the reference's, returns NaN from a NaN term,
+    so K2's closest hits (t, u, v, tri), K2's any-hit mode and K3's
+    blocked bits agree with the Pallas kernels' on every ray."""
+    ref, port, tris = soup
+    ro, rd = (x.numpy() for x in nonfinite_rays(
+        *map(torch.from_numpy, random_rays(tris, R, seed=83)), 83))
+    bad = ~(np.isfinite(ro).all(1) & np.isfinite(rd).all(1))
+    assert 0.3 < bad.mean() < 0.8
+    tmax = np.full(R, dist, np.float32)
+    ref_hit = intersect_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                               tmax=jnp.asarray(tmax), interpret=True, sub=8)
+    port_hit = bvh2.intersect_bvh2(port, _t(ro), _t(rd), tmax=_t(tmax))
+    same = assert_same_hits(np.asarray(ref.tri_pack), ro, rd,
+                            np.asarray(ref_hit.tri), port_hit.tri.numpy())
+    for name in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(port_hit, name).numpy()[same],
+                                   np.asarray(getattr(ref_hit, name))[same],
+                                   rtol=1e-5, atol=5e-5, err_msg=name)
+    assert (port_hit.tri.numpy()[~bad] >= 0).any()
+    ref_any = np.asarray(intersect_pallas(
+        ref, jnp.asarray(ro), jnp.asarray(rd), tmax=jnp.asarray(tmax),
+        any_hit=True, interpret=True, sub=8).tri) >= 0
+    port_any = bvh2.intersect_bvh2(port, _t(ro), _t(rd), tmax=_t(tmax),
+                                   any_hit=True).tri >= 0
+    np.testing.assert_array_equal(port_any.numpy(), ref_any)
+    ref_b = np.asarray(occluded_pallas(ref, jnp.asarray(ro), jnp.asarray(rd),
+                                       jnp.asarray(tmax), interpret=True,
+                                       sub=8))
+    port_b = bvh2.occluded_bvh2(port, _t(ro), _t(rd), _t(tmax)).numpy()
+    np.testing.assert_array_equal(port_b, ref_b)
 
 
 def test_arch8k_primary_rays():

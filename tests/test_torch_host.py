@@ -18,20 +18,24 @@ import loupiote_tpu.scene.types as ref_types
 import loupiote_tpu_torch.scene.types as port_types
 from loupiote_tpu.accel.bvh import build_bvh as ref_build_bvh
 from loupiote_tpu.accel.bvh import bvh_max_depth as ref_bvh_max_depth
+from loupiote_tpu.scene import build_probe as ref_build_probe
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch
 from loupiote_tpu_torch import build_arch_scene as port_arch
-from loupiote_tpu_torch import Renderer, build_scene_buffers, from_reference
+from loupiote_tpu_torch import (Renderer, build_probe, build_scene_buffers,
+                                from_reference)
 from loupiote_tpu_torch.accel import native
 from loupiote_tpu_torch.accel.bvh import build_bvh, bvh_max_depth
 from loupiote_tpu_torch.ops.wide import wide_trace_plain
 from torch_port_helpers import (numpy_bvh, random_rays, random_tris,
-                                soup_scene, t_of, ulp_diff)
+                                sky_equirect, soup_scene, t_of, ulp_diff)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TABLES = ("trav_rows", "tri_shade", "mat_pack", "tri_pack", "light_origin",
-          "light_eu", "light_ev", "light_emission", "node_min", "node_max")
+          "light_eu", "light_ev", "light_emission", "node_min", "node_max",
+          "atlas", "atlas_blocks", "probe", "probe_cdf_cond",
+          "probe_cdf_marg", "probe_pdf")
 INTS = ("wide_end", "wide_stack", "num_nodes", "leaf_cap", "num_lights",
         "has_probe", "has_textures")
 
@@ -40,16 +44,32 @@ def _scenes(name):
     if name == "random500":
         tris = random_tris()
         return soup_scene(ref_types, *tris), soup_scene(port_types, *tris)
+    if name == "arch8k_textured":
+        return (ref_arch(8_000, textured=True, props=20),
+                port_arch(8_000, textured=True, props=20))
+    if name == "arch8k_merged":
+        kw = dict(textured=True, props=20, merged=True)
+        return ref_arch(8_000, **kw), port_arch(8_000, **kw)
     return ref_arch(8_000), port_arch(8_000)
 
 
-@pytest.mark.parametrize("name", ["random500", "arch8k"])
+@pytest.mark.parametrize("name", ["random500", "arch8k", "arch8k_textured",
+                                  "arch8k_merged"])
 def test_tables_byte_equal(name):
-    """Same scene, numpy BVH builder on both sides: identical tables."""
+    """Same scene, numpy BVH builder on both sides: identical tables. The
+    textured hall with 20 props (flattened) carries an atlas and a probe
+    built by each package from one sky; merged, the hall is one mesh
+    (tests/test_golden_scenes.py's instanced scene, flattened here)."""
     ref_scene, port_scene = _scenes(name)
+    ref_kw, kw = {}, {}
+    if name == "arch8k_textured":
+        sky = sky_equirect(256, 512)
+        ref_kw, kw = ({"probe": ref_build_probe(sky)},
+                      {"probe": build_probe(sky)})
     with numpy_bvh():
-        ref = ref_buffers(ref_scene)
-    port = build_scene_buffers(port_scene, device="cpu", use_native=False)
+        ref = ref_buffers(ref_scene, **ref_kw)
+    port = build_scene_buffers(port_scene, device="cpu", use_native=False,
+                               **kw)
     for f in TABLES:
         a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
         assert a.shape == b.shape and a.dtype == b.dtype, f
@@ -63,9 +83,9 @@ def test_from_reference_round_trips_every_field():
         ref = ref_buffers(ref_arch(8_000))
     port = from_reference(ref, device="cpu")
     for f in TABLES:
-        t = getattr(port, f)
-        assert t.dtype == torch.float32 and t.is_contiguous(), f
-        assert t.numpy().tobytes() == np.asarray(getattr(ref, f)).tobytes(), f
+        t, a = getattr(port, f), np.asarray(getattr(ref, f))
+        assert t.numpy().dtype == a.dtype and t.is_contiguous(), f
+        assert t.numpy().tobytes() == a.tobytes(), f
     for f in INTS:
         assert getattr(port, f) == getattr(ref, f), f
     # Bitcast ints survive: material ids and -1 child pointers.
@@ -167,11 +187,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and chip_smoke.py, and building
-    a scene with treelet tables (which compiles or loads the native
-    builder), imports no jax and nothing of loupiote_tpu or experiments,
-    and opens, runs or loads no file under loupiote_tpu/ or
-    experiments/."""
+    """Importing every module of the port and chip_smoke.py, building a
+    scene with treelet tables (which compiles or loads the native
+    builder) and a probe's tables (an area resize), imports no jax,
+    nothing of loupiote_tpu or experiments and no image decoder (PIL,
+    imageio, cv2: the card's host has none), and opens, runs or loads no
+    file under loupiote_tpu/ or experiments/."""
     code = """
 import importlib, os, pkgutil, sys
 ref_dirs = tuple(os.path.join(os.getcwd(), d) + os.sep
@@ -197,8 +218,11 @@ importlib.import_module("chip_smoke")
 b = lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu",
                            treelets=True)
 assert b.treelet is not None
+import numpy as np
+assert lt.build_probe(np.ones((128, 300, 3), np.float32)).pdf.shape == (64, 128)
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "loupiote_tpu", "experiments")]
+       ("jax", "jaxlib", "flax", "loupiote_tpu", "experiments", "PIL",
+        "imageio", "cv2")]
 assert not bad, bad
 opened = sorted({p for p in seen if p.startswith(ref_dirs)})
 assert not opened, opened

@@ -4,9 +4,12 @@ tonemap) against the reference functions on the same numpy inputs.
 Tile order and sort keys are exact; ray directions within 2 ulp.
 shade_step gets the same
 state, the same hits and the reference's own uniforms (its jax.random
-splits replayed); its float outputs agree within rtol 1e-5 / atol 1e-6
-(transcendentals and XLA:CPU's fused multiply-adds differ in the last
-bits), its bool outputs exactly. Display bytes agree within 1 LSB.
+splits replayed), on the arch hall and on a textured hall with props under
+an HDR sky (atlas sampling, the environment on a miss, env NEE and the
+final gather's probe term); its float outputs agree within rtol 1e-5 /
+atol 1e-6 (transcendentals and XLA:CPU's fused multiply-adds differ in
+the last bits), its bool outputs exactly. Display bytes agree within
+1 LSB.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from loupiote_tpu.ops.shade import shade_step as ref_shade_step
 from loupiote_tpu.ops.sort import ray_sort_key as ref_sort_key
 from loupiote_tpu.ops.tonemap import to_display as ref_to_display
 from loupiote_tpu.render import integrator as ref_integrator
+from loupiote_tpu.scene import build_probe as ref_build_probe
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
 from loupiote_tpu_torch import from_reference
@@ -32,7 +36,7 @@ from loupiote_tpu_torch.ops.shade import BounceState, scene_exit_t, shade_step
 from loupiote_tpu_torch.ops.sort import DEAD_KEY, ray_sort_key, sort_order
 from loupiote_tpu_torch.ops.tonemap import to_display
 from loupiote_tpu_torch.render import integrator
-from torch_port_helpers import numpy_bvh, step_uniforms
+from torch_port_helpers import numpy_bvh, sky_equirect, step_uniforms
 
 W, H = 128, 8
 
@@ -45,6 +49,15 @@ def _t(x):
 def arch8k():
     with numpy_bvh():
         ref = ref_buffers(build_arch_scene(8_000))
+    return ref, from_reference(ref, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def content8k():
+    """The textured arch-8k hall with 20 props under an HDR sky."""
+    with numpy_bvh():
+        ref = ref_buffers(build_arch_scene(8_000, textured=True, props=20),
+                          probe=ref_build_probe(sky_equirect(64, 128)))
     return ref, from_reference(ref, device="cpu")
 
 
@@ -123,9 +136,13 @@ def _compare(ref_state, state):
                                        atol=1e-6, err_msg=name)
 
 
-@pytest.mark.parametrize("last", [False, True], ids=["bounce0", "last"])
-def test_shade_step_matches_reference(arch8k, primary, last):
-    ref, port = arch8k
+@pytest.mark.parametrize("last, scene", [
+    (False, "arch8k"), (True, "arch8k"), (False, "content8k"),
+    (True, "content8k")],
+    ids=["bounce0", "last", "bounce0-content8k", "last-content8k"])
+def test_shade_step_matches_reference(request, primary, last, scene):
+    ref, port = request.getfixturevalue(scene)
+    assert port.has_probe == port.has_textures == (scene == "content8k")
     ro, rd, _ = primary
     R = W * H
     state = RefState(ro=jnp.asarray(ro), rd=jnp.asarray(rd),
@@ -144,7 +161,8 @@ def test_shade_step_matches_reference(arch8k, primary, last):
     u = step_uniforms(key, R)
     out = shade_step(port, _states(state), Hit(*(_t(x) for x in hit[:4])),
                      u_sel=u.u_sel, u1_l=u.u1_l, u2_l=u.u2_l,
-                     u_lobe=u.u_lobe, u1=u.u1, u2=u.u2, last=last)
+                     u_lobe=u.u_lobe, u1=u.u1, u2=u.u2, u1_e=u.u1_e,
+                     u2_e=u.u2_e, last=last)
     _compare(ref_out, out)
     assert float(out.radiance.mean()) > 0
     assert out.alive.any() != last

@@ -25,8 +25,8 @@ from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
 from loupiote_tpu_torch import from_reference
 from loupiote_tpu_torch.ops import wide
-from torch_port_helpers import (assert_same_hits, numpy_bvh, random_rays,
-                                random_tris, soup_scene, t_of)
+from torch_port_helpers import (assert_same_hits, nonfinite_rays, numpy_bvh,
+                                random_rays, random_tris, soup_scene, t_of)
 
 
 @pytest.fixture(scope="module")
@@ -106,6 +106,35 @@ def test_anyhit_matches_pallas_kernel(soup, dist):
                                 active=torch.from_numpy(active)).numpy()
     np.testing.assert_array_equal(port_b, ref_b)
     assert 0 < port_b.mean() < 1
+
+
+def test_nonfinite_rays_match_pallas_kernel(soup):
+    """Rays with +-inf or NaN origin components and +-inf, -0 or tiny
+    direction components (lane_gather_bench's edge-case pattern): the
+    twin's slab test, like the reference's, returns NaN from a NaN term
+    (torch.minimum / maximum, as jnp's), so tri, t and the blocked bits
+    agree with the Pallas kernel's on every ray, finite or not."""
+    ref, port, tris = soup
+    ro, rd = (x.numpy() for x in nonfinite_rays(
+        *map(torch.from_numpy, random_rays(tris, 1024, seed=82)), 82))
+    bad = ~(np.isfinite(ro).all(1) & np.isfinite(rd).all(1))
+    assert 0.3 < bad.mean() < 0.8
+    ref_hit = ref_intersect_wide(ref, jnp.asarray(ro), jnp.asarray(rd),
+                                 interpret=True, sub=8)
+    port_hit = _port_hit(port, ro, rd)
+    same = assert_same_hits(np.asarray(ref.tri_pack), ro, rd,
+                            np.asarray(ref_hit.tri), port_hit.tri.numpy())
+    np.testing.assert_allclose(port_hit.t.numpy()[same],
+                               np.asarray(ref_hit.t)[same], rtol=1e-5)
+    assert (port_hit.tri.numpy()[~bad] >= 0).mean() > 0.05
+    tmax = np.full(1024, 1e30, np.float32)
+    ref_b = np.asarray(ref_intersect_wide(
+        ref, jnp.asarray(ro), jnp.asarray(rd), tmax=jnp.asarray(tmax),
+        any_hit=True, interpret=True, sub=8).tri > 0)
+    port_b = wide.occluded_wide(port, torch.from_numpy(ro),
+                                torch.from_numpy(rd),
+                                torch.from_numpy(tmax)).numpy()
+    np.testing.assert_array_equal(port_b, ref_b)
 
 
 def test_arch8k_primary_rays():

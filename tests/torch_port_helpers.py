@@ -9,6 +9,10 @@ import os
 import numpy as np
 import torch
 
+from loupiote_tpu_torch.scene.fixtures import (TEX_CAM,  # noqa: F401
+                                               nonfinite_rays, sky_equirect,
+                                               textured_quad_scene)
+
 # One intra-op thread: the suite runs several test processes side by side.
 torch.set_num_threads(1)
 
@@ -114,7 +118,8 @@ def replay_uniforms(key, n, bounces):
     """The reference trace_paths' jax.random draws, as port FrameUniforms:
     jitter from the frame key's first split, then per bounce the
     shade_step key's 8-way split (integrator.py:166,187,275;
-    shade.py:386-398,441-446)."""
+    shade.py:386-398,419-421,441-446). ``n``: the wave's slots, spp x
+    pixels."""
     import jax.random as jr
 
     from loupiote_tpu_torch.render.integrator import FrameUniforms
@@ -129,18 +134,22 @@ def replay_uniforms(key, n, bounces):
 
 
 def step_uniforms(k_step, n):
-    """One shade_step's draws from its key, as port BounceUniforms."""
+    """One shade_step's draws from its key, as port BounceUniforms; the
+    environment pair from k_env's own split (drawn by the reference only
+    where a probe is bound)."""
     import jax.random as jr
 
     from loupiote_tpu_torch.render.integrator import BounceUniforms
 
-    (_, _, k_lobe, k_u1, k_u2, k_ls, k_l1, k_l2) = jr.split(k_step, 8)
+    (_, k_env, k_lobe, k_u1, k_u2, k_ls, k_l1, k_l2) = jr.split(k_step, 8)
+    ke1, ke2 = jr.split(k_env)
 
     def u(k):
         return torch.from_numpy(np.array(jr.uniform(k, (n,))))
 
     return BounceUniforms(u_sel=u(k_ls), u1_l=u(k_l1), u2_l=u(k_l2),
-                          u_lobe=u(k_lobe), u1=u(k_u1), u2=u(k_u2))
+                          u_lobe=u(k_lobe), u1=u(k_u1), u2=u(k_u2),
+                          u1_e=u(ke1), u2_e=u(ke2))
 
 
 def psnr(a, b):
