@@ -143,6 +143,11 @@ import numpy as np
 
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 3
 SUBSET = 65_536  # rays the plain traversals replay of each full wave
+# Edge-case rays a non-finite check gives E6 / E7, and packets of 128 rays
+# it gives E1 (a few such rays walk far longer than a frame's rays, and a
+# twin steps all its rays until the longest ends).
+NONFINITE_RAYS = 4_096
+NONFINITE_PACKETS = 256
 # Bounds: H100 SXM peaks (HBM3 rate and dense FP32 rate), float32 outside the
 # tensor cores, and the float operations of one box test (6 sub, 6 mul,
 # 6 min/max of the slab pairs, 4 to combine, the clamp and 2 compares) and
@@ -597,6 +602,80 @@ def compare_lanes(name, td, wave, rows):
                 f"{live_pairs} | {cells[0]} | {cells[1]} | "
                 f"{'PASS' if ok else 'FAIL'} |")
     return ok, errs
+
+
+def compare_lanes_nonfinite(td, wave, S, seed, rows):
+    """E6 (both epilogues) and E7 (both epilogues, both modes) against
+    their twins on NONFINITE_RAYS strided rays of one wave with the edge
+    cases of nonfinite_rays. E6 walks the edge-case rays; E7 walks the
+    pairs of the finite rays' walk (a ray with a NaN or infinite origin
+    enters no subtree, so it would bring E7 no pair) with the edge-case
+    rays in their place, so its slab tests meet the NaN terms. Floats
+    NaN-equal, the rest bit-equal. Returns (E6 equal, E7 equal)."""
+    import torch
+
+    from loupiote_tpu_torch.scene.fixtures import nonfinite_rays
+    from loupiote_tpu_torch.treelet import lane_bottom, lane_top
+    from loupiote_tpu_torch.treelet.regroup import block_regroup
+
+    ro, rd, act = wave
+    R = ro.shape[0]
+    idx = torch.arange(0, R, max(R // NONFINITE_RAYS, 1),
+                       device=ro.device)[:NONFINITE_RAYS]
+    fro, frd, fact = (x[idx].contiguous() for x in (ro, rd, act))
+    n = fro.shape[0]
+    t0 = torch.full((n,), 1e30, device=ro.device)
+    nro, nrd = (x.contiguous() for x in nonfinite_rays(fro, frd, seed))
+    bad = int((~(torch.isfinite(nro).all(1)
+                 & torch.isfinite(nrd).all(1))).sum())
+
+    def same(a, b):
+        return all(nan_equal(x, y) if x.dtype == torch.float32
+                   else bits_equal(x, y) for x, y in zip(a, b))
+
+    e6_args = (td.top_fields, nro, nrd, t0, fact, td.num_top)
+    pp, npp = lane_top.lane_top_plain(*e6_args)
+    want_c = lane_top.compact_pairs(pp, npp, fact, S=S)
+    top_ok = [same(lane_top.lane_top_trace(*e6_args), (pp, npp))
+              for _ in range(3)]
+    pairs_ok = [same(lane_top.lane_top_pairs(*e6_args, S), want_c)
+                for _ in range(3)]
+    # E7's pairs: the finite rays' walk, grouped as the path groups them.
+    fp, fnp = lane_top.lane_top_plain(td.top_fields, fro, frd, t0, fact,
+                                      td.num_top)
+    key, ray_of, _ = lane_top.compact_pairs(fp, fnp, fact, S=S)
+    pray, sid, on = block_regroup(key, ray_of, S)
+    pr = pray.long()
+    e7_pair = (sid, td.sub_fields, nro[pr].contiguous(),
+               nrd[pr].contiguous(), t0[pr].contiguous(), on)
+    e7_ray = (sid, td.sub_fields, td.sub_tri_base, pray, on, nro, nrd, t0)
+    live = on > 0
+    nf_pairs = int((live & ~(torch.isfinite(nro[pr]).all(1)
+                             & torch.isfinite(nrd[pr]).all(1))).sum())
+    e7_ok = {}
+    for mode in ("closest", "anyhit"):
+        a = mode == "anyhit"
+        wp = lane_bottom.lane_bottom_plain(*e7_pair, a)
+        wr = (lane_bottom.lane_bottom_rays_plain(*e7_ray, a),)
+        e7_ok[("per pair", mode)] = [
+            same(lane_bottom.lane_bottom_trace(*e7_pair, a), wp)
+            for _ in range(3)]
+        e7_ok[("per ray", mode)] = [
+            same((lane_bottom.lane_bottom_rays(*e7_ray, a),), wr)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    ok = (all(top_ok) and all(pairs_ok),
+          all(all(v) for v in e7_ok.values()))
+    rows.append(f"| E6 per ray / compacting | {n} ({bad}) | "
+                f"{'/'.join(map(str, top_ok))} | "
+                f"{'/'.join(map(str, pairs_ok))} | "
+                f"{float((npp > 0).float().mean()):.4f} | "
+                f"{'PASS' if all(top_ok) and all(pairs_ok) else 'FAIL'} |")
+    for (epi, mode), v in e7_ok.items():
+        rows.append(f"| E7 {epi} {mode} | {int(live.sum())} live pairs "
+                    f"({nf_pairs} non-finite) | {'/'.join(map(str, v))} | | "
+                    f"| {'PASS' if all(v) else 'FAIL'} |")
+    return ok
 
 
 class StageTimer:
@@ -1889,6 +1968,25 @@ def main():
     print(smi, flush=True)
     phase("E6/E7: two waves + timing", t0)
 
+    # E6 and E7 on rays with non-finite components: their slab tests take
+    # NaN-returning min / max, as the twins' torch.minimum / maximum do.
+    t0 = time.perf_counter()
+    rows = ["| kernel | rays (non-finite) | 3 runs equal | compacting: 3 "
+            "runs equal | share with a pending subtree | verdict |",
+            "|---|---|---|---|---|---|"]
+    capped0 = lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev)
+    lanes_nf = compare_lanes_nonfinite(td, prim, S, 45, rows)
+    lanes_nf_capped = (lane_top.capped_rays(dev)
+                       + lane_bottom.capped_pairs(dev) - capped0)
+    rows.append(f"lanes stopped by a step bound (kernels and twins): "
+                f"{lanes_nf_capped}")
+    print("\n".join(rows), flush=True)
+    phase("E6/E7 on non-finite rays", t0)
+    if not all(lanes_nf) or lanes_nf_capped:
+        raise SystemExit("chip_smoke: E6 or E7 disagrees with its plain "
+                         "version on non-finite rays, or lanes reached a "
+                         "step bound")
+
     # The pipeline against K1 on the same full waves; one wave's time by
     # stage against K1's.
     t0 = time.perf_counter()
@@ -2260,6 +2358,67 @@ def main():
         raise SystemExit("chip_smoke: E3 disagrees with its plain version")
     phase("E3: path + ten probes vs twin", t0)
 
+    # E1 (five variants) and E3's segmin on non-finite inputs: their min /
+    # max return NaN, as the twins' torch.minimum / maximum do. E1 on the
+    # first NONFINITE_PACKETS packets of its path's wave with the edge cases
+    # of nonfinite_rays; segmin on a tile with NaN and +-inf entries.
+    t0 = time.perf_counter()
+    gp = NONFINITE_PACKETS // 8
+    nro, nrd = nonfinite_rays(
+        torch.stack([e1_args[a][:gp].reshape(-1) for a in (1, 2, 3)], 1),
+        torch.stack([e1_args[a][:gp].reshape(-1) for a in (4, 5, 6)], 1), 46)
+    bad = int((~(torch.isfinite(nro).all(1) & torch.isfinite(nrd).all(1)))
+              .sum())
+    nf_args = kernel_probe.probe_args(arch, nro, nrd,
+                                      e1_args[8][:gp].reshape(-1) > 0)
+    rows = [f"| E1 variant on {gp * 8} packets ({gp * 1024} rays, {bad} "
+            "non-finite) | t,u,v NaN-equal, tri, steps equal (3 runs) | "
+            "dropped (kernel / twin) | steps max / bound | verdict |",
+            "|---|---|---|---|---|"]
+    nf_probe_ok = True
+    for probe in kernel_probe.PROBES:
+        kw = kernel_probe.probe_kwargs(arch, probe)
+        d0 = kernel_probe.dropped_pushes(dev)
+        want = kernel_probe.probe_trace_plain(*nf_args, **kw)
+        p_drop = kernel_probe.dropped_pushes(dev) - d0
+        same, drops = [], []
+        for _ in range(3):
+            d0 = kernel_probe.dropped_pushes(dev)
+            got = kernel_probe.probe_trace(*nf_args, **kw)
+            torch.cuda.synchronize()
+            drops.append(kernel_probe.dropped_pushes(dev) - d0)
+            same.append(all(nan_equal(a, b) if a.dtype == torch.float32
+                            else bits_equal(a, b) for a, b in zip(got, want)))
+        smax = int(want[4].max())
+        # nofetch walks its fixed bound by design; the others end in it.
+        in_bound = probe == "nofetch" or smax < kw["max_steps"]
+        ok_p = (all(same) and all(d == p_drop for d in drops)
+                and (probe == "nofetch" or p_drop == 0) and in_bound)
+        nf_probe_ok &= ok_p
+        rows.append(f"| {probe} | {'/'.join(map(str, same))} | "
+                    f"{'/'.join(map(str, drops))} / {p_drop} | {smax} / "
+                    f"{kw['max_steps']} | {'PASS' if ok_p else 'FAIL'} |")
+    x_nf = r3_probes.tile(dev).clone().reshape(8, 128)
+    for (r, c), v in (((0, 5), "nan"), ((1, 40), "-inf"), ((2, 70), "inf"),
+                      ((3, 100), "nan"), ((3, 101), "-inf"),
+                      ((7, 127), "nan")):
+        x_nf[r, c] = float(v)
+    x_nf[5, :32] = float("inf")
+    x_nf = x_nf.reshape(1, 8, 128).contiguous()
+    want3 = r3_probes.probe_plain("segmin", x_nf, 256)
+    seg_same = [nan_equal(r3_probes.run_probe_kernel("segmin", x_nf, 256),
+                          want3) for _ in range(3)]
+    n_nan = int(torch.isnan(want3).sum())
+    rows.append(f"E3 segmin on a tile with NaN and +-inf entries, 256 steps: "
+                f"three runs NaN-equal to the twin {seg_same} ({n_nan} NaN "
+                f"of 1024 in the twin's output): "
+                f"{'PASS' if all(seg_same) else 'FAIL'}")
+    print("\n".join(rows), flush=True)
+    phase("E1/E3 on non-finite inputs", t0)
+    if not (nf_probe_ok and all(seg_same)):
+        raise SystemExit("chip_smoke: E1 or E3's segmin disagrees with its "
+                         "plain version on non-finite inputs")
+
     # -- E4: the global sort's path ----------------------------------------
     t0 = time.perf_counter()
     ss.reset_counters()
@@ -2416,6 +2575,7 @@ def main():
         "source": "loupiote_tpu_torch/csrc/treelet_traverse.cu",
         "replaces": "experiments/treelet/lane_top.py:178",
         "launches": t_launches["E6"], "max_abs_err": lane_err["E6 pairs"],
+        "nonfinite_equal": lanes_nf[0],
         "ms": et["pairs"], "plain_ms": et["plain"] + et["compact_pairs"],
         "bound_ms": e6_bound["pairs"][0], "bound_by": e6_bound["pairs"][1],
         "library_ms": None,
@@ -2441,6 +2601,7 @@ def main():
         "replaces": "experiments/treelet/lane_bottom.py:63",
         "launches": t_launches["E7 closest"],
         **e7_entry("per ray", "closest"), "library_ms": None,
+        "nonfinite_equal": lanes_nf[1],
         # The per-ray epilogue in closest-hit mode is what the path runs;
         # its any-hit mode and the per-pair epilogue are checked and timed
         # here, off the path (their launches on the path are counted: 0).
@@ -2460,7 +2621,7 @@ def main():
         "max_abs_err": max(r["err"] for r in e1_res.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound"][0], "bound_by": full["bound"][1],
-        "library_ms": None,
+        "library_ms": None, "nonfinite_equal": nf_probe_ok,
         # Other kernels that kernel_probe.main launches (make_waves).
         "path_launches": {"K1": e1_path["K1 closest"] + e1_path["K1 any-hit"]},
         # Each variant on the same wave; the top-level numbers are full's.
@@ -2491,6 +2652,7 @@ def main():
         "plain_ms": sum(r["plain_ms"] for r in e3_res.values()),
         "bound_ms": sum(r["bound_ms"] for r in e3_res.values()),
         "bound_by": "operations", "library_ms": None,
+        "segmin_nonfinite_equal": all(seg_same),
         "modes": {n: {"launches": e3_launches[n], "max_abs_err": r["err"],
                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": "operations",

@@ -41,7 +41,7 @@
 //   min/max of each ray's box test, and a row whose valid children all
 //   qualify runs its eight children unrolled (one helper, child_key,
 //   tests a child either way);
-// - each lane takes the fminf of its rays' hit distances and the warp the
+// - each lane takes the minimum of its rays' hit distances and the warp the
 //   minimum of one order-preserving key a lane (redux.sync): unsigned
 //   order is float order, -0 read as +0, so ranks and hits are the twin's;
 // - lane c ranks child c against the others' keys (shuffles), a ballot of
@@ -71,6 +71,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nan_minmax.cuh"
 
 namespace {
 
@@ -139,11 +141,11 @@ __device__ __forceinline__ void tri_test(Ray& r, const float* tr, int id) {
 __device__ __forceinline__ void box_planes(const Ray& y, float nx, float ny,
                                            float nz, float fx, float fy,
                                            float fz, float& m) {
-  const float tn = fmaxf(fmaxf((nx - y.ox) * y.ix, (ny - y.oy) * y.iy),
-                         (nz - y.oz) * y.iz);
-  const float tf = fminf(fminf((fx - y.ox) * y.ix, (fy - y.oy) * y.iy),
-                         (fz - y.oz) * y.iz);
-  if (y.a && tf >= fmaxf(tn, 0.0f) && tn < y.t) m = fminf(m, tn);
+  const float tn = max_nan(max_nan((nx - y.ox) * y.ix, (ny - y.oy) * y.iy),
+                           (nz - y.oz) * y.iz);
+  const float tf = min_nan(min_nan((fx - y.ox) * y.ix, (fy - y.oy) * y.iy),
+                           (fz - y.oz) * y.iz);
+  if (y.a && tf >= max_nan(tn, 0.0f) && tn < y.t) m = min_nan(m, tn);
 }
 
 // The same from both slabs of box b, as the twin writes it.
@@ -152,14 +154,14 @@ __device__ __forceinline__ void box_slabs(const Ray& y, const float* b,
   const float t1x = (b[0] - y.ox) * y.ix, t2x = (b[3] - y.ox) * y.ix;
   const float t1y = (b[1] - y.oy) * y.iy, t2y = (b[4] - y.oy) * y.iy;
   const float t1z = (b[2] - y.oz) * y.iz, t2z = (b[5] - y.oz) * y.iz;
-  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                         fminf(t1z, t2z));
-  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                         fmaxf(t1z, t2z));
-  if (y.a && tf >= fmaxf(tn, 0.0f) && tn < y.t) m = fminf(m, tn);
+  const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                           min_nan(t1z, t2z));
+  const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                           max_nan(t1z, t2z));
+  if (y.a && tf >= max_nan(tn, 0.0f) && tn < y.t) m = min_nan(m, tn);
 }
 
-// The packet's key of one child: each lane's fminf of its rays' hit
+// The packet's key of one child: each lane's minimum of its rays' hit
 // distances to box b, by the packet's planes (`off`: the near plane's
 // offset on each axis) where `planes`, else by both slabs; then the warp's
 // minimum key.

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kRows = 8, kCols = 128;
@@ -248,23 +250,23 @@ __device__ __forceinline__ void step(float (&x)[4], int w, int lane, int i,
 #pragma unroll
       for (int j = 0; j < 4; ++j) m[j] = x[j] + fi9;
       const float e0 = __shfl_sync(kFull, m[0], n1);  // s = 1
-      y[0] = fminf(m[0], m[1]);
-      y[1] = fminf(m[1], m[2]);
-      y[2] = fminf(m[2], m[3]);
-      y[3] = fminf(m[3], e0);
+      y[0] = min_nan(m[0], m[1]);
+      y[1] = min_nan(m[1], m[2]);
+      y[2] = min_nan(m[2], m[3]);
+      y[3] = min_nan(m[3], e0);
       const float f0 = __shfl_sync(kFull, y[0], n1);  // s = 2
       const float f1 = __shfl_sync(kFull, y[1], n1);
-      m[0] = fminf(y[0], y[2]);
-      m[1] = fminf(y[1], y[3]);
-      m[2] = fminf(y[2], f0);
-      m[3] = fminf(y[3], f1);
+      m[0] = min_nan(y[0], y[2]);
+      m[1] = min_nan(y[1], y[3]);
+      m[2] = min_nan(y[2], f0);
+      m[3] = min_nan(y[3], f1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = fminf(m[j], __shfl_sync(kFull, m[j], n1));
+      for (int j = 0; j < 4; ++j) y[j] = min_nan(m[j], __shfl_sync(kFull, m[j], n1));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) m[j] = fminf(y[j], __shfl_sync(kFull, y[j], n2));
+      for (int j = 0; j < 4; ++j) m[j] = min_nan(y[j], __shfl_sync(kFull, y[j], n2));
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        x[j] = x[j] + fminf(m[j], __shfl_sync(kFull, m[j], n4)) * 1e-9f;
+        x[j] = x[j] + min_nan(m[j], __shfl_sync(kFull, m[j], n4)) * 1e-9f;
       }
       break;
     }

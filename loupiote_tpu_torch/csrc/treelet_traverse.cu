@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kPendCap = 8;      // treelet/build.py: PEND_CAP
@@ -116,8 +118,10 @@ __device__ __forceinline__ void slab(float mnx, float mny, float mnz,
   const float t1x = (mnx - ox) * ix, t2x = (mxx - ox) * ix;
   const float t1y = (mny - oy) * iy, t2y = (mxy - oy) * iy;
   const float t1z = (mnz - oz) * iz, t2z = (mxz - oz) * iz;
-  *tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  *tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  *tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                min_nan(t1z, t2z));
+  *tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                max_nan(t1z, t2z));
 }
 
 // Stage the top table (8 fields of top_stride floats) into shared memory
@@ -159,7 +163,7 @@ __device__ __forceinline__ int top_walk(const float4* tab4, const float* ro,
     slab(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy, oz, ix, iy, iz, &tn, &tf);
     const int link = __float_as_int(b.z);
     const int pe = __float_as_int(b.w);
-    const bool hit = tf >= fmaxf(tn, 0.0f) && tn < t0;
+    const bool hit = tf >= max_nan(tn, 0.0f) && tn < t0;
     const int hit_id = link & kIdMask;
     const int miss_id = (link >> kTopIdBits) & kIdMask;
     if (hit && pe >= 0) {
@@ -446,7 +450,7 @@ __device__ __forceinline__ int walk(const float* f, float ox, float oy,
       slab(f[cur], f[kTile + cur], f[2 * kTile + cur], f[3 * kTile + cur],
            f[4 * kTile + cur], f[5 * kTile + cur], ox, oy, oz, ix, iy, iz,
            &tn, &tf);
-      cur = (tf >= fmaxf(tn, 0.0f) && tn < best) ? hit_id : miss_id;
+      cur = (tf >= max_nan(tn, 0.0f) && tn < best) ? hit_id : miss_id;
     }
   }
   return best_tri;

@@ -55,7 +55,8 @@ from loupiote_tpu_torch.experiments import (  # noqa: E402
     measure_traversal as mt, r3_probes as r3)
 from loupiote_tpu_torch.ops import wide  # noqa: E402
 from loupiote_tpu_torch.ops.intersect import intersect_any  # noqa: E402
-from torch_port_helpers import assert_same_hits, t_of  # noqa: E402
+from torch_port_helpers import (assert_same_hits,  # noqa: E402
+                                nonfinite_rays, t_of)
 
 W, H = 128, 16  # two (8, 128) blocks
 NOFETCH_STEPS = 100
@@ -96,9 +97,27 @@ def _ref_probe(rows, args, kw):
         return [np.asarray(x).reshape(-1) for x in out]
 
 
-@pytest.mark.parametrize("probe", kp.PROBES)
-def test_probe_matches_reference(arch, probe):
-    bufs, (dro, drd, _), args = arch
+@pytest.fixture(scope="module")
+def arch_nonfinite(arch):
+    """The fixture's wave with the edge cases of nonfinite_rays: about one
+    ray in eight of each origin component +-inf or NaN, of each direction
+    component +-inf, -0 or +-1e-30."""
+    bufs, (dro, drd, alive), _ = arch
+    ro, rd = nonfinite_rays(dro, drd, 91)
+    return bufs, (ro, rd), kp.probe_args(bufs, ro, rd, alive)
+
+
+E1_CASES = [(p, False) for p in kp.PROBES] + [(p, True) for p in kp.PROBES]
+E1_IDS = list(kp.PROBES) + [f"{p}-nonfinite" for p in kp.PROBES]
+
+
+@pytest.mark.parametrize("probe, edge", E1_CASES, ids=E1_IDS)
+def test_probe_matches_reference(request, probe, edge):
+    """On the edge-case wave the twin's min / max return NaN as the
+    reference's do, so tri is equal and t, u, v NaN-equal on every ray
+    with a non-finite component."""
+    fixture = "arch_nonfinite" if edge else "arch"
+    bufs, (dro, drd, *_), args = request.getfixturevalue(fixture)
     kw = _kwargs(bufs, probe)
     kp.reset_counters()
     t, u, v, tri, steps = kp.probe_trace(*args, **kw)
@@ -125,8 +144,14 @@ def test_probe_matches_reference(arch, probe):
         assert not hit.any()
     else:
         assert dropped == 0
+    fin = np.isfinite(ro).all(1) & np.isfinite(rd).all(1)
+    if edge:
+        assert 0.3 < (~fin).mean() < 0.8
+        np.testing.assert_array_equal(tri[~fin], rtri[~fin])
+        for a, b in ((t, rt), (u, ru), (v, rv)):
+            assert _nan_equal(a[~fin], b[~fin])
     if probe in ("full", "noorder"):
-        assert hit.mean() > 0.3  # closest hits of a diffuse wave
+        assert hit[fin].mean() > 0.3  # closest hits of a diffuse wave
     if probe == "nomt":
         assert not hit.any()
 
@@ -333,13 +358,38 @@ def _ref_r3(name, x, steps):
         return np.asarray(jax.jit(f)(jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("name", r3.PROBES)
-def test_r3_probe_matches_reference(name):
-    x = r3.tile("cpu")
+def _nonfinite_tile():
+    """The tile with NaN, +inf and -inf entries in some 32-column segments
+    of some rows (segmin's minimum is NaN in a segment that holds a NaN,
+    -inf in one that holds -inf and no NaN)."""
+    x = r3.tile("cpu").clone().reshape(8, 128)
+    x[0, 5] = float("nan")
+    x[1, 40] = float("-inf")
+    x[2, 70] = float("inf")
+    x[3, 100] = float("nan")
+    x[3, 101] = float("-inf")
+    x[5, 0:32] = float("inf")
+    x[7, 127] = float("nan")
+    return x.reshape(1, 8, 128)
+
+
+@pytest.mark.parametrize("name, edge", [(n, False) for n in r3.PROBES]
+                         + [("segmin", True)],
+                         ids=list(r3.PROBES) + ["segmin-nonfinite"])
+def test_r3_probe_matches_reference(name, edge):
+    """On the non-finite tile, segmin's min returns NaN as jnp.minimum
+    does: NaN-equal, and the NaN segments' elements are NaN."""
+    x = _nonfinite_tile() if edge else r3.tile("cpu")
     steps = 12
     ref = _ref_r3(name, x.numpy(), steps)
     out = r3.run_probe_kernel(name, x, steps).numpy()
     assert out.shape == (1, 8, 128)
+    if edge:
+        assert _nan_equal(out, ref)
+        assert np.isnan(out[0, 0, :32]).all() and np.isnan(out[0, 3, 96:]).all()
+        assert np.isneginf(out[0, 1, 32:64]).all()
+        assert np.isfinite(out[0, 4]).all()
+        return
     np.testing.assert_allclose(out, ref, rtol=1e-6)
     assert (out == ref).mean() >= 0.99
 
@@ -446,16 +496,16 @@ def _e3_model_step(name, x, i):
         seg = LANES & ~7
         n1, n2, n4 = (seg | ((LANES + d) & 7) for d in (1, 2, 4))
         m = x + fi9
-        y = torch.stack([torch.fmin(m[..., 0], m[..., 1]),
-                         torch.fmin(m[..., 1], m[..., 2]),
-                         torch.fmin(m[..., 2], m[..., 3]),
-                         torch.fmin(m[..., 3], _shfl(m[..., 0], n1))], -1)
-        m = torch.stack([torch.fmin(y[..., 0], y[..., 2]),
-                         torch.fmin(y[..., 1], y[..., 3]),
-                         torch.fmin(y[..., 2], _shfl(y[..., 0], n1)),
-                         torch.fmin(y[..., 3], _shfl(y[..., 1], n1))], -1)
+        y = torch.stack([torch.minimum(m[..., 0], m[..., 1]),
+                         torch.minimum(m[..., 1], m[..., 2]),
+                         torch.minimum(m[..., 2], m[..., 3]),
+                         torch.minimum(m[..., 3], _shfl(m[..., 0], n1))], -1)
+        m = torch.stack([torch.minimum(y[..., 0], y[..., 2]),
+                         torch.minimum(y[..., 1], y[..., 3]),
+                         torch.minimum(y[..., 2], _shfl(y[..., 0], n1)),
+                         torch.minimum(y[..., 3], _shfl(y[..., 1], n1))], -1)
         for src in (n1, n2, n4):
-            m = torch.stack([torch.fmin(m[..., j], _shfl(m[..., j], src))
+            m = torch.stack([torch.minimum(m[..., j], _shfl(m[..., j], src))
                              for j in range(4)], -1)
         return x + m * f32(1e-9)
     raise ValueError(name)
@@ -473,10 +523,15 @@ def _signed_tile():
     return x.reshape(1, 8, 128)
 
 
-@pytest.mark.parametrize("signed", [False, True], ids=["tile", "signed"])
-@pytest.mark.parametrize("name", r3.PROBES)
+@pytest.mark.parametrize("name, signed", [
+    (n, s) for n in r3.PROBES for s in (False, True)] + [("segmin", None)],
+    ids=[f"{n}-{s}" for n in r3.PROBES for s in ("tile", "signed")]
+    + ["segmin-nonfinite"])
 def test_r3_warp_schedule_matches_twin(name, signed):
-    x = _signed_tile() if signed else r3.tile("cpu")
+    """signed None: the non-finite tile, where segmin's min.NaN keeps the
+    NaN the twin's torch.minimum keeps."""
+    x = (_nonfinite_tile() if signed is None
+         else _signed_tile() if signed else r3.tile("cpu"))
     cols = torch.from_numpy(_e3_cols(name))
     y = x.reshape(8, 128)
     regs = y[:, cols]  # (8 warps, 32 lanes, 4)
@@ -486,6 +541,9 @@ def test_r3_warp_schedule_matches_twin(name, signed):
         back = torch.empty(8, 128)
         for w in range(8):
             back[w, cols] = regs[w]
+        if signed is None:  # NaN's bits are not kept: NaN-equal
+            assert _nan_equal(back.numpy(), y.numpy()), (name, i)
+            continue
         assert torch.equal(back.view(torch.int32), y.view(torch.int32)), (
             name, i)
 
@@ -499,7 +557,8 @@ def test_r3_warp_schedule_matches_twin(name, signed):
 # the packet is octant-coherent (every active ray with finite origin and
 # one sign of each inverse direction component) a child whose box has
 # min <= max on each axis is tested against the packet's near and far
-# planes, else by min / max of both slabs; each lane takes the fminf of its
+# planes, else by min / max of both slabs (PTX min.NaN / max.NaN: NaN in,
+# NaN out, as torch.minimum / maximum); each lane takes the minimum of its
 # rays' hit distances, the warp the minimum of the lanes' order-preserving
 # keys (redux.sync); lane c ranks child c against the others' keys
 # (shuffles), the ballot of the lanes with rank 0 names the nearest child,
@@ -611,31 +670,31 @@ def _e1_model(bufs, args, probe, max_steps):
                     work["box_tests"] += n_act
                     work["plane_tests"] += n_act * fast
                     if fast:
-                        tn = torch.fmax(torch.fmax(
+                        tn = torch.maximum(torch.maximum(
                             (b[off[0]] - o[0]) * inv[0],
                             (b[1 + off[1]] - o[1]) * inv[1]),
                             (b[2 + off[2]] - o[2]) * inv[2])
-                        tf = torch.fmin(torch.fmin(
+                        tf = torch.minimum(torch.minimum(
                             (b[3 - off[0]] - o[0]) * inv[0],
                             (b[4 - off[1]] - o[1]) * inv[1]),
                             (b[5 - off[2]] - o[2]) * inv[2])
                     else:
                         t1 = [(b[x] - o[x]) * inv[x] for x in range(3)]
                         t2 = [(b[x + 3] - o[x]) * inv[x] for x in range(3)]
-                        tn = torch.fmax(torch.fmax(
-                            torch.fmin(t1[0], t2[0]),
-                            torch.fmin(t1[1], t2[1])), torch.fmin(t1[2], t2[2]))
-                        tf = torch.fmin(torch.fmin(
-                            torch.fmax(t1[0], t2[0]),
-                            torch.fmax(t1[1], t2[1])), torch.fmax(t1[2], t2[2]))
-                    hit = a & (tf >= torch.fmax(tn, torch.tensor(0.0))) & (
+                        tn = torch.maximum(torch.maximum(
+                            torch.minimum(t1[0], t2[0]),
+                            torch.minimum(t1[1], t2[1])), torch.minimum(t1[2], t2[2]))
+                        tf = torch.minimum(torch.minimum(
+                            torch.maximum(t1[0], t2[0]),
+                            torch.maximum(t1[1], t2[1])), torch.maximum(t1[2], t2[2]))
+                    hit = a & (tf >= torch.maximum(tn, torch.tensor(0.0))) & (
                         tn < t)
-                    # Each lane's fminf over its rays 32 j + lane, then the
+                    # Each lane's minimum over its rays 32 j + lane, then the
                     # warp's minimum key.
                     tnv, hv = tn.view(4, 32), hit.view(4, 32)
                     m = torch.full((32,), kp.BIG)
                     for j in range(4):
-                        m = torch.where(hv[j], torch.fmin(m, tnv[j]), m)
+                        m = torch.where(hv[j], torch.minimum(m, tnv[j]), m)
                     kc[c] = dist_key(m.numpy()).min()
                 h, r, first = _rank_lanes(kc, cp, probe == "noorder")
                 nchild = int(h.sum())
@@ -660,23 +719,30 @@ def _e1_model(bufs, args, probe, max_steps):
 _E1_MODEL_RUNS = {}
 
 
-def _e1_model_of(arch, probe):
-    """_e1_model on the fixture's blocks, once a variant for the module."""
-    if probe not in _E1_MODEL_RUNS:
+def _e1_model_of(arch, probe, edge=False):
+    """_e1_model on the fixture's blocks, once a variant and input for the
+    module."""
+    if (probe, edge) not in _E1_MODEL_RUNS:
         bufs, _, args = arch
-        _E1_MODEL_RUNS[probe] = _e1_model(bufs, args, probe,
-                                          _kwargs(bufs, probe)["max_steps"])
-    return _E1_MODEL_RUNS[probe]
+        _E1_MODEL_RUNS[probe, edge] = _e1_model(
+            bufs, args, probe, _kwargs(bufs, probe)["max_steps"])
+    return _E1_MODEL_RUNS[probe, edge]
 
 
-@pytest.mark.parametrize("probe", kp.PROBES)
-def test_probe_warp_schedule_matches_twin(arch, probe):
+@pytest.mark.parametrize("probe, edge", [(p, False) for p in kp.PROBES]
+                         + [("full", True)],
+                         ids=list(kp.PROBES) + ["full-nonfinite"])
+def test_probe_warp_schedule_matches_twin(request, probe, edge):
+    """On the edge-case wave too: the model's min / max return NaN as the
+    kernel's min.NaN / max.NaN do, and a NaN inverse direction leaves a
+    packet with finite origins on its planes, where the NaN reaches tn."""
+    arch = request.getfixturevalue("arch_nonfinite" if edge else "arch")
     bufs, _, args = arch
     kw = _kwargs(bufs, probe)
     d0 = kp.dropped_pushes("cpu")
     ref = kp.probe_trace_plain(*args, **kw)
     ref_drop = kp.dropped_pushes("cpu") - d0
-    got, dropped, _ = _e1_model_of(arch, probe)
+    got, dropped, _ = _e1_model_of(arch, probe, edge)
     for g, r_ in zip(got, ref):
         if g.dtype == torch.float32:
             g, r_ = g.view(torch.int32), r_.view(torch.int32)
