@@ -124,10 +124,32 @@ Phases, each timed:
                  and CUDA launches counted; device_sort against slab_sort_plain at c_log 23
                  (keys and payload bit-equal) and against torch.sort, three
                  times.
+  Non-finite inputs (after phases 8 and 13): E6 (both epilogues) and E7
+                 (both epilogues and modes) on 4,096 rays of the primary
+                 wave with nonfinite_rays' edge cases, E1's five variants on
+                 256 packets of arch-4k's sorted diffuse wave with those
+                 edge cases and E3's segmin on a tile with NaN and +-inf
+                 entries, each against its twin three times: floats
+                 NaN-equal, the rest bit-equal, 0 lanes at a step bound;
+ 15. app       - the textured arch-260k hall with 200 props written as a
+                 glb with PNG textures and loaded by Driver.load_gltf_path
+                 (meshes, instances, materials, texels equal to the
+                 in-memory scene's); `python -m loupiote_tpu_torch render`
+                 of it at 1920x1080, 16 frames denoised (exit 0, the PNG's
+                 nonzero share >= 0.9, ms a frame); Renderer.measure_passes
+                 on the headline frame, pathtrace and denoised, by "trace"
+                 with every label and > 0.3 of the device time under one;
+                 the viewer server on loopback around a 1280x720 Driver (20
+                 JPEG frames, a 'w' key moves the camera, /stats, the
+                 gbuffer mode, a screenshot in the server's directory; the
+                 loop's step / blit / encode ms); hot reload, clean and
+                 with a source that does not compile (bit-equal frames, the
+                 old libraries kept); the lightmap bake on arch-40k against
+                 its CPU run.
 Any disagreement or failure raises, so the run exits non-zero without its
 last line. Prints a JSON line of kernel results (with the frames of 5a
-under "frames"), then the card's nvidia-smi line, then {"ok": true,
-"device": {...}} as the last line.
+under "frames" and phase 15's numbers under "app"), then the card's
+nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
 """
 
 import dataclasses
@@ -746,6 +768,322 @@ def k1_waves(fn, picks):
     return out
 
 
+HALL_CAMERA = "0,5,34,0.15,-0.12,-1"  # arch_camera(): origin, direction
+APP_WINDOW = (1280, 720)  # the reference app's window
+
+
+def http_json(url, data=None, timeout=30):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if data is None else json.dumps(data).encode(),
+        method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        return r.status, dict(r.headers), body
+
+
+def app_phases(lt, dev, arch, arch40, smi):
+    """The app layer on the card: the textured hall through a glb, the
+    CLI, measure_passes, the viewer server, hot reload and the lightmap
+    bake. Raises on any failed check; returns the numbers printed."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from loupiote_tpu_torch import _build, image_codec
+    from loupiote_tpu_torch.app import Driver
+    from loupiote_tpu_torch.app.server import ViewerServer
+    from loupiote_tpu_torch.app.trace_parse import (frame_scope_labels,
+                                                    matched_share)
+    from loupiote_tpu_torch.ops.lightmap import bake_vertex_irradiance
+    from loupiote_tpu_torch.render import CameraController
+    from loupiote_tpu_torch.scene.fixtures import write_glb
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    try:
+        # -- the textured hall written as a glb, loaded by the Driver ------
+        t0 = time.perf_counter()
+        hall = lt.build_arch_scene(260_000, textured=True, props=200)
+        glb = os.path.join(tmp, "hall.glb")
+        write_glb(hall, glb)
+        drv = Driver(APP_WINDOW, lt.RenderConfig(), device=dev)
+        drv.load_gltf_path(glb)
+        got = drv.scene
+        same_mesh = len(got.meshes) == len(hall.meshes) and all(
+            np.array_equal(a.positions, b.positions)
+            and np.array_equal(a.indices, b.indices)
+            and (a.texcoords is None) == (b.texcoords is None)
+            and (a.texcoords is None or np.array_equal(a.texcoords,
+                                                       b.texcoords))
+            for a, b in zip(got.meshes, hall.meshes))
+        # The loader appends after Scene.default()'s material.
+        same_inst = len(got.instances) == len(hall.instances) and all(
+            a.mesh_index == b.mesh_index
+            and a.material_index == b.material_index + 1
+            and np.array_equal(a.model_to_world, b.model_to_world)
+            for a, b in zip(got.instances, hall.instances))
+        same_mat = len(got.materials) == len(hall.materials) + 1 and all(
+            np.array_equal(a.color, b.color) and a.roughness == b.roughness
+            and a.reflectivity == b.reflectivity
+            and a.albedo_texture == b.albedo_texture
+            and a.mra_texture == b.mra_texture
+            for a, b in zip(got.materials[1:], hall.materials))
+        same_tex = len(got.images) == len(hall.images) and all(
+            np.array_equal(a.data, b.data)
+            for a, b in zip(got.images, hall.images))
+        print(f"app: textured arch-260k + 200 props as a glb "
+              f"({os.path.getsize(glb)} bytes, {len(hall.images)} PNG "
+              f"textures) through Driver.load_gltf_path: meshes equal "
+              f"{same_mesh}, instances {same_inst}, materials {same_mat}, "
+              f"texels {same_tex}; {got.stats()}", flush=True)
+        phase("app: hall as glb", t0)
+        if not (same_mesh and same_inst and same_mat and same_tex):
+            raise SystemExit("chip_smoke: the glb's scene differs from the "
+                             "in-memory hall")
+
+        # -- the CLI, as users start it, at the headline's resolution ------
+        # glTF carries no light, so --fit-light puts the hall's overhead
+        # quad back, and --camera is the headline's view.
+        t0 = time.perf_counter()
+        png = os.path.join(tmp, "out.png")
+        cmd = [sys.executable, "-m", "loupiote_tpu_torch", "render", glb,
+               png, "--size", f"{WIDTH}x{HEIGHT}", "--scale", "1.0", "--spp",
+               "16", "--mode", "denoised", "--fit-light", "10", "--camera",
+               HALL_CAMERA, "--device", dev.type]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        print(proc.stdout.strip(), flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: the CLI render exited "
+                             f"{proc.returncode}")
+        img = image_codec.read_png(png)
+        cli_nonzero = float((img[..., :3].astype(int).sum(-1) > 0).mean())
+        m = re.search(r"([0-9.]+) ms a frame", proc.stdout)
+        cli_ms = float(m.group(1)) if m else None
+        out["cli"] = {"ms_per_frame": cli_ms, "process_s": cli_s,
+                      "nonzero": cli_nonzero, "shape": list(img.shape)}
+        print(f"app: CLI render {WIDTH}x{HEIGHT} denoised, 16 frames: {cli_ms} ms a "
+              f"frame after the first; process {cli_s:.1f} s; PNG "
+              f"{img.shape}, nonzero share {cli_nonzero:.4f} ({smi})",
+              flush=True)
+        phase("app: CLI render", t0)
+        if img.shape != (HEIGHT, WIDTH, 4) or cli_nonzero < 0.9:
+            raise SystemExit("chip_smoke: the CLI's image is misshapen or "
+                             "mostly black")
+
+        # -- measure_passes on the headline frame, pathtrace and denoised --
+        t0 = time.perf_counter()
+        r = lt.Renderer((WIDTH, HEIGHT),
+                        lt.RenderConfig(downsample_factor=1.0, denoise=False),
+                        device=dev)
+        r.set_resources(arch)
+        r.accumulate = True
+        view = lt.arch_camera()
+        passes, ok = {}, True
+        for mode in (lt.BlitMode.PATHTRACE, lt.BlitMode.DENOISED_PATHTRACE):
+            r.set_blit_mode(mode)
+            r.raytrace(view)
+            res = r.measure_passes(view)
+            labels = frame_scope_labels(
+                BOUNCES, denoised=mode != lt.BlitMode.PATHTRACE)
+            shares = {k: v for k, v in res.items()
+                      if k in labels.values() or k == "other"}
+            share = matched_share(shares)
+            good = (res.get("method") == "trace"
+                    and all(lab in res and res[lab] >= 0
+                            for lab in labels.values())
+                    and share > 0.3)
+            ok &= good
+            passes[mode.value] = {"passes": res, "matched_share": share}
+            rows = ["| pass | device ms | share |", "|---|---|---|"]
+            total = sum(shares.values())
+            for lab, v in shares.items():
+                rows.append(f"| {lab} | {v:.3f} | {v / max(total, 1e-9):.3f} |")
+            print(f"app: measure_passes, arch-260k {WIDTH}x{HEIGHT} {mode.value} "
+                  f"(method {res.get('method')}): device time under a label "
+                  f"{share:.4f} of {total:.3f} ms; frame (fused) "
+                  f"{res.get('frame (fused)', 0.0):.3f} ms ({smi})\n"
+                  + "\n".join(rows), flush=True)
+        out["measure_passes"] = passes
+        del r
+        phase("app: measure_passes", t0)
+        if not ok:
+            raise SystemExit("chip_smoke: measure_passes did not trace every "
+                             "label, or too little device time fell under "
+                             "them")
+
+        # -- the viewer server around the Driver, on loopback ---------------
+        t0 = time.perf_counter()
+        drv.scene.fit_default_light(10.0)
+        drv.upload_scene()
+        vals = [float(v) for v in HALL_CAMERA.split(",")]
+        d = np.array(vals[3:], np.float32)
+        drv.camera_controller = CameraController.from_origin_dir(
+            np.array(vals[:3], np.float32), d / np.linalg.norm(d))
+        shots = os.path.join(tmp, "shots")
+        srv = ViewerServer(drv, host="127.0.0.1", port=0,
+                           screenshot_dir=shots).start()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            status, _, page = http_json(base + "/")
+            jpeg_ok, after, splits = status == 200 and b"<html" in page, -1, []
+            for _ in range(20):
+                status, hdr, body = http_json(f"{base}/frame?after={after}")
+                jpeg_ok &= (status == 200 and body[:2] == b"\xff\xd8"
+                            and body[-2:] == b"\xff\xd9")
+                after = int(hdr["X-Frame-Id"])
+                splits.append(dict(srv.loop_ms))
+            origin0 = drv.camera_controller.origin.copy()
+            _, _, before = http_json(f"{base}/frame?after={after}")
+            http_json(base + "/input", {"type": "key", "key": "w",
+                                        "pressed": True})
+            moved, changed = False, False
+            for _ in range(10):
+                status, hdr, body = http_json(f"{base}/frame?after={after}")
+                after = int(hdr["X-Frame-Id"])
+                moved = not np.array_equal(drv.camera_controller.origin,
+                                           origin0)
+                changed = body != before
+                if moved and changed:
+                    break
+            http_json(base + "/input", {"type": "key", "key": "w",
+                                        "pressed": False})
+            _, _, stats_body = http_json(base + "/stats")
+            stats = json.loads(stats_body)
+            stats_ok = stats.get("triangles", 0) > 0 and stats.get("fps", 0) > 0
+            http_json(base + "/input", {"type": "setting", "name": "blit_mode",
+                                        "value": "gbuffer"})
+            mode_ok = False
+            for _ in range(10):
+                _, hdr, _ = http_json(f"{base}/frame?after={after}")
+                after = int(hdr["X-Frame-Id"])
+                stats = json.loads(http_json(base + "/stats")[2])
+                mode_ok = (drv.renderer.mode == lt.BlitMode.GBUFFER
+                           and stats.get("blit_mode") == "gbuffer")
+                if mode_ok:
+                    break
+            http_json(base + "/input", {"type": "screenshot",
+                                        "path": "/elsewhere/x.png"})
+            shot_ok = False
+            for _ in range(20):
+                _, hdr, _ = http_json(f"{base}/frame?after={after}")
+                after = int(hdr["X-Frame-Id"])
+                listed = os.listdir(shots) if os.path.isdir(shots) else []
+                if listed:
+                    shot = image_codec.read_png(os.path.join(shots,
+                                                             listed[0]))
+                    shot_ok = shot.shape == APP_WINDOW[::-1] + (4,)
+                    break
+            err = getattr(srv, "render_error", None)
+        finally:
+            srv.stop()
+        mean = {k: float(np.mean([s[k] for s in splits if k in s]))
+                for k in ("step", "blit", "encode")}
+        out["server"] = {"loop_ms": mean, "stats": stats}
+        print(f"app: viewer server {APP_WINDOW} (downsample 0.5, denoised) on "
+              f"127.0.0.1:{srv.port}: 20 JPEG frames {jpeg_ok}; 'w' moved "
+              f"the camera {moved} and changed the frame {changed}; /stats "
+              f"triangles {stats.get('triangles')} fps "
+              f"{stats.get('fps', 0):.2f} ({stats_ok}); gbuffer mode "
+              f"{mode_ok}; screenshot in the server's directory {shot_ok}; "
+              f"loop ms (mean of the 20 frames): step {mean['step']:.3f}, "
+              f"blit {mean['blit']:.3f}, JPEG encode {mean['encode']:.3f} "
+              f"({smi})", flush=True)
+        phase("app: viewer server", t0)
+        if not (jpeg_ok and moved and changed and stats_ok and mode_ok
+                and shot_ok) or err:
+            raise SystemExit(f"chip_smoke: the viewer server failed a check "
+                             f"(render error: {err})")
+
+        # -- hot reload: clean, then with a source that does not compile ---
+        t0 = time.perf_counter()
+        rr = drv.renderer
+        rr.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
+        view = drv.camera_controller.update(0.0)
+
+        def frame_from(gen_state, state):
+            rr.generator.set_state(gen_state)
+            rr.state = state
+            rr.raytrace(view)
+            return rr.state.denoised.clone()
+
+        gs, st0 = rr.generator.get_state(), rr.state
+        a = frame_from(gs, st0)
+        rr.reload_shaders()
+        clean_err = rr.last_reload_error
+        b = frame_from(gs, st0)
+        libs = [n for n in rr._path_libraries()]
+        old_libs = {n: _build._libs[n] for n in libs}
+        broken = os.path.join(tmp, "csrc")
+        shutil.copytree(_build.CSRC_DIR, broken)
+        with open(os.path.join(broken, f"{libs[0]}.cu"), "a") as f:
+            f.write("\nthis does not compile;\n")
+        csrc = _build.CSRC_DIR
+        try:
+            _build.CSRC_DIR = broken
+            rr.reload_shaders()
+        finally:
+            _build.CSRC_DIR = csrc
+        bad_err = rr.last_reload_error
+        kept = all(_build._libs.get(n) is old_libs[n] for n in libs)
+        c = frame_from(gs, st0)
+        same_clean, same_bad = bits_equal(a, b), bits_equal(a, c)
+        out["reload"] = {"clean_error": clean_err, "broken_error":
+                         (bad_err or "")[:200], "libraries": libs}
+        print(f"app: hot reload of {libs}: clean reload error {clean_err}, "
+              f"frame bit-equal {same_clean}; with {libs[0]}.cu broken: "
+              f"error set {bad_err is not None} "
+              f"({(bad_err or '').splitlines()[0][:120]}), old libraries "
+              f"kept {kept}, frame bit-equal {same_bad}", flush=True)
+        phase("app: hot reload", t0)
+        if not (clean_err is None and same_clean and bad_err and kept
+                and same_bad):
+            raise SystemExit("chip_smoke: hot reload changed the frame or "
+                             "did not keep the old pipeline")
+        del drv, rr, srv
+
+        # -- the lightmap bake on arch-40k, against its CPU run -------------
+        t0 = time.perf_counter()
+        # Surface points: the centroids of V of the hall's triangles, with
+        # their geometric normals.
+        V = 512
+        real = torch.nonzero(arch40.tri_pack[:, 0].abs() < 1e29).flatten()
+        pick = real[torch.linspace(0, len(real) - 1, V, device=dev).long()]
+        tp = arch40.tri_pack[pick]
+        pos = tp[:, 0:3] + (tp[:, 3:6] + tp[:, 6:9]) / 3.0
+        nrm = arch40.tri_shade[pick, 17:20]
+        bakes = []
+        for scene in (arch40, arch40.to("cpu")):
+            g = torch.Generator(device="cpu")
+            g.manual_seed(5)
+            bakes.append(bake_vertex_irradiance(scene, pos, nrm, g,
+                                                samples=4).cpu())
+        close = float(torch.isclose(bakes[0], bakes[1], rtol=1e-4,
+                                    atol=1e-5).all(1).float().mean())
+        rel = abs(float(bakes[0].mean()) / max(float(bakes[1].mean()),
+                                               1e-12) - 1.0)
+        lit = float((bakes[0].sum(1) > 0).float().mean())
+        out["lightmap"] = {"vertices": V, "close": close, "mean_rel": rel,
+                           "lit": lit}
+        print(f"app: bake_vertex_irradiance on {V} arch-40k surface points "
+              f"(K2/K3), 4 samples x 2 bounces: card vs CPU close {close:.5f},"
+              f" mean rel diff {rel:.2e}, lit share {lit:.4f}", flush=True)
+        phase("app: lightmap bake vs CPU", t0)
+        if close < 0.995 or rel > 1e-3 or lit < 0.5:
+            raise SystemExit("chip_smoke: the card's bake disagrees with the "
+                             "CPU's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -755,11 +1093,12 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
     import loupiote_tpu_torch as lt
-    from loupiote_tpu_torch import _build
+    from loupiote_tpu_torch import _build, image_codec
     from loupiote_tpu_torch.accel import native
     from loupiote_tpu_torch.denoise.asvgf import denoise
     from loupiote_tpu_torch.experiments import (
-        device_sort_bench, kernel_probe, lane_gather_bench, r3_probes)
+        device_sort_bench, kernel_probe, lane_gather_bench,
+        measure_traversal, r3_probes)
     from loupiote_tpu_torch.ops import bvh2, wide
     from loupiote_tpu_torch.ops import slab_sort as ss
     from loupiote_tpu_torch.ops.sort import DEAD_KEY, ray_sort_key, sort_order
@@ -793,7 +1132,8 @@ def main():
         futs = [pool.submit(_build.load, k) for k in kernels_src]
         t1 = time.perf_counter()
         fut_bvh = pool.submit(native._load)
-        for f in futs + [fut_bvh]:
+        fut_codec = pool.submit(image_codec._load)
+        for f in futs + [fut_bvh, fut_codec]:
             f.result()
     for k in kernels_src:
         info = _build.build_info[k]
@@ -2359,25 +2699,30 @@ def main():
     phase("E3: path + ten probes vs twin", t0)
 
     # E1 (five variants) and E3's segmin on non-finite inputs: their min /
-    # max return NaN, as the twins' torch.minimum / maximum do. E1 on the
-    # first NONFINITE_PACKETS packets of its path's wave with the edge cases
-    # of nonfinite_rays; segmin on a tile with NaN and +-inf entries.
+    # max return NaN, as the twins' torch.minimum / maximum do. E1 on
+    # NONFINITE_PACKETS packets of the sorted diffuse wave of arch-4k
+    # (256x128) with the edge cases of nonfinite_rays: a ray with an
+    # infinite direction component tests no triangle and walks every row
+    # of the table (30,540 steps on arch-260k's, 520 on arch-4k's), and the
+    # twin steps until its longest packet ends; segmin on a tile with NaN
+    # and +-inf entries.
     t0 = time.perf_counter()
+    arch4, cam4 = measure_traversal.build(dev, 4_000)
     gp = NONFINITE_PACKETS // 8
-    nro, nrd = nonfinite_rays(
-        torch.stack([e1_args[a][:gp].reshape(-1) for a in (1, 2, 3)], 1),
-        torch.stack([e1_args[a][:gp].reshape(-1) for a in (4, 5, 6)], 1), 46)
+    w4 = gp * 1024 // 128
+    nro, nrd, alive4 = kernel_probe.sorted_diffuse_wave(arch4, cam4, w4,
+                                                         128)
+    nro, nrd = nonfinite_rays(nro, nrd, 46)
     bad = int((~(torch.isfinite(nro).all(1) & torch.isfinite(nrd).all(1)))
               .sum())
-    nf_args = kernel_probe.probe_args(arch, nro, nrd,
-                                      e1_args[8][:gp].reshape(-1) > 0)
-    rows = [f"| E1 variant on {gp * 8} packets ({gp * 1024} rays, {bad} "
-            "non-finite) | t,u,v NaN-equal, tri, steps equal (3 runs) | "
+    nf_args = kernel_probe.probe_args(arch4, nro, nrd, alive4)
+    rows = [f"| E1 variant on {gp * 8} arch-4k packets ({gp * 1024} rays, "
+            f"{bad} non-finite) | t,u,v NaN-equal, tri, steps equal (3 runs) | "
             "dropped (kernel / twin) | steps max / bound | verdict |",
             "|---|---|---|---|---|"]
     nf_probe_ok = True
     for probe in kernel_probe.PROBES:
-        kw = kernel_probe.probe_kwargs(arch, probe)
+        kw = kernel_probe.probe_kwargs(arch4, probe)
         d0 = kernel_probe.dropped_pushes(dev)
         want = kernel_probe.probe_trace_plain(*nf_args, **kw)
         p_drop = kernel_probe.dropped_pushes(dev) - d0
@@ -2468,6 +2813,8 @@ def main():
         raise SystemExit("chip_smoke: E4 disagrees with its plain version or "
                          "with torch.sort")
     phase("E4: path + check", t0)
+
+    app = app_phases(lt, dev, arch, arch40, smi)
 
     kernels = []
     for mode, err in (("closest", k1_err[0]), ("anyhit", k1_err[1])):
@@ -2667,7 +3014,7 @@ def main():
         "ms": e4["device_sort"], "plain_ms": e4_plain,
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
         "library_ms": e4["torch.sort+gather"]})
-    print(json.dumps({"kernels": kernels, "frames": frames}))
+    print(json.dumps({"kernels": kernels, "frames": frames, "app": app}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use into ``loupiote_tpu_torch/_build/lib<name>_<hash>.so`` (the
 hash is of the source, the shared ``csrc/*.cuh`` headers and the flags,
-so an edit rebuilds). Nothing here
+so an edit rebuilds). ``gxx`` builds the host C++ sources the same way
+with g++. Nothing here
 runs at import time: the CPU tests import every module, on hosts that
 have no nvcc.
 """
@@ -88,3 +89,32 @@ def _compile(name: str) -> str:
     build_info[name] = {"seconds": time.perf_counter() - t0,
                         "log": (proc.stdout + proc.stderr).strip()}
     return out
+
+
+def gxx(source: str, prefix: str) -> str:
+    """Compile the host C++ file ``source`` with ``g++ -O3 -shared -fPIC``
+    (no ``-march=native``: the library runs on any x86-64 host) into
+    ``BUILD_DIR/<prefix>_<hash of the source>.so`` unless it is there;
+    returns the library's path and raises if g++ fails."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    lib_path = os.path.join(BUILD_DIR, f"{prefix}_{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Compile to a private name, then rename: concurrent builders (test
+    # workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", source,
+             "-o", tmp],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed building {source}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path

@@ -13,19 +13,17 @@ so the port never swaps one for the other silently.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
+from .. import _build
 from .bvh import FlatBVH
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = _build.BUILD_DIR
 # Insertion-optimizer rounds: the reference's shipped default.
 OPT_ROUNDS = 50
 
@@ -33,37 +31,12 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _compile() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(BUILD_DIR, f"libbvh_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # Compile to a private name, then rename: concurrent builders (test
-    # workers) never load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", SOURCE,
-             "-o", tmp],
-            capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed building {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
-
-
 def _load():
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(_compile())
+        lib = ctypes.CDLL(_build.gxx(SOURCE, "libbvh"))
         fp = ctypes.POINTER(ctypes.c_float)
         ip = ctypes.POINTER(ctypes.c_int32)
         lib.bvh_build_opt.restype = ctypes.c_void_p

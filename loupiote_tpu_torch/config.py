@@ -45,6 +45,15 @@ class RenderConfig:
         return self.max_buffer_bytes // self.bytes_per_pixel
 
 
+@dataclass
+class Settings:
+    """Runtime-mutable settings; the app starts in DENOISED_PATHTRACE."""
+
+    accumulate: bool = False
+    use_blue_noise: bool = False
+    blit_mode: BlitMode = BlitMode.PATHTRACE
+
+
 def clamp_size(width: int, height: int, cfg: RenderConfig) -> tuple:
     """Clamp the pixel count to the buffer budget."""
     target = width * height

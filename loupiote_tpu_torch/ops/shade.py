@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 
 import torch
+from torch.profiler import record_function
 
 from .env import env_pdf, eval_env, sample_env
 from .intersect import T_FAR, Hit, occluded
@@ -270,9 +271,12 @@ def _occluded_sorted(scene, o, d, dist, active):
 
 
 def _shadow(scene, o, d, dist, active):
-    if scene.num_nodes > SORT_MIN_NODES:
-        return _occluded_sorted(scene, o, d, dist, active)
-    return occluded(scene, o, d, dist, active=active)
+    # The range lets a frame's trace split the shadow waves out of the
+    # shading label (app/trace_parse.py).
+    with record_function("shadow"):
+        if scene.num_nodes > SORT_MIN_NODES:
+            return _occluded_sorted(scene, o, d, dist, active)
+        return occluded(scene, o, d, dist, active=active)
 
 
 def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,

@@ -1,8 +1,9 @@
 """Integrator, camera and renderer."""
 
-from .camera import Camera
-from .integrator import accumulate, trace_paths
-from .renderer import Renderer, render_frame
+from .camera import Camera, CameraController, CameraMoveCommand
+from .integrator import GBuffer, accumulate, trace_paths
+from .renderer import Renderer, RenderState, render_frame
 
-__all__ = ["Camera", "accumulate", "trace_paths", "Renderer",
+__all__ = ["Camera", "CameraController", "CameraMoveCommand", "GBuffer",
+           "accumulate", "trace_paths", "Renderer", "RenderState",
            "render_frame"]

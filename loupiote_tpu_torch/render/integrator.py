@@ -16,6 +16,7 @@ from dataclasses import dataclass, fields
 from typing import List, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.intersect import Hit, intersect_any
 from ..ops.raygen import generate_rays
@@ -176,56 +177,63 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             noise_tex, frame_count * spp + s if spp > 1 else frame_count,
             width, height, dim=dim)) for s in range(spp)])
 
-    if spp > 1 and noise:
-        # Each sample its own jitter: tiling one plane would trace every
-        # primary ray spp times.
-        jitter = torch.cat([blue_noise_uv(noise_tex, frame_count * spp + s,
-                                          width, height, dim=0)
-                            for s in range(spp)])
-        nee_uv = None  # bn(1) per sample at bounce 0
-    elif jitter is None:
-        jitter = uniforms.jitter
-    elif jitter.shape[0] != N:
-        jitter = jitter.repeat(spp, 1)
-    cam = cam_to_world.to(dev, torch.float32)
-    ros, rds = [], []
-    for s in range(spp):
-        ro, rd = generate_rays(cam, width, height, vfov,
-                               jitter[s * R:(s + 1) * R])
-        ros.append(tile(ro))
-        rds.append(tile(rd))
-    if nee_uv is not None:
-        nee_uv = tile(nee_uv).repeat(spp, 1)
-    state = BounceState(
-        ro=torch.cat(ros).contiguous(), rd=torch.cat(rds).contiguous(),
-        throughput=torch.ones((N, 3), dtype=torch.float32, device=dev),
-        radiance=torch.zeros((N, 3), dtype=torch.float32, device=dev),
-        alive=torch.ones(N, dtype=torch.bool, device=dev),
-        bsdf_pdf=torch.zeros(N, dtype=torch.float32, device=dev),
-        use_mis=torch.zeros(N, dtype=torch.bool, device=dev))
-    del ros, rds
+    # Each stage runs under a named range (the reference's tokens), so
+    # a frame's trace attributes its kernels by pass (app/trace_parse.py).
+    with record_function("raygen"):
+        if spp > 1 and noise:
+            # Each sample its own jitter: tiling one plane would trace every
+            # primary ray spp times.
+            jitter = torch.cat([blue_noise_uv(noise_tex, frame_count * spp + s,
+                                              width, height, dim=0)
+                                for s in range(spp)])
+            nee_uv = None  # bn(1) per sample at bounce 0
+        elif jitter is None:
+            jitter = uniforms.jitter
+        elif jitter.shape[0] != N:
+            jitter = jitter.repeat(spp, 1)
+        cam = cam_to_world.to(dev, torch.float32)
+        ros, rds = [], []
+        for s in range(spp):
+            ro, rd = generate_rays(cam, width, height, vfov,
+                                   jitter[s * R:(s + 1) * R])
+            ros.append(tile(ro))
+            rds.append(tile(rd))
+        if nee_uv is not None:
+            nee_uv = tile(nee_uv).repeat(spp, 1)
+        state = BounceState(
+            ro=torch.cat(ros).contiguous(), rd=torch.cat(rds).contiguous(),
+            throughput=torch.ones((N, 3), dtype=torch.float32, device=dev),
+            radiance=torch.zeros((N, 3), dtype=torch.float32, device=dev),
+            alive=torch.ones(N, dtype=torch.bool, device=dev),
+            bsdf_pdf=torch.zeros(N, dtype=torch.float32, device=dev),
+            use_mis=torch.zeros(N, dtype=torch.bool, device=dev))
+        del ros, rds
 
     do_sort = sort_rays and scene.num_nodes > SORT_MIN_NODES
     lo, hi = scene.node_min[0], scene.node_max[0]
     pid = torch.arange(N, dtype=torch.int32, device=dev)  # slot -> pixel slot
     for bounce in range(bounces):
         if do_sort and bounce > 0:
-            key = ray_sort_key(state.ro, state.rd, state.alive, lo, hi)
-            state, pid = _permute_packed(state, pid, sort_order(key))
-        hit = intersect_any(scene, state.ro, state.rd, active=state.alive)
+            with record_function(f"sortb{bounce}"):
+                key = ray_sort_key(state.ro, state.rd, state.alive, lo, hi)
+                state, pid = _permute_packed(state, pid, sort_order(key))
+        with record_function(f"intersect{bounce}"):
+            hit = intersect_any(scene, state.ro, state.rd,
+                                active=state.alive)
         if bounce == 0:
-            # Sample 0's slots, [:R]: bounce 0 is not sorted.
-            hit0 = Hit(*(x[:R] for x in hit))
-            surf = decode_surface(scene, state.ro[:R], state.rd[:R], hit0,
-                                  textures=scene.has_textures)
-            missed = hit0.tri < 0
-            gbuffer = GBuffer(
-                normal=torch.where(missed[:, None], 0.0, surf.n_shade),
-                depth=hit0.t,
-                mesh_id=torch.where(missed, -1, surf.inst_id),
-                albedo=torch.where(missed[:, None], 1.0, surf.albedo),
-                world_pos=surf.pos)
-            del surf
+            with record_function("gbuffer"):
+                # Sample 0's slots, [:R]: bounce 0 is not sorted.
+                hit0 = Hit(*(x[:R] for x in hit))
+                surf = decode_surface(scene, state.ro[:R], state.rd[:R],
+                                      hit0, textures=scene.has_textures)
+                missed = hit0.tri < 0
+                gbuffer = GBuffer(
+                    normal=torch.where(missed[:, None], 0.0, surf.n_shade),
+                    depth=hit0.t,
+                    mesh_id=torch.where(missed, -1, surf.inst_id),
+                    albedo=torch.where(missed[:, None], 1.0, surf.albedo),
+                    world_pos=surf.pos)
+                del surf
         u = uniforms.bounces[bounce]
         u1_l, u2_l, u_lobe, u1, u2 = u.u1_l, u.u2_l, u.u_lobe, u.u1, u.u2
         light_uv = nee_uv if bounce == 0 else None
@@ -243,10 +251,11 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             u1, u2, u_lobe = mat[:, 0], mat[:, 1], mat[:, 2]
         if light_uv is not None:
             u1_l, u2_l = light_uv[:, 0], light_uv[:, 1]
-        state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u1_l,
-                           u2_l=u2_l, u_lobe=u_lobe, u1=u1, u2=u2,
-                           u1_e=u.u1_e, u2_e=u.u2_e, nee=nee,
-                           last=(bounce == bounces - 1))
+        with record_function(f"shade{bounce}"):
+            state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u1_l,
+                               u2_l=u2_l, u_lobe=u_lobe, u1=u1, u2=u2,
+                               u1_e=u.u1_e, u2_e=u.u2_e, nee=nee,
+                               last=(bounce == bounces - 1))
         del hit
 
     radiance = state.radiance

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..config import BlitMode, RenderConfig, clamp_size, downsampled_size
 from ..denoise.asvgf import denoise, demodulate, modulate, temporal_reproject
@@ -177,12 +178,14 @@ def render_frame(scene, state: RenderState, cam_to_world: torch.Tensor,
         new["frame_count"] = (state.frame_count + 1 if accumulate_flag
                               else 1)
     elif mode == "denoised":
-        out, t = denoise(img, albedo, motion, normal, depth, mesh, *prev,
-                         iterations=atrous_iterations)
+        with record_function("asvgf"):
+            out, t = denoise(img, albedo, motion, normal, depth, mesh,
+                             *prev, iterations=atrous_iterations)
         new["denoised"] = out
     elif mode == "temporal":
-        t = temporal_reproject(demodulate(img, albedo), motion, normal,
-                               depth, mesh, *prev)
+        with record_function("asvgf"):
+            t = temporal_reproject(demodulate(img, albedo), motion, normal,
+                                   depth, mesh, *prev)
     elif mode != "none":
         raise ValueError(f"unknown frame mode {mode!r}")
     if mode in ("denoised", "temporal"):
@@ -190,6 +193,59 @@ def render_frame(scene, state: RenderState, cam_to_world: torch.Tensor,
                    asvgf_history=t.history,
                    temporal_rgb=modulate(t.illum, albedo))
     return replace(state, **new)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _elapsed_ms(fn, device) -> float:
+    """ms of one call of ``fn``: CUDA events on the card, the host clock
+    elsewhere."""
+    import time
+
+    _sync(device)
+    if device.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _timed_stage(out: dict, label: str, device, fn):
+    """Run ``fn`` alone, add its ms to ``out[label]``; returns its result."""
+    box = []
+    out[label] = out.get(label, 0.0) + _elapsed_ms(
+        lambda: box.append(fn()), device)
+    return box[0]
+
+
+def _traced_passes(fn, labels, device) -> dict:
+    """Device ms per label of one call of ``fn`` under ``torch.profiler``
+    (a warm-up step traced and dropped, then the step read)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ..app.trace_parse import attribute_passes
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    got = []
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1,
+                                                    active=1),
+                 on_trace_ready=lambda p: got.extend(p.events())) as prof:
+        for _ in range(2):
+            fn()
+            _sync(device)
+            prof.step()
+    return attribute_passes(got, labels)
 
 
 def _blit_rgb(img: torch.Tensor, out_hw, tonemap: str) -> torch.Tensor:
@@ -226,6 +282,8 @@ class Renderer:
         self.scene = None
         self.use_noise = False
         self.noise_texture: Optional[np.ndarray] = None
+        self.queries = None  # timing hook, installed by the app layer
+        self.last_reload_error: Optional[str] = None
         self._set_size(size)
 
     # -- sizing ----------------------------------------------------------
@@ -266,6 +324,11 @@ class Renderer:
         self.state = replace(self.state,
                              noise_tex=torch.from_numpy(tex).to(self.device))
 
+    def enable_aot_cache(self, cache_dir: Optional[str] = None) -> None:
+        """Kept as API and does nothing: the reference persists its compiled
+        frame across processes; the port compiles no frame (its kernels
+        are built once into ``_build/``)."""
+
     def use_noise_texture(self, flag: bool) -> None:
         """Draw the frame's samples from the uploaded blue noise (once one
         is uploaded) instead of the pseudo-random generator."""
@@ -291,31 +354,241 @@ class Renderer:
         """Render one frame with the given camera-to-world."""
         if self.scene is None:
             return  # no scene bound: nothing to do
+        self.state = self._frame(view_transform, self.generator)
+
+    def _frame(self, view_transform, generator) -> RenderState:
+        """The session's next frame state, its numbers drawn from
+        ``generator``."""
+        cam_t, w2s, bounces = self._frame_args(view_transform)
+        return render_frame(
+            self.scene, self.state, cam_t, w2s, self.accumulate,
+            width=self.size[0], height=self.size[1], bounces=bounces,
+            nee=self.config.nee, vfov=math.radians(self.config.vfov_deg),
+            mode=_FRAME_MODE[self.mode],
+            atrous_iterations=self.config.atrous_iterations,
+            generator=generator,
+            use_noise=self.use_noise and self.noise_texture is not None,
+            spp=self.config.samples_per_frame)
+
+    def _frame_args(self, view_transform):
         cam = Camera(np.asarray(view_transform, np.float32), self.size,
                      math.radians(self.config.vfov_deg))
         w2s = cam.world_to_screen(self.config.near, self.config.far)
         bounces = (self.config.bounces_static if self.accumulate
                    else self.config.bounces_moving)
-        self.state = render_frame(
-            self.scene, self.state,
-            torch.as_tensor(cam.transform, device=self.device),
-            torch.as_tensor(w2s, device=self.device), self.accumulate,
-            width=self.size[0], height=self.size[1], bounces=bounces,
-            nee=self.config.nee, vfov=math.radians(self.config.vfov_deg),
-            mode=_FRAME_MODE[self.mode],
-            atrous_iterations=self.config.atrous_iterations,
-            generator=self.generator,
-            use_noise=self.use_noise and self.noise_texture is not None,
-            spp=self.config.samples_per_frame)
+        return (torch.as_tensor(cam.transform, device=self.device),
+                torch.as_tensor(w2s, device=self.device), bounces)
 
     def measure_passes(self, view_transform, queries=None,
                        method: str = "auto") -> dict:
-        raise NotImplementedError(
-            "per-pass timing comes with the app-layer slice of the port")
+        """Per-pass device times of the frame the user runs, labelled as
+        the reference's performance window ("ray generation", "primary
+        intersection", "sort N", "intersection N", "shading N", "shadow
+        N", "asvgf"; ``app/trace_parse.py::frame_scope_labels``), in ms.
+
+        ``method``:
+          - "trace": one warm-up frame, then one frame under
+            ``torch.profiler``; each device kernel counts under the
+            innermost labelled range it was launched in (the integrator's
+            ``record_function`` ranges). On the card a second profiler
+            session in one process has missed its first kernels, so the
+            profiler's schedule traces a warm-up step it drops.
+          - "replay": the stages one at a time, each timed alone (CUDA
+            events on the card, the host clock elsewhere), then rescaled
+            so that they sum to the fused frame: shares are estimates.
+          - "auto": on the card, "trace" where more than 0.3 of the traced
+            device time falls under a label, else "replay"; "replay" off
+            the card, where the profiler records no device time.
+
+        The frames measured do not change the session: each renders from
+        a copy of the generator's state and its result is dropped. Returns
+        the labels' ms, "other" (trace), "frame (fused)" (ms of one whole
+        frame), "unfused total" (replay) and "method"; each number is
+        also recorded into ``queries`` (or ``self.queries``).
+        """
+        from ..app.trace_parse import frame_scope_labels, matched_share
+
+        if self.scene is None:
+            return {}
+        q = queries if queries is not None else self.queries
+        _, _, bounces = self._frame_args(view_transform)
+        mode = _FRAME_MODE[self.mode]
+
+        def fused_frame():
+            g = torch.Generator(device=self.device)
+            g.set_state(self.generator.get_state())
+            return self._frame(view_transform, g)
+
+        fused_frame()  # warm: kernels built and loaded outside the timing
+        fused = min(_elapsed_ms(fused_frame, self.device) for _ in range(2))
+        labels = frame_scope_labels(
+            bounces, denoised=mode in ("denoised", "temporal"))
+        out = None
+        # The profiler records no device time off the card: "auto" goes to
+        # the replay there without tracing.
+        if method == "trace" or (method == "auto"
+                                 and self.device.type == "cuda"):
+            measured = _traced_passes(fused_frame, labels, self.device)
+            if method == "trace" or matched_share(measured) > 0.3:
+                out = dict(measured)
+                out["method"] = "trace"
+        if out is None:
+            cam_t = self._frame_args(view_transform)[0]
+            out = self._replay_passes(cam_t, bounces, mode, labels)
+            unfused = sum(out.values())
+            scale = fused / unfused if unfused > 0 else 1.0
+            out = {label: ms * scale for label, ms in out.items()}
+            out["unfused total"] = unfused
+            out["method"] = "replay"
+        out["frame (fused)"] = fused
+        if q is not None:
+            for label, ms in out.items():
+                if isinstance(ms, float):
+                    q.record(label, ms)
+        return out
+
+    def _replay_passes(self, cam_t, bounces, mode, labels) -> dict:
+        """The frame's stages one at a time from the session's generator
+        state (no sort, no G-buffer), each timed alone."""
+        from ..ops.intersect import intersect_any
+        from ..ops.raygen import generate_rays
+        from ..ops.shade import BounceState, shade_step
+        from .integrator import _tiles_ok, draw_uniforms, to_tile_order
+
+        w, h = self.size
+        R = w * h
+        dev = self.device
+        g = torch.Generator(device=dev)
+        g.set_state(self.generator.get_state())
+        u = draw_uniforms(R, bounces, g, dev, env=self.scene.has_probe)
+        vfov = math.radians(self.config.vfov_deg)
+        out = {name: 0.0 for name in labels.values()}
+        ro, rd = _timed_stage(out, "ray generation", dev, lambda: (
+            generate_rays(cam_t, w, h, vfov, u.jitter)))
+        if _tiles_ok(w, h):
+            ro, rd = to_tile_order(ro, w, h), to_tile_order(rd, w, h)
+        state = BounceState(
+            ro=ro.contiguous(), rd=rd.contiguous(),
+            throughput=torch.ones((R, 3), device=dev),
+            radiance=torch.zeros((R, 3), device=dev),
+            alive=torch.ones(R, dtype=torch.bool, device=dev),
+            bsdf_pdf=torch.zeros(R, device=dev),
+            use_mis=torch.zeros(R, dtype=torch.bool, device=dev))
+        for b in range(bounces):
+            hit = _timed_stage(out, labels[f"intersect{b}"], dev, lambda: (
+                intersect_any(self.scene, state.ro, state.rd,
+                              active=state.alive)))
+            ub = u.bounces[b]
+            state = _timed_stage(out, labels[f"shade{b}"], dev, lambda: (
+                shade_step(self.scene, state, hit, u_sel=ub.u_sel,
+                           u1_l=ub.u1_l, u2_l=ub.u2_l, u_lobe=ub.u_lobe,
+                           u1=ub.u1, u2=ub.u2, u1_e=ub.u1_e, u2_e=ub.u2_e,
+                           nee=self.config.nee, last=(b == bounces - 1))))
+        if mode in ("denoised", "temporal"):
+            s = self.state
+            prev = (s.gb_normal, s.gb_depth, s.gb_mesh, s.asvgf_illum,
+                    s.asvgf_moments, s.asvgf_history)
+            _timed_stage(out, "asvgf", dev, lambda: denoise(
+                s.accum, s.gb_albedo, s.motion, s.gb_normal, s.gb_depth,
+                s.gb_mesh, *prev, iterations=self.config.atrous_iterations))
+        return out
+
+    # Modules re-read on reload (the "shader sources"), in import order:
+    # each after the modules it imports from. Then the integrator, which
+    # binds their functions with from-imports.
+    _RELOADABLE = tuple("loupiote_tpu_torch." + m for m in (
+        "ops.intersect", "ops.raygen", "ops.sampling", "ops.env",
+        "ops.texture", "ops.sort", "ops.wide", "ops.bvh2", "ops.slab_sort",
+        "treelet.lane_top", "treelet.lane_bottom", "treelet.regroup",
+        "treelet.pipeline", "ops.shade", "ops.tonemap", "ops.lightmap",
+        "denoise.asvgf"))
+    _REBINDERS = ("loupiote_tpu_torch.render.integrator",)
 
     def reload_shaders(self) -> None:
-        raise NotImplementedError(
-            "kernel hot-reload comes with the app-layer slice of the port")
+        """Hot reload: re-import the kernel modules and rebuild the CUDA
+        libraries the scene's path loads, so the next frame runs the new
+        code.
+
+        Every other module of the package that bound a function or class
+        of a reloaded module (this module's ``trace_paths``, the packages'
+        exports) is pointed at the new one. ``_build``'s cached libraries
+        of the path are dropped and loaded again: a source whose hash
+        changed is rebuilt under a new name (ctypes cannot reload a path
+        that is already open, so each build has its own hashed name), an
+        unchanged one loads the same library. ``_build`` itself is not
+        reloaded: it holds the locks and the cache.
+
+        Validation builds every library of the path and renders a
+        one-bounce 32x16 frame on the renderer's device from a generator
+        of its own. On any error the old state is kept: the module dicts,
+        the bindings and ``_build``'s libraries are restored, the error is
+        kept in ``last_reload_error``, and the session renders on with the
+        old pipeline.
+        """
+        import importlib
+        import sys
+
+        from .. import _build
+
+        pkg = "loupiote_tpu_torch"
+        names = [n for n in self._RELOADABLE + self._REBINDERS
+                 if n in sys.modules]
+        snapshots = {n: dict(sys.modules[n].__dict__) for n in names}
+        libs = dict(_build._libs)
+        others = {n: dict(m.__dict__) for n, m in list(sys.modules.items())
+                  if m is not None and (n == pkg or n.startswith(pkg + "."))
+                  and n not in snapshots}
+        try:
+            for n in names:
+                importlib.reload(sys.modules[n])
+            for n in others:
+                mod = sys.modules[n]
+                for attr, val in list(mod.__dict__.items()):
+                    src = getattr(val, "__module__", None)
+                    if (src in snapshots and callable(val)
+                            and hasattr(sys.modules[src], attr)):
+                        setattr(mod, attr, getattr(sys.modules[src], attr))
+            for lib in self._path_libraries():
+                _build._libs.pop(lib, None)
+                _build.load(lib)
+            if self.scene is not None:
+                self._validation_frame()
+        except Exception as e:  # keep the old pipeline
+            for n, d in list(snapshots.items()) + list(others.items()):
+                mod = sys.modules[n]
+                mod.__dict__.clear()
+                mod.__dict__.update(d)
+            _build._libs.clear()
+            _build._libs.update(libs)
+            self.last_reload_error = f"{type(e).__name__}: {e}"
+            return
+        self.last_reload_error = None
+
+    def _path_libraries(self) -> list:
+        """The ``csrc/`` libraries the bound scene's frames load (none off
+        the card: the twins run there)."""
+        from ..ops.intersect import _WIDE_MIN_NODES
+
+        if self.scene is None or self.device.type != "cuda":
+            return []
+        libs = ["wide_traverse" if self.scene.num_nodes >= _WIDE_MIN_NODES
+                else "bvh2_traverse"]
+        if self.scene.treelet is not None:
+            libs += ["treelet_traverse", "slab_sort", "regroup"]
+        return libs
+
+    def _validation_frame(self) -> None:
+        w, h = 32, 16
+        g = torch.Generator(device=self.device)
+        g.manual_seed(0)
+        cam_t, w2s, _ = self._frame_args(np.eye(4, dtype=np.float32))
+        st = render_frame(self.scene, init_state(w, h, self.device), cam_t,
+                          w2s, True, width=w, height=h, bounces=1,
+                          nee=self.config.nee,
+                          vfov=math.radians(self.config.vfov_deg),
+                          mode="pathtrace", generator=g)
+        if not bool(torch.isfinite(st.accum).all()):
+            raise RuntimeError("the validation frame is not finite")
 
     # -- display ---------------------------------------------------------
     def blit(self, display_size: bool = True) -> np.ndarray:

@@ -1,15 +1,22 @@
-"""Blue-noise texture by void-and-cluster (copy of
-``loupiote_tpu/scene/blue_noise.py::generate_blue_noise``).
+"""Blue-noise texture: load it from a PNG or generate it by
+void-and-cluster (copy of ``loupiote_tpu/scene/blue_noise.py``).
 
 ``Renderer.upload_noise_texture`` takes its first two channels as the
-per-pixel noise of every blue-noise dimension. Loading the texture from
-a PNG (the reference's ``load_noise_png``) needs an image decoder, which
-the card's host does not have; it is not copied.
+per-pixel noise of every blue-noise dimension. ``load_noise_png`` decodes
+with the port's own PNG decoder (``image_codec``), byte-equal to PIL's
+``convert("RGBA")``, which the reference calls.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..image_codec import read_png
+
+
+def load_noise_png(path: str) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA of a noise texture PNG."""
+    return read_png(path)
 
 
 def generate_blue_noise(size: int = 64, channels: int = 4,

@@ -1,14 +1,19 @@
 """Small inputs made from a seed: a textured golden scene and its camera,
-an HDR sky, and rays with non-finite components. chip_smoke.py drives the
-card with them and the CPU tests hold the port to the reference on them.
+an HDR sky, rays with non-finite components, and a scene written as a
+GLB file with PNG textures. chip_smoke.py drives the card with them and
+the CPU tests hold the port to the reference on them.
 """
 
 from __future__ import annotations
 
+import json
+import struct
+
 import numpy as np
 import torch
 
-from .types import ImageData, Instance, Light, Material, Mesh, Scene
+from ..image_codec import encode_png
+from .types import INVALID_INDEX, ImageData, Instance, Light, Material, Mesh, Scene
 
 
 def nonfinite_rays(ro: torch.Tensor, rd: torch.Tensor, seed: int):
@@ -71,3 +76,90 @@ def textured_quad_scene() -> Scene:
 # The camera of that golden: at (0, 3, 3), pitched 45 degrees down.
 TEX_CAM = np.array([[1, 0, 0, 0], [0, 0.7071, -0.7071, 3.0],
                     [0, -0.7071, -0.7071, 3.0], [0, 0, 0, 1]], np.float32)
+
+
+def scene_glb(scene: Scene) -> bytes:
+    """``scene`` as GLB bytes: one glTF mesh of one primitive for each
+    mesh (its instances must share one material), every material, one
+    node a instance (its matrix), every image as a PNG in the binary
+    chunk. Lights are not written (glTF's core has none). ``load_gltf``
+    of the bytes into ``Scene.default()`` gives the meshes, instances,
+    materials and texels back, the materials and instances after the
+    default material."""
+    mesh_mat = {}
+    for inst in scene.instances:
+        if mesh_mat.setdefault(inst.mesh_index,
+                               inst.material_index) != inst.material_index:
+            raise ValueError(f"mesh {inst.mesh_index} is instanced with two "
+                             f"materials")
+    blob = bytearray()
+    views, accessors = [], []
+
+    def view(data: bytes) -> int:
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr: np.ndarray, kind: str) -> int:
+        comp = 5125 if arr.dtype == np.uint32 else 5126
+        accessors.append({"bufferView": view(arr.tobytes()),
+                          "componentType": comp, "count": len(arr),
+                          "type": kind})
+        return len(accessors) - 1
+
+    meshes = []
+    for i, m in enumerate(scene.meshes):
+        attrs = {"POSITION": accessor(
+            np.ascontiguousarray(m.positions, np.float32), "VEC3")}
+        if m.normals is not None:
+            attrs["NORMAL"] = accessor(
+                np.ascontiguousarray(m.normals, np.float32), "VEC3")
+        if m.texcoords is not None:
+            attrs["TEXCOORD_0"] = accessor(
+                np.ascontiguousarray(m.texcoords, np.float32), "VEC2")
+        prim = {"attributes": attrs, "mode": 4, "indices": accessor(
+            np.ascontiguousarray(m.indices, np.uint32), "SCALAR")}
+        if i in mesh_mat and mesh_mat[i] != int(INVALID_INDEX):
+            prim["material"] = mesh_mat[i]
+        meshes.append({"primitives": [prim]})
+
+    def tex(index) -> dict:
+        ok = 0 <= int(index) < len(scene.images)
+        return {"index": int(index)} if ok else None
+
+    materials = []
+    for mat in scene.materials:
+        pbr = {"baseColorFactor": [float(x) for x in mat.color],
+               "roughnessFactor": float(mat.roughness),
+               "metallicFactor": float(mat.reflectivity)}
+        for key, t in (("baseColorTexture", tex(mat.albedo_texture)),
+                       ("metallicRoughnessTexture", tex(mat.mra_texture))):
+            if t is not None:
+                pbr[key] = t
+        materials.append({"pbrMetallicRoughness": pbr, "emissiveFactor": [
+            float(x) for x in mat.emission]})
+    images = [{"bufferView": view(encode_png(np.ascontiguousarray(
+        img.data, np.uint8))), "mimeType": "image/png"}
+        for img in scene.images]
+    nodes = [{"mesh": inst.mesh_index, "matrix": [
+        float(x) for x in np.asarray(inst.model_to_world, np.float32).T
+        .reshape(-1)]} for inst in scene.instances]
+    blob.extend(b"\0" * (-len(blob) % 4))
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+           "meshes": meshes, "materials": materials,
+           "textures": [{"source": i} for i in range(len(images))],
+           "images": images, "accessors": accessors, "bufferViews": views,
+           "buffers": [{"byteLength": len(blob)}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
+
+
+def write_glb(scene: Scene, path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(scene_glb(scene))

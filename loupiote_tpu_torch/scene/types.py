@@ -1,4 +1,5 @@
-"""CPU-side scene data model (numpy copy of ``loupiote_tpu/scene/types.py``).
+"""CPU-side scene data model (numpy copy of ``loupiote_tpu/scene/types.py``),
+filled by the procedural builders and the loaders.
 
 The port keeps its own copy because importing any ``loupiote_tpu`` module
 runs that package's ``__init__``, which imports jax, and the CUDA host has
@@ -38,6 +39,23 @@ class Light:
     emission: np.ndarray = field(default_factory=lambda: np.array([1.0, 1.0, 1.0], np.float32))
     intensity: float = 10.0
 
+    @staticmethod
+    def fit_to_scene(bounds_min, bounds_max, intensity: float = 10.0) -> "Light":
+        """Overhead quad light sized and placed for the given bounds."""
+        bounds_min = np.asarray(bounds_min, np.float32)
+        bounds_max = np.asarray(bounds_max, np.float32)
+        ext = bounds_max - bounds_min
+        cx = (bounds_min + bounds_max) * 0.5
+        w = max(float(ext[0]) * 0.3, 1e-3)
+        d = max(float(ext[2]) * 0.3, 1e-3)
+        y = float(bounds_max[1]) - 0.02 * max(float(ext[1]), 1e-3)
+        return Light(
+            origin=np.array([cx[0] - w / 2, y, cx[2] - d / 2], np.float32),
+            edge_u=np.array([w, 0.0, 0.0], np.float32),
+            edge_v=np.array([0.0, 0.0, d], np.float32),
+            emission=np.array([1.0, 0.98, 0.95], np.float32),
+            intensity=intensity)
+
 
 @dataclass
 class ImageData:
@@ -74,7 +92,7 @@ class Instance:
 
 @dataclass
 class Scene:
-    """CPU-side scene, filled by the procedural builders."""
+    """CPU-side scene, filled by the procedural builders and the loaders."""
 
     materials: List[Material] = field(default_factory=list)
     meshes: List[Mesh] = field(default_factory=list)
@@ -86,6 +104,29 @@ class Scene:
     def default() -> "Scene":
         # One dummy material and one default light.
         return Scene(materials=[Material()], lights=[Light()])
+
+    def add_default_light_if_empty(self) -> None:
+        if not self.lights:
+            self.lights.append(Light())
+
+    def bounds(self):
+        """World-space AABB over all instanced geometry (numpy)."""
+        lo = np.full(3, np.inf, np.float32)
+        hi = np.full(3, -np.inf, np.float32)
+        for inst in self.instances:
+            mesh = self.meshes[inst.mesh_index]
+            m = inst.model_to_world
+            pos = mesh.positions @ m[:3, :3].T + m[:3, 3]
+            lo = np.minimum(lo, pos.min(axis=0))
+            hi = np.maximum(hi, pos.max(axis=0))
+        if not np.isfinite(lo).all():
+            lo, hi = -np.ones(3, np.float32), np.ones(3, np.float32)
+        return lo, hi
+
+    def fit_default_light(self, intensity: float = 10.0) -> None:
+        """Place an overhead quad light sized to the scene bounds."""
+        lo, hi = self.bounds()
+        self.lights = [Light.fit_to_scene(lo, hi, intensity)]
 
     def stats(self) -> dict:
         return {

@@ -11,9 +11,9 @@ run in alternated order: old, new, new, old. Each run:
 
 - holds E6 (both epilogues) and E7 (both epilogues and modes) to their
   twins on 4,096 rays of the arch-260k 1080p primary wave with the edge
-  cases of ``nonfinite_rays``, E1's five variants on 256 packets of its
-  sorted diffuse wave with those edge cases, and E3's segmin on a tile
-  with NaN and +-inf entries (``chip_smoke.py``'s checks);
+  cases of ``nonfinite_rays``, E1's five variants on 256 packets of the
+  sorted diffuse wave of arch-4k with those edge cases, and E3's segmin
+  on a tile with NaN and +-inf entries (``chip_smoke.py``'s checks);
 - times E1 ``full`` on the whole sorted diffuse wave, E6 per ray and
   compacting and E7 per ray (closest-hit) on the primary wave (mean of 10
   calls after a warm-up, CUDA events).
@@ -40,7 +40,8 @@ def main(old_dir):
     from loupiote_tpu_torch import _build
     from loupiote_tpu_torch import build_arch_scene, build_scene_buffers
     from loupiote_tpu_torch.experiments import kernel_probe, r3_probes
-    from loupiote_tpu_torch.experiments.measure_traversal import make_waves
+    from loupiote_tpu_torch.experiments.measure_traversal import (build,
+                                                                  make_waves)
     from loupiote_tpu_torch.scene import arch_camera
     from loupiote_tpu_torch.scene.fixtures import nonfinite_rays
     from loupiote_tpu_torch.treelet import lane_bottom, lane_top
@@ -84,12 +85,13 @@ def main(old_dir):
     print(f"arch-260k with treelets and its waves: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    gp = cs.NONFINITE_PACKETS // 8
-    nro, nrd = nonfinite_rays(
-        torch.stack([e1_args[a][:gp].reshape(-1) for a in (1, 2, 3)], 1),
-        torch.stack([e1_args[a][:gp].reshape(-1) for a in (4, 5, 6)], 1), 46)
-    nf_e1 = kernel_probe.probe_args(bufs, nro, nrd,
-                                    e1_args[8][:gp].reshape(-1) > 0)
+    arch4, cam4 = build(dev, 4_000)
+    # NONFINITE_PACKETS packets of 128 rays: a NONFINITE_PACKETS x 128
+    # image.
+    nro, nrd, alive4 = kernel_probe.sorted_diffuse_wave(
+        arch4, cam4, cs.NONFINITE_PACKETS, 128)
+    nro, nrd = nonfinite_rays(nro, nrd, 46)
+    nf_e1 = kernel_probe.probe_args(arch4, nro, nrd, alive4)
     x_nf = r3_probes.tile(dev).clone().reshape(8, 128)
     x_nf[0, 5] = x_nf[3, 100] = x_nf[7, 127] = float("nan")
     x_nf[1, 40] = x_nf[3, 101] = float("-inf")
@@ -102,19 +104,23 @@ def main(old_dir):
     for tag in ("old", "new", "new", "old"):
         _build._libs.update(libs[tag])
         rows = []
+        t1 = time.perf_counter()
         e6_ok, e7_ok = cs.compare_lanes_nonfinite(td, (pro, prd, pact), S,
                                                   45, rows)
+        t2 = time.perf_counter()
         e1_ok = {}
         for probe in kernel_probe.PROBES:
-            kw = kernel_probe.probe_kwargs(bufs, probe)
+            kw = kernel_probe.probe_kwargs(arch4, probe)
             want = kernel_probe.probe_trace_plain(*nf_e1, **kw)
             got = kernel_probe.probe_trace(*nf_e1, **kw)
             e1_ok[probe] = all(
                 cs.nan_equal(a, b) if a.dtype == torch.float32
                 else cs.bits_equal(a, b) for a, b in zip(got, want))
+        t3 = time.perf_counter()
         seg_ok = cs.nan_equal(
             r3_probes.run_probe_kernel("segmin", x_nf, 256),
             r3_probes.probe_plain("segmin", x_nf, 256))
+        t4 = time.perf_counter()
         ms = {
             "E1 full": cs.cuda_ms(lambda: kernel_probe.probe_trace(
                 *e1_args, **full_kw), 10),
@@ -125,6 +131,7 @@ def main(old_dir):
             "E7 per ray": cs.cuda_ms(lambda: lane_bottom.lane_bottom_rays(
                 *e7_ray, False), 10)}
         run = {"sources": tag, "ms": ms,
+               "check_s": {"E6/E7": t2 - t1, "E1": t3 - t2, "E3": t4 - t3},
                "nonfinite_equal": {"E6": e6_ok, "E7": e7_ok, "E1": e1_ok,
                                    "E3 segmin": seg_ok}}
         runs.append(run)

@@ -187,12 +187,14 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and chip_smoke.py, building a
-    scene with treelet tables (which compiles or loads the native
-    builder) and a probe's tables (an area resize), imports no jax,
-    nothing of loupiote_tpu or experiments and no image decoder (PIL,
-    imageio, cv2: the card's host has none), and opens, runs or loads no
-    file under loupiote_tpu/ or experiments/."""
+    """Importing every module of the port (the app layer and the CLI
+    among them) and chip_smoke.py, building a scene with treelet tables
+    (which compiles or loads the native builder) and a probe's tables (an
+    area resize), writing and loading a glb with PNG textures, encoding a
+    JPEG and running the CLI's ``info`` as ``python -m loupiote_tpu_torch``
+    does imports no jax, nothing of loupiote_tpu or experiments and no
+    image library (PIL, imageio, cv2: the card's host has none), and
+    opens, runs or loads no file under loupiote_tpu/ or experiments/."""
     code = """
 import importlib, os, pkgutil, sys
 ref_dirs = tuple(os.path.join(os.getcwd(), d) + os.sep
@@ -220,6 +222,17 @@ b = lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu",
 assert b.treelet is not None
 import numpy as np
 assert lt.build_probe(np.ones((128, 300, 3), np.float32)).pdf.shape == (64, 128)
+import runpy, tempfile
+from loupiote_tpu_torch import image_codec
+from loupiote_tpu_torch.scene.fixtures import write_glb
+glb = os.path.join(tempfile.mkdtemp(), "hall.glb")
+write_glb(lt.build_arch_scene(2_000, textured=True), glb)
+s = lt.Scene.default()
+lt.load_gltf_path(glb, s)
+assert len(s.images) == 6
+assert image_codec.is_jpeg(image_codec.encode_jpeg(s.images[0].data))
+sys.argv = ["loupiote_tpu_torch", "info", glb]
+runpy.run_module("loupiote_tpu_torch", run_name="__main__")
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "loupiote_tpu", "experiments", "PIL",
         "imageio", "cv2")]
@@ -227,9 +240,12 @@ assert not bad, bad
 opened = sorted({p for p in seen if p.startswith(ref_dirs)})
 assert not opened, opened
 assert any(p.endswith("bvh_builder.cpp") or "libbvh_" in p for p in seen)
+assert any("libimage_codec_" in p for p in seen)
 """
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          check=True, timeout=300, capture_output=True,
+                          text=True)
+    assert '"images": 6' in proc.stdout
     # No module names the reference package or experiments/ as a path
     # component.
     for root, _, files in os.walk(os.path.join(REPO, "loupiote_tpu_torch")):
