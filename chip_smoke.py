@@ -2703,9 +2703,9 @@ def main():
     # NONFINITE_PACKETS packets of the sorted diffuse wave of arch-4k
     # (256x128) with the edge cases of nonfinite_rays: a ray with an
     # infinite direction component tests no triangle and walks every row
-    # of the table (30,540 steps on arch-260k's, 520 on arch-4k's), and the
-    # twin steps until its longest packet ends; segmin on a tile with NaN
-    # and +-inf entries.
+    # of the table, and the twin steps until its longest packet ends, so
+    # the check takes arch-4k's small table, not arch-260k's; segmin on a
+    # tile with NaN and +-inf entries.
     t0 = time.perf_counter()
     arch4, cam4 = measure_traversal.build(dev, 4_000)
     gp = NONFINITE_PACKETS // 8

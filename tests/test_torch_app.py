@@ -225,17 +225,29 @@ def test_cli_info_render_and_multi_scene(hall_glb, tmp_path, capsys):
     assert "ms a frame" in capsys.readouterr().out
     img = read_png(out)
     assert img.shape == (16, 32, 4) and (img[..., :3] > 0).any()
-    # Two scenes in one session, the second moved by (5, 0, 0).
-    ns = SimpleNamespace(scene=[hall_glb, hall_glb + "@5,0,0"], env=None,
-                         size="16x16", scale=1.0, bounces=1, mode="gbuffer",
-                         camera="-10,1,0,1,0.35,0", blue_noise=False,
-                         fit_light=None, device="cpu", seed=0)
-    d = cli._setup(ns)
+    # Two scenes in one session, the second moved by (5, 0, 0), through
+    # main(argv): the driver is caught where it saves the image.
+    seen = []
+    real_save = Driver.save_screenshot
+
+    def save(self, path):
+        seen.append(self)
+        real_save(self, path)
+
+    Driver.save_screenshot = save
+    try:
+        cli.main(["render", hall_glb, hall_glb + "@5,0,0", out, "--size",
+                  "16x16", "--spp", "1", "--bounces", "1", "--mode",
+                  "gbuffer", "--device", "cpu"])
+    finally:
+        Driver.save_screenshot = real_save
+    d = seen[0]
     n = len(d.scene.instances) // 2
     np.testing.assert_array_equal(
         d.scene.instances[n].model_to_world[:3, 3]
         - d.scene.instances[0].model_to_world[:3, 3], [5, 0, 0])
     assert d.settings.blit_mode == lt.BlitMode.GBUFFER
+    assert d.renderer.config.bounces_static == 1
     fly = tmp_path / "fly"
     cli.main(["flythrough", hall_glb, str(fly), "--frames", "2", "--size",
               "16x8", "--bounces", "1", "--device", "cpu"])
