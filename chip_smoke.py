@@ -798,6 +798,7 @@ def app_phases(lt, dev, arch, arch40, smi):
     from loupiote_tpu_torch.app.server import ViewerServer
     from loupiote_tpu_torch.app.trace_parse import (frame_scope_labels,
                                                     matched_share)
+    from loupiote_tpu_torch.ops.intersect import path_libraries
     from loupiote_tpu_torch.ops.lightmap import bake_vertex_irradiance
     from loupiote_tpu_torch.render import CameraController
     from loupiote_tpu_torch.scene.fixtures import write_glb
@@ -1019,7 +1020,7 @@ def app_phases(lt, dev, arch, arch40, smi):
         rr.reload_shaders()
         clean_err = rr.last_reload_error
         b = frame_from(gs, st0)
-        libs = [n for n in rr._path_libraries()]
+        libs = path_libraries(rr.scene)
         old_libs = {n: _build._libs[n] for n in libs}
         broken = os.path.join(tmp, "csrc")
         shutil.copytree(_build.CSRC_DIR, broken)

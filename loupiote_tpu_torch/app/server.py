@@ -24,6 +24,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..image_codec import encode_jpeg
 from .input import InputManager
@@ -280,6 +281,10 @@ class ViewerServer:
                 self._drain_events()
                 t1 = time.perf_counter()
                 d.step()
+                # Wait for the frame here, so that step holds its work on
+                # the card and blit only its own (tone map and read-back).
+                if d.renderer.device.type == "cuda":
+                    torch.cuda.synchronize(d.renderer.device)
                 t2 = time.perf_counter()
                 img = d.renderer.blit()  # (H, W, 3) uint8
                 t3 = time.perf_counter()
@@ -293,8 +298,6 @@ class ViewerServer:
                     return
                 time.sleep(0.5)
                 continue
-            # step includes the frame's work on the card: blit reads the
-            # image back, so the card has finished it by t3.
             self.loop_ms = {"step": (t2 - t1) * 1e3,
                             "blit": (t3 - t2) * 1e3,
                             "encode": (t4 - t3) * 1e3}

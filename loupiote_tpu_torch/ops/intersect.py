@@ -145,6 +145,17 @@ def _bvh2(scene) -> bool:
     return scene.num_nodes < _WIDE_MIN_NODES
 
 
+def path_libraries(scene) -> list:
+    """The ``csrc/`` libraries that ``intersect_any`` and ``occluded`` load
+    for ``scene`` on the card, as this dispatch picks them."""
+    libs = ["bvh2_traverse" if _bvh2(scene) else "wide_traverse"]
+    if scene.treelet is not None:
+        from ..treelet.pipeline import LIBRARIES
+
+        libs += list(LIBRARIES)
+    return libs
+
+
 def intersect_any(scene, ro, rd, tmax=None, active=None,
                   any_hit: bool = False) -> Hit:
     """Trace (R,) rays against the scene; ``active`` False rays miss.

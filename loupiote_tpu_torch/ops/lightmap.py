@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from .intersect import intersect_any
-from .sampling import cosine_sample_hemisphere, orthonormal_basis, to_world
+from .sampling import (cosine_sample_hemisphere, draw_uniforms,
+                       orthonormal_basis, to_world)
 from .shade import EPS_OFFSET, BounceState, shade_step
 
 
@@ -21,7 +22,7 @@ def bake_vertex_irradiance(scene, positions: torch.Tensor,
                            normals: torch.Tensor,
                            generator: Optional[torch.Generator],
                            samples: int = 16, bounces: int = 2,
-                           nee: bool = True, uniforms=None) -> torch.Tensor:
+                           uniforms=None) -> torch.Tensor:
     """Irradiance at (V, 3) surface points with (V, 3) unit normals, on the
     scene's device: (V, 3) linear irradiance, what a white Lambertian
     surface would reflect times pi.
@@ -33,8 +34,6 @@ def bake_vertex_irradiance(scene, positions: torch.Tensor,
     sample (``jitter`` the direction pair), as the tests replay the
     reference's ``jax.random`` streams.
     """
-    from ..render.integrator import draw_uniforms
-
     dev = scene.device
     positions = positions.to(dev, torch.float32)
     normals = normals.to(dev, torch.float32)
@@ -61,7 +60,7 @@ def bake_vertex_irradiance(scene, positions: torch.Tensor,
             # gather).
             state = shade_step(scene, state, hit, u_sel=b.u_sel, u1_l=b.u1_l,
                                u2_l=b.u2_l, u_lobe=b.u_lobe, u1=b.u1,
-                               u2=b.u2, u1_e=b.u1_e, u2_e=b.u2_e, nee=nee)
+                               u2=b.u2, u1_e=b.u1_e, u2_e=b.u2_e, nee=True)
         # Cosine-weighted sampling: E ~= pi * mean(L_i).
         total = total + state.radiance
     return total * (math.pi / samples)

@@ -1,10 +1,14 @@
 """Sampling math (counterpart of ``loupiote_tpu/ops/sampling.py``):
 orthonormal bases, cosine hemisphere, GGX microfacets. Batched over the
-leading ray dimension."""
+leading ray dimension. ``FrameUniforms`` holds every pseudo-random draw
+of a frame (or of a bake's sample), ``draw_uniforms`` draws them from a
+``torch.Generator``."""
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, fields
+from typing import List, Optional
 
 import torch
 
@@ -118,3 +122,47 @@ def power_heuristic(pdf_a, pdf_b):
     """Power heuristic (beta=2) MIS weight for strategy a."""
     a2 = pdf_a * pdf_a
     return a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-20)
+
+
+@dataclass
+class BounceUniforms:
+    """One bounce's draws, (N,) each, in the bounce's slot order."""
+
+    u_sel: torch.Tensor  # light selection
+    u1_l: torch.Tensor  # point on the light
+    u2_l: torch.Tensor
+    u_lobe: torch.Tensor  # BSDF lobe selection
+    u1: torch.Tensor  # BSDF sample
+    u2: torch.Tensor
+    u1_e: Optional[torch.Tensor] = None  # environment sample (a probe)
+    u2_e: Optional[torch.Tensor] = None
+
+
+@dataclass
+class FrameUniforms:
+    """Every random number of one frame."""
+
+    jitter: torch.Tensor  # (N, 2) sub-pixel offsets, pixel order
+    bounces: List[BounceUniforms]
+
+    def to(self, device) -> "FrameUniforms":
+        def move(x):
+            return None if x is None else x.to(device)
+
+        return FrameUniforms(self.jitter.to(device), [
+            BounceUniforms(*(move(getattr(b, f.name)) for f in fields(b)))
+            for b in self.bounces])
+
+
+def draw_uniforms(n: int, bounces: int, generator: torch.Generator,
+                  device, env: bool = False) -> FrameUniforms:
+    """Draw a frame's uniforms in [0, 1) from ``generator``; ``env``:
+    each bounce's environment pair too (a scene with a probe)."""
+    def u(*shape):
+        return torch.rand(*shape, generator=generator, device=device)
+
+    jitter = u(n, 2)
+    return FrameUniforms(jitter, [
+        BounceUniforms(u(n), u(n), u(n), u(n), u(n), u(n),
+                       *((u(n), u(n)) if env else ()))
+        for _ in range(bounces)])

@@ -12,14 +12,14 @@ from its rotated planes instead (``renderer.blue_noise_uv``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
-from typing import List, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
 
 from ..ops.intersect import Hit, intersect_any
 from ..ops.raygen import generate_rays
+from ..ops.sampling import FrameUniforms, draw_uniforms
 from ..ops.shade import (SORT_MIN_NODES, BounceState, decode_surface,
                          shade_step)
 from ..ops.sort import ray_sort_key, sort_order
@@ -53,50 +53,6 @@ class GBuffer(NamedTuple):
     mesh_id: torch.Tensor  # (R,) int32 instance id (-1 on a miss)
     albedo: torch.Tensor  # (R,3) surface albedo (1 on a miss)
     world_pos: torch.Tensor  # (R,3) hit position, for motion vectors
-
-
-@dataclass
-class BounceUniforms:
-    """One bounce's draws, (N,) each, in the bounce's slot order."""
-
-    u_sel: torch.Tensor  # light selection
-    u1_l: torch.Tensor  # point on the light
-    u2_l: torch.Tensor
-    u_lobe: torch.Tensor  # BSDF lobe selection
-    u1: torch.Tensor  # BSDF sample
-    u2: torch.Tensor
-    u1_e: Optional[torch.Tensor] = None  # environment sample (a probe)
-    u2_e: Optional[torch.Tensor] = None
-
-
-@dataclass
-class FrameUniforms:
-    """Every random number of one frame."""
-
-    jitter: torch.Tensor  # (N, 2) sub-pixel offsets, pixel order
-    bounces: List[BounceUniforms]
-
-    def to(self, device) -> "FrameUniforms":
-        def move(x):
-            return None if x is None else x.to(device)
-
-        return FrameUniforms(self.jitter.to(device), [
-            BounceUniforms(*(move(getattr(b, f.name)) for f in fields(b)))
-            for b in self.bounces])
-
-
-def draw_uniforms(n: int, bounces: int, generator: torch.Generator,
-                  device, env: bool = False) -> FrameUniforms:
-    """Draw a frame's uniforms in [0, 1) from ``generator``; ``env``:
-    each bounce's environment pair too (a scene with a probe)."""
-    def u(*shape):
-        return torch.rand(*shape, generator=generator, device=device)
-
-    jitter = u(n, 2)
-    return FrameUniforms(jitter, [
-        BounceUniforms(u(n), u(n), u(n), u(n), u(n), u(n),
-                       *((u(n), u(n)) if env else ()))
-        for _ in range(bounces)])
 
 
 def _permute_packed(state: BounceState, pid: torch.Tensor,

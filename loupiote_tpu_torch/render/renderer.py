@@ -548,9 +548,13 @@ class Renderer:
                     if (src in snapshots and callable(val)
                             and hasattr(sys.modules[src], attr)):
                         setattr(mod, attr, getattr(sys.modules[src], attr))
-            for lib in self._path_libraries():
-                _build._libs.pop(lib, None)
-                _build.load(lib)
+            # Off the card the twins run and no library is loaded.
+            if self.scene is not None and self.device.type == "cuda":
+                from ..ops.intersect import path_libraries
+
+                for lib in path_libraries(self.scene):
+                    _build._libs.pop(lib, None)
+                    _build.load(lib)
             if self.scene is not None:
                 self._validation_frame()
         except Exception as e:  # keep the old pipeline
@@ -563,19 +567,6 @@ class Renderer:
             self.last_reload_error = f"{type(e).__name__}: {e}"
             return
         self.last_reload_error = None
-
-    def _path_libraries(self) -> list:
-        """The ``csrc/`` libraries the bound scene's frames load (none off
-        the card: the twins run there)."""
-        from ..ops.intersect import _WIDE_MIN_NODES
-
-        if self.scene is None or self.device.type != "cuda":
-            return []
-        libs = ["wide_traverse" if self.scene.num_nodes >= _WIDE_MIN_NODES
-                else "bvh2_traverse"]
-        if self.scene.treelet is not None:
-            libs += ["treelet_traverse", "slab_sort", "regroup"]
-        return libs
 
     def _validation_frame(self) -> None:
         w, h = 32, 16

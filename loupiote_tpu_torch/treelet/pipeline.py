@@ -43,6 +43,10 @@ from .lane_bottom import lane_bottom_rays, unpack_hits
 from .lane_top import lane_top_pairs
 from .regroup import _no_mark, block_regroup
 
+# The csrc/ libraries this traversal loads beside its fallback's: E6 and
+# E7, K4 and E5 (the "count" binning).
+LIBRARIES = ("treelet_traverse", "slab_sort", "regroup")
+
 _fallback = DeviceCounter(torch.int64)  # fallback rays, per device
 
 

@@ -442,6 +442,28 @@ def test_frame_after_reload_equals_frame_before(small_renderer):
     r.enable_aot_cache()  # kept as API, does nothing
 
 
+@pytest.mark.parametrize("nodes, treelet, want", [
+    (8191, False, ["bvh2_traverse"]),
+    (8192, False, ["wide_traverse"]),
+    (8191, True, ["bvh2_traverse", "treelet_traverse", "slab_sort",
+                  "regroup"]),
+    (8192, True, ["wide_traverse", "treelet_traverse", "slab_sort",
+                  "regroup"])])
+def test_path_libraries_follow_the_dispatch(nodes, treelet, want):
+    """The libraries reload_shaders rebuilds on the card are the
+    dispatch's: K2 / K3 below 8,192 BVH2 nodes, K1 from there on, and the
+    treelet traversal's E6 / E7, K4 and E5 beside them; each a source in
+    csrc/."""
+    from loupiote_tpu_torch import _build
+    from loupiote_tpu_torch.ops.intersect import path_libraries
+
+    scene = SimpleNamespace(num_nodes=nodes,
+                            treelet=object() if treelet else None)
+    assert path_libraries(scene) == want
+    for name in want:
+        assert os.path.exists(os.path.join(_build.CSRC_DIR, name + ".cu"))
+
+
 # -- checkpoints ----------------------------------------------------------------------
 
 def _filled(renderer):
@@ -613,7 +635,7 @@ def test_lightmap_bake_matches_reference():
     from loupiote_tpu.scene import build_scene_buffers as ref_buffers
     from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch
     from loupiote_tpu_torch.ops.lightmap import bake_vertex_irradiance
-    from loupiote_tpu_torch.render.integrator import FrameUniforms
+    from loupiote_tpu_torch.ops.sampling import FrameUniforms
     from torch_port_helpers import step_uniforms
 
     with numpy_bvh():

@@ -122,7 +122,7 @@ def replay_uniforms(key, n, bounces):
     pixels."""
     import jax.random as jr
 
-    from loupiote_tpu_torch.render.integrator import FrameUniforms
+    from loupiote_tpu_torch.ops.sampling import FrameUniforms
 
     k_jit, k_bounce = jr.split(key)
     out = []
@@ -139,7 +139,7 @@ def step_uniforms(k_step, n):
     where a probe is bound)."""
     import jax.random as jr
 
-    from loupiote_tpu_torch.render.integrator import BounceUniforms
+    from loupiote_tpu_torch.ops.sampling import BounceUniforms
 
     (_, k_env, k_lobe, k_u1, k_u2, k_ls, k_l1, k_l2) = jr.split(k_step, 8)
     ke1, ke2 = jr.split(k_env)
