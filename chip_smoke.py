@@ -52,6 +52,21 @@ Phases, each timed:
                  noise, sort off and on); a textured quad and a textured
                  arch-20k hall under a sky with blue noise, small, held
                  against the CPU path;
+ 5b. instanced - the textured arch-260k hall merged into one BLAS with 200
+                 props of two meshes (bench.py's section_instanced)
+                 through build_instanced_buffers and Renderer at
+                 1920x1080, 3 bounces, NEE, 1 spp, a warm-up and 5
+                 frames, beside the same scene flattened; K1's and K2's
+                 launches a frame held to the plan of the scene's mesh
+                 groups (K1 on the hall's BLAS once a traversal, K2 on
+                 each prop group TLAS_C times, plus the drain's
+                 iterations; no K3), the drain's iterations printed; the
+                 frame's device kernels under torch.profiler; every K1
+                 and K2 call of the primary and the first NEE traversal
+                 against its twin on the same object-space rays (tri
+                 bits equal, t within 2 ulp); an update_instance move
+                 re-rendered with every BLAS tensor where it was; a
+                 128x64 instanced frame against the CPU path;
   6. interactive - arch-40k in a 1920x1080 window with RenderConfig()
                  (960x540 internal, 3 bounces, NEE, A-SVGF) and
                  DENOISED_PATHTRACE, the camera moving every frame, with
@@ -132,9 +147,10 @@ Phases, each timed:
                  entries, each against its twin three times: floats
                  NaN-equal, the rest bit-equal, 0 lanes at a step bound;
  15. app       - the textured arch-260k hall with 200 props written as a
-                 glb with PNG textures and loaded by Driver.load_gltf_path
-                 (meshes, instances, materials, texels equal to the
-                 in-memory scene's); `python -m loupiote_tpu_torch render`
+                 glb with JPEG textures (encode_jpeg) and loaded by
+                 Driver.load_gltf_path (meshes, instances, materials equal
+                 to the in-memory scene's, texels to the JPEG round
+                 trip's); `python -m loupiote_tpu_torch render`
                  of it at 1920x1080, 16 frames denoised (exit 0, the PNG's
                  nonzero share >= 0.9, ms a frame); Renderer.measure_passes
                  on the headline frame, pathtrace and denoised, by "trace"
@@ -148,7 +164,7 @@ Phases, each timed:
                  its CPU run.
 Any disagreement or failure raises, so the run exits non-zero without its
 last line. Prints a JSON line of kernel results (with the frames of 5a
-under "frames" and phase 15's numbers under "app"), then the card's
+and 5b under "frames" and phase 15's numbers under "app"), then the card's
 nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
 """
 
@@ -743,29 +759,304 @@ def event_ms(fn, n):
     return out
 
 
+def blas_calls(fn, keep):
+    """Run fn, keeping a copy of the arguments of the K1 and K2 calls that
+    ``keep(kind, any_hit, index)`` picks (kind "K1" or "K2", index among
+    that kernel and mode's calls in fn, in call order). Returns [(kind,
+    any_hit, index, args)] in call order. Launches nothing itself."""
+    from loupiote_tpu_torch.ops import bvh2, wide
+
+    traces = {"K1": (wide, "wide_trace"), "K2": (bvh2, "bvh2_trace")}
+    orig = {k: getattr(m, n) for k, (m, n) in traces.items()}
+    seen, out = {}, []
+
+    def recorder(kind):
+        def call(*args):
+            any_hit = bool(args[5] if kind == "K1" else args[6])
+            i = seen.setdefault((kind, any_hit), 0)
+            seen[(kind, any_hit)] = i + 1
+            if keep(kind, any_hit, i):
+                out.append((kind, any_hit, i, tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args)))
+            return orig[kind](*args)
+        return call
+
+    for k, (m, n) in traces.items():
+        setattr(m, n, recorder(k))
+    try:
+        fn()
+    finally:
+        for k, (m, n) in traces.items():
+            setattr(m, n, orig[k])
+    return out
+
+
 def k1_waves(fn, picks):
     """Run fn, keeping a copy of the rays K1 is given in the calls picked:
     ``picks`` maps ("closest" | "anyhit", index among that mode's calls in
     fn, in call order) to a label. Returns {label: (ro, rd, tmax,
     active)}. Launches nothing itself."""
-    from loupiote_tpu_torch.ops import wide
+    def mode(any_hit):
+        return "anyhit" if any_hit else "closest"
 
-    trace, seen, out = wide.wide_trace, {"closest": 0, "anyhit": 0}, {}
+    calls = blas_calls(fn, lambda kind, any_hit, i: kind == "K1"
+                       and (mode(any_hit), i) in picks)
+    return {picks[(mode(a), i)]: args[1:5] for _, a, i, args in calls}
 
-    def keep(trav_rows, ro, rd, tmax, active, any_hit, *sizes):
-        mode = "anyhit" if any_hit else "closest"
-        label = picks.get((mode, seen[mode]))
-        if label is not None:
-            out[label] = tuple(x.clone() for x in (ro, rd, tmax, active))
-        seen[mode] += 1
-        return trace(trav_rows, ro, rd, tmax, active, any_hit, *sizes)
 
-    wide.wide_trace = keep
-    try:
-        fn()
-    finally:
-        wide.wide_trace = trace
-    return out
+def instanced_phase(lt, dev, smi, frames, gu):
+    """The two-level frame on the card (bench.py's section_instanced):
+    the textured arch-260k hall merged into one BLAS with 200 props of two
+    meshes, through build_instanced_buffers and Renderer at 1920x1080, 3
+    bounces, NEE, 1 spp; the same scene flattened timed in the same
+    phase. Checks K1's and K2's launches a frame against the plan of the
+    scene's mesh groups, holds every K1 and K2 call of the frame's primary
+    and first NEE traversal to its plain twin on the same object-space
+    rays, a 128x64 instanced frame to the CPU path, and an
+    update_instance move to re-render with every BLAS tensor where it
+    was. Returns the numbers for the kernels line."""
+    import torch
+
+    from loupiote_tpu_torch.ops import bvh2, wide
+    from loupiote_tpu_torch.ops.intersect import _bvh2
+    from loupiote_tpu_torch.render.integrator import (draw_uniforms,
+                                                      trace_paths)
+    from loupiote_tpu_torch.scene import instanced
+
+    t0 = time.perf_counter()
+    scene = lt.build_arch_scene(260_000, textured=True, props=200,
+                                merged=True)
+    t1 = time.perf_counter()
+    inst = instanced.build_instanced_buffers(scene)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    flat = lt.build_scene_buffers(scene)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    slots = np.asarray(inst.inst_mesh)
+    groups = []  # (slot, instances, kernel, launches a traversal)
+    for slot in sorted(set(inst.inst_mesh)):
+        n = int((slots == slot).sum())
+        kind = "K2" if _bvh2(inst.blas[slot]) else "K1"
+        waves = (n if len(slots) <= instanced.TLAS_UNROLL_MAX or n <= 2
+                 else min(instanced.TLAS_C, n))
+        groups.append((slot, n, kind, waves))
+    per_trav = {k: sum(g[3] for g in groups if g[2] == k)
+                for k in ("K1", "K2")}
+    print(f"instanced arch-260k + 200 props (merged hall): "
+          f"{len(scene.instances)} instances; seconds: scene {t1 - t0:.2f}, "
+          f"build_instanced_buffers {t2 - t1:.2f}, flattened buffers "
+          f"{t3 - t2:.2f}; {inst.stats()}; BLASes "
+          f"{[(b.num_tris, b.num_nodes) for b in inst.blas]} (triangles, "
+          f"BVH2 nodes); mesh groups (slot, instances, kernel, launches a "
+          f"traversal): {groups}; flattened BVH2 nodes {flat.num_nodes} "
+          f"({smi})", flush=True)
+    phase("instanced scene build", t0)
+
+    # Frames: the instanced one and the same geometry flattened, a warm-up
+    # and 5 timed each, launches counted over the 6.
+    t0 = time.perf_counter()
+    cfg = lt.RenderConfig(downsample_factor=1.0, denoise=False)
+    view = lt.arch_camera()
+    nf = 6
+    out = {}
+    for name, bufs in (("instanced", inst), ("instanced, flattened", flat)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = lt.Renderer((WIDTH, HEIGHT), cfg)
+        r.set_resources(bufs)
+        r.accumulate = True
+        wide.reset_counters()
+        bvh2.reset_counters()
+        instanced.reset_counters()
+        r.raytrace(view)
+        first = r.accum.clone()
+        ms = event_ms(lambda: r.raytrace(view), 5)
+        img = r.blit()
+        got = {"K1 closest": wide.launches_closest,
+               "K1 any-hit": wide.launches_anyhit,
+               "K2 closest": bvh2.launches_closest,
+               "K2 any-hit": bvh2.launches_anyhit,
+               "K3": bvh2.launches_occluded}
+        drains = instanced.drain_iterations
+        capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mean = float(np.mean(ms))
+        nonzero = float((first.reshape(-1, 3).sum(1) > 0).float().mean())
+        if bufs is inst:
+            want = {"K1 closest": nf * BOUNCES * per_trav["K1"],
+                    "K1 any-hit": nf * (BOUNCES + 1) * per_trav["K1"],
+                    "K2 closest": nf * BOUNCES * per_trav["K2"],
+                    "K2 any-hit": nf * (BOUNCES + 1) * per_trav["K2"],
+                    "K3": 0}
+            # Each drain iteration launches its group's kernel once (the
+            # hall's group holds one instance and never drains).
+            want_k2 = want["K2 closest"] + want["K2 any-hit"] + drains
+            ok = (got["K1 closest"] == want["K1 closest"]
+                  and got["K1 any-hit"] == want["K1 any-hit"]
+                  and got["K2 closest"] + got["K2 any-hit"] == want_k2
+                  and got["K3"] == 0)
+        else:
+            # Flattened: K1 past 8,192 BVH2 nodes (arch-260k), else K2 /
+            # K3, 3 closest-hit and 4 shadow waves a frame.
+            k2k3 = _bvh2(bufs)
+            want = {"K1 closest": 0 if k2k3 else nf * BOUNCES,
+                    "K1 any-hit": 0 if k2k3 else nf * (BOUNCES + 1),
+                    "K2 closest": nf * BOUNCES if k2k3 else 0,
+                    "K2 any-hit": 0,
+                    "K3": nf * (BOUNCES + 1) if k2k3 else 0}
+            ok = got == want
+        rays = WIDTH * HEIGHT * BOUNCES * 2
+        out[name] = {"ms_mean": mean, "ms_min": min(ms), "ms": ms,
+                     "mrays_s": rays / mean / 1e3, "spp": 1,
+                     "launches_per_frame": {k: v / nf for k, v in
+                                            got.items()},
+                     "k1_launches_per_frame": {
+                         "closest": got["K1 closest"] / nf,
+                         "anyhit": got["K1 any-hit"] / nf},
+                     "drain_iterations": drains,
+                     "nonzero_pixel_frac": nonzero, "peak_gib": peak}
+        print(f"{name} frame: ms (CUDA events) mean {mean:.3f}, min "
+              f"{min(ms):.3f}, all {[round(x, 3) for x in ms]}; Mrays/s "
+              f"{rays / mean / 1e3:.3f}; launches over {nf} frames {got} "
+              f"(want {want}, drain iterations {drains}); nonzero_pixel_frac "
+              f"{nonzero:.4f}; image mean {float(r.accum.mean()):.5f}; peak "
+              f"memory {peak:.2f} GiB; rays stopped by a step bound "
+              f"{capped} ({smi})", flush=True)
+        if not ok:
+            raise SystemExit(f"chip_smoke: the {name} frame's launches "
+                             f"{got} differ from the plan {want}")
+        if capped or not torch.isfinite(r.accum).all() or not (
+                img.shape == (HEIGHT, WIDTH, 3) and img.dtype == np.uint8):
+            raise SystemExit(f"chip_smoke: the {name} frame is non-finite, "
+                             f"misshapen or stopped rays at a step bound")
+        if nonzero < 0.5:
+            raise SystemExit(f"chip_smoke: the {name} frame is mostly black")
+        if bufs is inst:
+            r_inst, launches = r, got
+        else:
+            del r
+    frames.update(out)
+    mean_i = out["instanced"]["ms_mean"]
+    mean_f = out["instanced, flattened"]["ms_mean"]
+    print(f"instanced frame {mean_i:.3f} ms against the same geometry "
+          f"flattened {mean_f:.3f} ms ({mean_i / mean_f:.2f}x) ({smi})")
+    phase("instanced frame and its flattened twin: 6 + 6 frames", t0)
+
+    # Where the instanced frame's device time goes: one frame's kernels
+    # under torch.profiler, summed by name.
+    t0 = time.perf_counter()
+    ks = device_kernels(lambda: r_inst.raytrace(view))
+    by = {}
+    for kname, kms in ks:
+        key = kernel_name(kname)
+        by[key] = by.get(key, 0.0) + kms
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
+    split = {"K1": by.get("wide_traverse_kernel", 0.0),
+             "K2": sum(v for k, v in by.items() if "bvh2_trace" in k)}
+    print(f"instanced frame under torch.profiler: {len(ks)} device "
+          f"kernels, busy {busy:.3f} ms (K1 {split['K1']:.3f}, K2 "
+          f"{split['K2']:.3f}, the rest {busy - sum(split.values()):.3f}); "
+          f"top by device ms: "
+          + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top), flush=True)
+    out["instanced"]["device_busy_ms"] = busy
+    out["instanced"]["device_ms_by_kernel"] = split
+    phase("instanced frame's device kernels", t0)
+
+    # Every K1 and K2 call of the primary traversal (bounce 0 closest-hit)
+    # and of the first NEE traversal (the first any-hit one), recorded
+    # from one frame, against the plain twins: tri bits equal and t
+    # within 2 ulp on every ray (in practice bit-equal; K2 u, v too).
+    t0 = time.perf_counter()
+    n_k2 = {False: per_trav["K2"], True: per_trav["K2"]}
+    n_k1 = per_trav["K1"]
+
+    def keep(kind, any_hit, i):
+        return i < (n_k1 if kind == "K1" else n_k2[any_hit])
+
+    calls = blas_calls(lambda: r_inst.raytrace(view), keep)
+    rows = ["| call | kernel, mode | rays | active | tri equal | t max ulp "
+            "| hits | verdict |", "|---|---|---|---|---|---|---|---|"]
+    ok, errs = True, {"K1": 0.0, "K2": 0.0}
+    for j, (kind, _, _, args) in enumerate(calls):
+        if kind == "K1":
+            kt, ktri = wide._launch(*args)
+            pt, ptri = wide.wide_trace_plain(*args)
+            any_hit = args[5]
+        else:
+            kt, _, _, ktri = bvh2._launch_trace(*args)
+            pt, _, _, ptri = bvh2.bvh2_trace_plain(*args)
+            any_hit = args[6]
+        ro, act = args[2 if kind == "K2" else 1], args[
+            5 if kind == "K2" else 4]
+        tri_eq = bits_equal(ktri, ptri)
+        ulp = int(ulp_diff(kt, pt).max()) if kt.numel() else 0
+        good = tri_eq and ulp <= 2
+        ok &= good
+        errs[kind] = max(errs[kind], float((kt - pt).abs().max()))
+        rows.append(f"| {j} | {kind} {'any-hit' if any_hit else 'closest'}"
+                    f" | {ro.shape[0]} | {int(act.sum())} | {tri_eq} | {ulp}"
+                    f" | {int((ktri >= 0).sum())} | "
+                    f"{'PASS' if good else 'FAIL'} |")
+    print(f"K1 / K2 against their twins on the instanced frame's primary "
+          f"and first NEE traversals ({len(calls)} calls):\n"
+          + "\n".join(rows), flush=True)
+    capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
+    if not ok or capped or len(calls) != 2 * (n_k1 + per_trav["K2"]):
+        raise SystemExit("chip_smoke: K1 or K2 disagrees with its plain "
+                         "version on the instanced frame's object-space "
+                         "rays, or rays reached a step bound")
+    del calls
+    phase("K1/K2 on the instanced frame's waves", t0)
+
+    # update_instance: a prop moves; no BLAS tensor moves with it.
+    t0 = time.perf_counter()
+    ptrs = [[getattr(b, f).data_ptr() for f in ("trav_rows", "node_rows",
+                                                 "leaf_rows", "tri_pack")]
+            for b in inst.blas]
+    m = np.array(scene.instances[1].model_to_world)
+    m[:3, 3] += [0.0, 0.0, 3.0]
+    moved = instanced.update_instance(inst, 1, m)
+    r_inst.set_resources(moved)
+    r_inst.reset_accumulation()
+    r_inst.raytrace(view)
+    same = moved.blas is inst.blas and ptrs == [
+        [getattr(b, f).data_ptr() for f in ("trav_rows", "node_rows",
+                                            "leaf_rows", "tri_pack")]
+        for b in moved.blas]
+    print(f"update_instance(1, +3 z): BLAS tuple and every BLAS tensor's "
+          f"data_ptr unchanged {same}; frame finite "
+          f"{bool(torch.isfinite(r_inst.accum).all())}", flush=True)
+    if not same or not torch.isfinite(r_inst.accum).all():
+        raise SystemExit("chip_smoke: update_instance moved a BLAS tensor "
+                         "or the moved frame is not finite")
+    del r_inst
+    phase("update_instance re-render", t0)
+
+    # A small instanced frame on the card against the CPU path.
+    t0 = time.perf_counter()
+    w, h = 128, 64
+    gu.manual_seed(5)
+    uni = draw_uniforms(w * h, BOUNCES, gu, "cpu")
+    cam = torch.from_numpy(view)
+    ref = trace_paths(inst.to("cpu"), cam, w, h, bounces=BOUNCES,
+                      sort_rays=False, uniforms=uni)[0]
+    got = trace_paths(inst, cam.to(dev), w, h, bounces=BOUNCES,
+                      sort_rays=False, uniforms=uni.to(dev))[0].cpu()
+    close = float(torch.isclose(got, ref, rtol=1e-4, atol=1e-5).all(1)
+                  .float().mean())
+    rel = abs(float(got.mean()) / max(float(ref.mean()), 1e-12) - 1.0)
+    print(f"small instanced frame {w}x{h} card vs CPU plain path: pixels "
+          f"close {close:.5f}, mean rel diff {rel:.2e}, mean "
+          f"{float(ref.mean()):.5f}")
+    if close < 0.995 or rel > 1e-3 or not float(ref.mean()) > 0:
+        raise SystemExit("chip_smoke: the card's instanced frame disagrees "
+                         "with the CPU path")
+    phase("instanced frame vs CPU", t0)
+    return {"launches": launches,
+            "per_traversal": per_trav, "groups": groups, "errs": errs,
+            "calls_checked": 2 * (n_k1 + per_trav["K2"])}
 
 
 HALL_CAMERA = "0,5,34,0.15,-0.12,-1"  # arch_camera(): origin, direction
@@ -810,7 +1101,11 @@ def app_phases(lt, dev, arch, arch40, smi):
         t0 = time.perf_counter()
         hall = lt.build_arch_scene(260_000, textured=True, props=200)
         glb = os.path.join(tmp, "hall.glb")
-        write_glb(hall, glb)
+        # Its textures as JPEG (the port's encoder; the loader decodes
+        # them with decode_jpeg): the texels to expect are the round trip.
+        write_glb(hall, glb, image_format="jpeg")
+        texels = [image_codec.decode_jpeg(image_codec.encode_jpeg(
+            np.ascontiguousarray(img.data, np.uint8))) for img in hall.images]
         drv = Driver(APP_WINDOW, lt.RenderConfig(), device=dev)
         drv.load_gltf_path(glb)
         got = drv.scene
@@ -834,10 +1129,9 @@ def app_phases(lt, dev, arch, arch40, smi):
             and a.mra_texture == b.mra_texture
             for a, b in zip(got.materials[1:], hall.materials))
         same_tex = len(got.images) == len(hall.images) and all(
-            np.array_equal(a.data, b.data)
-            for a, b in zip(got.images, hall.images))
+            np.array_equal(a.data, b) for a, b in zip(got.images, texels))
         print(f"app: textured arch-260k + 200 props as a glb "
-              f"({os.path.getsize(glb)} bytes, {len(hall.images)} PNG "
+              f"({os.path.getsize(glb)} bytes, {len(hall.images)} JPEG "
               f"textures) through Driver.load_gltf_path: meshes equal "
               f"{same_mesh}, instances {same_inst}, materials {same_mat}, "
               f"texels {same_tex}; {got.stats()}", flush=True)
@@ -1753,6 +2047,9 @@ def main():
                              f"disagrees with the CPU path")
     del tex260, content260
     phase("content small frames vs CPU", t0)
+
+    # -- Two-level instancing: the 1080p instanced frame ---------------------
+    inst_res = instanced_phase(lt, dev, smi, frames, gu)
 
     # -- The interactive path: the app's default frame -----------------------
     t0 = time.perf_counter()
@@ -2824,7 +3121,10 @@ def main():
             "name": f"wide_traverse ({mode})", "route": "cuda",
             "source": "loupiote_tpu_torch/csrc/wide_traverse.cu",
             "replaces": "loupiote_tpu/ops/pallas_wide.py:160",
-            "launches": k1_launches[mode], "max_abs_err": err,
+            # The headline frame's launches and the instanced frame's.
+            "launches": k1_launches[mode] + inst_res["launches"][
+                "K1 " + mode.replace("anyhit", "any-hit")],
+            "max_abs_err": max(err, inst_res["errs"]["K1"]),
             "ms": k1_timing[mode][0], "plain_ms": k1_timing[mode][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "nonfinite_equal": nf_equal[
@@ -2842,7 +3142,9 @@ def main():
             "name": name, "route": "cuda",
             "source": "loupiote_tpu_torch/csrc/bvh2_traverse.cu",
             "replaces": f"loupiote_tpu/ops/pallas_intersect.py:{line}",
-            "launches": launches[key], "max_abs_err": k23_err[err_key],
+            "launches": launches[key] + inst_res["launches"].get(key, 0),
+            "max_abs_err": max(k23_err[err_key], inst_res["errs"]["K2"]
+                               if name == "bvh2_trace" else 0.0),
             "ms": k23_timing[key][0], "plain_ms": k23_timing[key][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "nonfinite_equal": nf_equal[key] and (
@@ -2862,8 +3164,17 @@ def main():
                 "frame": {"launches": n_k2, "ms": k2_frame_ms,
                           "ms_by_launch": k2_frame,
                           "capped": frame_capped},
+                "instanced": {
+                    # The instanced frame's K2 calls of its primary and
+                    # first NEE traversals against the twin; its launches
+                    # are in the counts above.
+                    "launches": inst_res["launches"]["K2 closest"]
+                    + inst_res["launches"]["K2 any-hit"],
+                    "calls_checked": inst_res["calls_checked"],
+                    "max_abs_err": inst_res["errs"]["K2"]},
                 "anyhit": {
-                    "launches": launches["K2 any-hit"],
+                    "launches": launches["K2 any-hit"]
+                    + inst_res["launches"]["K2 any-hit"],
                     "max_abs_err": k23_err["anyhit"], "ms": any_ms,
                     "plain_ms": any_plain,
                     "bound_ms": k23_bound["K2 any-hit"][0],

@@ -13,11 +13,17 @@ card's host has no PIL, so the port has its own codec:
 - ``encode_jpeg(rgb, quality=85)``: baseline JFIF, 4:2:0, the standard
   tables of the JPEG specification's Annex K scaled by the IJG quality
   rule, as libjpeg (PIL's encoder) defaults;
+- ``decode_jpeg(data)``: (H, W, 4) uint8, the bytes PIL's
+  ``convert("RGBA")`` gives: sequential Huffman-coded 8-bit files of one
+  (grey) or three components (YCbCr, or RGB where an Adobe marker or the
+  component ids say so), 4:4:4, 4:2:2 and 4:2:0 sampling, restart
+  markers; libjpeg's defaults repeated (the ``islow`` integer IDCT,
+  "fancy" triangle upsampling, the fixed-point YCbCr tables);
 - ``is_jpeg(data)`` / ``is_png(data)``: the signatures.
 
 Chunk parsing, zlib, bit unpacking, colour conversion, the DCT and the
 quantisation are numpy / torch on the host. The serial byte work (PNG's
-scanline unfiltering, JPEG's Huffman bit packing) is C++,
+scanline unfiltering, JPEG's Huffman bit packing and decoding) is C++,
 ``csrc/image_codec.cpp``, built with g++ at first use into ``_build/``;
 a failed build raises.
 """
@@ -68,6 +74,12 @@ def _load():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64]
+            lib.jpeg_decode_scan.restype = ctypes.c_int64
+            lib.jpeg_decode_scan.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                ctypes.c_void_p]
             _lib = lib
         return _lib
 
@@ -250,6 +262,343 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+# -- Sequential JPEG decoding --------------------------------------------------
+
+# Start-of-frame markers by what they code; only 0xC0 / 0xC1 (sequential,
+# Huffman) decode.
+_SOF_KINDS = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential",
+              0xC6: "differential", 0xC7: "differential",
+              0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
+              0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
+              0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+
+
+def _segments(data: bytes):
+    """(marker, body offset, body length) of each marker segment after
+    SOI, up to EOI; after SOS the entropy-coded bytes are skipped by the
+    caller, which resumes at the offset it sends back."""
+    pos = 2
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1  # tolerate junk between segments, as libjpeg does
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            raise CodecError("JPEG ends before its EOI marker")
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:
+            return
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        if pos + 2 > len(data):
+            raise CodecError("truncated JPEG marker segment")
+        n = struct.unpack_from(">H", data, pos)[0]
+        if n < 2 or pos + n > len(data):
+            raise CodecError(f"truncated JPEG segment 0x{marker:02X}")
+        resume = yield marker, pos + 2, n - 2
+        pos = pos + n if resume is None else resume
+
+
+# IDCT constants of libjpeg's jidctint.c (CONST_BITS 13, PASS1_BITS 2).
+_FIX = {k: int(v * (1 << 13) + 0.5) for k, v in (
+    ("0_298631336", 0.298631336), ("0_390180644", 0.390180644),
+    ("0_541196100", 0.541196100), ("0_765366865", 0.765366865),
+    ("0_899976223", 0.899976223), ("1_175875602", 1.175875602),
+    ("1_501321110", 1.501321110), ("1_847759065", 1.847759065),
+    ("1_961570560", 1.961570560), ("2_053119869", 2.053119869),
+    ("2_562915447", 2.562915447), ("3_072711026", 3.072711026))}
+
+
+def _idct_pass(x, shift):
+    """One 1-D pass of jpeg_idct_islow over the last axis of int64 x
+    (..., 8): its even and odd parts, descaled by ``shift`` bits."""
+    f = _FIX
+    z2, z3 = x[..., 2], x[..., 6]
+    z1 = (z2 + z3) * f["0_541196100"]
+    tmp2 = z1 - z3 * f["1_847759065"]
+    tmp3 = z1 + z2 * f["0_765366865"]
+    tmp0 = (x[..., 0] + x[..., 4]) << 13
+    tmp1 = (x[..., 0] - x[..., 4]) << 13
+    t10, t13 = tmp0 + tmp3, tmp0 - tmp3
+    t11, t12 = tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * f["1_175875602"]
+    o0 = o0 * f["0_298631336"]
+    o1 = o1 * f["2_053119869"]
+    o2 = o2 * f["3_072711026"]
+    o3 = o3 * f["1_501321110"]
+    z1 = z1 * -f["0_899976223"]
+    z2 = z2 * -f["2_562915447"]
+    z3 = z3 * -f["1_961570560"] + z5
+    z4 = z4 * -f["0_390180644"] + z5
+    o0 = o0 + z1 + z3
+    o1 = o1 + z2 + z4
+    o2 = o2 + z2 + z3
+    o3 = o3 + z1 + z4
+    half = 1 << (shift - 1)
+    out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+           t13 - o0, t12 - o1, t11 - o2, t10 - o3]
+    return (np.stack(out, axis=-1) + half) >> shift
+
+
+# libjpeg's post-IDCT range limit: index (value & 1023), sample 0-255; in
+# range it is value + 128 clamped, and it wraps as libjpeg's table does.
+_IDCT_LIMIT = np.concatenate([
+    np.arange(128, 256), np.full(384, 255), np.zeros(384),
+    np.arange(0, 128)]).astype(np.uint8)
+
+
+def _idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(N, 64) int16 coefficients (natural order) and their quantisation
+    table to (N, 8, 8) uint8 samples, as libjpeg's jpeg_idct_islow."""
+    x = (coef.astype(np.int64) * quant.astype(np.int64)).reshape(-1, 8, 8)
+    cols = _idct_pass(np.swapaxes(x, 1, 2), 13 - 2)  # (N, col, row)
+    rows = _idct_pass(np.swapaxes(cols, 1, 2), 13 + 2 + 3)
+    return _IDCT_LIMIT[rows & 1023]
+
+
+def _fancy_h2(p: np.ndarray, bias_even: int, bias_odd: int,
+              shift: int) -> np.ndarray:
+    """Horizontal triangle upsampling by 2 of int32 (h, w) sums: output
+    2j is (3 p[j] + p[j - 1] + bias_even) >> shift, 2j + 1 is (3 p[j] +
+    p[j + 1] + bias_odd) >> shift, the edge columns repeated."""
+    left = np.concatenate([p[:, :1], p[:, :-1]], axis=1)
+    right = np.concatenate([p[:, 1:], p[:, -1:]], axis=1)
+    out = np.empty((p.shape[0], 2 * p.shape[1]), np.int32)
+    out[:, 0::2] = (3 * p + left + bias_even) >> shift
+    out[:, 1::2] = (3 * p + right + bias_odd) >> shift
+    return out
+
+
+def _upsample(plane: np.ndarray, rh: int, rv: int) -> np.ndarray:
+    """A component's samples (its own real size) upsampled by (rh, rv), as
+    libjpeg-turbo's defaults do: h2v1 and h2v2 "fancy" (triangle) filters
+    from 3 samples wide on, boxes below that."""
+    if (rh, rv) == (1, 1):
+        return plane
+    p = plane.astype(np.int32)
+    if p.shape[1] <= 2:  # libjpeg's plain h2v1 / h2v2 upsampling
+        return np.repeat(np.repeat(plane, rh, axis=1), rv, axis=0)
+    if rv == 1:
+        return _fancy_h2(p, 1, 2, 2).astype(np.uint8)
+    # h2v2: each output row mixes its nearest input row (3/4) with the
+    # next nearest above (even rows) or below (odd rows), edges repeated.
+    above = np.concatenate([p[:1], p[:-1]])
+    below = np.concatenate([p[1:], p[-1:]])
+    out = np.empty((2 * p.shape[0], 2 * p.shape[1]), np.int32)
+    out[0::2] = _fancy_h2(3 * p + above, 8, 7, 4)
+    out[1::2] = _fancy_h2(3 * p + below, 8, 7, 4)
+    return out.astype(np.uint8)
+
+
+def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """libjpeg's ycc_rgb_convert: 16-bit fixed-point tables, clamped."""
+    def fix(x):
+        return int(x * (1 << 16) + 0.5)
+
+    half = 1 << 15
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + half) >> 16
+    cb_b = (fix(1.77200) * x + half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + half
+    y = y.astype(np.int64)
+    r = y + cr_r[cr]
+    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = y + cb_b[cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA of a sequential JPEG, as PIL's
+    ``convert("RGBA")``. Progressive, arithmetic-coded, lossless,
+    hierarchical, 12-bit and CMYK / four-component files raise
+    ``CodecError`` naming what they are."""
+    data = bytes(data)
+    if not is_jpeg(data):
+        raise CodecError("not a JPEG file")
+    qt = {}
+    dc_tables, ac_tables = {}, {}
+    restart = 0
+    frame = None  # (H, W, components)
+    adobe = None  # the Adobe APP14 transform flag
+    jfif = False
+    coef = None
+    latched = {}  # component index -> quantisation table at its 1st scan
+    segs = _segments(data)
+    resume = None
+    while True:
+        try:
+            marker, off, n = segs.send(resume)
+        except StopIteration:
+            break
+        resume = None
+        body = data[off:off + n]
+        if marker in _SOF_KINDS:
+            raise CodecError(f"{_SOF_KINDS[marker]} JPEG (SOF "
+                             f"0x{marker:02X}) is not supported")
+        if marker == 0xCC:
+            raise CodecError("arithmetic-coded JPEG (DAC) is not supported")
+        if marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and n >= 12:
+            adobe = body[11]
+        elif marker == 0xDB:
+            i = 0
+            while i < n:
+                pq, tq = body[i] >> 4, body[i] & 15
+                size = 128 if pq else 64
+                vals = np.frombuffer(body, ">u2" if pq else np.uint8, 64,
+                                     i + 1).astype(np.int64)
+                table = np.empty(64, np.int64)
+                table[_ZIGZAG] = vals
+                qt[tq & 3] = table
+                i += 1 + size
+        elif marker == 0xC4:
+            i = 0
+            while i < n:
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = body[i + 1:i + 17]
+                m = sum(counts)
+                spec = np.zeros(272, np.uint8)
+                spec[:16] = np.frombuffer(counts, np.uint8)
+                spec[16:16 + m] = np.frombuffer(body, np.uint8, m, i + 17)
+                (ac_tables if tc else dc_tables)[th & 3] = spec
+                i += 17 + m
+        elif marker == 0xDD:
+            restart = struct.unpack_from(">H", body)[0]
+        elif marker in (0xC0, 0xC1):
+            prec, H, W, nc = struct.unpack_from(">BHHB", body)
+            if prec != 8:
+                raise CodecError(f"{prec}-bit JPEG is not supported")
+            if nc == 4:
+                raise CodecError("CMYK (four-component) JPEG is not "
+                                 "supported")
+            if nc not in (1, 3):
+                raise CodecError(f"JPEG with {nc} components is not "
+                                 f"supported")
+            if H == 0 or W == 0:
+                raise CodecError("JPEG with no height (DNL) or width")
+            comps = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4,
+                          v=body[7 + 3 * k] & 15, tq=body[8 + 3 * k])
+                     for k in range(nc)]
+            frame = (H, W, comps)
+            coef = _frame_layout(frame)
+        elif marker == 0xDA:
+            if frame is None:
+                raise CodecError("JPEG scan before its frame header")
+            resume = _decode_scan(data, off, n, frame, coef, dc_tables,
+                                  ac_tables, restart, qt, latched)
+    if frame is None or not latched:
+        raise CodecError("JPEG without a frame or a scan")
+    H, W, comps = frame
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    planes = []
+    for k, c in enumerate(comps):
+        if k not in latched:
+            raise CodecError(f"JPEG component {c['id']} has no scan")
+        lay = coef["layout"][k]
+        samples = _idct_islow(coef["blocks"][lay["first"]:lay["first"]
+                                             + lay["n"]], latched[k])
+        by, bx = lay["rows"], lay["cols"]
+        plane = samples.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3)
+        plane = plane.reshape(by * 8, bx * 8)[:lay["height"], :lay["width"]]
+        up = _upsample(plane, hmax // c["h"], vmax // c["v"])
+        planes.append(up[:H, :W])
+    rgba = np.full((H, W, 4), 255, np.uint8)
+    if len(comps) == 1:
+        rgba[..., :3] = planes[0][..., None]
+        return rgba
+    ids = tuple(c["id"] for c in comps)
+    rgb = (adobe == 0 if adobe is not None
+           else not jfif and ids == (ord("R"), ord("G"), ord("B")))
+    rgba[..., :3] = (np.stack(planes, axis=-1) if rgb
+                     else _ycc_to_rgb(*planes))
+    return rgba
+
+
+def _frame_layout(frame):
+    """Each component's coefficient blocks, allocated over whole MCUs."""
+    H, W, comps = frame
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    for c in comps:
+        if c["h"] not in (1, 2, 4) or c["v"] not in (1, 2, 4) or (
+                hmax // c["h"], vmax // c["v"]) not in ((1, 1), (2, 1),
+                                                        (2, 2)):
+            raise CodecError(
+                f"JPEG sampling factors {[(d['h'], d['v']) for d in comps]}"
+                f" are not supported (4:4:4, 4:2:2 and 4:2:0 are)")
+    mcus_x = -(-W // (8 * hmax))
+    mcus_y = -(-H // (8 * vmax))
+    layout, first = [], 0
+    for c in comps:
+        width = -(-W * c["h"] // hmax)
+        height = -(-H * c["v"] // vmax)
+        rows, cols = mcus_y * c["v"], mcus_x * c["h"]
+        layout.append(dict(first=first, n=rows * cols, rows=rows, cols=cols,
+                           width=width, height=height))
+        first += rows * cols
+    return {"blocks": np.zeros((first, 64), np.int16), "layout": layout,
+            "mcus": (mcus_x, mcus_y), "max": (hmax, vmax)}
+
+
+def _decode_scan(data, off, n, frame, coef, dc_tables, ac_tables, restart,
+                 qt, latched) -> int:
+    """Huffman-decode the scan whose header is data[off:off + n] into
+    ``coef``; returns the offset of the marker after its entropy-coded
+    bytes."""
+    H, W, comps = frame
+    body = data[off:off + n]
+    ns = body[0]
+    index = {c["id"]: k for k, c in enumerate(comps)}
+    info = np.zeros((ns, 6), np.int32)
+    tables = np.zeros((8, 272), np.uint8)
+    for j in range(ns):
+        cid, td_ta = body[1 + 2 * j], body[2 + 2 * j]
+        if cid not in index:
+            raise CodecError(f"JPEG scan names unknown component {cid}")
+        k = index[cid]
+        c, lay = comps[k], coef["layout"][k]
+        td, ta = td_ta >> 4, td_ta & 15
+        if td not in dc_tables or ta not in ac_tables:
+            raise CodecError("JPEG scan uses an undefined Huffman table")
+        if c["tq"] not in qt:
+            raise CodecError("JPEG component uses an undefined "
+                             "quantisation table")
+        latched.setdefault(k, qt[c["tq"]].copy())
+        tables[td & 3] = dc_tables[td]
+        tables[4 + (ta & 3)] = ac_tables[ta]
+        # A one-component scan codes the component's own blocks, one an
+        # MCU; an interleaved scan h x v blocks of each an MCU.
+        h, v = (1, 1) if ns == 1 else (c["h"], c["v"])
+        info[j] = (h, v, lay["cols"], lay["first"], td & 3, ta & 3)
+    if ns == 1:
+        lay = coef["layout"][index[body[1]]]
+        mcus_x, mcus_y = -(-lay["width"] // 8), -(-lay["height"] // 8)
+    else:
+        mcus_x, mcus_y = coef["mcus"]
+    buf = np.frombuffer(data, np.uint8)
+    end = _load().jpeg_decode_scan(
+        buf.ctypes.data, len(data), off + n, ns, info.ctypes.data, mcus_x,
+        mcus_y, restart, tables.ctypes.data, coef["blocks"].ctypes.data)
+    if end < 0:
+        raise CodecError("corrupt JPEG scan: " + (
+            "a Huffman code no table holds" if end == -1
+            else "a restart marker is missing"))
+    # The entropy-coded bytes end at the next marker that is not RSTn.
+    pos = end
+    while pos + 1 < len(data):
+        if data[pos] == 0xFF and data[pos + 1] not in (0x00, 0xFF) and not (
+                0xD0 <= data[pos + 1] <= 0xD7):
+            return pos
+        pos += 1
+    raise CodecError("JPEG ends inside a scan")
 
 
 # -- Baseline JPEG encoding ----------------------------------------------------

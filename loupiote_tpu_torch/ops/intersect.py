@@ -9,12 +9,15 @@ for any ray count: the reference's padding to 1024-ray packets, its SIMT
 path for tiny batches and its ``_WIDE_MAX_BYTES`` VMEM ceiling are TPU
 matters and are not ported. A scene that carries treelet tables
 (``SceneBuffers.treelet``) sends ``intersect_any`` to the treelet
-traversal; ``occluded`` does not take it, as in the reference.
+traversal; ``occluded`` does not take it, as in the reference. A
+two-level instanced scene (``SceneBuffers.inst_w2o``) sends both to the
+instance loop (``scene/instanced.py``), which traverses each mesh's own
+table through this dispatch's kernels.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +37,8 @@ class Hit(NamedTuple):
     tri: torch.Tensor  # (R,) int32, -1 on a miss
     u: torch.Tensor  # (R,) float32 barycentric
     v: torch.Tensor  # (R,) float32 barycentric
+    # (R,) int32 instance of the hit, -1 on a miss: instanced scenes only.
+    inst: Optional[torch.Tensor] = None
 
 
 def moller_trumbore(o, d, tri9):
@@ -145,9 +150,17 @@ def _bvh2(scene) -> bool:
     return scene.num_nodes < _WIDE_MIN_NODES
 
 
+def _instanced(scene) -> bool:
+    return getattr(scene, "inst_w2o", None) is not None
+
+
 def path_libraries(scene) -> list:
     """The ``csrc/`` libraries that ``intersect_any`` and ``occluded`` load
-    for ``scene`` on the card, as this dispatch picks them."""
+    for ``scene`` on the card, as this dispatch picks them (an instanced
+    scene: its BLASes')."""
+    if _instanced(scene):
+        libs = [lib for b in scene.blas for lib in path_libraries(b)]
+        return list(dict.fromkeys(libs))
     libs = ["bvh2_traverse" if _bvh2(scene) else "wide_traverse"]
     if scene.treelet is not None:
         from ..treelet.pipeline import LIBRARIES
@@ -159,8 +172,14 @@ def path_libraries(scene) -> list:
 def intersect_any(scene, ro, rd, tmax=None, active=None,
                   any_hit: bool = False) -> Hit:
     """Trace (R,) rays against the scene; ``active`` False rays miss.
-    Scenes built with ``treelets=True`` take the treelet traversal in both
-    modes (``treelet/pipeline.py``)."""
+    Instanced scenes take the instance loop; scenes built with
+    ``treelets=True`` the treelet traversal in both modes
+    (``treelet/pipeline.py``)."""
+    if _instanced(scene):
+        from ..scene.instanced import intersect_instanced
+
+        return intersect_instanced(scene, ro, rd, tmax=tmax, active=active,
+                                   any_hit=any_hit)
     if scene.treelet is not None:
         from ..treelet.pipeline import treelet_intersect
 
@@ -179,6 +198,10 @@ def intersect_any(scene, ro, rd, tmax=None, active=None,
 
 def occluded(scene, ro, rd, dist, active=None) -> torch.Tensor:
     """Shadow query: True where the segment [T_MIN, dist) is blocked."""
+    if _instanced(scene):
+        from ..scene.instanced import occluded_instanced
+
+        return occluded_instanced(scene, ro, rd, dist, active=active)
     tmax = dist * (1.0 - 1e-3)
     if _bvh2(scene):
         from .bvh2 import occluded_bvh2

@@ -65,6 +65,11 @@ class BounceState:
         return [getattr(self, f.name) for f in fields(self)]
 
 
+def _rotate(m, x):
+    """Per-ray (R, 3, 3) @ (R, 3)."""
+    return (m * x[:, None, :]).sum(-1)
+
+
 def decode_surface(scene, ro, rd, hit: Hit, textures: bool = True) -> Surface:
     """Interpolated attributes at each hit (miss rays read triangle 0 and
     are masked by the caller). ``textures``: multiply the base colour
@@ -80,9 +85,20 @@ def decode_surface(scene, ro, rd, hit: Hit, textures: bool = True) -> Surface:
     # read the bits.
     ids = scene.tri_shade.view(torch.int32)[tri, 15:17]
     mat = ids[:, 0].to(torch.int64)
+    inst_id = ids[:, 1]
     ng = srow[:, 17:20]
 
     n = n0 * b[0] + n1 * b[1] + n2 * b[2]
+    if getattr(scene, "inst_w2o", None) is not None and hit.inst is not None:
+        # Two-level scenes hold object-space attributes: the winning
+        # instance turns both normals to world space and names the
+        # material (scene/instanced.py).
+        inst = hit.inst.clamp_min(0).to(torch.int64)
+        nm = scene.inst_nmat[inst]  # (R, 3, 3)
+        n, ng = _rotate(nm, n), _rotate(nm, ng)
+        ng = ng / torch.clamp_min(norm3(ng), 1e-12)[:, None]
+        mat = scene.inst_mat_id[inst].to(torch.int64)
+        inst_id = hit.inst
     n = n / torch.clamp_min(norm3(n), 1e-12)[:, None]
 
     # Two-sided: orient both normals against the incoming direction.
@@ -104,7 +120,7 @@ def decode_surface(scene, ro, rd, hit: Hit, textures: bool = True) -> Surface:
     pos = ro + rd * hit.t[:, None]
     return Surface(pos=pos, n_geom=ng, n_shade=n, albedo=albedo,
                    roughness=rough, metallic=metal,
-                   emission=mrow[:, 6:9], inst_id=ids[:, 1])
+                   emission=mrow[:, 6:9], inst_id=inst_id)
 
 
 def _spec_select_prob(surf: Surface, n_dot_o):

@@ -179,7 +179,7 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
         if bounce == 0:
             with record_function("gbuffer"):
                 # Sample 0's slots, [:R]: bounce 0 is not sorted.
-                hit0 = Hit(*(x[:R] for x in hit))
+                hit0 = Hit(*(None if x is None else x[:R] for x in hit))
                 surf = decode_surface(scene, state.ro[:R], state.rd[:R],
                                       hit0, textures=scene.has_textures)
                 missed = hit0.tri < 0

@@ -79,24 +79,45 @@ class SceneBuffers:
     num_lights: int
     has_probe: bool = False
     has_textures: bool = False
+    num_tris: int = 0  # triangles before the padding rows
     # Treelet tables (treelet/build.py); None unless built with
     # treelets=True, and then intersect_any takes the treelet traversal.
     treelet: Optional[TreeletDevice] = None
+    # Two-level instancing (scene/instanced.py): one BLAS (a SceneBuffers
+    # of one mesh in object space) per unique mesh, shared by its
+    # instances. Where ``inst_w2o`` is set, intersect_any and occluded
+    # take the instance loop, the tables above are a geometry-less shell's
+    # (node_min[0] / node_max[0] the instances' world bounds) and
+    # tri_shade / tri_pack hold the BLASes' object-space triangles end to
+    # end.
+    blas: Optional[tuple] = None  # tuple[SceneBuffers], by mesh slot
+    inst_w2o: Optional[torch.Tensor] = None  # (K, 4, 4) world-to-object
+    inst_nmat: Optional[torch.Tensor] = None  # (K, 3, 3) normal matrix
+    inst_mat_id: Optional[torch.Tensor] = None  # (K,) int32 material
+    inst_tri_base: Optional[torch.Tensor] = None  # (K,) int32 first tri
+    inst_mesh: Optional[tuple] = None  # (K,) mesh slot of each instance
+    inst_aabb_lo: Optional[torch.Tensor] = None  # (K, 3) world box
+    inst_aabb_hi: Optional[torch.Tensor] = None  # (K, 3)
 
     @property
     def device(self) -> torch.device:
         return self.trav_rows.device
 
     def to(self, device) -> "SceneBuffers":
-        """A copy with every table on ``device``."""
+        """A copy with every table on ``device``, each BLAS's too."""
         return dataclasses.replace(self, **{
-            name: getattr(self, name).to(device) for name in _TENSOR_FIELDS},
+            name: getattr(self, name).to(device) for name in _TENSOR_FIELDS
+            + _INSTANCE_FIELDS if getattr(self, name) is not None},
             treelet=None if self.treelet is None
-            else self.treelet.to(device))
+            else self.treelet.to(device),
+            blas=None if self.blas is None
+            else tuple(b.to(device) for b in self.blas))
 
     def stats(self) -> dict:
         """Table sizes: BVH2 nodes, wide rows and, with treelets, the
-        subtree count S, the top entries K and the treelet table bytes."""
+        subtree count S, the top entries K and the treelet table bytes;
+        instanced, the instance count, the unique meshes and the BLASes'
+        bytes."""
         out = {"bvh2_nodes": self.num_nodes, "wide_rows": self.wide_end,
                "trav_rows_bytes": self.trav_rows.numel() * 4}
         if self.treelet is not None:
@@ -104,7 +125,20 @@ class SceneBuffers:
                        top_entries=self.treelet.num_top,
                        top_tiles=self.treelet.top_tiles,
                        treelet_bytes=self.treelet.nbytes())
+        if self.blas is not None:
+            out.update(instances=len(self.inst_mesh),
+                       unique_meshes=len(self.blas),
+                       blas_bytes=sum(b.nbytes() for b in self.blas))
         return out
+
+    def nbytes(self) -> int:
+        """Bytes of every table, the treelet tables and BLASes included."""
+        n = sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                for f in _TENSOR_FIELDS + _INSTANCE_FIELDS
+                if getattr(self, f) is not None)
+        if self.treelet is not None:
+            n += self.treelet.nbytes()
+        return n + sum(b.nbytes() for b in self.blas or ())
 
 
 def build_scene_buffers(scene: Scene, probe: Optional[Probe] = None,
@@ -162,7 +196,16 @@ def build_scene_buffers(scene: Scene, probe: Optional[Probe] = None,
         mats.append(np.full(len(idx), mat_id, np.int32))
         insts.append(np.full(len(idx), inst_id, np.int32))
     if not p0s:
-        raise ValueError("scene has no instances to render")
+        # No geometry: one degenerate triangle far away keeps every table
+        # shape valid, as the reference builds it (the shell of an
+        # instanced build, scene/instanced.py).
+        far = np.full((1, 3), 1e30, np.float32)
+        p0s, p1s, p2s = [far], [far], [far]
+        up = np.array([[0, 1, 0]], np.float32)
+        n0s, n1s, n2s = [up], [up], [up]
+        z = np.zeros((1, 2), np.float32)
+        uv0s, uv1s, uv2s = [z], [z], [z]
+        mats, insts = [np.zeros(1, np.int32)], [np.zeros(1, np.int32)]
 
     p0 = np.concatenate(p0s).astype(np.float32)
     p1 = np.concatenate(p1s).astype(np.float32)
@@ -316,6 +359,7 @@ def build_scene_buffers(scene: Scene, probe: Optional[Probe] = None,
         num_lights=len(scene.lights),
         has_probe=probe is not None,
         has_textures=len(scene.images) > 0,
+        num_tris=T,
         treelet=treelet,
     )
 
@@ -325,6 +369,8 @@ _TENSOR_FIELDS = ("trav_rows", "node_rows", "leaf_rows", "tri_pack",
                   "light_ev", "light_emission", "atlas", "atlas_blocks",
                   "probe", "probe_cdf_cond", "probe_cdf_marg", "probe_pdf",
                   "node_min", "node_max")
+_INSTANCE_FIELDS = ("inst_w2o", "inst_nmat", "inst_mat_id", "inst_tri_base",
+                    "inst_aabb_lo", "inst_aabb_hi")
 
 
 def from_reference(ref, device="cuda") -> SceneBuffers:
@@ -332,13 +378,10 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
 
     Each field's bytes are copied with ``np.asarray``, so this needs no
     jax import and bitcast ints (a -1 ``miss`` is a NaN pattern) survive;
-    a reference ``TreeletDevice`` is copied the same way. Instanced scenes
-    and the width-16 / multi-row-leaf tables are not ported and raise.
+    a reference ``TreeletDevice`` is copied the same way, and an instanced
+    build's instance tables and BLASes (each through this function). The
+    width-16 / multi-row-leaf tables are not ported and raise.
     """
-    if getattr(ref, "inst_w2o", None) is not None:
-        raise NotImplementedError(
-            "two-level instanced scenes come with the instancing slice of "
-            "the port")
     if int(ref.wide_width) != 8 or int(ref.wide_leaf_rows) != 1:
         raise NotImplementedError(
             "the port traverses only the 8-wide, one-row-leaf table")
@@ -346,6 +389,12 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
         return torch.from_numpy(np.array(np.asarray(x))).to(device)
 
     tensors = {name: copy(getattr(ref, name)) for name in _TENSOR_FIELDS}
+    if getattr(ref, "inst_w2o", None) is not None:
+        tensors.update({name: copy(getattr(ref, name))
+                        for name in _INSTANCE_FIELDS})
+        tensors.update(blas=tuple(from_reference(b, device)
+                                  for b in ref.blas),
+                       inst_mesh=tuple(int(m) for m in ref.inst_mesh))
     treelet = None
     td = getattr(ref, "treelet", None)
     if td is not None:
@@ -364,5 +413,6 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
         num_lights=int(ref.num_lights),
         has_probe=bool(ref.has_probe),
         has_textures=bool(ref.has_textures),
+        num_tris=int(ref.num_tris),
         treelet=treelet,
     )

@@ -1,6 +1,6 @@
 """Small inputs made from a seed: a textured golden scene and its camera,
 an HDR sky, rays with non-finite components, and a scene written as a
-GLB file with PNG textures. chip_smoke.py drives the card with them and
+GLB file with PNG or JPEG textures. chip_smoke.py drives the card with them and
 the CPU tests hold the port to the reference on them.
 """
 
@@ -12,7 +12,7 @@ import struct
 import numpy as np
 import torch
 
-from ..image_codec import encode_png
+from ..image_codec import encode_jpeg, encode_png
 from .types import INVALID_INDEX, ImageData, Instance, Light, Material, Mesh, Scene
 
 
@@ -78,14 +78,17 @@ TEX_CAM = np.array([[1, 0, 0, 0], [0, 0.7071, -0.7071, 3.0],
                     [0, -0.7071, -0.7071, 3.0], [0, 0, 0, 1]], np.float32)
 
 
-def scene_glb(scene: Scene) -> bytes:
+def scene_glb(scene: Scene, image_format: str = "png") -> bytes:
     """``scene`` as GLB bytes: one glTF mesh of one primitive for each
     mesh (its instances must share one material), every material, one
-    node a instance (its matrix), every image as a PNG in the binary
-    chunk. Lights are not written (glTF's core has none). ``load_gltf``
-    of the bytes into ``Scene.default()`` gives the meshes, instances,
-    materials and texels back, the materials and instances after the
-    default material."""
+    node a instance (its matrix), every image in the binary chunk as a
+    PNG or, with ``image_format="jpeg"``, as a JPEG (``encode_jpeg``, its
+    alpha dropped). Lights are not written (glTF's core has none).
+    ``load_gltf`` of the bytes into ``Scene.default()`` gives the meshes,
+    instances, materials and, with PNG, the texels back, the materials
+    and instances after the default material."""
+    encode, mime = {"png": (encode_png, "image/png"),
+                    "jpeg": (encode_jpeg, "image/jpeg")}[image_format]
     mesh_mat = {}
     for inst in scene.instances:
         if mesh_mat.setdefault(inst.mesh_index,
@@ -140,9 +143,8 @@ def scene_glb(scene: Scene) -> bytes:
                 pbr[key] = t
         materials.append({"pbrMetallicRoughness": pbr, "emissiveFactor": [
             float(x) for x in mat.emission]})
-    images = [{"bufferView": view(encode_png(np.ascontiguousarray(
-        img.data, np.uint8))), "mimeType": "image/png"}
-        for img in scene.images]
+    images = [{"bufferView": view(encode(np.ascontiguousarray(
+        img.data, np.uint8))), "mimeType": mime} for img in scene.images]
     nodes = [{"mesh": inst.mesh_index, "matrix": [
         float(x) for x in np.asarray(inst.model_to_world, np.float32).T
         .reshape(-1)]} for inst in scene.instances]
@@ -160,6 +162,6 @@ def scene_glb(scene: Scene) -> bytes:
     return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
 
 
-def write_glb(scene: Scene, path: str) -> None:
+def write_glb(scene: Scene, path: str, image_format: str = "png") -> None:
     with open(path, "wb") as f:
-        f.write(scene_glb(scene))
+        f.write(scene_glb(scene, image_format))

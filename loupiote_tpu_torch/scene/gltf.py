@@ -8,9 +8,9 @@ nodes flattened with their LOCAL transform only (the reference composes
 no parent transform), one instance per primitive; images as RGBA8; no
 lights.
 
-Images decode with the port's own PNG decoder (``image_codec``), byte-equal
-to PIL's ``convert("RGBA")``. A JPEG image raises ``GltfError``: JPEG
-decoding is not ported yet, and nothing is drawn in its place.
+Images decode with the port's own PNG and JPEG decoders
+(``image_codec``), byte-equal to PIL's ``convert("RGBA")``; an image that
+neither decodes (a progressive JPEG, say) raises ``GltfError`` naming it.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..image_codec import decode_png, is_jpeg, is_png
+from ..image_codec import CodecError, decode_jpeg, decode_png, is_jpeg, is_png
 from .types import INVALID_INDEX, ImageData, Instance, Material, Mesh, Scene
 
 _COMPONENT_DTYPE = {
@@ -166,11 +166,15 @@ def _decode_image(doc, buffers, base_dir, image_def, index) -> ImageData:
     name = image_def.get("name") or image_def.get("uri", "")[:64]
     label = f"image {index}" + (f" ({name!r})" if name else "")
     if is_jpeg(raw):
-        raise GltfError(f"{label} is a JPEG: JPEG decoding is not ported "
-                        f"yet, so this glTF cannot be loaded")
-    if not is_png(raw):
+        decode = decode_jpeg
+    elif is_png(raw):
+        decode = decode_png
+    else:
         raise GltfError(f"{label} is neither PNG nor JPEG")
-    return ImageData.from_array(decode_png(bytes(raw)))
+    try:
+        return ImageData.from_array(decode(bytes(raw)))
+    except CodecError as e:
+        raise GltfError(f"{label} does not decode: {e}") from e
 
 
 def load_gltf(data: bytes, scene: Scene, base_dir: Optional[str] = None) -> None:
@@ -180,8 +184,8 @@ def load_gltf(data: bytes, scene: Scene, base_dir: Optional[str] = None) -> None
     else:
         doc, binary = json.loads(data.decode("utf-8")), b""
     buffers = _load_buffers(doc, binary, base_dir)
-    # Every image decodes before the scene changes: a JPEG texture (not
-    # ported yet) raises with the scene as it was.
+    # Every image decodes before the scene changes: an image that does
+    # not decode raises with the scene as it was.
     images = [_decode_image(doc, buffers, base_dir, image_def, i)
               for i, image_def in enumerate(doc.get("images", []))]
 

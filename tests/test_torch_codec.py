@@ -12,6 +12,15 @@ which the reference decodes and encodes with.
   frame of the arch hall (the viewer's default mode) at quality 85 the
   PSNR against the input frame is at least 35 dB (measured: 39.89 dB,
   PIL's own encoder 39.83 dB on the same frame, Pillow 12.1).
+- JPEG decoding: byte-equal to PIL's ``convert("RGBA")`` (Pillow 12.1,
+  its libjpeg-turbo) on files PIL writes: colour at 4:4:4, 4:2:2 and
+  4:2:0, at sizes that are and are not multiples of 8 and 16, without
+  and with restart intervals (DRI, in blocks and in rows), greyscale,
+  optimised Huffman tables, and on the port's own encoder's files. No
+  tolerance: the port repeats libjpeg's islow IDCT, its fancy
+  upsampling and its fixed-point YCbCr tables. Progressive,
+  arithmetic-coded, 12-bit and CMYK files raise CodecError naming what
+  they are.
 """
 
 import io
@@ -250,3 +259,85 @@ def test_quant_tables_follow_the_ijg_rule():
     ql85 = ic.quant_tables(85)[0]
     np.testing.assert_array_equal(ql85, np.clip((ic._Q_LUMA * 30 + 50)
                                                 // 100, 1, 255))
+
+
+# -- JPEG decoding ---------------------------------------------------------------
+
+JPEG_SHAPES = [(64, 64), (33, 47), (17, 9), (5, 3), (2, 2)]
+
+
+def _jpeg_source(shape, seed=3):
+    """Smooth gradients plus noise, so every block has AC energy."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([np.sin(x / 7.0) * 100 + 128, np.cos(y / 5.0) * 100 + 128,
+                     ((x + y) % 64) * 4.0], axis=-1)
+    return np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def _pil_jpeg(img, mode="RGB", **kw):
+    buf = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _pil_rgba(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+@pytest.mark.parametrize("restart", ["none", "blocks", "rows"])
+@pytest.mark.parametrize("shape", JPEG_SHAPES)
+@pytest.mark.parametrize("subsampling", [0, 1, 2],
+                         ids=["444", "422", "420"])
+def test_jpeg_decode_matches_pil(subsampling, shape, restart):
+    kw = {"none": {}, "blocks": {"restart_marker_blocks": 1},
+          "rows": {"restart_marker_rows": 1}}[restart]
+    data = _pil_jpeg(_jpeg_source(shape), subsampling=subsampling, **kw)
+    if restart != "none":
+        assert b"\xff\xdd" in data  # a DRI segment
+    got = ic.decode_jpeg(data)
+    assert got.dtype == np.uint8 and got.shape == shape + (4,)
+    assert got.tobytes() == _pil_rgba(data).tobytes()
+
+
+@pytest.mark.parametrize("shape", JPEG_SHAPES)
+def test_jpeg_decode_grey_matches_pil(shape):
+    data = _pil_jpeg(_jpeg_source(shape), mode="L", quality=90)
+    assert ic.decode_jpeg(data).tobytes() == _pil_rgba(data).tobytes()
+
+
+@pytest.mark.parametrize("source", ["optimized", "q100", "port"])
+def test_jpeg_decode_matches_pil_on_other_tables(source):
+    """Huffman tables PIL optimises per file, quality 100 (quantisation
+    steps of 1) and the port's own encoder (the standard tables)."""
+    img = _jpeg_source((37, 53), seed=8)
+    data = {"optimized": lambda: _pil_jpeg(img, optimize=True),
+            "q100": lambda: _pil_jpeg(img, quality=100),
+            "port": lambda: ic.encode_jpeg(img)}[source]()
+    assert ic.decode_jpeg(data).tobytes() == _pil_rgba(data).tobytes()
+
+
+def _patched_sof(data, marker=None, precision=None):
+    """The file with its SOF0 marker or sample precision byte changed."""
+    i = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    if marker is not None:
+        out[i + 1] = marker
+    if precision is not None:
+        out[i + 4] = precision
+    return bytes(out)
+
+
+def test_jpeg_decode_refuses_what_it_does_not_decode():
+    img = _jpeg_source((16, 16))
+    cases = [(_pil_jpeg(img, progressive=True), "progressive"),
+             (_pil_jpeg(img, mode="CMYK"), "CMYK"),
+             (_patched_sof(_pil_jpeg(img), marker=0xC9), "arithmetic"),
+             (_patched_sof(_pil_jpeg(img), precision=12), "12-bit"),
+             (b"\xff\xd8\xff\xe0garbage", "truncated|ends"),
+             (b"not a jpeg", "not a JPEG")]
+    for data, what in cases:
+        with pytest.raises(ic.CodecError, match=what):
+            ic.decode_jpeg(data)

@@ -26,7 +26,6 @@ against the reference's.
   golden image (PSNR > 26 dB, mean within 3%).
 """
 
-import dataclasses
 import os
 
 import jax
@@ -41,6 +40,8 @@ from loupiote_tpu.render.integrator import trace_paths as ref_trace_paths
 from loupiote_tpu.render.renderer import blue_noise_uv as ref_blue_noise_uv
 from loupiote_tpu.scene import build_probe as ref_build_probe
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
+from loupiote_tpu.scene.instanced import \
+    build_instanced_buffers as ref_build_instanced
 from loupiote_tpu.scene.procedural import arch_camera
 from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch
 from loupiote_tpu_torch import (BlitMode, RenderConfig, Renderer,
@@ -159,12 +160,14 @@ def test_renderer_passes_the_arch_golden_gate():
 
 
 def test_unported_features_raise():
-    """What the port still leaves to later slices raises (instanced
-    reference scenes); the interactive defaults (RenderConfig(), every
-    blit mode), samples_per_frame > 1, blue noise, probe / textured scenes,
-    per-pass timing and kernel reload (ported with the app layer) do not.
-    With no scene bound, measure_passes has nothing to time and a reload
-    has no frame to validate."""
+    """Features once left to later slices no longer raise: the
+    interactive defaults (RenderConfig(), every blit mode),
+    samples_per_frame > 1, blue noise, probe / textured scenes, per-pass
+    timing and kernel reload (ported with the app layer), and instanced
+    reference buffers, which from_reference now carries across (its
+    tables byte for byte, every BLAS) and which render. With no scene
+    bound, measure_passes has nothing to time and a reload has no frame
+    to validate."""
     r = Renderer((32, 32), RenderConfig(samples_per_frame=4), device="cpu")
     for mode in BlitMode:
         r.set_blit_mode(mode)
@@ -174,10 +177,19 @@ def test_unported_features_raise():
     r.reload_shaders()
     assert r.last_reload_error is None
     with numpy_bvh():
-        ref = ref_buffers(ref_arch(2_000))
-    with pytest.raises(NotImplementedError, match="instanc"):
-        from_reference(dataclasses.replace(ref, inst_w2o=jnp.eye(4)[None]),
-                       device="cpu")
+        ref = ref_build_instanced(ref_arch(2_000, props=4, merged=True))
+    port = from_reference(ref, device="cpu")
+    assert port.inst_mesh == tuple(ref.inst_mesh) and len(port.blas) == 3
+    for f in ("inst_w2o", "inst_nmat", "inst_tri_base", "inst_aabb_lo",
+              "tri_pack", "tri_shade", "node_min"):
+        assert getattr(port, f).numpy().tobytes() == np.asarray(
+            getattr(ref, f)).tobytes(), f
+    for rb, pb in zip(ref.blas, port.blas):
+        assert pb.trav_rows.numpy().tobytes() == np.asarray(
+            rb.trav_rows).tobytes()
+    r.set_resources(port)
+    r.raytrace(arch_camera())
+    assert torch.isfinite(r.state.denoised).all()
     bufs = build_scene_buffers(build_arch_scene(2_000, textured=True),
                                device="cpu")
     assert bufs.has_textures

@@ -50,19 +50,28 @@ def _scenes(name):
     if name == "arch8k_merged":
         kw = dict(textured=True, props=20, merged=True)
         return ref_arch(8_000, **kw), port_arch(8_000, **kw)
+    if name == "empty":
+        # The shell of an instanced build: materials, lights and images,
+        # no meshes or instances.
+        pair = _scenes("arch8k_textured")
+        for s in pair:
+            s.meshes, s.instances = [], []
+        return pair
     return ref_arch(8_000), port_arch(8_000)
 
 
 @pytest.mark.parametrize("name", ["random500", "arch8k", "arch8k_textured",
-                                  "arch8k_merged"])
+                                  "arch8k_merged", "empty"])
 def test_tables_byte_equal(name):
     """Same scene, numpy BVH builder on both sides: identical tables. The
     textured hall with 20 props (flattened) carries an atlas and a probe
     built by each package from one sky; merged, the hall is one mesh
-    (tests/test_golden_scenes.py's instanced scene, flattened here)."""
+    (tests/test_golden_scenes.py's instanced scene, flattened here).
+    Empty (no geometry, the textured hall's materials, lights and images
+    under the sky), both build one degenerate triangle at 1e30."""
     ref_scene, port_scene = _scenes(name)
     ref_kw, kw = {}, {}
-    if name == "arch8k_textured":
+    if name in ("arch8k_textured", "empty"):
         sky = sky_equirect(256, 512)
         ref_kw, kw = ({"probe": ref_build_probe(sky)},
                       {"probe": build_probe(sky)})

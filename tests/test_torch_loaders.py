@@ -2,10 +2,11 @@
 and scene helpers against the reference's, on the same bytes.
 
 The reference decodes glTF images with PIL, the port with its own PNG
-decoder (image_codec). Standards: every array of the loaded Scene exactly
-equal (positions, normals, texcoords, indices, transforms, material
-fields), texels byte-equal. A JPEG texture loads in the reference and
-raises GltfError in the port, with the port's scene left as it was.
+and JPEG decoders (image_codec). Standards: every array of the loaded
+Scene exactly equal (positions, normals, texcoords, indices, transforms,
+material fields), texels byte-equal, JPEG textures included. A
+progressive JPEG texture loads in the reference and raises GltfError in
+the port, with the port's scene left as it was.
 """
 
 import base64
@@ -89,6 +90,16 @@ def _png(rng, h, w, mode):
     buf = io.BytesIO()
     Image.fromarray(arr.squeeze() if c == 1 else arr, mode).save(buf, "PNG")
     return buf.getvalue()
+
+
+def test_jpeg_glb_of_the_textured_hall_matches_reference():
+    """The same hall with its textures written as JPEG by the port's
+    encode_jpeg (4:2:0, the procedural images of 128 x 128 texels): PIL
+    in the reference and decode_jpeg in the port give the same texels."""
+    hall = port_scene.build_arch_scene(8_000, textured=True, props=12)
+    ref, port = load_both(scene_glb(hall, image_format="jpeg"))
+    assert len(port.images) == len(hall.images) > 0
+    assert_scenes_equal(ref, port)
 
 
 def _gltf_doc(rng, image_bytes, image_mime="image/png"):
@@ -209,25 +220,44 @@ def test_gltf_external_buffer_and_glb_path(tmp_path):
 
 
 def test_jpeg_texture_raises_in_the_port():
-    """JPEG decoding is not ported: the port raises GltfError naming the
-    image, and its scene is unchanged; the reference (PIL) loads it."""
+    """JPEG textures load in the port as in the reference: baseline files
+    at 4:2:0 (an odd size, restart markers) and 4:4:4, and a greyscale
+    one, texels byte-equal to PIL's. A progressive JPEG, which the port
+    does not decode, raises GltfError naming the image, with the port's
+    scene unchanged; the reference (PIL) loads it."""
     rng = np.random.default_rng(5)
-    buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, (8, 8, 3), np.uint8)).save(
-        buf, "JPEG")
-    doc = _gltf_doc(rng, [buf.getvalue()], "image/jpeg")
-    doc["images"][0]["name"] = "albedo"
-    for t in doc["materials"][0]["pbrMetallicRoughness"].values():
-        if isinstance(t, dict):
-            t["index"] = 0
-    doc["textures"] = [{"source": 0}]
-    data = json.dumps(doc).encode()
+
+    def jpeg(shape, mode, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, shape, np.uint8)).convert(
+            mode).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    def doc_of(images):
+        doc = _gltf_doc(rng, images, "image/jpeg")
+        doc["images"][0]["name"] = "albedo"
+        for t in doc["materials"][0]["pbrMetallicRoughness"].values():
+            if isinstance(t, dict):
+                t["index"] = 0
+        doc["textures"] = [{"source": 0}]
+        return json.dumps(doc).encode()
+
+    baseline = [jpeg((13, 21, 3), "RGB", subsampling=2,
+                     restart_marker_blocks=2),
+                jpeg((8, 8, 3), "RGB", subsampling=0),
+                jpeg((9, 6, 3), "L")]
+    ref, port = load_both(doc_of(baseline))
+    assert len(port.images) == 3
+    assert_scenes_equal(ref, port)
+
+    data = doc_of([jpeg((8, 8, 3), "RGB", progressive=True)])
     ref = ref_types.Scene.default()
     ref_scene.load_gltf(data, ref)
     assert len(ref.images) == 1
     port = port_types.Scene.default()
     before = port.stats()
-    with pytest.raises(port_scene.GltfError, match="image 0.*albedo.*JPEG"):
+    with pytest.raises(port_scene.GltfError,
+                       match="image 0.*albedo.*progressive"):
         port_scene.load_gltf(data, port)
     assert port.stats() == before
     assert issubclass(port_scene.GltfError, ValueError)
