@@ -38,6 +38,20 @@ Phases, each timed:
                  through Renderer.set_resources -> raytrace -> blit, with
                  the kernels' launch counts read around it, and a small
                  frame held against the same frame traced by the CPU path;
+ 5t. tiles     - make_mesh() of the host's cards printed; the headline
+                 frame through Renderer(mesh=) on a 3x1 mesh of this card
+                 (360-row slabs, tiled) and a 2x2 one (540-row slabs,
+                 untiled, the spp mean), a warm-up and 5 frames each, K1's
+                 launches a frame held to (3 + 4) x shards (21, 28), 0
+                 rays at a step bound, the unsharded headline frame timed
+                 again beside them; at 1080p each mesh's gathered
+                 G-buffer bit-equal to the unsharded one under one
+                 explicit jitter, and a 1x1 mesh bit-equal to trace_paths
+                 with the same uniforms, radiance included; 128x48 frames
+                 on 3x1 and 2x2 meshes and a 128x36 one on a 2x1 mesh
+                 (untiled) against the same meshes of the CPU, the same
+                 shard uniforms, sort off; the denoised frame on the 2x2
+                 mesh (3 frames: finite, A-SVGF history above 1);
  5a. content   - 1920x1080 frames, each a warm-up and 5 timed, K1's
                  launches a frame held to 3 + 4 (3 + 7 with a probe):
                  (a) the textured arch-260k hall with 200 props through
@@ -163,9 +177,10 @@ Phases, each timed:
                  old libraries kept); the lightmap bake on arch-40k against
                  its CPU run.
 Any disagreement or failure raises, so the run exits non-zero without its
-last line. Prints a JSON line of kernel results (with the frames of 5a
-and 5b under "frames" and phase 15's numbers under "app"), then the card's
-nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
+last line. Prints a JSON line of kernel results (with the frames of 5t,
+5a and 5b under "frames" and phase 15's numbers under "app"), then the
+card's nvidia-smi line, then {"ok": true, "device": {...}} as the last
+line.
 """
 
 import dataclasses
@@ -1063,6 +1078,206 @@ HALL_CAMERA = "0,5,34,0.15,-0.12,-1"  # arch_camera(): origin, direction
 APP_WINDOW = (1280, 720)  # the reference app's window
 
 
+def tiles_phase(lt, dev, arch, headline, smi):
+    """Tile-parallel frames (parallel/tiles.py) on the card: (a) make_mesh()
+    of the host's cards; (b) the headline frame through Renderer(mesh=) on
+    a 3x1 mesh of this card (360-row slabs, tiled) and a 2x2 one (540-row
+    slabs, untiled, the spp mean), a warm-up and 5 frames each, K1's
+    launches a frame held to (3 + 4) x shards, 0 rays at a step bound, the
+    unsharded headline renderer timed again beside them, one frame of
+    each under torch.profiler (device kernels, busy ms, idle share); (c)
+    at 1080p the gathered G-buffer of each mesh bit-equal to the
+    unsharded one under one explicit jitter, and a 1x1 mesh bit-equal to
+    trace_paths with the same uniforms, radiance included; (d) small
+    sharded frames on the card against the same meshes of the CPU, the
+    same shard uniforms, sort off; (e) the denoised frame on the 2x2
+    mesh. Returns the frames for the kernels line and K1's launches over
+    (b)."""
+    import torch
+
+    from loupiote_tpu_torch.ops import bvh2, wide
+    from loupiote_tpu_torch.parallel import make_mesh, trace_paths_sharded
+    from loupiote_tpu_torch.render.integrator import (draw_uniforms,
+                                                      trace_paths)
+
+    t0 = time.perf_counter()
+    host = make_mesh()
+    print(f"make_mesh() on this host: shape {host.shape}, {host}")
+    meshes = {"tiles 3x1": make_mesh(3, 1, devices=[dev] * 3),
+              "tiles 2x2": make_mesh(2, 2, devices=[dev] * 4)}
+    view = lt.arch_camera()
+    cfg = lt.RenderConfig(downsample_factor=1.0, denoise=False)
+
+    def timed_frames(r):
+        ms = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            r.raytrace(view)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return ms
+
+    def busy(r, ms_mean):
+        """One more frame of r under torch.profiler: its device kernels,
+        their summed device ms and the share of the mean frame time the
+        device is idle."""
+        ks = device_kernels(lambda: r.raytrace(view))
+        b = sum(ms for _, ms in ks)
+        out = {"device_kernels": len(ks), "device_busy_ms": b,
+               "idle_share": 1.0 - b / ms_mean}
+        print(f"  one frame under torch.profiler: {out}", flush=True)
+        return out
+
+    frames, launches = {}, {"closest": 0, "anyhit": 0}
+    for name, mesh in meshes.items():
+        shards = mesh.shape["tiles"] * mesh.shape["spp"]
+        r = lt.Renderer((WIDTH, HEIGHT), cfg, mesh=mesh)
+        r.set_resources(arch)
+        r.accumulate = True
+        wide.reset_counters()
+        bvh2.reset_counters()
+        r.raytrace(view)  # warm-up frame; accum == its sample
+        first = r.accum.clone()
+        ms = timed_frames(r)
+        img = r.blit()
+        got = {"closest": wide.launches_closest / 6,
+               "anyhit": wide.launches_anyhit / 6}
+        want = {"closest": BOUNCES * shards,
+                "anyhit": (BOUNCES + 1) * shards}
+        launches["closest"] += wide.launches_closest
+        launches["anyhit"] += wide.launches_anyhit
+        capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
+        k23 = bvh2.launches_closest + bvh2.launches_occluded
+        nonzero = float((first.reshape(-1, 3).sum(1) > 0).float().mean())
+        mean = float(np.mean(ms))
+        frames[name] = {
+            "ms_mean": mean, "ms_min": min(ms), "ms": ms,
+            "mrays_s": WIDTH * HEIGHT * BOUNCES * 2 / mean / 1e3, "spp": 1,
+            "shards": shards, "slab_rows": HEIGHT // mesh.shape["tiles"],
+            "k1_launches_per_frame": got, "nonzero_pixel_frac": nonzero,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"{name} frame ({mesh}): ms (CUDA events) mean {mean:.3f}, "
+              f"min {min(ms):.3f}, all {[round(x, 3) for x in ms]}; K1 "
+              f"launches a frame {got} (want {want}); K2/K3 launches {k23};"
+              f" rays stopped by a step bound {capped}; nonzero_pixel_frac "
+              f"{nonzero:.4f} ({smi})", flush=True)
+        if got != want or k23:
+            raise SystemExit(f"chip_smoke: the {name} frame launched K1 "
+                             f"{got} times a frame, not {want}, or K2/K3")
+        if capped:
+            raise SystemExit("chip_smoke: rays reached the step bound")
+        if not (torch.isfinite(r.accum).all() and img.shape ==
+                (HEIGHT, WIDTH, 3) and img.dtype == np.uint8):
+            raise SystemExit(f"chip_smoke: non-finite or misshapen {name} "
+                             f"frame")
+        if nonzero < 0.5:
+            raise SystemExit(f"chip_smoke: the {name} frame is mostly black")
+        frames[name].update(busy(r, mean))
+        del r
+    head_ms = timed_frames(headline)
+    head = {"ms_mean": float(np.mean(head_ms)),
+            **busy(headline, float(np.mean(head_ms)))}
+    for f in frames.values():
+        f["headline"] = head
+    print(f"the unsharded headline frame again, after the tile frames: ms "
+          f"mean {head['ms_mean']:.3f}, all {[round(x, 3) for x in head_ms]}"
+          f" ({smi})", flush=True)
+    phase("tiles (b): 3x1 and 2x2 1080p frames, 6 + 6, headline 5", t0)
+
+    # (c) The tile split is exact at 1080p.
+    t0 = time.perf_counter()
+    cam = torch.from_numpy(view).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    N = WIDTH * HEIGHT
+    jitter = torch.rand(N, 2, generator=g, device=dev)
+    nee_uv = torch.rand(N, 2, generator=g, device=dev)
+    _, whole = trace_paths(arch, cam, WIDTH, HEIGHT, g, bounces=1,
+                           jitter=jitter, nee_uv=nee_uv)
+    planes = ("depth", "mesh_id", "normal", "albedo", "world_pos")
+    for name, mesh in meshes.items():
+        _, gb = trace_paths_sharded(arch, cam, (21,), mesh=mesh, width=WIDTH,
+                                    height=HEIGHT, bounces=1, jitter=jitter,
+                                    nee_uv=nee_uv)
+        equal = {p: bool(torch.equal(gb[p].reshape(getattr(whole, p).shape),
+                                     getattr(whole, p))) for p in planes}
+        print(f"{name}: gathered 1080p G-buffer bit-equal to the unsharded "
+              f"one: {equal}", flush=True)
+        if not all(equal.values()):
+            raise SystemExit(f"chip_smoke: the {name} G-buffer differs from "
+                             f"the unsharded one")
+    u = draw_uniforms(N, BOUNCES, g, dev)
+    rad, gb1 = trace_paths(arch, cam, WIDTH, HEIGHT, bounces=BOUNCES,
+                           uniforms=u)
+    img1, gbs = trace_paths_sharded(arch, cam, mesh=make_mesh(
+        1, 1, devices=[dev]), width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+        uniforms=[[u]])
+    same = bool(torch.equal(img1.reshape(-1, 3), rad)) and all(
+        torch.equal(gbs[p].reshape(getattr(gb1, p).shape), getattr(gb1, p))
+        for p in planes)
+    print(f"1x1 mesh with the uniforms of a trace_paths call: radiance and "
+          f"G-buffer bit-equal {same}", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: a 1x1 mesh differs from trace_paths")
+    del whole, gb, rad, gb1, img1, gbs, u, jitter, nee_uv
+    phase("tiles (c): 1080p G-buffers bit-equal to the unsharded frame", t0)
+
+    # (d) Small sharded frames, the card against the CPU, the same shard
+    # uniforms, sort off; 18-row slabs are untiled.
+    t0 = time.perf_counter()
+    arch_cpu = arch.to("cpu")
+    gu = torch.Generator(device="cpu")
+    gu.manual_seed(14)
+    for (n_tiles, n_spp), h in (((3, 1), 48), ((2, 2), 48), ((2, 1), 36)):
+        w, rows = 128, h // n_tiles
+        uni = [[draw_uniforms(rows * w, BOUNCES, gu, "cpu")
+                for _ in range(n_spp)] for _ in range(n_tiles)]
+        cpu_mesh = make_mesh(n_tiles, n_spp,
+                             devices=[torch.device("cpu")] * (n_tiles * n_spp))
+        dev_mesh = make_mesh(n_tiles, n_spp, devices=[dev] * (n_tiles * n_spp))
+        ref = trace_paths_sharded(arch_cpu, cam.cpu(), mesh=cpu_mesh,
+                                  width=w, height=h, bounces=BOUNCES,
+                                  uniforms=uni, sort_rays=False)[0]
+        out = trace_paths_sharded(arch, cam, mesh=dev_mesh, width=w,
+                                  height=h, bounces=BOUNCES, uniforms=uni,
+                                  sort_rays=False)[0].cpu()
+        close = float(torch.isclose(out, ref, rtol=1e-4, atol=1e-5).all(-1)
+                      .float().mean())
+        rel = abs(float(out.mean()) / max(float(ref.mean()), 1e-12) - 1.0)
+        print(f"{n_tiles}x{n_spp} mesh, {w}x{h} ({rows}-row slabs) card vs "
+              f"CPU: pixels close {close:.5f}, mean rel diff {rel:.2e}",
+              flush=True)
+        if close < 0.995 or rel > 1e-3:
+            raise SystemExit("chip_smoke: the card's sharded frame disagrees "
+                             "with the CPU's")
+    del arch_cpu
+    phase("tiles (d): small sharded frames vs CPU", t0)
+
+    # (e) The denoised frame on the 2x2 mesh.
+    t0 = time.perf_counter()
+    r = lt.Renderer((WIDTH, HEIGHT), lt.RenderConfig(downsample_factor=1.0),
+                    mesh=meshes["tiles 2x2"])
+    r.set_resources(arch)
+    r.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
+    for _ in range(3):
+        r.raytrace(view)
+    hist = float(r.state.asvgf_history.mean())
+    finite = bool(torch.isfinite(r.state.denoised).all())
+    print(f"tiles 2x2 denoised, 3 frames: finite {finite}, asvgf_history "
+          f"mean {hist:.4f}, image mean {float(r.state.denoised.mean()):.5f}",
+          flush=True)
+    if not finite or hist <= 1.0 or r.blit().shape != (HEIGHT, WIDTH, 3):
+        raise SystemExit("chip_smoke: the 2x2 mesh's denoised frame is not "
+                         "finite or did not reproject")
+    del r
+    torch.cuda.empty_cache()
+    phase("tiles (e): denoised 2x2 frame", t0)
+    return frames, launches
+
+
 def http_json(url, data=None, timeout=30):
     import urllib.request
 
@@ -1809,6 +2024,9 @@ def main():
                          "CPU path")
     phase("headline frame vs CPU", t0)
 
+    # -- Tile-parallel frames: the headline frame over meshes of this card ---
+    tile_frames, tile_launches = tiles_phase(lt, dev, arch, renderer, smi)
+
     # -- Scene content: textures, the probe, blue noise, spp batching --------
     # Three 1080p frames through the port's entry points, each timed over 5
     # warm frames (CUDA events) with K1's launches counted around it:
@@ -1845,7 +2063,7 @@ def main():
           f"{tuple(content260.probe_pdf.shape)}", flush=True)
     phase("content scene build", t0)
 
-    frames = {}
+    frames = dict(tile_frames)
 
     def content_frame(name, bufs, cfg, noise=None):
         """Renderer frames of one configuration: a warm-up frame, then 5
@@ -3121,9 +3339,10 @@ def main():
             "name": f"wide_traverse ({mode})", "route": "cuda",
             "source": "loupiote_tpu_torch/csrc/wide_traverse.cu",
             "replaces": "loupiote_tpu/ops/pallas_wide.py:160",
-            # The headline frame's launches and the instanced frame's.
-            "launches": k1_launches[mode] + inst_res["launches"][
-                "K1 " + mode.replace("anyhit", "any-hit")],
+            # The headline frame's launches, the tile frames' and the
+            # instanced frame's.
+            "launches": k1_launches[mode] + tile_launches[mode]
+            + inst_res["launches"]["K1 " + mode.replace("anyhit", "any-hit")],
             "max_abs_err": max(err, inst_res["errs"]["K1"]),
             "ms": k1_timing[mode][0], "plain_ms": k1_timing[mode][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,

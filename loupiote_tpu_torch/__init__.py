@@ -8,12 +8,14 @@ treelet traversal on, ``treelet/``). The app layer (``app/``: driver,
 viewer server, timing, checkpoints) and the CLI (``python -m
 loupiote_tpu_torch render|flythrough|serve|info``) sit on top, with the
 glTF, binary and PNG loaders. Entry points put their tensors on the card
-unless the caller names another device. Imports torch, numpy and scipy
-only; never jax, the ``loupiote_tpu`` package, ``experiments/`` or an
-image library: PNG and JPEG are ``image_codec``'s own.
+unless the caller names another device; ``parallel`` splits a frame's
+rows over several devices (``Renderer(mesh=...)``). Imports torch, numpy
+and scipy only; never jax, the ``loupiote_tpu`` package,
+``experiments/`` or an image library: PNG and JPEG are ``image_codec``'s
+own.
 """
 
-from . import app, config, denoise, ops, render, scene
+from . import app, config, denoise, ops, parallel, render, scene
 from .config import BlitMode, RenderConfig, Settings
 from .device import Device
 from .errors import AccelBuild, Error, FileNotFound, TextureToBufferReadFail
@@ -25,7 +27,7 @@ from .scene import (Atlas, ImageData, Probe, Scene, SceneBuffers,
                     load_probe, pack_atlas, read_hdr, rgbe_to_float)
 
 __all__ = [
-    "app", "config", "denoise", "ops", "render", "scene",
+    "app", "config", "denoise", "ops", "parallel", "render", "scene",
     "BlitMode", "RenderConfig", "Settings", "Device",
     "AccelBuild", "Error", "FileNotFound", "TextureToBufferReadFail",
     "Camera", "CameraController", "Renderer",

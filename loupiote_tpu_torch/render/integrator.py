@@ -91,10 +91,18 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
                 jitter: Optional[torch.Tensor] = None,
                 nee_uv: Optional[torch.Tensor] = None,
                 noise_tex: Optional[torch.Tensor] = None,
-                frame_count: Optional[int] = None, spp: int = 1):
+                frame_count: Optional[int] = None, spp: int = 1,
+                row_offset: int = 0, rows: Optional[int] = None):
     """Trace ``spp`` samples per pixel in one wave. Returns
-    ``(radiance, gbuffer)``: radiance (height * width, 3), the mean of the
+    ``(radiance, gbuffer)``: radiance (rows * width, 3), the mean of the
     samples, and the ``GBuffer`` of sample 0, both pixel-major.
+
+    ``row_offset`` / ``rows``: trace only the row slab [row_offset,
+    row_offset + rows) of the height-row image (``rows`` None: every
+    row), the unit of tile parallelism (``parallel/tiles.py`` gives each
+    shard its slab). Everything per pixel is the slab's: R = rows *
+    width slots, the 8 x 128 tile order when ``rows`` is a multiple of 8,
+    the blue-noise planes of its rows.
 
     ``sort_rays``: between bounces, permute the whole bounce state into
     direction-octant + origin-Morton order (scenes past ``SORT_MIN_NODES``
@@ -114,24 +122,27 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
     from .renderer import blue_noise_uv
 
     dev = scene.device
-    R = width * height
+    if rows is None:
+        rows = height
+    R = width * rows
     N = spp * R
     if uniforms is None:
         if generator is None:
             raise ValueError("trace_paths needs a generator or uniforms")
         uniforms = draw_uniforms(N, bounces, generator, dev,
                                  env=scene.has_probe)
-    tiled = _tiles_ok(width, height)
+    tiled = _tiles_ok(width, rows)
     noise = noise_tex is not None
 
     def tile(x):
-        return to_tile_order(x, width, height) if tiled else x
+        return to_tile_order(x, width, rows) if tiled else x
 
     def bn(dim):
         """Blue-noise plane ``dim`` of each sample, slot order."""
         return torch.cat([tile(blue_noise_uv(
             noise_tex, frame_count * spp + s if spp > 1 else frame_count,
-            width, height, dim=dim)) for s in range(spp)])
+            width, height, dim=dim, row_offset=row_offset, rows=rows))
+            for s in range(spp)])
 
     # Each stage runs under a named range (the reference's tokens), so
     # a frame's trace attributes its kernels by pass (app/trace_parse.py).
@@ -140,7 +151,9 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             # Each sample its own jitter: tiling one plane would trace every
             # primary ray spp times.
             jitter = torch.cat([blue_noise_uv(noise_tex, frame_count * spp + s,
-                                              width, height, dim=0)
+                                              width, height, dim=0,
+                                              row_offset=row_offset,
+                                              rows=rows)
                                 for s in range(spp)])
             nee_uv = None  # bn(1) per sample at bounce 0
         elif jitter is None:
@@ -151,7 +164,8 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
         ros, rds = [], []
         for s in range(spp):
             ro, rd = generate_rays(cam, width, height, vfov,
-                                   jitter[s * R:(s + 1) * R])
+                                   jitter[s * R:(s + 1) * R],
+                                   row_offset=row_offset, rows=rows)
             ros.append(tile(ro))
             rds.append(tile(rd))
         if nee_uv is not None:
@@ -224,8 +238,8 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
         # order (a deterministic sum, unlike a scatter-add's atomics).
         radiance = radiance.reshape(spp, R, 3).sum(dim=0) / spp
     if tiled:
-        radiance = from_tile_order(radiance, width, height)
-        gbuffer = GBuffer(*(from_tile_order(f, width, height)
+        radiance = from_tile_order(radiance, width, rows)
+        gbuffer = GBuffer(*(from_tile_order(f, width, rows)
                             for f in gbuffer))
     return radiance, gbuffer
 

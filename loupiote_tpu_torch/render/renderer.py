@@ -82,15 +82,21 @@ _DIM_STEP = 0.38196601
 
 
 def blue_noise_uv(noise_tex: torch.Tensor, frame_count: int, width: int,
-                  height: int, dim: int = 0) -> torch.Tensor:
-    """(height * width, 2) blue-noise pairs of dimension ``dim`` for frame
+                  height: int, dim: int = 0, row_offset: int = 0,
+                  rows: Optional[int] = None) -> torch.Tensor:
+    """(rows * width, 2) blue-noise pairs of dimension ``dim`` for frame
     ``frame_count``: the texture tiled over the image, under an R2
     Cranley-Patterson rotation of the frame, offset by the dimension.
     Computed in float32 as the reference: ``frame_count`` is rounded to
-    float32 before the product, ``dim * 0.38196601`` after it."""
+    float32 before the product, ``dim * 0.38196601`` after it.
+    ``row_offset`` / ``rows``: the plane of the row slab [row_offset,
+    row_offset + rows) only (``rows`` None: all ``height`` rows), as
+    ``parallel/tiles.py`` traces it."""
+    if rows is None:
+        rows = height
     hn, wn = noise_tex.shape[:2]
     dev = noise_tex.device
-    yy = torch.arange(height, device=dev) % hn
+    yy = (row_offset + torch.arange(rows, device=dev)) % hn
     xx = torch.arange(width, device=dev) % wn
     base = noise_tex[yy[:, None], xx[None, :]].reshape(-1, 2)
     g = torch.tensor(_R2, dtype=torch.float32, device=dev)
@@ -163,7 +169,19 @@ def render_frame(scene, state: RenderState, cam_to_world: torch.Tensor,
         vfov=vfov, nee=nee, uniforms=uniforms, jitter=jitter, nee_uv=nee_uv,
         noise_tex=state.noise_tex if use_noise else None,
         frame_count=state.frame_count if use_noise else None, spp=spp)
-    img = sample.reshape(height, width, 3)
+    return finish_frame(state, sample.reshape(height, width, 3), gb,
+                        world_to_screen, accumulate_flag, width=width,
+                        height=height, mode=mode,
+                        atrous_iterations=atrous_iterations)
+
+
+def finish_frame(state: RenderState, img: torch.Tensor, gb,
+                 world_to_screen: torch.Tensor, accumulate_flag: bool, *,
+                 width: int, height: int, mode: str,
+                 atrous_iterations: int) -> RenderState:
+    """The rest of a frame once its sample ``img`` (H, W, 3) and pixel-major
+    ``GBuffer`` are traced: motion vectors, then accumulation or A-SVGF
+    by ``mode`` (see ``render_frame``). Returns the new state."""
     motion = motion_vectors(state.prev_world_to_screen, gb, width, height)
     normal = gb.normal.reshape(height, width, 3)
     depth = gb.depth.reshape(height, width)
@@ -268,14 +286,28 @@ _FRAME_MODE = {
 
 
 class Renderer:
-    """Stateful facade over the frame."""
+    """Stateful facade over the frame.
+
+    ``mesh`` (``parallel.make_mesh``): trace each frame as row slabs over
+    the mesh's devices (``parallel/tiles.py::render_frame_sharded``), one
+    sample a pixel whatever ``samples_per_frame`` says, as the reference
+    does; the height is rounded down to a multiple of the tiles, and the
+    state lives on the mesh's first device. ``device`` defaults to that
+    device with a mesh, to the card without one.
+    """
 
     def __init__(self, size: tuple, config: Optional[RenderConfig] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device=None, mesh=None):
         self.config = config or RenderConfig()
+        self.mesh = mesh
+        if device is None:
+            device = "cuda" if mesh is None else mesh.devices[0, 0]
         # An empty tensor names the device in full ("cuda" -> "cuda:0")
         # and raises at once where there is no such device.
         self.device = torch.empty(0, device=device).device
+        if mesh is not None and mesh.devices[0, 0] != self.device:
+            raise ValueError(f"the renderer is on {self.device}, the mesh's "
+                             f"first device is {mesh.devices[0, 0]}")
         self._seed = seed
         self.accumulate = False
         self.mode = BlitMode.PATHTRACE
@@ -291,10 +323,15 @@ class Renderer:
         w, h = clamp_size(size[0], size[1], self.config)
         self.window_size = (max(w, 1), max(h, 1))
         w, h = downsampled_size(w, h, self.config.downsample_factor)
+        if self.mesh is not None:
+            # Row slabs must divide the height across the tiles.
+            tiles = self.mesh.shape["tiles"]
+            h = max((h // tiles) * tiles, tiles)
         self.size = (max(w, 1), max(h, 1))
         self.state = init_state(self.size[0], self.size[1], self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self._seed)
+        self._mesh_frames = 0  # a mesh frame's key: (seed, this count)
         if self.noise_texture is not None:
             self.upload_noise_texture(self.noise_texture)
 
@@ -308,8 +345,14 @@ class Renderer:
 
     # -- resources -------------------------------------------------------
     def set_resources(self, scene) -> None:
-        """Bind a scene on the renderer's device; resets accumulation."""
-        if scene.device != self.device:
+        """Bind a scene on the renderer's device (with a mesh: copied to
+        each of its devices); resets accumulation."""
+        if self.mesh is not None:
+            from ..parallel.tiles import replicate_scene
+
+            self._replicas = replicate_scene(scene, self.mesh)
+            scene = self._replicas[self.device]
+        elif scene.device != self.device:
             raise ValueError(f"the scene is on {scene.device}, the renderer "
                              f"on {self.device}")
         self.scene = scene
@@ -354,7 +397,22 @@ class Renderer:
         """Render one frame with the given camera-to-world."""
         if self.scene is None:
             return  # no scene bound: nothing to do
-        self.state = self._frame(view_transform, self.generator)
+        if self.mesh is None:
+            self.state = self._frame(view_transform, self.generator)
+            return
+        from ..parallel.tiles import render_frame_sharded
+
+        cam_t, w2s, bounces = self._frame_args(view_transform)
+        self.state = render_frame_sharded(
+            self._replicas, self.state, cam_t, w2s, self.accumulate,
+            mesh=self.mesh, width=self.size[0], height=self.size[1],
+            bounces=bounces, nee=self.config.nee,
+            vfov=math.radians(self.config.vfov_deg),
+            mode=_FRAME_MODE[self.mode],
+            atrous_iterations=self.config.atrous_iterations,
+            key=(self._seed, self._mesh_frames),
+            use_noise=self.use_noise and self.noise_texture is not None)
+        self._mesh_frames += 1
 
     def _frame(self, view_transform, generator) -> RenderState:
         """The session's next frame state, its numbers drawn from

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device-time breakdown of one of the port's frames on one GPU.
 
-    python3 scripts/torch_profile_interactive.py [interactive|treelet] [ROOT]
+    python3 scripts/torch_profile_interactive.py \
+        [interactive|treelet|headline|tiles3x1|tiles2x2] [ROOT]
 
 ``interactive`` (the default): renders arch-40k through
 ``Renderer((1920, 1080), RenderConfig())`` in ``DENOISED_PATHTRACE``
@@ -11,6 +12,10 @@ traces ``denoise`` alone on a frame's own inputs. ``treelet``: renders
 arch-260k with ``treelets=True`` through ``Renderer((1920, 1080),
 RenderConfig(downsample_factor=1.0, denoise=False))`` with ``accumulate``
 on, as ``chip_smoke.py``'s treelet frame, and traces 5 warm frames.
+``headline``: the same frame on the plain tables (K1 and both sorts).
+``tiles3x1`` / ``tiles2x2``: the headline frame through
+``Renderer(mesh=)`` on a 3x1 / 2x2 mesh of this one card, as
+``chip_smoke.py``'s tiles phase renders it.
 
 For each trace it prints the host-clock wall time, the device-busy time
 (the sum of the device's kernel, copy and fill intervals, which one stream
@@ -42,7 +47,11 @@ BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 def report(name, prof, wall_ms, n):
     from torch.autograd import DeviceType
 
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # The device's kernel, copy and fill intervals; record_function ranges
+    # also show on the device timeline, as user annotations spanning the
+    # kernels they enclose, and are not device work.
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
     by_name = {}
     for e in evs:
@@ -54,6 +63,9 @@ def report(name, prof, wall_ms, n):
           f"{len(evs) / n:.0f} (per {unit}, {n} traced)")
     if not evs:
         raise SystemExit("the profiler recorded no device time")
+    if busy > wall_ms:
+        raise SystemExit("device busy time exceeds the wall time: the "
+                         "profile's device events overlap")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {ms / n:8.3f} ms  {ms / busy:6.1%}  {k[:90]}")
     waits = {}
@@ -86,7 +98,8 @@ def profiled(fn, n):
 def main():
     import torch
 
-    if FRAME not in ("interactive", "treelet"):
+    if FRAME not in ("interactive", "treelet", "headline", "tiles3x1",
+                     "tiles2x2"):
         raise SystemExit(f"torch_profile_interactive: unknown frame {FRAME}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_interactive: needs a CUDA device")
@@ -109,10 +122,17 @@ def main():
         r.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
         step = 1e-3  # the camera moves every frame
     else:
+        mesh = None
+        if FRAME.startswith("tiles"):
+            from loupiote_tpu_torch.parallel import make_mesh
+
+            n_tiles, n_spp = int(FRAME[5]), int(FRAME[7])
+            mesh = make_mesh(n_tiles, n_spp, devices=[dev] * (n_tiles * n_spp))
         scene = lt.build_scene_buffers(lt.build_arch_scene(260_000),
-                                       treelets=True)
+                                       treelets=FRAME == "treelet")
         r = lt.Renderer((1920, 1080), lt.RenderConfig(downsample_factor=1.0,
-                                                      denoise=False))
+                                                      denoise=False),
+                        mesh=mesh)
         r.set_resources(scene)
         r.accumulate = True
         step = 0.0
@@ -125,7 +145,7 @@ def main():
         frame()
     torch.cuda.synchronize()
     report(f"{FRAME} frame", *profiled(frame, FRAMES), FRAMES)
-    if FRAME == "treelet":
+    if FRAME != "interactive":
         return
 
     st = r.state

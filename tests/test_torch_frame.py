@@ -78,9 +78,11 @@ def test_frame_matches_reference_with_replayed_uniforms(arch90k, content30k,
                                                         case, monkeypatch):
     ref, port = content30k if case == "textured_probe" else arch90k
     if case == "textured_probe":
-        def reference_rays(cam, width, height, vfov, jitter):
+        def reference_rays(cam, width, height, vfov, jitter, row_offset=0,
+                           rows=None):
             o, d = ref_generate_rays(jnp.asarray(cam.numpy()), width,
-                                     height, vfov, jnp.asarray(jitter.numpy()))
+                                     height, vfov, jnp.asarray(jitter.numpy()),
+                                     row_offset=row_offset, rows=rows)
             return torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))
 
         monkeypatch.setattr(integrator, "generate_rays", reference_rays)

@@ -226,6 +226,7 @@ import loupiote_tpu_torch as lt
 for m in pkgutil.walk_packages(lt.__path__, "loupiote_tpu_torch."):
     importlib.import_module(m.name)
 importlib.import_module("chip_smoke")
+assert "loupiote_tpu_torch.parallel.tiles" in sys.modules
 b = lt.build_scene_buffers(lt.build_arch_scene(2_000), device="cpu",
                            treelets=True)
 assert b.treelet is not None

@@ -63,9 +63,11 @@ def test_frame_matches_reference_with_replayed_uniforms(hall20, monkeypatch):
     port = from_reference(hall20, device="cpu")
     assert len(port.inst_mesh) == 21
 
-    def reference_rays(cam, width, height, vfov, jitter):
+    def reference_rays(cam, width, height, vfov, jitter, row_offset=0,
+                       rows=None):
         o, d = ref_generate_rays(jnp.asarray(cam.numpy()), width, height,
-                                 vfov, jnp.asarray(jitter.numpy()))
+                                 vfov, jnp.asarray(jitter.numpy()),
+                                 row_offset=row_offset, rows=rows)
         return torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))
 
     monkeypatch.setattr(integrator, "generate_rays", reference_rays)

@@ -133,6 +133,18 @@ def replay_uniforms(key, n, bounces):
                          out)
 
 
+def shard_uniforms(key, mesh_shape, n, bounces):
+    """The reference's tile-parallel streams (loupiote_tpu/parallel/
+    tiles.py:83-84): shard (ti, si) draws from fold_in(fold_in(key, ti),
+    si), ``n`` slots (its slab's pixels), as a [ti][si] nest of port
+    FrameUniforms."""
+    import jax.random as jr
+
+    n_tiles, n_spp = mesh_shape
+    return [[replay_uniforms(jr.fold_in(jr.fold_in(key, ti), si), n, bounces)
+             for si in range(n_spp)] for ti in range(n_tiles)]
+
+
 def step_uniforms(k_step, n):
     """One shade_step's draws from its key, as port BounceUniforms; the
     environment pair from k_env's own split (drawn by the reference only
