@@ -1418,8 +1418,7 @@ def app_phases(lt, dev, arch, arch40, smi):
                 rows.append(f"| {lab} | {v:.3f} | {v / max(total, 1e-9):.3f} |")
             print(f"app: measure_passes, arch-260k {WIDTH}x{HEIGHT} {mode.value} "
                   f"(method {res.get('method')}): device time under a label "
-                  f"{share:.4f} of {total:.3f} ms; frame (fused) "
-                  f"{res.get('frame (fused)', 0.0):.3f} ms ({smi})\n"
+                  f"{share:.4f} of {total:.3f} ms ({smi})\n"
                   + "\n".join(rows), flush=True)
         out["measure_passes"] = passes
         del r

@@ -5,17 +5,18 @@ stages and the A-SVGF denoiser, hand-written CUDA for the BVH traversals
 and for the opt-in treelet traversal's sort, scatter and walks
 (``csrc/``; ``build_scene_buffers(scene, treelets=True)`` turns the
 treelet traversal on, ``treelet/``). The app layer (``app/``: driver,
-viewer server, timing, checkpoints) and the CLI (``python -m
+viewer server, checkpoints) and the CLI (``python -m
 loupiote_tpu_torch render|flythrough|serve|info``) sit on top, with the
 glTF, binary and PNG loaders. Entry points put their tensors on the card
 unless the caller names another device; ``parallel`` splits a frame's
-rows over several devices (``Renderer(mesh=...)``). Imports torch, numpy
-and scipy only; never jax, the ``loupiote_tpu`` package,
+rows over several devices (``Renderer(mesh=...)``); ``spans`` keeps each
+frame's host spans and counters while a recording is on. Imports torch,
+numpy and scipy only; never jax, the ``loupiote_tpu`` package,
 ``experiments/`` or an image library: PNG and JPEG are ``image_codec``'s
 own.
 """
 
-from . import app, config, denoise, ops, parallel, render, scene
+from . import app, config, denoise, ops, parallel, render, scene, spans
 from .config import BlitMode, RenderConfig, Settings
 from .device import Device
 from .errors import AccelBuild, Error, FileNotFound, TextureToBufferReadFail
@@ -28,6 +29,7 @@ from .scene import (Atlas, ImageData, Probe, Scene, SceneBuffers,
 
 __all__ = [
     "app", "config", "denoise", "ops", "parallel", "render", "scene",
+    "spans",
     "BlitMode", "RenderConfig", "Settings", "Device",
     "AccelBuild", "Error", "FileNotFound", "TextureToBufferReadFail",
     "Camera", "CameraController", "Renderer",

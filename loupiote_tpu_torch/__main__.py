@@ -19,9 +19,10 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import numpy as np
+
+from . import spans
 
 
 def _add_common(p):
@@ -88,26 +89,32 @@ def _setup(args):
     return d
 
 
-def _sync(d):
+def _wait(d):
+    """Wait for the card, under a ``wait`` span."""
     import torch
 
-    if d.renderer.device.type == "cuda":
-        torch.cuda.synchronize(d.renderer.device)
+    with spans.span("wait"):
+        if d.renderer.device.type == "cuda":
+            torch.cuda.synchronize(d.renderer.device)
 
 
 def cmd_render(args):
     d = _setup(args)
     d.settings.accumulate = True
-    t0 = time.perf_counter()
-    for i in range(args.spp):
-        if i == 1:  # the first frame builds and loads the kernels
-            _sync(d)
-            t0 = time.perf_counter()
-        d.step(dt=1.0 / 60.0)
-        print(f"\rframe {i + 1}/{args.spp} "
-              f"({d.queries.frame_ms:.0f} ms)", end="", file=sys.stderr)
-    _sync(d)
-    ms = (time.perf_counter() - t0) * 1e3 / max(args.spp - 1, 1)
+    with spans.recording() as rec:
+        for i in range(args.spp):
+            if i == 1:  # the first frame builds and loads the kernels
+                _wait(d)
+            d.step(dt=1.0 / 60.0)
+            print(f"\rframe {i + 1}/{args.spp} "
+                  f"({rec.frame_ms()['step']:.0f} ms)", end="",
+                  file=sys.stderr)
+        _wait(d)
+    # From the start of the second frame (of the only one, with one
+    # frame) to the card's end.
+    steps = [s for s in rec.spans if s.name == "step"]
+    t0 = steps[min(1, len(steps) - 1)].start_ns
+    ms = (rec.spans[-1].end_ns - t0) / 1e6 / max(args.spp - 1, 1)
     print(file=sys.stderr)
     d.save_screenshot(args.out)
     w, h = d.renderer.get_size()

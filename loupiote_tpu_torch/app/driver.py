@@ -12,7 +12,8 @@ caller names another device (``device="cpu"`` in the CPU tests).
     probe by name or signature, as the reference's file drop)
   - screenshot             -> Driver.save_screenshot (PNG, image_codec)
   - accumulation gating    -> camera.is_static()
-  - per-pass timing + FPS  -> app.timing.Queries, Renderer.measure_passes
+  - per-pass timing + FPS  -> spans.recording (each step a frame of
+    spans), Renderer.measure_passes
   - Space toggles accumulate -> EditorCommand.TOGGLE_ACCUMULATION
   - shader hot reload      -> Renderer.reload_shaders, polled on the
     mtimes of the kernel modules and csrc/ sources
@@ -26,7 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import _build
+from .. import _build, spans
 from ..config import BlitMode, RenderConfig, Settings
 from ..errors import FileNotFound, TextureToBufferReadFail
 from ..image_codec import write_png
@@ -34,7 +35,6 @@ from ..render import CameraController, Renderer
 from ..scene import (Scene, build_scene_buffers, load_binary_from_path,
                      load_gltf, load_gltf_path, load_probe)
 from ..scene.blue_noise import generate_blue_noise, load_noise_png
-from .timing import Queries
 
 
 class EditorCommand:
@@ -51,9 +51,9 @@ class Driver:
         self.renderer = Renderer(size, config, device=device)
         self.scene = Scene.default()
         self.probe = None
-        self.queries = Queries()
-        self.renderer.queries = self.queries
-        self.last_pass_method = "replay"
+        # The last measure_passes result and its method.
+        self.last_passes: dict = {}
+        self.last_pass_method: Optional[str] = None
         # The reference app's default camera.
         d = np.array([1.0, 0.35, 0.0], np.float32)
         self.camera_controller = CameraController.from_origin_dir(
@@ -151,41 +151,39 @@ class Driver:
 
     # -- frame loop --------------------------------------------------------------
     def step(self, dt: Optional[float] = None) -> None:
+        """One frame, under a ``step`` span that opens a new frame of
+        spans (``spans.py``)."""
         now = time.perf_counter()
         if dt is None:
             dt = now - self.last_time
         self.last_time = now
         self._fps = 1.0 / max(dt, 1e-6)
 
-        if self._watch_shaders:
-            self.poll_shader_watch()
-        view = self.camera_controller.update(dt)
-        self.queries.start_frame()
-        if not self.settings.accumulate or not self.camera_controller.is_static():
-            self.renderer.reset_accumulation()
-            self.renderer.accumulate = False
-        else:
-            self.renderer.accumulate = True
-        self.renderer.use_noise_texture(self.settings.use_blue_noise)
-        self.renderer.set_blit_mode(self.settings.blit_mode)
-        with self.queries.scope("raytrace"):
+        with spans.span("step", new_frame=True):
+            if self._watch_shaders:
+                self.poll_shader_watch()
+            view = self.camera_controller.update(dt)
+            if (not self.settings.accumulate
+                    or not self.camera_controller.is_static()):
+                self.renderer.reset_accumulation()
+                self.renderer.accumulate = False
+            else:
+                self.renderer.accumulate = True
+            self.renderer.use_noise_texture(self.settings.use_blue_noise)
+            self.renderer.set_blit_mode(self.settings.blit_mode)
             self.renderer.raytrace(view)
-        self.queries.resolve()
-        self.queries.end_frame()
 
     def measure_passes(self) -> dict:
         """Per-pass times for the performance window ("ray generation",
         "primary intersection", "shading N", "asvgf", ...): on the card
         the device times of one profiled frame (method "trace"), else the
-        stage-by-stage replay estimate (Renderer.measure_passes). Results
-        land in ``self.queries`` and are returned; the method used lands
-        in ``self.last_pass_method``."""
+        host times of the last frame of the recording that is on (method
+        "spans"; Renderer.measure_passes). Kept in ``self.last_passes``
+        and ``self.last_pass_method``, and returned."""
         view = self.camera_controller.update(0.0)
-        self.queries.start_frame()
-        out = self.renderer.measure_passes(view, queries=self.queries)
-        self.last_pass_method = out.get("method", "replay")
-        self.queries.resolve()
-        self.queries.end_frame()
+        out = self.renderer.measure_passes(view)
+        self.last_passes = out
+        self.last_pass_method = out.get("method")
         return out
 
     def save_screenshot(self, path: str) -> None:

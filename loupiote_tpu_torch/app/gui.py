@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import spans
 from ..config import BlitMode
 
 BLIT_MODES = list(BlitMode)  # the toolbar's blit-mode entries
@@ -26,19 +27,19 @@ def scene_info_window(driver) -> dict:
 def performance_window(driver) -> dict:
     """Frame time, FPS and per-pass times.
 
-    ``frame_ms`` / ``fps`` time the frame the user runs. ``passes`` come
-    from Renderer.measure_passes: method "trace" (the card) means device
-    times of one profiled frame; "replay" means the stages ran one at a
-    time and were rescaled to sum to the frame, so the per-pass shares
-    are estimates, which the flag makes explicit."""
-    q = driver.queries
-    method = getattr(driver, "last_pass_method", "replay")
+    ``frame_ms``: the host ms of the last ``step`` kept by the recording
+    that is on (``spans.recording``), None where none is on. ``passes``
+    come from the last ``Driver.measure_passes``: method "trace" (the
+    card) means device times of one profiled frame, "spans" the host
+    times of the last recorded frame."""
+    rec = spans.active()
+    frame = rec.frame_ms() if rec is not None else {}
     return {
-        "frame_ms": q.frame_ms,
+        "frame_ms": frame.get("step"),
         "fps": driver.fps,
-        "passes": dict(zip(q.labels(), q.values())),
-        "pass_timing_method": method,
-        "pass_shares_estimated_from_unfused_replay": method == "replay",
+        "passes": {k: v for k, v in driver.last_passes.items()
+                   if k != "method"},
+        "pass_timing_method": driver.last_pass_method,
     }
 
 
@@ -62,9 +63,10 @@ def render_status(driver, error: Optional[Exception] = None) -> str:
     perf = performance_window(driver)
     scene = scene_info_window(driver)
     tb = toolbar_state(driver.settings)
+    frame = ("-" if perf["frame_ms"] is None
+             else f"{perf['frame_ms']:.1f} ms")
     lines = [
-        f"loupiote_tpu_torch  |  {perf['fps']:.1f} fps  "
-        f"{perf['frame_ms']:.1f} ms",
+        f"loupiote_tpu_torch  |  {perf['fps']:.1f} fps  {frame}",
         f"mode={tb['blit_mode']} accumulate={tb['accumulate']} "
         f"blue_noise={tb['use_blue_noise']}",
         "passes: " + "  ".join(f"{k}={v:.1f}ms" for k, v in perf["passes"].items()),

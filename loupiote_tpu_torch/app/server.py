@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..image_codec import encode_jpeg
 from .input import InputManager
 
@@ -101,7 +102,8 @@ frames(); stats();
 
 class ViewerServer:
     """HTTP viewer around a Driver. Every torch and CUDA call stays on the
-    render thread."""
+    render thread, which records each frame's spans (``spans.recording``),
+    so no other recording may be on while it runs."""
 
     def __init__(self, driver, host: str = "127.0.0.1", port: int = 8722,
                  jpeg_quality: int = 85, max_fps: float = 60.0,
@@ -116,7 +118,8 @@ class ViewerServer:
         self._min_dt = 1.0 / max_fps
         self._jpeg_quality = jpeg_quality
         self._stats: dict = {}
-        # The loop's split of its last frame, in ms: step, blit, encode.
+        # The loop's split of its last frame, in ms, from the spans it
+        # records each frame: step (to the card's end), blit, encode.
         self.loop_ms: dict = {}
         self.render_error = None
         # Screenshot directory: server-controlled AND user-owned. A fixed
@@ -279,17 +282,18 @@ class ViewerServer:
             t0 = time.time()
             try:
                 self._drain_events()
-                t1 = time.perf_counter()
-                d.step()
-                # Wait for the frame here, so that step holds its work on
-                # the card and blit only its own (tone map and read-back).
-                if d.renderer.device.type == "cuda":
-                    torch.cuda.synchronize(d.renderer.device)
-                t2 = time.perf_counter()
-                img = d.renderer.blit()  # (H, W, 3) uint8
-                t3 = time.perf_counter()
-                jpeg = encode_jpeg(np.asarray(img), self._jpeg_quality)
-                t4 = time.perf_counter()
+                with spans.recording() as rec:
+                    d.step()
+                    # Wait for the frame here, so that step holds its work
+                    # on the card and blit only its own (tone map and
+                    # read-back).
+                    with spans.span("wait"):
+                        if d.renderer.device.type == "cuda":
+                            torch.cuda.synchronize(d.renderer.device)
+                    img = d.renderer.blit()  # (H, W, 3) uint8
+                    with spans.span("encode"):
+                        jpeg = encode_jpeg(np.asarray(img),
+                                           self._jpeg_quality)
             except Exception:
                 self.render_error = traceback.format_exc()
                 self._stats = dict(self._stats, render_error=self.render_error)
@@ -298,13 +302,13 @@ class ViewerServer:
                     return
                 time.sleep(0.5)
                 continue
-            self.loop_ms = {"step": (t2 - t1) * 1e3,
-                            "blit": (t3 - t2) * 1e3,
-                            "encode": (t4 - t3) * 1e3}
+            ms = rec.frame_ms()
+            self.loop_ms = {"step": ms["step"] + ms["wait"],
+                            "blit": ms["blit"], "encode": ms["encode"]}
             self._publish(jpeg)
             stats = dict(getattr(d, "stats", {}))
             mode = d.settings.blit_mode
-            stats.update(fps=d.fps, frame_ms=d.queries.frame_ms,
+            stats.update(fps=d.fps, frame_ms=ms["step"],
                          accumulate=d.settings.accumulate,
                          frame_id=self._frame_id,
                          blit_mode=getattr(mode, "value", str(mode)))

@@ -2,9 +2,9 @@
 (counterpart of ``loupiote_tpu/app/trace_parse.py``, whose XSpace parser
 reads a ``jax.profiler`` trace).
 
-The integrator, ``shade_step`` and the renderer put a
-``torch.profiler.record_function`` range around each stage under the
-reference's tokens (``raygen``, ``sortb{N}``, ``intersect{N}``,
+The integrator, ``shade_step`` and the renderer open a span
+(``spans.span``: a ``torch.profiler.record_function`` range) around each
+stage under the reference's tokens (``raygen``, ``sortb{N}``, ``intersect{N}``,
 ``gbuffer``, ``shade{N}`` with ``shadow`` inside it, ``asvgf``).
 Each device kernel (and copy or memset) in a ``torch.profiler`` trace
 shares its correlation id with the CUDA runtime call that launched it,
@@ -12,7 +12,8 @@ a host event nested in the op (or, for a kernel launched through ctypes,
 the range) it was launched under. ``attribute_passes`` walks up from that
 call to the innermost range whose path names a token, so a kernel of the
 shadow wave inside ``shade1`` counts once, under ``shade1/shadow``, and
-never again under ``shade1``.
+never again under ``shade1``. ``attribute_spans`` applies the same rule
+to the host time of a recorded frame's spans.
 """
 
 from __future__ import annotations
@@ -120,3 +121,23 @@ def matched_share(sums: "OrderedDict[str, float]") -> float:
     """Share of the device time under a label."""
     total = sum(sums.values())
     return (total - sums.get("other", 0.0)) / total if total > 0 else 0.0
+
+
+def attribute_spans(rec, frame: int, scope_labels: "OrderedDict[str, str]"
+                    ) -> "OrderedDict[str, float]":
+    """Host ms per pass label of frame ``frame`` of a ``spans.Recording``:
+    each span's self time under the innermost span whose path names a
+    token, by ``attribute_passes``' rule; ``other`` for the rest of the
+    frame's spans."""
+    tokens = list(scope_labels)
+    sums: "OrderedDict[str, float]" = OrderedDict(
+        (label, 0.0) for label in scope_labels.values())
+    sums["other"] = 0.0
+    own = rec.self_ns()
+    for i, s in enumerate(rec.spans):
+        if s.frame != frame or s.end_ns < 0:
+            continue
+        tok = _label_of(rec.path(i), tokens)
+        sums[scope_labels[tok] if tok is not None else "other"] += \
+            own[i] / 1e6
+    return sums

@@ -117,6 +117,10 @@ class DeviceCounter:
     def read(self, device) -> int:
         return int(self.tensor(device).item())
 
+    def total(self) -> int:
+        """The counts of every device summed (one read each)."""
+        return sum(int(c.item()) for c in self._by_device.values())
+
     def reset(self) -> None:
         for c in self._by_device.values():
             c.zero_()

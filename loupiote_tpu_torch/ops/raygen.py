@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from .. import spans
+
 
 def generate_rays(cam_to_world: torch.Tensor, width: int, height: int,
                   vfov: float, jitter: torch.Tensor, row_offset: int = 0,
@@ -32,8 +34,9 @@ def generate_rays(cam_to_world: torch.Tensor, width: int, height: int,
         rows = height
     aspect = width / height
     # tan in float32, as the reference computes it.
-    tan_half = torch.tan(torch.tensor(vfov / 2.0, dtype=torch.float32,
-                                      device=dev))
+    with spans.sync("vfov"):
+        half = torch.tensor(vfov / 2.0, dtype=torch.float32, device=dev)
+    tan_half = torch.tan(half)
 
     yy, xx = torch.meshgrid(torch.arange(rows, dtype=torch.float32,
                                          device=dev),

@@ -16,8 +16,8 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 
 import torch
-from torch.profiler import record_function
 
+from .. import spans
 from .env import env_pdf, eval_env, sample_env
 from .intersect import T_FAR, Hit, occluded
 from .raygen import norm3
@@ -287,9 +287,10 @@ def _occluded_sorted(scene, o, d, dist, active):
 
 
 def _shadow(scene, o, d, dist, active):
-    # The range lets a frame's trace split the shadow waves out of the
+    # The span lets a frame's trace split the shadow waves out of the
     # shading label (app/trace_parse.py).
-    with record_function("shadow"):
+    with spans.span("shadow"):
+        spans.rays(active)
         if scene.num_nodes > SORT_MIN_NODES:
             return _occluded_sorted(scene, o, d, dist, active)
         return occluded(scene, o, d, dist, active=active)
@@ -402,13 +403,12 @@ def shade_step(scene, state: BounceState, hit: Hit, *, u_sel, u1_l, u2_l,
                            alive=torch.zeros_like(alive),
                            bsdf_pdf=state.bsdf_pdf, use_mis=state.use_mis)
 
-    return BounceState(
-        ro=torch.where(ok[:, None], surf.pos + surf.n_geom * EPS_OFFSET, ro),
-        rd=torch.where(ok[:, None], wi, rd),
-        throughput=torch.where(ok[:, None], new_throughput, throughput),
-        radiance=radiance,
-        alive=ok,
-        bsdf_pdf=torch.where(ok, pdf, state.bsdf_pdf),
-        use_mis=torch.where(ok, torch.tensor(nee, device=ok.device),
-                            state.use_mis),
-    )
+    new_ro = torch.where(ok[:, None], surf.pos + surf.n_geom * EPS_OFFSET, ro)
+    new_rd = torch.where(ok[:, None], wi, rd)
+    new_throughput = torch.where(ok[:, None], new_throughput, throughput)
+    bsdf_pdf = torch.where(ok, pdf, state.bsdf_pdf)
+    with spans.sync("nee"):
+        nee_t = torch.tensor(nee, device=ok.device)
+    return BounceState(ro=new_ro, rd=new_rd, throughput=new_throughput,
+                       radiance=radiance, alive=ok, bsdf_pdf=bsdf_pdf,
+                       use_mis=torch.where(ok, nee_t, state.use_mis))

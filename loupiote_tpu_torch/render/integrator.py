@@ -15,8 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
+from .. import spans
 from ..ops.intersect import Hit, intersect_any
 from ..ops.raygen import generate_rays
 from ..ops.sampling import FrameUniforms, draw_uniforms
@@ -144,9 +144,10 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             width, height, dim=dim, row_offset=row_offset, rows=rows))
             for s in range(spp)])
 
-    # Each stage runs under a named range (the reference's tokens), so
-    # a frame's trace attributes its kernels by pass (app/trace_parse.py).
-    with record_function("raygen"):
+    # Each stage runs under a named span (the reference's tokens), so a
+    # frame's trace attributes its kernels by pass (app/trace_parse.py)
+    # and a recording keeps the host's time in it (spans.py).
+    with spans.span("raygen"):
         if spp > 1 and noise:
             # Each sample its own jitter: tiling one plane would trace every
             # primary ray spp times.
@@ -184,14 +185,15 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
     pid = torch.arange(N, dtype=torch.int32, device=dev)  # slot -> pixel slot
     for bounce in range(bounces):
         if do_sort and bounce > 0:
-            with record_function(f"sortb{bounce}"):
+            with spans.span(f"sortb{bounce}"):
                 key = ray_sort_key(state.ro, state.rd, state.alive, lo, hi)
                 state, pid = _permute_packed(state, pid, sort_order(key))
-        with record_function(f"intersect{bounce}"):
+        with spans.span(f"intersect{bounce}"):
+            spans.rays(state.alive)
             hit = intersect_any(scene, state.ro, state.rd,
                                 active=state.alive)
         if bounce == 0:
-            with record_function("gbuffer"):
+            with spans.span("gbuffer"):
                 # Sample 0's slots, [:R]: bounce 0 is not sorted.
                 hit0 = Hit(*(None if x is None else x[:R] for x in hit))
                 surf = decode_surface(scene, state.ro[:R], state.rd[:R],
@@ -221,7 +223,7 @@ def trace_paths(scene, cam_to_world: torch.Tensor, width: int, height: int,
             u1, u2, u_lobe = mat[:, 0], mat[:, 1], mat[:, 2]
         if light_uv is not None:
             u1_l, u2_l = light_uv[:, 0], light_uv[:, 1]
-        with record_function(f"shade{bounce}"):
+        with spans.span(f"shade{bounce}"):
             state = shade_step(scene, state, hit, u_sel=u.u_sel, u1_l=u1_l,
                                u2_l=u2_l, u_lobe=u_lobe, u1=u1, u2=u2,
                                u1_e=u.u1_e, u2_e=u.u2_e, nee=nee,

@@ -24,8 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from .. import spans
 from ..config import BlitMode, RenderConfig, clamp_size, downsampled_size
 from ..denoise.asvgf import denoise, demodulate, modulate, temporal_reproject
 from ..ops.tonemap import to_display
@@ -180,69 +180,46 @@ def finish_frame(state: RenderState, img: torch.Tensor, gb,
                  width: int, height: int, mode: str,
                  atrous_iterations: int) -> RenderState:
     """The rest of a frame once its sample ``img`` (H, W, 3) and pixel-major
-    ``GBuffer`` are traced: motion vectors, then accumulation or A-SVGF
-    by ``mode`` (see ``render_frame``). Returns the new state."""
-    motion = motion_vectors(state.prev_world_to_screen, gb, width, height)
-    normal = gb.normal.reshape(height, width, 3)
-    depth = gb.depth.reshape(height, width)
-    mesh = gb.mesh_id.reshape(height, width)
-    albedo = gb.albedo.reshape(height, width, 3)
-    new = dict(prev_world_to_screen=world_to_screen, gb_normal=normal,
-               gb_depth=depth, gb_mesh=mesh, gb_albedo=albedo, motion=motion)
-    prev = (state.gb_normal, state.gb_depth, state.gb_mesh,
-            state.asvgf_illum, state.asvgf_moments, state.asvgf_history)
-    if mode == "pathtrace":
-        new["accum"] = accumulate(state.accum, img, state.frame_count)
-        new["frame_count"] = (state.frame_count + 1 if accumulate_flag
-                              else 1)
-    elif mode == "denoised":
-        with record_function("asvgf"):
-            out, t = denoise(img, albedo, motion, normal, depth, mesh,
-                             *prev, iterations=atrous_iterations)
-        new["denoised"] = out
-    elif mode == "temporal":
-        with record_function("asvgf"):
-            t = temporal_reproject(demodulate(img, albedo), motion, normal,
-                                   depth, mesh, *prev)
-    elif mode != "none":
-        raise ValueError(f"unknown frame mode {mode!r}")
-    if mode in ("denoised", "temporal"):
-        new.update(asvgf_illum=t.illum, asvgf_moments=t.moments,
-                   asvgf_history=t.history,
-                   temporal_rgb=modulate(t.illum, albedo))
-    return replace(state, **new)
+    ``GBuffer`` are traced, under the ``finish`` span: motion vectors, then
+    accumulation or A-SVGF (its ``asvgf`` span) by ``mode`` (see
+    ``render_frame``). Returns the new state."""
+    with spans.span("finish"):
+        motion = motion_vectors(state.prev_world_to_screen, gb, width,
+                                height)
+        normal = gb.normal.reshape(height, width, 3)
+        depth = gb.depth.reshape(height, width)
+        mesh = gb.mesh_id.reshape(height, width)
+        albedo = gb.albedo.reshape(height, width, 3)
+        new = dict(prev_world_to_screen=world_to_screen, gb_normal=normal,
+                   gb_depth=depth, gb_mesh=mesh, gb_albedo=albedo,
+                   motion=motion)
+        prev = (state.gb_normal, state.gb_depth, state.gb_mesh,
+                state.asvgf_illum, state.asvgf_moments, state.asvgf_history)
+        if mode == "pathtrace":
+            new["accum"] = accumulate(state.accum, img, state.frame_count)
+            new["frame_count"] = (state.frame_count + 1 if accumulate_flag
+                                  else 1)
+        elif mode == "denoised":
+            with spans.span("asvgf"):
+                out, t = denoise(img, albedo, motion, normal, depth, mesh,
+                                 *prev, iterations=atrous_iterations)
+            new["denoised"] = out
+        elif mode == "temporal":
+            with spans.span("asvgf"):
+                t = temporal_reproject(demodulate(img, albedo), motion,
+                                       normal, depth, mesh, *prev)
+        elif mode != "none":
+            raise ValueError(f"unknown frame mode {mode!r}")
+        if mode in ("denoised", "temporal"):
+            new.update(asvgf_illum=t.illum, asvgf_moments=t.moments,
+                       asvgf_history=t.history,
+                       temporal_rgb=modulate(t.illum, albedo))
+        return replace(state, **new)
 
 
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _elapsed_ms(fn, device) -> float:
-    """ms of one call of ``fn``: CUDA events on the card, the host clock
-    elsewhere."""
-    import time
-
-    _sync(device)
-    if device.type == "cuda":
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-    t0 = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t0) * 1e3
-
-
-def _timed_stage(out: dict, label: str, device, fn):
-    """Run ``fn`` alone, add its ms to ``out[label]``; returns its result."""
-    box = []
-    out[label] = out.get(label, 0.0) + _elapsed_ms(
-        lambda: box.append(fn()), device)
-    return box[0]
 
 
 def _traced_passes(fn, labels, device) -> dict:
@@ -314,7 +291,6 @@ class Renderer:
         self.scene = None
         self.use_noise = False
         self.noise_texture: Optional[np.ndarray] = None
-        self.queries = None  # timing hook, installed by the app layer
         self.last_reload_error: Optional[str] = None
         self._set_size(size)
 
@@ -432,123 +408,66 @@ class Renderer:
         cam = Camera(np.asarray(view_transform, np.float32), self.size,
                      math.radians(self.config.vfov_deg))
         w2s = cam.world_to_screen(self.config.near, self.config.far)
-        bounces = (self.config.bounces_static if self.accumulate
-                   else self.config.bounces_moving)
-        return (torch.as_tensor(cam.transform, device=self.device),
-                torch.as_tensor(w2s, device=self.device), bounces)
+        with spans.sync("camera"):
+            cam_t = torch.as_tensor(cam.transform, device=self.device)
+        with spans.sync("camera"):
+            w2s_t = torch.as_tensor(w2s, device=self.device)
+        return cam_t, w2s_t, self._bounces()
 
-    def measure_passes(self, view_transform, queries=None,
-                       method: str = "auto") -> dict:
-        """Per-pass device times of the frame the user runs, labelled as
-        the reference's performance window ("ray generation", "primary
+    def _bounces(self) -> int:
+        return (self.config.bounces_static if self.accumulate
+                else self.config.bounces_moving)
+
+    def measure_passes(self, view_transform, method: str = "auto") -> dict:
+        """Per-pass times of the frame the user runs, labelled as the
+        reference's performance window ("ray generation", "primary
         intersection", "sort N", "intersection N", "shading N", "shadow
         N", "asvgf"; ``app/trace_parse.py::frame_scope_labels``), in ms.
 
         ``method``:
-          - "trace": one warm-up frame, then one frame under
-            ``torch.profiler``; each device kernel counts under the
-            innermost labelled range it was launched in (the integrator's
-            ``record_function`` ranges). On the card a second profiler
-            session in one process has missed its first kernels, so the
-            profiler's schedule traces a warm-up step it drops.
-          - "replay": the stages one at a time, each timed alone (CUDA
-            events on the card, the host clock elsewhere), then rescaled
-            so that they sum to the fused frame: shares are estimates.
-          - "auto": on the card, "trace" where more than 0.3 of the traced
-            device time falls under a label, else "replay"; "replay" off
-            the card, where the profiler records no device time.
+          - "trace": device times. One warm-up frame, then one frame under
+            ``torch.profiler``, each rendered from a copy of the
+            generator's state and dropped, so the session does not
+            change; each device kernel counts under the innermost
+            labelled span it was launched in. On the card a second
+            profiler session in one process has missed its first
+            kernels, so the profiler's schedule traces a warm-up step it
+            drops.
+          - "spans": host times of the last frame kept by the recording
+            that is on (``spans.recording``), no frame rendered: each
+            span's self time counts under the innermost labelled span
+            around it. Off the card, where an op has done its work when
+            it returns, these are the passes' times.
+          - "auto": "trace" on the card, "spans" elsewhere.
 
-        The frames measured do not change the session: each renders from
-        a copy of the generator's state and its result is dropped. Returns
-        the labels' ms, "other" (trace), "frame (fused)" (ms of one whole
-        frame), "unfused total" (replay) and "method"; each number is
-        also recorded into ``queries`` (or ``self.queries``).
+        Returns the labels' ms, "other" (the rest: device work, or host
+        time of the frame's spans, under no label) and "method"; {} with
+        no scene bound, or for "spans" with no frame recorded.
         """
-        from ..app.trace_parse import frame_scope_labels, matched_share
+        from ..app.trace_parse import attribute_spans, frame_scope_labels
 
         if self.scene is None:
             return {}
-        q = queries if queries is not None else self.queries
-        _, _, bounces = self._frame_args(view_transform)
-        mode = _FRAME_MODE[self.mode]
-
-        def fused_frame():
-            g = torch.Generator(device=self.device)
-            g.set_state(self.generator.get_state())
-            return self._frame(view_transform, g)
-
-        fused_frame()  # warm: kernels built and loaded outside the timing
-        fused = min(_elapsed_ms(fused_frame, self.device) for _ in range(2))
         labels = frame_scope_labels(
-            bounces, denoised=mode in ("denoised", "temporal"))
-        out = None
-        # The profiler records no device time off the card: "auto" goes to
-        # the replay there without tracing.
-        if method == "trace" or (method == "auto"
-                                 and self.device.type == "cuda"):
-            measured = _traced_passes(fused_frame, labels, self.device)
-            if method == "trace" or matched_share(measured) > 0.3:
-                out = dict(measured)
-                out["method"] = "trace"
-        if out is None:
-            cam_t = self._frame_args(view_transform)[0]
-            out = self._replay_passes(cam_t, bounces, mode, labels)
-            unfused = sum(out.values())
-            scale = fused / unfused if unfused > 0 else 1.0
-            out = {label: ms * scale for label, ms in out.items()}
-            out["unfused total"] = unfused
-            out["method"] = "replay"
-        out["frame (fused)"] = fused
-        if q is not None:
-            for label, ms in out.items():
-                if isinstance(ms, float):
-                    q.record(label, ms)
-        return out
+            self._bounces(),
+            denoised=_FRAME_MODE[self.mode] in ("denoised", "temporal"))
+        if method == "auto":
+            method = "trace" if self.device.type == "cuda" else "spans"
+        if method == "trace":
+            def frame():
+                g = torch.Generator(device=self.device)
+                g.set_state(self.generator.get_state())
+                return self._frame(view_transform, g)
 
-    def _replay_passes(self, cam_t, bounces, mode, labels) -> dict:
-        """The frame's stages one at a time from the session's generator
-        state (no sort, no G-buffer), each timed alone."""
-        from ..ops.intersect import intersect_any
-        from ..ops.raygen import generate_rays
-        from ..ops.shade import BounceState, shade_step
-        from .integrator import _tiles_ok, draw_uniforms, to_tile_order
-
-        w, h = self.size
-        R = w * h
-        dev = self.device
-        g = torch.Generator(device=dev)
-        g.set_state(self.generator.get_state())
-        u = draw_uniforms(R, bounces, g, dev, env=self.scene.has_probe)
-        vfov = math.radians(self.config.vfov_deg)
-        out = {name: 0.0 for name in labels.values()}
-        ro, rd = _timed_stage(out, "ray generation", dev, lambda: (
-            generate_rays(cam_t, w, h, vfov, u.jitter)))
-        if _tiles_ok(w, h):
-            ro, rd = to_tile_order(ro, w, h), to_tile_order(rd, w, h)
-        state = BounceState(
-            ro=ro.contiguous(), rd=rd.contiguous(),
-            throughput=torch.ones((R, 3), device=dev),
-            radiance=torch.zeros((R, 3), device=dev),
-            alive=torch.ones(R, dtype=torch.bool, device=dev),
-            bsdf_pdf=torch.zeros(R, device=dev),
-            use_mis=torch.zeros(R, dtype=torch.bool, device=dev))
-        for b in range(bounces):
-            hit = _timed_stage(out, labels[f"intersect{b}"], dev, lambda: (
-                intersect_any(self.scene, state.ro, state.rd,
-                              active=state.alive)))
-            ub = u.bounces[b]
-            state = _timed_stage(out, labels[f"shade{b}"], dev, lambda: (
-                shade_step(self.scene, state, hit, u_sel=ub.u_sel,
-                           u1_l=ub.u1_l, u2_l=ub.u2_l, u_lobe=ub.u_lobe,
-                           u1=ub.u1, u2=ub.u2, u1_e=ub.u1_e, u2_e=ub.u2_e,
-                           nee=self.config.nee, last=(b == bounces - 1))))
-        if mode in ("denoised", "temporal"):
-            s = self.state
-            prev = (s.gb_normal, s.gb_depth, s.gb_mesh, s.asvgf_illum,
-                    s.asvgf_moments, s.asvgf_history)
-            _timed_stage(out, "asvgf", dev, lambda: denoise(
-                s.accum, s.gb_albedo, s.motion, s.gb_normal, s.gb_depth,
-                s.gb_mesh, *prev, iterations=self.config.atrous_iterations))
+            out = _traced_passes(frame, labels, self.device)
+        elif method == "spans":
+            rec = spans.active()
+            if rec is None or rec.frame == 0:
+                return {}
+            out = attribute_spans(rec, rec.frame, labels)
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        out["method"] = method
         return out
 
     # Modules re-read on reload (the "shader sources"), in import order:
@@ -642,19 +561,31 @@ class Renderer:
     # -- display ---------------------------------------------------------
     def blit(self, display_size: bool = True) -> np.ndarray:
         """(H, W, 3) uint8 display image of the current mode at the window
-        resolution (``display_size=False``: at the internal resolution)."""
+        resolution (``display_size=False``: at the internal resolution),
+        under the ``blit`` span."""
+        with spans.span("blit"):
+            return self._blit(display_size)
+
+    def _blit(self, display_size: bool) -> np.ndarray:
         s = self.state
         hw = self._display_hw(display_size)
         rgb = {BlitMode.PATHTRACE: s.accum,
                BlitMode.DENOISED_PATHTRACE: s.denoised,
                BlitMode.TEMPORAL: s.temporal_rgb}.get(self.mode)
         if rgb is not None:
-            return _blit_rgb(rgb, hw, self.config.tonemap).cpu().numpy()
+            img = _blit_rgb(rgb, hw, self.config.tonemap)
+            with spans.sync("readback"):
+                return img.cpu().numpy()
         if self.mode == BlitMode.GBUFFER:
-            vis = s.gb_normal.cpu().numpy() * 0.5 + 0.5
-            vis[s.gb_mesh.cpu().numpy() < 0] = 0.0
+            with spans.sync("readback"):
+                normal = s.gb_normal.cpu().numpy()
+            with spans.sync("readback"):
+                mesh = s.gb_mesh.cpu().numpy()
+            vis = normal * 0.5 + 0.5
+            vis[mesh < 0] = 0.0
         else:
-            mv = s.motion.cpu().numpy()
+            with spans.sync("readback"):
+                mv = s.motion.cpu().numpy()
             vis = np.zeros(mv.shape[:2] + (3,), np.float32)
             vis[..., :2] = np.clip(np.abs(mv) * 20.0, 0, 1)
         if hw is not None:

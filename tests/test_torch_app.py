@@ -30,10 +30,10 @@ import torch
 
 import loupiote_tpu_torch as lt
 from loupiote_tpu_torch import __main__ as cli
+from loupiote_tpu_torch import spans
 from loupiote_tpu_torch.app import Driver, EditorCommand, checkpoint, gui
 from loupiote_tpu_torch.app import trace_parse as tp
 from loupiote_tpu_torch.app.server import ViewerServer
-from loupiote_tpu_torch.app.timing import Queries
 from loupiote_tpu_torch.render import CameraController
 from loupiote_tpu_torch.render.camera import CameraMoveCommand
 from loupiote_tpu_torch.scene.fixtures import write_glb
@@ -156,13 +156,16 @@ def test_driver_defaults_gating_and_toggle(hall_glb):
     d.step(dt=0.1)
     assert d.renderer.frame_count == 3 and d.renderer.accumulate
     d.camera_controller.set_command(CameraMoveCommand.FORWARD)
-    d.step(dt=0.1)  # moving: gated off
+    with spans.recording() as rec:
+        d.step(dt=0.1)  # moving: gated off
+        status = gui.render_status(d)
+        perf = gui.performance_window(d)
     assert d.renderer.frame_count == 1 and not d.renderer.accumulate
     d.camera_controller.unset_command(CameraMoveCommand.FORWARD)
-    assert d.fps > 0 and d.queries.frame_ms > 0
-    assert "raytrace" in d.queries.labels()
-    status = gui.render_status(d)
+    assert d.fps > 0 and perf["frame_ms"] == rec.frame_ms()["step"] > 0
+    assert "raygen" in rec.frame_ms()
     assert "fps" in status and "tris" in status
+    assert gui.performance_window(d)["frame_ms"] is None  # none on
     assert gui.toolbar_state(d.settings)["blit_mode"] == "pathtrace"
     assert gui.scene_info_window(d)["adapter"]["platform"] == "cpu"
 
@@ -278,17 +281,20 @@ def test_measure_passes_reports_the_reference_labels():
     d.settings.blit_mode = lt.BlitMode.PATHTRACE
     d.settings.accumulate = True
     d.step(dt=1 / 60)
-    before = (d.renderer.frame_count, d.renderer.generator.get_state())
-    out = d.measure_passes()
+    assert d.measure_passes() == {}  # no recording on: no frame kept
+    with spans.recording() as rec:
+        d.step(dt=1 / 60)
+        before = (d.renderer.frame_count, d.renderer.generator.get_state())
+        out = d.measure_passes()
     labels = tp.frame_scope_labels(2)
-    # No device time on the CPU: "auto" falls back to the replay.
-    assert out["method"] == d.last_pass_method == "replay"
+    # Off the card: the host times of the last recorded frame's spans.
+    assert out["method"] == d.last_pass_method == "spans"
     assert all(out[lab] >= 0 for lab in labels.values())
-    assert out["frame (fused)"] > 0
-    assert abs(sum(out[lab] for lab in labels.values())
-               - out["frame (fused)"]) < 1e-6 * out["frame (fused)"] + 1e-9
-    assert set(labels.values()) <= set(d.queries.labels())
-    # The measured frames do not advance the session.
+    assert out["primary intersection"] > 0 and out["shadow 1"] > 0
+    # The labels and "other" split the frame's step span exactly.
+    assert sum(v for k, v in out.items() if k != "method") == pytest.approx(
+        rec.frame_ms()["step"], rel=1e-9)
+    # Measuring renders no frame: the session does not advance.
     assert d.renderer.frame_count == before[0]
     assert torch.equal(d.renderer.generator.get_state(), before[1])
     d.renderer.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
@@ -297,7 +303,12 @@ def test_measure_passes_reports_the_reference_labels():
     assert traced["method"] == "trace"
     assert set(tp.frame_scope_labels(2, denoised=True).values()) <= set(
         traced)
-    assert gui.performance_window(d)["pass_timing_method"] == "replay"
+    assert d.renderer.frame_count == before[0]
+    assert torch.equal(d.renderer.generator.get_state(), before[1])
+    assert gui.performance_window(d)["pass_timing_method"] == "spans"
+    with pytest.raises(ValueError):
+        d.renderer.measure_passes(d.camera_controller.update(0.0),
+                                  method="replay")
 
 
 def _evt(name, eid, parent=None, device=None, ms=0.0, kind=None):
@@ -350,23 +361,39 @@ def test_attribute_passes_counts_the_nested_shadow_range_once():
                                 "shade0"]
 
 
-def test_queries_and_profiler_trace(tmp_path):
-    from loupiote_tpu_torch.app.timing import profiler_trace
+def test_queries_and_profiler_trace():
+    """The recording's per-frame view, which the app's timers became, and
+    the profiler's ranges that the same spans open."""
+    from torch.profiler import ProfilerActivity, profile
 
-    q = Queries(max_queries=2, sync=True)
-    q.start_frame()
-    with q.scope("a"):
-        pass
-    q.start("b")
-    q.end(torch.ones(3))
-    q.record("c", 1.5)  # past max_queries: dropped
-    q.resolve()
-    q.end_frame()
-    assert q.labels() == ["a", "b"] and q.frame_ms >= 0
-    with profiler_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(4) + 1
-    assert prof is not None
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
+    with spans.recording() as rec:
+        with spans.span("a", new_frame=True):
+            with spans.span("b"):
+                pass
+            with spans.span("b"):
+                pass
+        with spans.span("c"):
+            pass
+        assert spans.active() is rec
+    assert spans.active() is None
+    assert [s.name for s in rec.spans] == ["a", "b", "b", "c"]
+    assert [s.parent for s in rec.spans] == [-1, 0, 0, -1]
+    assert rec.frame == 1 and {s.frame for s in rec.spans} == {1}
+    ms = rec.frame_ms()
+    assert set(ms) == {"a", "b", "c"}
+    assert ms["b"] == (rec.spans[1].ns + rec.spans[2].ns) / 1e6
+    own = rec.self_ns()
+    assert own[0] == rec.spans[0].ns - rec.spans[1].ns - rec.spans[2].ns
+    assert rec.frame_ms(0) == {}
+    with pytest.raises(RuntimeError):
+        with spans.recording():
+            with spans.recording():
+                pass
+    assert spans.active() is None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("outer"):
+            torch.ones(4) + 1
+    assert "outer" in {e.name for e in prof.events()}
 
 
 # -- hot reload ----------------------------------------------------------------------
