@@ -86,10 +86,19 @@ Phases, each timed:
                  DENOISED_PATHTRACE, the camera moving every frame, with
                  the launch counts read around it; K2's and K3's device
                  time summed over one frame's launches (torch.profiler),
-                 none of them stopping rays at the step bound; A-SVGF
-                 timed alone;
-                 every blit mode; a small denoised frame pair on the card
-                 held against the CPU path;
+                 none of them stopping rays at the step bound; every
+                 blit mode; a small denoised frame pair on the card held
+                 against the CPU path;
+ 6a. A-SVGF    - the kernels of csrc/asvgf.cu: their launches over the
+                 interactive path's 12 frames (1 + 4 a frame); against
+                 their twins on the inputs that arch-40k's third denoised
+                 frame at 640x360 and 1280x720 gives ``denoise`` (the
+                 history carried from two frames before): the frame's
+                 image, then the displayed image, the temporal state and
+                 image of three kernel runs, bit-equal, 1 + 4 launches a
+                 run; the kernels' device ms a frame (torch.profiler)
+                 beside their bound and the twins' ms a frame (CUDA
+                 events), and the kernel path's ms a call by CUDA events;
   7. K4, E5    - arch-260k rebuilt with treelets=True; the slab sort K4
                  (csrc/slab_sort.cu): its launch plans, cluster shapes,
                  cudaOccupancyMaxActiveClusters and ptxas report, then K4
@@ -183,6 +192,7 @@ card's nvidia-smi line, then {"ok": true, "device": {...}} as the last
 line.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -212,6 +222,22 @@ PEAK_FLOP_S = 67e12
 OPS_BOX, OPS_TRI = 25, 53
 OPS_PLANE = OPS_BOX - 6
 RAY_IN_BYTES = 12 + 12 + 4 + 1  # ro, rd, tmax, active
+# A-SVGF's bound, a pixel of a frame: its inputs (radiance, albedo,
+# motion, normal, depth, mesh and the previous normal, depth, mesh, illum,
+# moments, history) read once and its outputs (the denoised and temporal
+# images, illum, moments, history, variance) written once; operations one
+# a torch op of the twin an element, with each luminance counted once a
+# pixel where the twin or the kernel computes it again at every tap: 32 a
+# tap of an a-trous iteration (normal weight 7, depth and luminance
+# weights 5 each, mesh test 1, weight product 4, sums 10), 38 more an
+# iteration (the 3x3 gauss 18, the pixel's luminance 5, the two
+# denominators 8, normalising 7), 288 the temporal pass (demodulation 6,
+# the reprojected position 8, four bilinear taps with their tests 48 each,
+# normalising 9, the blend, moments and temporal variance 34, the 3x3
+# spatial variance 33, the temporal image 6).
+ASVGF_BYTES_PX = (12 + 12 + 8 + 12 + 4 + 4 + 12 + 4 + 4 + 12 + 8 + 4
+                  + 12 + 12 + 12 + 8 + 4 + 4)
+ASVGF_OPS_TAP, ASVGF_OPS_ITER, ASVGF_OPS_TEMPORAL = 32, 38, 288
 
 
 def phase(name, t0):
@@ -1593,6 +1619,104 @@ def app_phases(lt, dev, arch, arch40, smi):
     return out
 
 
+@contextlib.contextmanager
+def denoise_calls(calls):
+    """While open, each ``denoise`` call of a renderer's frame
+    (``render/renderer.py::finish_frame``) appends its arguments and
+    iteration count to ``calls``."""
+    from loupiote_tpu_torch.render import renderer as rmod
+
+    orig = rmod.denoise
+
+    def recorded(*args, iterations):
+        calls.append((args, iterations))
+        return orig(*args, iterations=iterations)
+
+    rmod.denoise = recorded
+    try:
+        yield calls
+    finally:
+        rmod.denoise = orig
+
+
+def asvgf_phase(lt, dev, scene, smi, interactive):
+    """Phase 6a: A-SVGF's kernels against their twins on the inputs that
+    the third denoised frame of ``scene`` gives ``denoise`` at 640x360 and
+    1280x720 (the renderer's first two frames carry the history), with
+    their times beside the bound and the twins'. ``interactive``: the
+    kernels' launches over the interactive path's frames. Returns the
+    ``kernels`` entry (the 640x360 frame's numbers, the viewer's internal
+    size, at the top)."""
+    from loupiote_tpu_torch.denoise import asvgf
+
+    sizes = {}
+    for w, h in ((640, 360), (1280, 720)):
+        r = lt.Renderer((2 * w, 2 * h), lt.RenderConfig(), device=dev)
+        r.set_resources(scene)
+        r.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
+        view = lt.arch_camera()
+        with denoise_calls([]) as calls:
+            for _ in range(3):
+                view[0, 3] += 0.05
+                r.raytrace(view)
+        d_in, iters = calls[-1]
+        if len(calls) != 3 or d_in[0].shape != (h, w, 3) or iters != 4:
+            raise SystemExit(f"chip_smoke: the {w}x{h} denoised frames made "
+                             f"{len(calls)} denoise calls, the last on "
+                             f"{tuple(d_in[0].shape)} at {iters} iterations")
+        want = asvgf.denoise_plain(*d_in, iterations=4)
+        want = (want[0], *want[1], want[2])
+        same = bits_equal(r.state.denoised, want[0])
+        for _ in range(3):
+            asvgf.reset_counters()
+            got = asvgf.denoise(*d_in, iterations=4)
+            launches = (asvgf.launches_temporal, asvgf.launches_atrous)
+            got = (got[0], *got[1], got[2])
+            same &= all(bits_equal(a, b) for a, b in zip(got, want))
+        if not same or launches != (1, 4):
+            raise SystemExit(f"chip_smoke: A-SVGF's kernels at {w}x{h}: "
+                             f"bit-equal to the twins {same}, launches "
+                             f"{launches} (need 1 + 4)")
+        reproj = float((want[3] > 1).float().mean())
+        ks = device_kernels(lambda: asvgf.denoise(*d_in, iterations=4),
+                            lambda out: len(out) == 5)
+        names = sorted({kernel_name(n) for n, _ in ks})
+        if names != ["atrous_kernel", "temporal_kernel"] or len(ks) != 5:
+            raise SystemExit(f"chip_smoke: the kernel path of A-SVGF ran "
+                             f"{[n for n, _ in ks]} on the card")
+        ms = sum(t for _, t in ks)
+        call_ms = cuda_ms(lambda: asvgf.denoise(*d_in, iterations=4), 20)
+        plain_ms = cuda_ms(lambda: asvgf.denoise_plain(*d_in, iterations=4),
+                           5)
+        px = w * h
+        ops = px * (4 * (25 * ASVGF_OPS_TAP + ASVGF_OPS_ITER)
+                    + ASVGF_OPS_TEMPORAL)
+        b_ms, b_by = bound_of(px * ASVGF_BYTES_PX, ops)
+        print(f"A-SVGF {w}x{h} (3rd frame, {reproj:.1%} of pixels "
+              f"reprojected): the frame's image and 3 kernel runs "
+              f"bit-equal to the twins on the frame's inputs, "
+              f"launches {launches[0]} + {launches[1]}; kernels "
+              f"{ms:.4f} ms a frame on the device "
+              f"({[(kernel_name(n), round(t, 4)) for n, t in ks]}), "
+              f"{call_ms:.4f} ms a call by CUDA events; bound {b_ms:.4f} "
+              f"ms ({b_by}); twins {plain_ms:.3f} ms a frame ({smi})",
+              flush=True)
+        sizes[f"{w}x{h}"] = {"ms": ms, "call_ms": call_ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "launches": sum(launches),
+                             "reprojected": reproj}
+    top = sizes["640x360"]
+    print("asvgf ptxas (registers, stack frame, spills):\n"
+          + ptxas_lines("asvgf"))
+    return {"name": "asvgf", "route": "cuda",
+            "source": "loupiote_tpu_torch/csrc/asvgf.cu",
+            "replaces": None, "launches": top["launches"],
+            "launches_interactive": interactive,
+            "max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "sizes": sizes}
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -1604,7 +1728,7 @@ def main():
     import loupiote_tpu_torch as lt
     from loupiote_tpu_torch import _build, image_codec
     from loupiote_tpu_torch.accel import native
-    from loupiote_tpu_torch.denoise.asvgf import denoise
+    from loupiote_tpu_torch.denoise import asvgf
     from loupiote_tpu_torch.experiments import (
         device_sort_bench, kernel_probe, lane_gather_bench,
         measure_traversal, r3_probes)
@@ -1636,7 +1760,7 @@ def main():
     t0 = time.perf_counter()
     kernels_src = ("wide_traverse", "bvh2_traverse", "slab_sort",
                    "treelet_traverse", "regroup", "kernel_probe",
-                   "lane_gather", "r3_probes")
+                   "lane_gather", "r3_probes", "asvgf")
     with ThreadPoolExecutor(len(kernels_src) + 1) as pool:
         futs = [pool.submit(_build.load, k) for k in kernels_src]
         t1 = time.perf_counter()
@@ -2278,6 +2402,7 @@ def main():
     view = lt.arch_camera()
     wide.reset_counters()
     bvh2.reset_counters()
+    asvgf.reset_counters()
     inter.raytrace(view)  # warm-up
     frame_ms = []
     for _ in range(10):
@@ -2299,6 +2424,10 @@ def main():
                 "K2 closest": bvh2.launches_closest,
                 "K2 any-hit": bvh2.launches_anyhit,
                 "K3": bvh2.launches_occluded}
+    # A-SVGF's kernels, as the renderer's 12 frames launched them.
+    n_iter = inter.config.atrous_iterations
+    inter_asvgf = {"frames": 12, "temporal": asvgf.launches_temporal,
+                   "atrous": asvgf.launches_atrous}
     capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
     peak = torch.cuda.max_memory_allocated() / 2**30
     iw, ih = inter.get_size()
@@ -2310,6 +2439,11 @@ def main():
                          "K2 and K3")
     if launches["K1 closest"] or launches["K1 any-hit"]:
         raise SystemExit("chip_smoke: the interactive path launched K1")
+    print(f"interactive path: A-SVGF launches {inter_asvgf} over its 12 "
+          f"frames ({n_iter} a-trous iterations a frame)")
+    if (inter_asvgf["temporal"], inter_asvgf["atrous"]) != (12, 12 * n_iter):
+        raise SystemExit("chip_smoke: the interactive frames did not run "
+                         "A-SVGF through its two kernels, once a frame")
     if capped:
         raise SystemExit("chip_smoke: rays reached the step bound")
     if not (torch.isfinite(inter.state.denoised).all()
@@ -2363,23 +2497,13 @@ def main():
         raise SystemExit("chip_smoke: a K2 or K3 launch of the interactive "
                          "frame stopped rays at the step bound")
 
-    # One more frame by hand, to time A-SVGF alone on its own inputs and
-    # read the 1-spp sample.
-    st = inter.state
+    # One more frame by hand, to read the 1-spp sample.
     view[0, 3] += 1e-3
-    sample, gb = trace_paths(arch40, torch.from_numpy(view).to(dev), iw, ih,
-                             inter.generator, bounces=3,
-                             vfov=math.radians(45.0))
-    motion = rmod.motion_vectors(st.prev_world_to_screen, gb, iw, ih)
-    d_in = (sample.reshape(ih, iw, 3), gb.albedo.reshape(ih, iw, 3), motion,
-            gb.normal.reshape(ih, iw, 3), gb.depth.reshape(ih, iw),
-            gb.mesh_id.reshape(ih, iw), st.gb_normal, st.gb_depth,
-            st.gb_mesh, st.asvgf_illum, st.asvgf_moments, st.asvgf_history)
-    asvgf_ms = cuda_ms(lambda: denoise(*d_in, iterations=4), 5)
+    sample, _ = trace_paths(arch40, torch.from_numpy(view).to(dev), iw, ih,
+                            inter.generator, bounces=3,
+                            vfov=math.radians(45.0))
     nonzero = float((sample.sum(1) > 0).float().mean())
-    print(f"A-SVGF alone (4 a-trous iterations, {iw}x{ih}): {asvgf_ms:.3f} "
-          f"ms = {asvgf_ms / ims:.1%} of the frame; 1-spp sample "
-          f"nonzero_pixel_frac {nonzero:.4f}; denoised mean "
+    print(f"1-spp sample nonzero_pixel_frac {nonzero:.4f}; denoised mean "
           f"{float(inter.state.denoised.mean()):.5f}")
     if nonzero < 0.5:
         raise SystemExit("chip_smoke: the 1-spp sample is mostly black")
@@ -2393,6 +2517,10 @@ def main():
     print(f"blit modes {[m.value for m in lt.BlitMode]}: each "
           f"({HEIGHT}, {WIDTH}, 3) uint8")
     phase("interactive path (warm-up + 10 frames + blit + modes)", t0)
+
+    t0 = time.perf_counter()
+    asvgf_entry = asvgf_phase(lt, dev, arch40, smi, inter_asvgf)
+    phase("A-SVGF kernels (640x360, 1280x720)", t0)
 
     # Two small denoised frames: the card against the CPU path, the same
     # uniforms; the second frame reprojects the first. The standard of the
@@ -3544,6 +3672,7 @@ def main():
         "ms": e4["device_sort"], "plain_ms": e4_plain,
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
         "library_ms": e4["torch.sort+gather"]})
+    kernels.append(asvgf_entry)
     print(json.dumps({"kernels": kernels, "frames": frames, "app": app}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,19 +1,27 @@
 """A-SVGF denoiser: temporal reprojection, a-trous wavelet, compositing
 (counterpart of ``loupiote_tpu/denoise/asvgf.py``).
 
-Plain torch image math over (H, W, C) tensors, the reference's layout:
-the reference leaves this part to XLA, so the port leaves it to torch's
-own kernels. Moment-based variance guides an edge-aware wavelet filter
-over demodulated illumination, and compositing re-multiplies the albedo.
+Moment-based variance guides an edge-aware wavelet filter over
+demodulated illumination, and compositing re-multiplies the albedo.
 Previous-frame state comes in and new state goes out; nothing is updated
-in place.
+in place. ``temporal`` (demodulation, reprojection, variance) and
+``denoise`` (that, then the a-trous iterations) launch the kernels of
+``csrc/asvgf.cu`` for CUDA tensors, one for the temporal pass and one an
+iteration, and run the plain torch twins below over (H, W, C) tensors,
+the reference's layout, for CPU tensors; there is no fallback from one to
+the other. The reference leaves this part to XLA, which fuses it; as
+eager torch ops on the card the twins take ~7,900 launches a frame.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
+
+from .. import _build, spans
+from ..ops.intersect import check_args
 
 # Temporal blend floor: history is capped so fresh samples always count.
 ALPHA_MIN = 0.05
@@ -22,6 +30,18 @@ MAX_HISTORY = 32.0
 SIGMA_NORMAL = 64.0
 SIGMA_DEPTH = 1.0
 SIGMA_LUM = 4.0
+
+# Kernel launches: each call of the temporal kernel adds one to
+# ``launches_temporal``, each a-trous iteration on the card one to
+# ``launches_atrous``.
+launches_temporal = 0
+launches_atrous = 0
+
+
+def reset_counters() -> None:
+    global launches_temporal, launches_atrous
+    launches_temporal = 0
+    launches_atrous = 0
 
 
 class TemporalOut(NamedTuple):
@@ -212,15 +232,150 @@ def atrous_filter(illum, variance, normal, depth, mesh, iterations: int = 4):
     return out_i
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU tensor (the
+    twins); raises for any other device. Counts the path taken,
+    ``("asvgf", "cuda" | "plain")``, while a recording is on."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no A-SVGF for device {x.device}")
+    card = x.device.type == "cuda"
+    rec = spans.active()
+    if rec is not None:
+        rec.count("asvgf", "cuda" if card else "plain")
+    return card
+
+
+def _kernel(name: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load("asvgf"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _temporal_cuda(radiance, albedo, motion, normal, depth, mesh,
+                   prev_normal, prev_depth, prev_mesh, prev_illum,
+                   prev_moments, prev_history):
+    """``asvgf_temporal`` on CUDA tensors: (TemporalOut, temporal_rgb)."""
+    if depth.dim() != 2:
+        raise ValueError(f"curr_depth: need shape (H, W), got "
+                         f"{tuple(depth.shape)}")
+    h, w = depth.shape
+    dev = depth.device
+    f32, i32 = torch.float32, torch.int32
+    args = (("sample_radiance", radiance, f32, (h, w, 3)),
+            ("albedo", albedo, f32, (h, w, 3)),
+            ("motion", motion, f32, (h, w, 2)),
+            ("curr_normal", normal, f32, (h, w, 3)),
+            ("curr_depth", depth, f32, (h, w)),
+            ("curr_mesh", mesh, i32, (h, w)),
+            ("prev_normal", prev_normal, f32, (h, w, 3)),
+            ("prev_depth", prev_depth, f32, (h, w)),
+            ("prev_mesh", prev_mesh, i32, (h, w)),
+            ("prev_illum", prev_illum, f32, (h, w, 3)),
+            ("prev_moments", prev_moments, f32, (h, w, 2)),
+            ("prev_history", prev_history, f32, (h, w)))
+    check_args(dev, args)
+    t = TemporalOut(torch.empty((h, w, 3), dtype=f32, device=dev),
+                    torch.empty((h, w, 2), dtype=f32, device=dev),
+                    torch.empty((h, w), dtype=f32, device=dev),
+                    torch.empty((h, w), dtype=f32, device=dev))
+    rgb = torch.empty((h, w, 3), dtype=f32, device=dev)
+    err = _kernel("asvgf_temporal", 17, 2)(
+        *(x.data_ptr() for _, x, _, _ in args),
+        *(x.data_ptr() for x in t), rgb.data_ptr(), h, w,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"asvgf_temporal launch failed: CUDA error {err}")
+    global launches_temporal
+    launches_temporal += 1
+    return t, rgb
+
+
+def _atrous_step(illum, variance, normal, depth, mesh, step: int,
+                 albedo=None):
+    """One ``asvgf_atrous`` launch on CUDA tensors: ``atrous_iteration``'s
+    (illum, variance) at dilation ``step``, or with ``albedo`` the
+    displayed image ``modulate(illum, albedo)`` and None."""
+    h, w = depth.shape
+    dev = depth.device
+    f32 = torch.float32
+    check_args(dev, (("illum", illum, f32, (h, w, 3)),
+                     ("variance", variance, f32, (h, w)),
+                     ("curr_normal", normal, f32, (h, w, 3)),
+                     ("curr_depth", depth, f32, (h, w)),
+                     ("curr_mesh", mesh, torch.int32, (h, w))))
+    if albedo is not None:
+        check_args(dev, (("albedo", albedo, f32, (h, w, 3)),))
+    out_i = torch.empty_like(illum)
+    out_v = None if albedo is not None else torch.empty_like(variance)
+    err = _kernel("asvgf_atrous", 8, 3)(
+        illum.data_ptr(), variance.data_ptr(), normal.data_ptr(),
+        depth.data_ptr(), mesh.data_ptr(),
+        None if albedo is None else albedo.data_ptr(), out_i.data_ptr(),
+        None if out_v is None else out_v.data_ptr(), h, w, step,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"asvgf_atrous launch failed: CUDA error {err}")
+    global launches_atrous
+    launches_atrous += 1
+    return out_i, out_v
+
+
+def temporal(sample_radiance, albedo, motion, curr_normal, curr_depth,
+             curr_mesh, prev_normal, prev_depth, prev_mesh, prev_illum,
+             prev_moments, prev_history):
+    """The temporal pass of one A-SVGF frame: ``demodulate`` then
+    ``temporal_reproject``. Returns (TemporalOut, temporal_rgb), the
+    latter ``modulate(illum, albedo)``: one kernel launch for CUDA
+    tensors, ``temporal_plain`` for CPU tensors."""
+    args = (sample_radiance, albedo, motion, curr_normal, curr_depth,
+            curr_mesh, prev_normal, prev_depth, prev_mesh, prev_illum,
+            prev_moments, prev_history)
+    fn = _temporal_cuda if _on_card(curr_depth) else temporal_plain
+    return fn(*args)
+
+
+def temporal_plain(sample_radiance, albedo, *rest):
+    """``temporal``'s plain twin."""
+    t = temporal_reproject(demodulate(sample_radiance, albedo), *rest)
+    return t, modulate(t.illum, albedo)
+
+
 def denoise(sample_radiance, albedo, motion, curr_normal, curr_depth,
             curr_mesh, prev_normal, prev_depth, prev_mesh, prev_illum,
             prev_moments, prev_history, iterations: int = 4):
-    """One A-SVGF frame. Returns (denoised_rgb, TemporalOut); the latter is
-    the state to keep for the next frame."""
-    illum_in = demodulate(sample_radiance, albedo)
-    t = temporal_reproject(illum_in, motion, curr_normal, curr_depth,
-                           curr_mesh, prev_normal, prev_depth, prev_mesh,
-                           prev_illum, prev_moments, prev_history)
+    """One A-SVGF frame: the temporal pass, then ``iterations`` (even)
+    a-trous iterations with dilation 1, 2, 4, ... Returns (denoised_rgb,
+    TemporalOut, temporal_rgb); the TemporalOut is the state to keep for
+    the next frame. For CUDA tensors 1 + ``iterations`` kernel launches,
+    each iteration's output in buffers of its own; for CPU tensors
+    ``denoise_plain``."""
+    if iterations % 2:
+        raise ValueError("the a-trous filter needs an even iteration count")
+    args = (sample_radiance, albedo, motion, curr_normal, curr_depth,
+            curr_mesh, prev_normal, prev_depth, prev_mesh, prev_illum,
+            prev_moments, prev_history)
+    if not _on_card(curr_depth):
+        return denoise_plain(*args, iterations=iterations)
+    t, rgb = _temporal_cuda(*args)
+    out_i, out_v = t.illum, t.variance
+    for i in range(iterations):
+        last = i == iterations - 1
+        out_i, out_v = _atrous_step(out_i, out_v, curr_normal, curr_depth,
+                                    curr_mesh, 1 << i,
+                                    albedo if last else None)
+    return (out_i if iterations else rgb), t, rgb
+
+
+def denoise_plain(sample_radiance, albedo, motion, curr_normal, curr_depth,
+                  curr_mesh, prev_normal, prev_depth, prev_mesh, prev_illum,
+                  prev_moments, prev_history, iterations: int = 4):
+    """``denoise``'s plain twin."""
+    t, rgb = temporal_plain(sample_radiance, albedo, motion, curr_normal,
+                            curr_depth, curr_mesh, prev_normal, prev_depth,
+                            prev_mesh, prev_illum, prev_moments,
+                            prev_history)
     filtered = atrous_filter(t.illum, t.variance, curr_normal, curr_depth,
                              curr_mesh, iterations)
-    return modulate(filtered, albedo), t
+    return modulate(filtered, albedo), t, rgb

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from .. import spans
 from ..config import BlitMode, RenderConfig, clamp_size, downsampled_size
-from ..denoise.asvgf import denoise, demodulate, modulate, temporal_reproject
+from ..denoise.asvgf import denoise, temporal
 from ..ops.tonemap import to_display
 from .camera import Camera
 from .integrator import accumulate, trace_paths
@@ -201,19 +201,18 @@ def finish_frame(state: RenderState, img: torch.Tensor, gb,
                                   else 1)
         elif mode == "denoised":
             with spans.span("asvgf"):
-                out, t = denoise(img, albedo, motion, normal, depth, mesh,
-                                 *prev, iterations=atrous_iterations)
-            new["denoised"] = out
+                new["denoised"], t, t_rgb = denoise(
+                    img, albedo, motion, normal, depth, mesh, *prev,
+                    iterations=atrous_iterations)
         elif mode == "temporal":
             with spans.span("asvgf"):
-                t = temporal_reproject(demodulate(img, albedo), motion,
-                                       normal, depth, mesh, *prev)
+                t, t_rgb = temporal(img, albedo, motion, normal, depth, mesh,
+                                    *prev)
         elif mode != "none":
             raise ValueError(f"unknown frame mode {mode!r}")
         if mode in ("denoised", "temporal"):
             new.update(asvgf_illum=t.illum, asvgf_moments=t.moments,
-                       asvgf_history=t.history,
-                       temporal_rgb=modulate(t.illum, albedo))
+                       asvgf_history=t.history, temporal_rgb=t_rgb)
         return replace(state, **new)
 
 

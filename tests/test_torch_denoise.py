@@ -1,10 +1,10 @@
 """The port's A-SVGF denoiser (loupiote_tpu_torch/denoise/asvgf.py) against
 the reference's, function by function, on the same random G-buffers.
 
-The inputs are made with numpy from a seed: mesh ids in blocks (edges for
-the mesh test), normals and depths piecewise smooth with jumps at the
-block edges, motion vectors that send some bilinear taps past the image
-border, and a previous frame's state.
+The inputs are ``torch_port_helpers.asvgf_frame``'s, made with numpy from
+a seed: mesh ids in blocks (edges for the mesh test), normals and depths
+piecewise smooth with jumps at the block edges, motion vectors that send
+some bilinear taps past the image border, and a previous frame's state.
 
 Tolerance: the shifts are exact; everything else within 1e-5 relative
 (atol 1e-6). Both sides evaluate exp and a 64th power in float32 with
@@ -20,6 +20,7 @@ import torch
 
 from loupiote_tpu.denoise import asvgf as ref
 from loupiote_tpu_torch.denoise import asvgf
+from torch_port_helpers import asvgf_frame
 
 H, W = 24, 40
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -27,33 +28,7 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(scope="module")
 def frame():
-    rng = np.random.default_rng(2024)
-    f32 = np.float32
-    yy, xx = np.mgrid[0:H, 0:W]
-    mesh = ((yy // 7) * 3 + (xx // 11)).astype(np.int32) % 5 - 1  # -1 = miss
-    base_n = rng.normal(size=(5, 3))
-    n = base_n[mesh + 1] + 0.05 * rng.normal(size=(H, W, 3))
-    normal = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(f32)
-    depth = (2.0 + mesh + 0.1 * rng.random((H, W))).astype(f32)
-    prev_mesh = mesh.copy()
-    prev_mesh[rng.random((H, W)) < 0.1] = 3
-    pn = normal + 0.02 * rng.normal(size=(H, W, 3))
-    prev_normal = (pn / np.linalg.norm(pn, axis=-1, keepdims=True)).astype(f32)
-    return dict(
-        radiance=(rng.random((H, W, 3)) ** 3 * 4).astype(f32),
-        albedo=rng.random((H, W, 3)).astype(f32),
-        # Up to 3 pixels of motion: taps past every border.
-        motion=((rng.random((H, W, 2)) - 0.5) * 6
-                / np.array([W, H])).astype(f32),
-        normal=normal, depth=depth, mesh=mesh,
-        prev_normal=prev_normal,
-        prev_depth=(depth * (1 + 0.05 * rng.normal(size=(H, W)))).astype(f32),
-        prev_mesh=prev_mesh,
-        prev_illum=(rng.random((H, W, 3)) * 2).astype(f32),
-        prev_moments=rng.random((H, W, 2)).astype(f32),
-        prev_history=rng.integers(0, 33, (H, W)).astype(f32),
-        variance=(rng.random((H, W)) * 0.5).astype(f32),
-    )
+    return asvgf_frame(H, W)
 
 
 def _j(x):
@@ -130,11 +105,12 @@ def test_atrous_filter_and_denoise(frame):
         asvgf.atrous_filter(_t(frame["prev_illum"]), _t(frame["variance"]),
                             *(_t(frame[k]) for k in args), iterations=3)
     lead = (frame["radiance"], frame["albedo"])
-    out, t = asvgf.denoise(*(_t(x) for x in lead),
-                           *(_t(frame[k]) for k in TEMPORAL_ARGS))
+    out, t, t_rgb = asvgf.denoise(*(_t(x) for x in lead),
+                                  *(_t(frame[k]) for k in TEMPORAL_ARGS))
     rout, rt = ref.denoise(*(_j(x) for x in lead),
                            *(_j(frame[k]) for k in TEMPORAL_ARGS))
     _close(out, rout)
     for a, b in zip(t, rt):
         _close(a, b)
+    _close(t_rgb, ref.modulate(rt.illum, _j(frame["albedo"])))
     assert np.isfinite(out.numpy()).all()

@@ -168,3 +168,37 @@ def psnr(a, b):
     peak = max(b.max(), 1e-6)
     mse = np.mean((a - b) ** 2)
     return 10.0 * np.log10(peak * peak / max(mse, 1e-12))
+
+
+def asvgf_frame(h, w, seed=2024):
+    """A-SVGF inputs of an (h, w) frame, made with numpy from ``seed``:
+    mesh ids in blocks (edges for the mesh test; -1 a miss), normals and
+    depths piecewise smooth with jumps at the block edges, motion vectors
+    of up to 3 pixels (bilinear taps past every border), a previous
+    frame's state and a variance."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    yy, xx = np.mgrid[0:h, 0:w]
+    mesh = ((yy // 7) * 3 + (xx // 11)).astype(np.int32) % 5 - 1  # -1 = miss
+    base_n = rng.normal(size=(5, 3))
+    n = base_n[mesh + 1] + 0.05 * rng.normal(size=(h, w, 3))
+    normal = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(f32)
+    depth = (2.0 + mesh + 0.1 * rng.random((h, w))).astype(f32)
+    prev_mesh = mesh.copy()
+    prev_mesh[rng.random((h, w)) < 0.1] = 3
+    pn = normal + 0.02 * rng.normal(size=(h, w, 3))
+    prev_normal = (pn / np.linalg.norm(pn, axis=-1, keepdims=True)).astype(f32)
+    return dict(
+        radiance=(rng.random((h, w, 3)) ** 3 * 4).astype(f32),
+        albedo=rng.random((h, w, 3)).astype(f32),
+        motion=((rng.random((h, w, 2)) - 0.5) * 6
+                / np.array([w, h])).astype(f32),
+        normal=normal, depth=depth, mesh=mesh,
+        prev_normal=prev_normal,
+        prev_depth=(depth * (1 + 0.05 * rng.normal(size=(h, w)))).astype(f32),
+        prev_mesh=prev_mesh,
+        prev_illum=(rng.random((h, w, 3)) * 2).astype(f32),
+        prev_moments=rng.random((h, w, 2)).astype(f32),
+        prev_history=rng.integers(0, 33, (h, w)).astype(f32),
+        variance=(rng.random((h, w)) * 0.5).astype(f32),
+    )
