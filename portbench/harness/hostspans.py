@@ -2,17 +2,20 @@
 (``loupiote_tpu_torch/spans.py``), read in a traced run on the card for
 the per-layer metrics ``step_host_ms``, ``blit_ms``, ``sync_wait_ms``,
 ``host_syncs_per_frame``, ``shade_host_ms``, ``asvgf_host_ms``,
-``live_ray_share`` and ``idle_in_passes``.
+``live_ray_share`` and ``idle_in_passes``, and by name for any other.
 
 1. The host's time: a fresh process of the same cell and seed (``python3
    -m portbench.harness.hostspans <cell> <seed>``) builds the session,
    renders the warm-up frames, then frames with recording off and on in
    turns (the recorder's cost), then ``HOST_SECONDS`` of frames with it
    on: the host's ms a frame in each span, the sync sites and the
-   live-ray counts. On an H100 a process that has run the profiler
-   issued a viewer frame 30-60% slower than before it, so the run's own
-   process, after its profiled frames, would not read what its window
-   ran.
+   live-ray counts, and by name (``named_readings``) every span's host
+   ms a frame and every counter's total a frame, which a metric file
+   reads as ``reading(ctx, "span_ms:<name>")`` or
+   ``reading(ctx, "count:<name>")``. On an H100 a process that has run
+   the profiler issued a viewer frame 30-60% slower than before it, so
+   the run's own process, after its profiled frames, would not read what
+   its window ran.
 2. After the run's two profiled stretches, the traffic's
    ``trace_frames`` frames with recording on under the profiler of CUDA
    activity alone (after a dropped warm-up frame, as the harness's own):
@@ -174,6 +177,7 @@ def host_stretch(spans, session, dev) -> dict:
             session.frame()
         _wait(spans, dev)
     out = host_readings(rec)
+    named = named_readings(rec)
     off, on = (statistics.median(blocks[k]) for k in (False, True))
     runner.log(f"spans: recording off and on in turns, {BLOCKS} blocks of "
                f"{BLOCK_SECONDS} s each: median {off:.4f} ms a frame off, "
@@ -187,6 +191,9 @@ def host_stretch(spans, session, dev) -> dict:
         f"{n}[{k}] {v}" for (n, k), v in sorted(rec.counts.items())))
     runner.log("spans: readings " + ", ".join(
         f"{k} {v!r}" for k, v in out.items()))
+    runner.log("spans: by name " + ", ".join(
+        f"{k} {v:.4f}" for k, v in named.items()))
+    out.update(named)
     return out
 
 
@@ -221,6 +228,26 @@ def host_readings(rec) -> dict:
         "live_ray_share": (100.0 * rec.total("live") / slots if slots
                            else None),
     }
+
+
+def named_readings(rec) -> dict:
+    """Readings by name, for any span or counter of the program, over a
+    recording of whole frames: ``span_ms:<name>``, the host ms a frame in
+    the spans of that name (with what they hold); ``count:<name>``, the
+    counts named ``<name>`` a frame, summed over their keys; and
+    ``count:<name>:<key>``, one key's count a frame."""
+    n = rec.frame
+    if n <= 0:
+        return {}
+    out: dict = {}
+    for s in rec.spans:
+        if s.end_ns >= 0:
+            key = f"span_ms:{s.name}"
+            out[key] = out.get(key, 0.0) + s.ns / 1e6 / n
+    for (name, key), v in sorted(rec.counts.items()):
+        out[f"count:{name}"] = out.get(f"count:{name}", 0.0) + v / n
+        out[f"count:{name}:{key}"] = v / n
+    return out
 
 
 def by_tenth(rec) -> dict:

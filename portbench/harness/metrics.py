@@ -33,6 +33,9 @@ class TraceContext:
     # The CPU and CUDA trace: {token: [device ms, activities]}.
     passes: dict = field(default_factory=dict)
     pass_frames: int = 0
+    # The same trace by the innermost range of any name
+    # (``tracing.by_range``): {name: [device ms, activities]}.
+    ranges: dict = field(default_factory=dict)
     # The CUDA-only trace: tracing.device_summary, its frames and wall s.
     device: dict = field(default_factory=dict)
     device_frames: int = 0
@@ -62,3 +65,14 @@ def pass_ms(ctx: TraceContext, match) -> Optional[float]:
     if ctx.pass_frames <= 0 or sum(v[1] for v in hits) == 0:
         return None
     return sum(v[0] for v in hits) / ctx.pass_frames
+
+
+def range_ms(ctx: TraceContext, name: str) -> Optional[float]:
+    """Device ms a frame of the activities whose innermost range is
+    ``name`` (any span of the program, ``tlas`` inside ``intersect0``
+    included), over the CPU and CUDA trace's frames; None where none ran
+    under it."""
+    v = ctx.ranges.get(name)
+    if ctx.pass_frames <= 0 or not v or v[1] == 0:
+        return None
+    return v[0] / ctx.pass_frames

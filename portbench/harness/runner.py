@@ -170,6 +170,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         tokens = tracing.frame_tokens(bounces, traffic["mode"] == "denoised")
         ev, _ = program.profiled(session, nframes, cpu=True, device=dev)
         passes = tracing.attribute(ev, tokens)
+        ranges = tracing.by_range(ev)
         gaps = tracing.idle_gaps(ev, tokens)
         del ev
         ctx = metrics.TraceContext(
@@ -177,8 +178,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             probe=hdr is not None, triangles=flat_triangles(scene),
             scene_build_s=session.scene_build_s, kind=dev_info["kind"],
             peaks=peaks_for(dev_info["kind"]) if on_card else {},
-            passes=passes, pass_frames=nframes, device=summary,
-            device_frames=nframes, device_wall_s=wall)
+            passes=passes, pass_frames=nframes, ranges=ranges,
+            device=summary, device_frames=nframes, device_wall_s=wall)
         found = {name: metrics.read(name, ctx)
                  for name in metric_names(cell, "per_layer")}
         dev_info.update(busy_s=summary["busy_ms"] / 1e3, window_s=wall)

@@ -23,6 +23,7 @@ import torch
 
 from .camera import Camera, CameraController
 from .frame import RenderState, _blit_rgb, init_state, render_frame
+from .instanced import build_instanced_tables
 from .probe import build_probe, read_hdr
 from .sampling import draw_uniforms
 from .scene_types import Scene
@@ -45,7 +46,9 @@ class Session:
     ``window``); ``mode``: "pathtrace" or "denoised"; ``accumulate``: the
     settings' accumulate switch. ``lowp``: the control's precision (see
     ``integrator.trace_paths``). ``tables``: another session's tables of
-    the same inputs, shared instead of built again."""
+    the same inputs, shared instead of built again. A configuration whose
+    ``render`` has ``instancing: true`` is rendered two-level
+    (``instanced.py``)."""
 
     def __init__(self, scene: Scene, hdr: Optional[bytes], config: dict,
                  mode: str, accumulate: bool, seed: int, device,
@@ -68,9 +71,13 @@ class Session:
             scene.lights = list(scene.lights)
             scene.fit_default_light(float(config["scene"]["light_intensity"]))
             probe = build_probe(read_hdr(hdr)) if hdr is not None else None
-            tables = build_tables(scene, probe=probe,
-                                  atlas_size=render["atlas_size"],
-                                  device=self.device)
+            # ``render.instancing`` (absent: false) asks for the
+            # two-level tables, traced through the instance loop.
+            build = (build_instanced_tables if render.get("instancing")
+                     else build_tables)
+            tables = build(scene, probe=probe,
+                           atlas_size=render["atlas_size"],
+                           device=self.device)
         self.tables = tables
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

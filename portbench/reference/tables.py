@@ -4,7 +4,9 @@ instances, build the BVH, lay out the triangle, material and light
 tables, collapse the tree to the wide table), the atlas and the probe,
 worked out from the benchmark's own scene and sky. The tree comes from
 ``bvh.py``; only the BVH2's root box (the sort keys' and the scene exit's
-frame) is used beside the wide table.
+frame) is used beside the wide table. A two-level scene's tables
+(``instanced.py``) are a geometry-less shell's with the BLASes and the
+instance table added.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from .atlas import pack_atlas
-from .bvh import LEAF_MAX, build_bvh
+from .bvh import LEAF_MAX, FlatBVH, build_bvh
 from .probe import Probe
 from .scene_types import INVALID_INDEX, Scene, pad_rows
 from .wide_table import collapse_wide
@@ -55,16 +57,43 @@ class Tables:
     has_probe: bool
     has_textures: bool
     num_tris: int
+    # Two-level scenes (``instanced.py``): one BLAS a mesh and the
+    # instance table; where ``blas`` is set, the tables above are a
+    # geometry-less shell's, ``node_min`` / ``node_max`` the instances'
+    # world bounds and ``tri_pack`` / ``tri_shade`` the BLASes' triangles
+    # end to end, in object space.
+    blas: Optional[tuple] = None  # tuple[instanced.Blas], by mesh slot
+    inst_w2o: Optional[torch.Tensor] = None  # (K, 4, 4) world-to-object
+    inst_nmat: Optional[torch.Tensor] = None  # (K, 3, 3) normal matrix
+    inst_mat_id: Optional[torch.Tensor] = None  # (K,) int32 material
+    inst_tri_base: Optional[torch.Tensor] = None  # (K,) int32 first tri
+    inst_mesh: Optional[tuple] = None  # (K,) mesh slot of each instance
+    inst_aabb_lo: Optional[torch.Tensor] = None  # (K, 3) world box
+    inst_aabb_hi: Optional[torch.Tensor] = None  # (K, 3)
 
     @property
     def device(self) -> torch.device:
         return self.trav_rows.device
 
 
-def build_tables(scene: Scene, probe: Optional[Probe] = None,
-                 atlas_size: int = 2048, device="cuda") -> Tables:
-    """The reference's tables for ``scene`` (its lights as given) and
-    ``probe``, on ``device``."""
+@dataclass
+class Geometry:
+    """The triangle tables of a flattened scene, on the host."""
+
+    bvh: FlatBVH
+    tri9: np.ndarray  # (T, 9) [p0, e1, e2] in BVH leaf order
+    tri_pack: np.ndarray  # (Tp, 9), padding rows far away
+    tri_shade: np.ndarray  # (Tp, 20)
+    trav_rows: np.ndarray  # the wide table, padded
+    wide_end: int
+    wide_stack: int
+    num_tris: int
+
+
+def build_geometry(scene: Scene) -> Geometry:
+    """Flatten ``scene``'s instances, build the BVH2 and lay out the
+    triangle tables and the wide table, as the port's
+    ``build_scene_buffers`` does."""
     p0s, p1s, p2s = [], [], []
     n0s, n1s, n2s = [], [], []
     uv0s, uv1s, uv2s = [], [], []
@@ -137,6 +166,49 @@ def build_tables(scene: Scene, probe: Optional[Probe] = None,
     def padt(a, fill=0.0):
         return pad_rows(a, Tp, fill)
 
+    e1 = (p1 - p0).astype(np.float32)
+    e2 = (p2 - p0).astype(np.float32)
+    tri_pack = np.concatenate([padt(p0, 1e30), padt(e1), padt(e2)], axis=1)
+    tri9 = np.concatenate([p0, e1, e2], axis=1)
+
+    def i32col(v):
+        return v.astype(np.int32).view(np.float32)[:, None]
+
+    geo_n = np.cross(p1 - p0, p2 - p0)
+    geo_n = geo_n / np.maximum(np.linalg.norm(geo_n, axis=1, keepdims=True),
+                               1e-20)
+    tri_shade = np.concatenate([
+        padt(n0), padt(n1), padt(n2),
+        pad_rows(uv0, Tp), pad_rows(uv1, Tp), pad_rows(uv2, Tp),
+        i32col(pad_rows(tri_mat, Tp, 0)),
+        i32col(pad_rows(tri_inst, Tp, -1)),
+        padt(geo_n.astype(np.float32)),
+    ], axis=1).astype(np.float32)
+    wide = collapse_wide(bvh, tri9)
+    # +2 rows, as the reference pads; padded rows read as internal nodes
+    # with all-empty children.
+    trav = pad_rows(wide.trav_rows, _ceil_to(wide.trav_rows.shape[0] + 2, 8),
+                    0.0)
+    for c in range(8):
+        trav[wide.end_index:, 16 * c:16 * c + 3] = 1e30
+        trav[wide.end_index:, 16 * c + 3:16 * c + 6] = -1e30
+        trav[wide.end_index:, 16 * c + 6] = np.int32(-1).view(np.float32)
+    wide_stack = 16
+    while wide_stack < wide.stack_need:
+        wide_stack *= 2
+
+    return Geometry(bvh=bvh, tri9=tri9, tri_pack=tri_pack,
+                    tri_shade=tri_shade, trav_rows=trav,
+                    wide_end=int(wide.end_index), wide_stack=int(wide_stack),
+                    num_tris=T)
+
+
+def build_tables(scene: Scene, probe: Optional[Probe] = None,
+                 atlas_size: int = 2048, device="cuda") -> Tables:
+    """The reference's tables for ``scene`` (its lights as given) and
+    ``probe``, on ``device``."""
+    geo = build_geometry(scene)
+    bvh = geo.bvh
     M = max(len(scene.materials), 1)
     Mp = _ceil_to(M, 8)
     mat_color = np.ones((Mp, 4), np.float32)
@@ -166,44 +238,12 @@ def build_tables(scene: Scene, probe: Optional[Probe] = None,
         light_ev[i] = lt.edge_v
         light_emission[i] = lt.emission * lt.intensity
 
-    e1 = (p1 - p0).astype(np.float32)
-    e2 = (p2 - p0).astype(np.float32)
-    tri_pack = np.concatenate([padt(p0, 1e30), padt(e1), padt(e2)], axis=1)
-    tri9 = np.concatenate([p0, e1, e2], axis=1)
-
-    def i32col(v):
-        return v.astype(np.int32).view(np.float32)[:, None]
-
-    geo_n = np.cross(p1 - p0, p2 - p0)
-    geo_n = geo_n / np.maximum(np.linalg.norm(geo_n, axis=1, keepdims=True),
-                               1e-20)
-    tri_shade = np.concatenate([
-        padt(n0), padt(n1), padt(n2),
-        pad_rows(uv0, Tp), pad_rows(uv1, Tp), pad_rows(uv2, Tp),
-        i32col(pad_rows(tri_mat, Tp, 0)),
-        i32col(pad_rows(tri_inst, Tp, -1)),
-        padt(geo_n.astype(np.float32)),
-    ], axis=1).astype(np.float32)
     mat_pack = np.concatenate([
         mat_color, mat_roughness[:, None], mat_metallic[:, None],
         mat_emission,
         mat_albedo_tex.view(np.float32)[:, None],
         mat_mra_tex.view(np.float32)[:, None],
     ], axis=1).astype(np.float32)
-
-    wide = collapse_wide(bvh, tri9)
-    # +2 rows, as the reference pads; padded rows read as internal nodes
-    # with all-empty children.
-    trav = pad_rows(wide.trav_rows, _ceil_to(wide.trav_rows.shape[0] + 2, 8),
-                    0.0)
-    for c in range(8):
-        trav[wide.end_index:, 16 * c:16 * c + 3] = 1e30
-        trav[wide.end_index:, 16 * c + 3:16 * c + 6] = -1e30
-        trav[wide.end_index:, 16 * c + 6] = np.int32(-1).view(np.float32)
-    wide_stack = 16
-    while wide_stack < wide.stack_need:
-        wide_stack *= 2
-
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -216,14 +256,15 @@ def build_tables(scene: Scene, probe: Optional[Probe] = None,
                   np.ones(1, np.float32),
                   np.full((1, 1), 1.0 / (4.0 * np.pi), np.float32))
     return Tables(
-        trav_rows=dev(trav), tri_pack=dev(tri_pack), tri_shade=dev(tri_shade),
-        mat_pack=dev(mat_pack), light_origin=dev(light_origin),
-        light_eu=dev(light_eu), light_ev=dev(light_ev),
+        trav_rows=dev(geo.trav_rows), tri_pack=dev(geo.tri_pack),
+        tri_shade=dev(geo.tri_shade), mat_pack=dev(mat_pack),
+        light_origin=dev(light_origin), light_eu=dev(light_eu),
+        light_ev=dev(light_ev),
         light_emission=dev(light_emission), atlas=dev(atlas.texture),
         atlas_blocks=dev(atlas.blocks), probe=dev(tables[0]),
         probe_cdf_cond=dev(tables[1]), probe_cdf_marg=dev(tables[2]),
         probe_pdf=dev(tables[3]), node_min=dev(bvh.node_min[:1]),
-        node_max=dev(bvh.node_max[:1]), wide_end=int(wide.end_index),
-        wide_stack=int(wide_stack), num_nodes=bvh.num_nodes,
+        node_max=dev(bvh.node_max[:1]), wide_end=geo.wide_end,
+        wide_stack=geo.wide_stack, num_nodes=bvh.num_nodes,
         num_lights=len(scene.lights), has_probe=probe is not None,
-        has_textures=len(scene.images) > 0, num_tris=T)
+        has_textures=len(scene.images) > 0, num_tris=geo.num_tris)

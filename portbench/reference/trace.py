@@ -3,10 +3,12 @@ port's wide traversal (``loupiote_tpu_torch/ops/wide.py::wide_trace_plain``)
 with ``ops/intersect.py``'s Moller-Trumbore, ``recompute_uv`` and shadow
 query, over the reference's own wide table (``tables.py``).
 
-Every closest-hit and any-hit wave takes this path, whatever dispatch the
-program makes: the nearest hit and the blocked bit do not depend on the
-tree, so the answers are the kernel's up to ties between triangles at one
-``t``.
+Every closest-hit and any-hit wave of a flattened scene takes this path,
+whatever dispatch the program makes: the nearest hit and the blocked bit
+do not depend on the tree, so the answers are the kernel's up to ties
+between triangles at one ``t``. A two-level scene's waves take the
+instance loop of ``instanced.py``, which walks each BLAS with the twin of
+the kernel the port picks for it.
 """
 
 from __future__ import annotations
@@ -214,6 +216,20 @@ def ray_args(ro, rd, tmax, active):
 
 def intersect_any(scene, ro, rd, tmax=None, active=None,
                   any_hit: bool = False) -> Hit:
+    """Hit record of a wave: a two-level scene's (``Tables.blas`` set)
+    from the instance loop of ``instanced.py``, any other's from the
+    wide traversal."""
+    if scene.blas is not None:
+        from .instanced import intersect_instanced
+
+        return intersect_instanced(scene, ro, rd, tmax=tmax, active=active,
+                                   any_hit=any_hit)
+    return intersect_wide(scene, ro, rd, tmax=tmax, active=active,
+                          any_hit=any_hit)
+
+
+def intersect_wide(scene, ro, rd, tmax=None, active=None,
+                   any_hit: bool = False) -> Hit:
     """Hit record of the wide traversal: a miss returns ``(tmax or T_FAR,
     -1)``; inactive rays return tri -1; u, v from ``recompute_uv``."""
     ro, rd, t0, act = ray_args(ro, rd, tmax, active)
@@ -231,9 +247,13 @@ def intersect_any(scene, ro, rd, tmax=None, active=None,
 
 def occluded(scene, ro, rd, dist, active=None) -> torch.Tensor:
     """Shadow query: True where the segment [T_MIN, dist) is blocked."""
+    if scene.blas is not None:
+        from .instanced import occluded_instanced
+
+        return occluded_instanced(scene, ro, rd, dist, active=active)
     tmax = dist * (1.0 - 1e-3)
-    out = intersect_any(scene, ro, rd, tmax=tmax, active=active,
-                        any_hit=True).tri > 0
+    out = intersect_wide(scene, ro, rd, tmax=tmax, active=active,
+                         any_hit=True).tri > 0
     if active is not None:
         out = out & active
     return out

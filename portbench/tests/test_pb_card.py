@@ -1,5 +1,6 @@
 """On the card: a small run of each cell through K1 comes out correct,
-and the control does not."""
+and the control does not; the viewer hall rendered two-level is judged
+exact by the reference that follows ``render.instancing``."""
 
 import time
 
@@ -25,3 +26,30 @@ def test_small_run_on_the_card(card, name):
     out = control_readings(cell, 2**31 + 17, card, window_frames=2,
                            lowp=torch.bfloat16)
     assert judge.verdict(out["worst"], cell.limits) is False
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ("viewer720p-flythrough-denoised",
+                                  "viewer720p-flythrough-pathtrace"))
+def test_two_level_viewer_hall_on_the_card(card, name):
+    """The viewer hall as two-level buffers (222 instances, 24 BLASes) at
+    the cell's 640 x 360: the port's frames through K2 (its warm-up frames
+    and three flight frames) are judged 0.0 / 0.0 by the reference with
+    ``render.instancing``, and the control on the same frames fails both
+    limits. The frame times printed come from this side path, not from a
+    cell."""
+    from conftest import judged, two_level_cell, two_level_frames
+
+    seed = 2**31 + 29
+    cell = two_level_cell(name)
+    warm, window, ms = two_level_frames(cell, seed, card, window_frames=3)
+    print(f"\n{name} two-level: flight frame ms (step + blit) "
+          + ", ".join(f"{v:.3f}" for v in ms))
+    out = judged(cell, seed, card, warm, window)
+    assert out["worst"] == {"image_rel_l1": 0.0, "blit_mean_abs": 0.0}, \
+        out["frames"]
+    ctl = control_readings(cell, seed, card, window_frames=3,
+                           lowp=torch.bfloat16)
+    print(f"{name} two-level control: {ctl['worst']}")
+    for n, limit in cell.limits.items():
+        assert ctl["worst"][n] > limit, (n, ctl["worst"])

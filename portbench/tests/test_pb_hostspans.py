@@ -87,6 +87,46 @@ def test_host_readings_of_a_recording():
     assert set(tenths) == {"step", "shade0", "shadow", "asvgf"}
 
 
+def test_named_readings_of_a_new_span_and_counter():
+    """Any span or counter is read by name: a ``tlas`` span inside
+    ``intersect0`` and a ``tlas_waves`` counter the recording above does
+    not hold; the readings of the existing names are as before."""
+    from loupiote_tpu_torch.spans import Span
+
+    rec = recording(2)
+    ms = 1_000_000
+    for k in (1, 2):
+        t = k * 100 * ms
+        base = len(rec.spans)
+        rec.spans += [Span("intersect0", t + 30 * ms, t + 34 * ms, -1, k),
+                      Span("tlas", t + 31 * ms, t + 33 * ms, base, k)]
+        rec.count("tlas_waves", "step/intersect0/tlas", 24)
+    got = hostspans.named_readings(rec)
+    assert got["span_ms:tlas"] == pytest.approx(2.0)
+    assert got["span_ms:intersect0"] == pytest.approx(4.0)
+    assert got["span_ms:shade0"] == pytest.approx(4.0)
+    assert got["span_ms:sync"] == pytest.approx(2.25)
+    assert got["count:tlas_waves"] == 24.0
+    assert got["count:tlas_waves:step/intersect0/tlas"] == 24.0
+    assert got["count:slots"] == 200.0
+    assert got["count:sync:camera"] == 2.0
+    assert hostspans.named_readings(recording(0)) == {}
+    assert hostspans.host_readings(rec) == pytest.approx({
+        "step_host_ms": 10.0, "blit_ms": 3.0, "sync_wait_ms": 1.25,
+        "host_syncs_per_frame": 4.0, "shade_host_ms": 2.5,
+        "asvgf_host_ms": 2.0, "live_ray_share": 75.0})
+
+
+def test_a_metric_file_reads_by_name(monkeypatch):
+    monkeypatch.setattr(hostspans, "_measure",
+                        lambda ctx: hostspans.named_readings(recording(3)))
+    monkeypatch.setattr(hostspans, "_last", None)
+    ctx = NS()
+    assert hostspans.reading(ctx, "span_ms:shade0") == pytest.approx(4.0)
+    assert hostspans.reading(ctx, "count:slots") == 200.0
+    assert hostspans.reading(ctx, "span_ms:tlas") is None
+
+
 def test_readers_read_the_stretch_once(monkeypatch):
     calls = []
 
@@ -164,6 +204,8 @@ def test_stretches_on_the_cpu(cpu_session, monkeypatch):
     assert got["step_host_ms"] > got["asvgf_host_ms"] > 0
     assert got["host_syncs_per_frame"] == 6.0  # 2 + 1 + 2 + 1
     assert 0 < got["live_ray_share"] < 100
+    assert got["span_ms:step"] == pytest.approx(got["step_host_ms"])
+    assert got["count:sync"] == 6.0 and got["count:slots"] > 0
     # No device activity in a CPU trace: no idle reading.
     assert hostspans.idle_stretch(spans, cpu_session, dev, 1) == {}
     hostspans.clock_stretch(spans, cpu_session, dev)

@@ -48,3 +48,125 @@ def test_tables_match_the_programs(kw):
     assert torch.equal(pb.tri_shade[:, cols].view(torch.int32),
                        rt.tri_shade[:, cols].view(torch.int32))
     assert runner.flat_triangles(scene) == rt.num_tris
+
+
+def _same_bytes(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.view(torch.uint8) if a.dtype != torch.uint8 else a,
+        b.view(torch.uint8) if b.dtype != torch.uint8 else b)
+
+
+@pytest.mark.parametrize("kw", [dict(triangles=260_000, props=200),
+                                dict(triangles=4_000, props=20)],
+                         ids=["viewer-hall", "hall4k-props20"])
+def test_two_level_tables_match_the_programs(kw):
+    """The reference's two-level tables (``render.instancing``) are the
+    port's ``build_instanced_buffers``, byte for byte: every BLAS's wide
+    and BVH2 tables, the stacked triangles, the instance table and the
+    world bounds."""
+    from loupiote_tpu_torch.scene import Scene, load_gltf
+    from loupiote_tpu_torch.scene.hdr import build_probe as port_probe
+    from loupiote_tpu_torch.scene.hdr import read_hdr as port_read
+    from loupiote_tpu_torch.scene.instanced import build_instanced_buffers
+    from portbench.reference.instanced import build_instanced_tables
+    from portbench.reference.probe import build_probe, read_hdr
+
+    scene = inputs.build_hall(kw["triangles"], textured=True,
+                              props=kw["props"])
+    hdr = inputs.hdr_bytes(inputs.sky_equirect(64, 128, 2**31 + 5))
+    prog = Scene.default()
+    load_gltf(inputs.scene_glb(scene), prog)
+    prog.fit_default_light(10.0)
+    pb = build_instanced_buffers(prog, probe=port_probe(port_read(hdr)),
+                                 device="cpu")
+    ref_scene = copy.copy(scene)
+    ref_scene.lights = list(scene.lights)
+    ref_scene.fit_default_light(10.0)
+    rt = build_instanced_tables(ref_scene, probe=build_probe(read_hdr(hdr)),
+                                device="cpu")
+    assert len(rt.inst_mesh) == 22 + kw["props"]
+    assert len(pb.blas) == len(rt.blas) == 24
+    for k, (p, r) in enumerate(zip(pb.blas, rt.blas)):
+        for name in ("trav_rows", "node_rows", "leaf_rows", "tri_pack",
+                     "tri_shade"):
+            assert _same_bytes(getattr(p, name), getattr(r, name)), (k, name)
+        assert (p.num_nodes, p.stack_depth, p.wide_end, p.wide_stack,
+                p.num_tris) == (r.num_nodes, r.stack_depth, r.wide_end,
+                                r.wide_stack, r.num_tris), k
+    for name in ("tri_pack", "tri_shade", "inst_w2o", "inst_nmat",
+                 "inst_tri_base", "inst_aabb_lo", "inst_aabb_hi",
+                 "trav_rows", "atlas", "atlas_blocks", "light_origin",
+                 "light_eu", "light_ev", "light_emission", "probe",
+                 "probe_cdf_cond", "probe_cdf_marg", "probe_pdf"):
+        assert _same_bytes(getattr(pb, name), getattr(rt, name)), name
+    assert _same_bytes(pb.node_min[:1], rt.node_min[:1])
+    assert _same_bytes(pb.node_max[:1], rt.node_max[:1])
+    # The loader puts a default material first: the ids differ by one.
+    assert torch.equal(pb.inst_mat_id, rt.inst_mat_id + 1)
+    assert pb.inst_mesh == rt.inst_mesh
+    assert (pb.num_nodes, pb.num_tris) == (rt.num_nodes, rt.num_tris)
+
+
+TWO_LEVEL = ("viewer720p-flythrough-pathtrace",
+             "viewer720p-flythrough-denoised")
+SEEDS = (2**31 + 5, 3_000_000_011, 7)
+
+
+def _program_frames(name: str, seed: int, triangles: int = 20_000):
+    """The port's frames of the cell on two-level buffers at 128 x 64: the
+    warm-up frames and one window frame."""
+    from conftest import two_level_cell, two_level_frames
+
+    cell = two_level_cell(name, triangles=triangles)
+    warm, window, _ = two_level_frames(cell, seed, torch.device("cpu"),
+                                       window_frames=1)
+    return cell, warm, window
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("name", TWO_LEVEL)
+def test_two_level_frames_match_the_programs(name, seed):
+    """With ``render.instancing`` the reference renders the port's
+    two-level frames exactly (the viewer hall's 222 instances: 22 culled
+    visits and two 100-instance candidate groups a wave)."""
+    from conftest import judged
+
+    cell, warm, window = _program_frames(name, seed)
+    out = judged(cell, seed, "cpu", warm, window)
+    assert out["worst"] == {"image_rel_l1": 0.0, "blit_mean_abs": 0.0}
+
+
+def test_the_flat_reference_fails_two_level_frames():
+    """Judged by the flattened reference, sound two-level frames read far
+    over the limits: in a 100,000-triangle hall the flattened tree is past
+    the bounce sort's gate and the two-level scene is not (its shell has
+    one node), so rays draw other random numbers. The reference has to
+    follow the configuration."""
+    from conftest import judged
+
+    cell, warm, window = _program_frames(TWO_LEVEL[0], SEEDS[0],
+                                         triangles=100_000)
+    flat = copy.deepcopy(cell)
+    del flat.config["render"]["instancing"]
+    out = judged(flat, SEEDS[0], "cpu", warm, window)
+    for n, limit in cell.limits.items():
+        assert out["worst"][n] > 10 * limit, (n, out["worst"])
+
+
+def test_two_level_frames_with_k1_blases(monkeypatch):
+    """The BLASes past the dispatch threshold take K1's twin on both
+    sides: with the threshold lowered to 100 BVH2 nodes (the 4k hall's
+    shell and floor then walk the wide table), the frames still match."""
+    from conftest import judged, two_level_cell, two_level_frames
+
+    from loupiote_tpu_torch.ops import intersect as port_intersect
+    from portbench.reference import instanced
+
+    monkeypatch.setattr(port_intersect, "_WIDE_MIN_NODES", 100)
+    monkeypatch.setattr(instanced, "WIDE_MIN_NODES", 100)
+    cell = two_level_cell(TWO_LEVEL[0], triangles=4_000)
+    cell.config["scene"]["props"] = 20
+    warm, window, _ = two_level_frames(cell, SEEDS[1], torch.device("cpu"),
+                                       window_frames=1)
+    out = judged(cell, SEEDS[1], "cpu", warm, window)
+    assert out["worst"] == {"image_rel_l1": 0.0, "blit_mean_abs": 0.0}

@@ -105,3 +105,80 @@ def test_metrics_silent_without_a_trace():
     for name in ("shade_ms", "k1_roofline", "idle_share",
                  "launches_per_frame"):
         assert metrics.read(name, c) is None
+
+
+def nested_events():
+    """One frame whose ranges are user annotations on the host, as
+    ``record_function`` makes them: ``intersect0`` holding ``tlas``,
+    which holds ``select``, a kernel directly under each; ``shade0``
+    holding ``shadow``; a copy under no range; the ranges' device-side
+    annotations, which are not work."""
+    def rng(name, parent=None):
+        e = host(name, parent)
+        e.is_user_annotation = True
+        return e
+
+    step = rng("ProfilerStep#3")
+    isect = rng("intersect0", step)
+    tlas = rng("tlas", isect)
+    select = rng("select", tlas)
+    shade = rng("shade0", step)
+    shadow = rng("shadow", shade)
+    ev = [step, isect, tlas, select, shade, shadow]
+
+    def launch(parent, eid, name, t0, t1):
+        op = host("aten::add", parent)
+        call = host("cudaLaunchKernel", op, eid)
+        ev.extend([op, call, dev(name, eid, t0, t1)])
+
+    launch(isect, 1, "k_isect", 0.0, 100.0)
+    launch(tlas, 2, "k_tlas", 100.0, 300.0)
+    launch(select, 3, "k_select", 300.0, 700.0)
+    launch(select, 4, "k_select", 700.0, 800.0)
+    launch(shade, 5, "k_shade", 900.0, 950.0)
+    launch(shadow, 6, "k_shadow", 950.0, 1250.0)
+    launch(step, 7, "Memcpy DtoH", 1300.0, 1310.0)
+    ev += [dev("intersect0", 90, 0.0, 800.0, annotation=True),
+           dev("tlas", 91, 100.0, 800.0, annotation=True)]
+    return ev
+
+
+def test_by_range_reads_every_name():
+    got = tracing.by_range(nested_events())
+    assert got == {"intersect0": [pytest.approx(0.1), 1],
+                   "tlas": [pytest.approx(0.2), 1],
+                   "select": [pytest.approx(0.5), 2],
+                   "shade0": [pytest.approx(0.05), 1],
+                   "shadow": [pytest.approx(0.3), 1],
+                   "": [pytest.approx(0.01), 1]}
+    assert tracing.range_names(nested_events()) == {
+        "intersect0", "tlas", "select", "shade0", "shadow"}
+    # The tokens read as before: the nested ranges stay in intersect0.
+    tokens = tracing.frame_tokens(1, denoised=False)
+    passes = tracing.attribute(nested_events(), tokens)
+    assert passes["intersect0"] == [pytest.approx(0.8), 4]
+    assert passes["shade0"] == [pytest.approx(0.05), 1]
+    assert passes["shade0/shadow"] == [pytest.approx(0.3), 1]
+    assert passes["other"] == [pytest.approx(0.01), 1]
+    # A trace whose ranges carry no annotation flag (the synthetic frame
+    # above) attributes by tokens as before and has no named range.
+    assert tracing.by_range(frame_events()) == {"": [pytest.approx(0.61),
+                                                      5]}
+
+
+def test_metrics_read_a_range_by_name():
+    ev = nested_events()
+    c = ctx(passes=tracing.attribute(ev, tracing.frame_tokens(1, False)),
+            ranges=tracing.by_range(ev), pass_frames=2,
+            device=tracing.device_summary(ev), device_frames=1,
+            device_wall_s=0.002)
+    assert metrics.range_ms(c, "select") == pytest.approx(0.25)
+    assert metrics.range_ms(c, "tlas") == pytest.approx(0.1)
+    assert metrics.range_ms(c, "intersect0") == pytest.approx(0.05)
+    assert metrics.range_ms(c, "asvgf") is None
+    assert metrics.range_ms(ctx(), "select") is None
+    # The existing readers read what they read before.
+    assert metrics.read("intersect_ms", c) == pytest.approx(0.4)
+    assert metrics.read("shade_ms", c) == pytest.approx(0.025)
+    assert metrics.read("shadow_ms", c) == pytest.approx(0.15)
+    assert metrics.read("launches_per_frame", c) == 6
