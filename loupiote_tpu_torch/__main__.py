@@ -5,7 +5,7 @@ Usage:
     python -m loupiote_tpu_torch render scene.glb out.png [--env probe.hdr]
         [--spp 16] [--size 1280x720] [--scale 0.5] [--bounces 3]
         [--mode pathtrace|denoised|gbuffer|motion] [--camera x,y,z,dx,dy,dz]
-        [--device cuda]
+        [--device cuda] [--instancing]
     python -m loupiote_tpu_torch flythrough scene.glb outdir [--frames 60] ...
     python -m loupiote_tpu_torch serve scene.glb [--port 8722] ...
     python -m loupiote_tpu_torch info scene.glb
@@ -43,6 +43,9 @@ def _add_common(p):
                         "scene bounds at the given intensity")
     p.add_argument("--device", default="cuda",
                    help="torch device the frames run on (default: the card)")
+    p.add_argument("--instancing", action="store_true",
+                   help="upstream's two-level layout: one BLAS a mesh under "
+                        "an instance table, instead of one flattened BVH")
 
 
 def _setup(args):
@@ -52,7 +55,8 @@ def _setup(args):
     w, h = (int(v) for v in args.size.split("x"))
     cfg = RenderConfig(downsample_factor=args.scale,
                        bounces_static=args.bounces,
-                       bounces_moving=args.bounces)
+                       bounces_moving=args.bounces,
+                       instancing=args.instancing)
     d = Driver(size=(w, h), config=cfg, device=args.device)
     # Every positional scene merges into one session, each optionally
     # translated, as the reference app's start-up session does.

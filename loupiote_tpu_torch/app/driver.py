@@ -31,10 +31,12 @@ from .. import _build, spans
 from ..config import BlitMode, RenderConfig, Settings
 from ..errors import FileNotFound, TextureToBufferReadFail
 from ..image_codec import write_png
+from ..ops.intersect import uses_bvh2
 from ..render import CameraController, Renderer
 from ..scene import (Scene, build_scene_buffers, load_binary_from_path,
                      load_gltf, load_gltf_path, load_probe)
 from ..scene.blue_noise import generate_blue_noise, load_noise_png
+from ..scene.instanced import build_instanced_buffers
 
 
 class EditorCommand:
@@ -134,14 +136,27 @@ class Driver:
 
     def upload_scene(self) -> None:
         """Build the scene's tables on the renderer's device, bind them and
-        keep the scene's stats."""
+        keep the scene's stats. ``RenderConfig.instancing`` builds
+        upstream's two-level layout (``build_instanced_buffers``: one BLAS
+        a mesh under the instance table), else every instance is
+        flattened into one BVH. ``bvh_nodes`` is the node count the
+        renderer's sort gate reads (a two-level scene's shell: one node);
+        a two-level scene's stats add its BLASes, how many take K1 and
+        K2 (``ops/intersect.py``'s dispatch) and their summed nodes."""
         self.scene.add_default_light_if_empty()
-        bufs = build_scene_buffers(self.scene, probe=self.probe,
-                                   atlas_size=self.renderer.config.atlas_size,
-                                   device=self.renderer.device)
+        build = (build_instanced_buffers if self.renderer.config.instancing
+                 else build_scene_buffers)
+        bufs = build(self.scene, probe=self.probe,
+                     atlas_size=self.renderer.config.atlas_size,
+                     device=self.renderer.device)
         self.renderer.set_resources(bufs)
         stats = self.scene.stats()
         stats["bvh_nodes"] = bufs.num_nodes
+        if bufs.blas is not None:
+            k2 = sum(uses_bvh2(b) for b in bufs.blas)
+            stats.update(blas=len(bufs.blas), blas_k1=len(bufs.blas) - k2,
+                         blas_k2=k2,
+                         blas_nodes=sum(b.num_nodes for b in bufs.blas))
         self.stats = stats
 
     # -- commands --------------------------------------------------------------

@@ -75,6 +75,10 @@ def render_status(driver, error: Optional[Exception] = None) -> str:
         f"{scene.get('bvh_nodes', 0)} BVH nodes, "
         f"{scene.get('instances', 0)} instances",
     ]
+    if "blas" in scene:
+        lines.append(f"two-level: {scene['blas']} BLASes "
+                     f"({scene['blas_k1']} on K1, {scene['blas_k2']} on K2), "
+                     f"{scene['blas_nodes']} BLAS nodes")
     err = error_window(error)["error"]
     if err:
         lines.append(f"ERROR: {err}")

@@ -1,7 +1,11 @@
 """Render configuration (counterpart of ``loupiote_tpu/config.py``).
 
 Pure Python; the fields and their defaults are the reference's, so a
-``RenderConfig`` means the same frame in both packages.
+``RenderConfig`` means the same frame in both packages. One field is the
+port's own: ``instancing``, the scene layout ``Driver.upload_scene``
+builds. The JAX ``RenderConfig`` has no such field (its app always
+flattens); at the field's default the port renders what the JAX
+package renders.
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ class RenderConfig:
     atrous_iterations: int = 4
     denoise: bool = True
     samples_per_frame: int = 1
+    # Upstream's two-level layout: one BLAS a mesh under an instance table
+    # (scene/instanced.py), instead of every instance flattened into one
+    # BVH.
+    instancing: bool = False
 
     @property
     def max_pixels(self) -> int:

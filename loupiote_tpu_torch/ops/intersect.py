@@ -150,7 +150,9 @@ def ray_args(ro, rd, tmax, active):
     return ro.contiguous(), rd.contiguous(), t0, act
 
 
-def _bvh2(scene) -> bool:
+def uses_bvh2(scene) -> bool:
+    """True where the dispatch sends ``scene`` to the BVH2 kernels (K2 /
+    K3), False where to the wide one (K1)."""
     return scene.num_nodes < _WIDE_MIN_NODES
 
 
@@ -165,7 +167,7 @@ def path_libraries(scene) -> list:
     if _instanced(scene):
         libs = [lib for b in scene.blas for lib in path_libraries(b)]
         return list(dict.fromkeys(libs))
-    libs = ["bvh2_traverse" if _bvh2(scene) else "wide_traverse"]
+    libs = ["bvh2_traverse" if uses_bvh2(scene) else "wide_traverse"]
     if scene.treelet is not None:
         from ..treelet.pipeline import LIBRARIES
 
@@ -189,7 +191,7 @@ def intersect_any(scene, ro, rd, tmax=None, active=None,
 
         return treelet_intersect(scene, ro, rd, tmax=tmax, active=active,
                                  any_hit=any_hit)
-    if _bvh2(scene):
+    if uses_bvh2(scene):
         from .bvh2 import intersect_bvh2
 
         return intersect_bvh2(scene, ro, rd, tmax=tmax, active=active,
@@ -207,7 +209,7 @@ def occluded(scene, ro, rd, dist, active=None) -> torch.Tensor:
 
         return occluded_instanced(scene, ro, rd, dist, active=active)
     tmax = dist * (1.0 - 1e-3)
-    if _bvh2(scene):
+    if uses_bvh2(scene):
         from .bvh2 import occluded_bvh2
 
         return occluded_bvh2(scene, ro, rd, tmax, active=active)

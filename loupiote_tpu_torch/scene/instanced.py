@@ -22,6 +22,17 @@ mode is not ported):
     overlap more boxes than that. The drain runs the same kernels (the
     reference's drain avoided its Pallas kernels only because a Pallas
     call inside a loop crashed XLA:TPU).
+
+Spans and counts (``spans.py``): each call of the instance loop is a
+``tlas`` span (inside ``intersect{N}``, or ``shadow`` through
+``occluded_instanced``), and each BLAS traversal in it a ``blas`` span,
+so that the loop's own work and its traversals time apart. A recording
+counts ``("tlas", "visit" | "wave" | "drain")`` by traversal kind,
+``("blas", "k1" | "k2")`` by the kernel the dispatch picks, and the
+copies of a candidate group that wait for the device's queue as ``sync``
+sites: ``tlas_ids`` (its instance ids uploaded), ``tlas_gather`` (the
+rays near the group), ``tlas_pending`` (whether any ray needs the drain)
+and ``tlas_drain`` (whether a drain wave found a box).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from .buffers import SceneBuffers, build_scene_buffers
 from .hdr import Probe
 from .types import INVALID_INDEX, Instance, Scene
@@ -276,28 +288,26 @@ def _set_bits(processed, ids, on):
     return processed
 
 
-# Drain iterations since the last reset_counters(): each runs one wave of
-# its mesh group's kernel (0 at the 1080p instanced frame, where no ray
-# overlaps more than TLAS_C boxes of a group).
-drain_iterations = 0
+def _traverse(blas, ro, rd, tmax, active, any_hit):
+    """One BLAS traversal under a ``blas`` span, counted by the kernel
+    that ``ops/intersect.py``'s dispatch picks for the BLAS."""
+    from ..ops.intersect import intersect_any, uses_bvh2
 
-
-def reset_counters() -> None:
-    global drain_iterations
-    drain_iterations = 0
+    spans.count("blas", "k2" if uses_bvh2(blas) else "k1")
+    with spans.span("blas"):
+        return intersect_any(blas, ro, rd, tmax=tmax, active=active,
+                             any_hit=any_hit)
 
 
 def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
     """Traverse one mesh group (instance ids ``idx``) by candidate waves.
     ``carry`` = (best_t, best_tri, best_inst); in any-hit mode best_t
     stays the caller's tmax and best_tri >= 0 marks a blocked ray."""
-    from ..ops.intersect import intersect_any
-
-    global drain_iterations
     blas = bufs.blas[slot]
     Ks = len(idx)
     C = min(max(int(TLAS_C), 1), Ks)
-    gids = torch.as_tensor(np.asarray(idx, np.int64), device=ro.device)
+    with spans.sync("tlas_ids"):  # a blocking copy to the device
+        gids = torch.as_tensor(np.asarray(idx, np.int64), device=ro.device)
     lo, hi = bufs.inst_aabb_lo[gids], bufs.inst_aabb_hi[gids]
     w2o_tbl = bufs.inst_w2o[gids]
     tri_base = bufs.inst_tri_base[int(idx[0])]  # one mesh: one base
@@ -311,7 +321,8 @@ def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
     near = _ray_box_overlap(ro, rd, lo.amin(0), hi.amax(0), lim0)
     if any_hit:
         near = near & (carry[1] < 0)
-    sub = torch.nonzero(near).flatten()
+    with spans.sync("tlas_gather"):
+        sub = torch.nonzero(near).flatten()
     if sub.numel() == 0:
         return carry
     full = carry
@@ -331,8 +342,7 @@ def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
         if any_hit:
             lane = lane & (best_tri < 0)
         ro_o, rd_o = _to_object(w2o_tbl[sel_id], ro, rd)
-        hit = intersect_any(blas, ro_o, rd_o, tmax=best_t, active=lane,
-                            any_hit=any_hit)
+        hit = _traverse(blas, ro_o, rd_o, best_t, lane, any_hit)
         win = hit.tri >= 0
         if not any_hit:
             win = win & (hit.t < best_t)
@@ -343,6 +353,7 @@ def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
         return best_t, best_tri, best_inst
 
     for c in range(C):
+        spans.count("tlas", "wave")
         carry = wave(carry, ids[:, c], tns[:, c])
     if C >= Ks:
         return scatter(carry)
@@ -354,7 +365,9 @@ def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
     pend = act & (n_ov > C) & (tns[:, C - 1] < best_t)
     if any_hit:
         pend = pend & (best_tri < 0)
-    if not bool(pend.any()):
+    with spans.sync("tlas_pending"):
+        pending = bool(pend.any())
+    if not pending:
         return scatter(carry)
     processed = torch.zeros((ro.shape[0], Ks), dtype=torch.bool,
                             device=ro.device)
@@ -367,23 +380,31 @@ def _candidate_group(bufs, slot, idx, carry, ro, rd, act, any_hit):
             lim = torch.where(best_tri < 0, lim, -torch.inf)
         nid, ntn, valid = _select_next(ro, rd, lim, lo, hi, processed)
         processed = _set_bits(processed, nid, valid)
+        spans.count("tlas", "drain")
         best_t, best_tri, best_inst = wave(
             (best_t, best_tri, best_inst), torch.where(valid, nid, 0),
             torch.where(valid, ntn, torch.inf))
-        drain_iterations += 1
-        if not bool(valid.any()):
+        with spans.sync("tlas_drain"):
+            more = bool(valid.any())
+        if not more:
             return scatter((best_t, best_tri, best_inst))
 
 
 def intersect_instanced(bufs: SceneBuffers, ro, rd, tmax=None, active=None,
                         any_hit: bool = False):
-    """The instance loop: per instance (or per candidate wave), rays to
-    object space and the mesh's kernel, the running best t bounding each
-    later traversal. A later instance wins only with a strictly nearer
-    hit, so the first visited keeps a tie. u, v are replayed once, in the
-    object space of each ray's winning instance (0 in any-hit mode, where
-    only ``tri >= 0`` carries meaning)."""
-    from ..ops.intersect import T_FAR, Hit, intersect_any, recompute_uv
+    """The instance loop, under a ``tlas`` span: per instance (or per
+    candidate wave), rays to object space and the mesh's kernel, the
+    running best t bounding each later traversal. A later instance wins
+    only with a strictly nearer hit, so the first visited keeps a tie.
+    u, v are replayed once, in the object space of each ray's winning
+    instance (0 in any-hit mode, where only ``tri >= 0`` carries
+    meaning)."""
+    with spans.span("tlas"):
+        return _instance_loop(bufs, ro, rd, tmax, active, any_hit)
+
+
+def _instance_loop(bufs, ro, rd, tmax, active, any_hit):
+    from ..ops.intersect import T_FAR, Hit, recompute_uv
 
     R = ro.shape[0]
     dev = ro.device
@@ -404,8 +425,9 @@ def intersect_instanced(bufs: SceneBuffers, ro, rd, tmax=None, active=None,
         if any_hit:
             lane = lane & (best_tri < 0)
         ro_o, rd_o = _to_object(bufs.inst_w2o[k], ro, rd)
-        hit = intersect_any(bufs.blas[bufs.inst_mesh[k]], ro_o, rd_o,
-                            tmax=best_t, active=lane, any_hit=any_hit)
+        spans.count("tlas", "visit")
+        hit = _traverse(bufs.blas[bufs.inst_mesh[k]], ro_o, rd_o, best_t,
+                        lane, any_hit)
         win = hit.tri >= 0
         if not any_hit:
             win = win & (hit.t < best_t)

@@ -7,20 +7,21 @@
     rec.counts[("sync", "camera")]       # host syncs at that site
 
 ``span(name)`` opens the ``torch.profiler.record_function`` range of the
-same name, so a profiler's trace attributes device work to it, and while
-a recording is on it also keeps a ``Span``: the name, its start and end on
+same name while a profiler is on, so its trace attributes device work to
+it, and while a recording is on it also keeps a ``Span``: the name, its start and end on
 ``time.perf_counter_ns``, its parent and its frame. ``Driver.step`` opens
 each frame's ``step`` span with ``new_frame=True``, which advances the
-frame number that the spans of that frame share. With no recording on, a
-span costs one check beyond its range: it keeps nothing, launches nothing
-and does not wait for the device.
+frame number that the spans of that frame share. With no recording and
+no profiler on, a span costs two checks: it keeps nothing, opens no
+range, launches nothing and does not wait for the device.
 
-Counts are kept where the work happens. ``sync(site)`` is a ``sync`` span
-around a copy between host and device (which waits for the device's
-queue), counted by site on the host. ``rays(active)`` counts a wave's live
-rays against its slots, keyed by the path of the open spans: the slots on
-the host, the live rays as one reduction added into a ``DeviceCounter``,
-read once when the recording stops.
+Counts are kept where the work happens: ``count(name, key)`` adds to one
+on the host. ``sync(site)`` is a ``sync`` span around a copy between host
+and device (which waits for the device's queue), counted by site on the
+host. ``rays(active)`` counts a wave's live rays against its slots, keyed
+by the path of the open spans: the slots on the host, the live rays as one
+reduction added into a ``DeviceCounter``, read once when the recording
+stops.
 
 ``Recording.clock`` is one ``(perf_counter_ns, time_ns)`` pair taken when
 the recording starts; ``Recording.unix_ns`` puts a span's times on the
@@ -70,8 +71,9 @@ class Recording:
 
     def __init__(self):
         self.spans: list = []
-        # (name, key) -> count: ("sync", site), ("slots", path) and
-        # ("live", path), the last read from the device at the end.
+        # (name, key) -> count: ("sync", site), ("slots", path),
+        # ("live", path), the last read from the device at the end, and
+        # the two-level traversal's ("tlas", kind) and ("blas", kernel).
         self.counts: dict = {}
         self.frame = 0  # the current frame's number; 0 before any frame
         self.clock = _clock_pair()
@@ -137,11 +139,11 @@ class Recording:
         """{name: ms} of frame ``frame``'s spans (the current frame when
         None), each name's durations summed."""
         frame = self.frame if frame is None else frame
-        out: dict = {}
+        ns: dict = {}
         for s in self.spans:
             if s.frame == frame and s.end_ns >= 0:
-                out[s.name] = out.get(s.name, 0.0) + s.ns / 1e6
-        return out
+                ns[s.name] = ns.get(s.name, 0) + s.ns
+        return {name: v / 1e6 for name, v in ns.items()}
 
     def total(self, name: str) -> int:
         """The sum of the counts named ``name`` over their keys."""
@@ -149,6 +151,7 @@ class Recording:
 
 
 _active: Optional[Recording] = None
+_profiler_on = torch._C._autograd._profiler_enabled
 
 
 def active() -> Optional[Recording]:
@@ -188,14 +191,26 @@ class span:
         rec = self._rec = _active
         if rec is not None:
             self._i = rec._open_span(self._name, self._new_frame)
-        self._range = record_function(self._name)
-        self._range.__enter__()
+        # A range records nothing while no profiler is on, and entering one
+        # costs the host ~10 us: a two-level frame opens hundreds.
+        self._range = (record_function(self._name) if _profiler_on()
+                       else None)
+        if self._range is not None:
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
-        self._range.__exit__(*exc)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         if self._rec is not None:
             self._rec._close_span(self._i)
+
+
+def count(name: str, key: str, n: int = 1) -> None:
+    """While recording, add ``n`` to the count ``(name, key)`` on the
+    host."""
+    if _active is not None:
+        _active.count(name, key, n)
 
 
 def sync(site: str) -> span:

@@ -36,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.bvh2 import bvh2_trace
-from ..ops.intersect import DeviceCounter, Hit, _bvh2, ray_args, recompute_uv
+from ..ops.intersect import (DeviceCounter, Hit, ray_args, recompute_uv,
+                             uses_bvh2)
 from ..ops.wide import wide_trace
 from .build import TILE
 from .lane_bottom import lane_bottom_rays, unpack_hits
@@ -144,7 +145,7 @@ def _fallback_trace(scene, ro, rd, t0, act, any_hit: bool):
     """(t, tri) of the port's non-treelet traversal, without u, v: K2 on
     scenes below 8,192 BVH2 nodes, K1 from there on; any-hit tri is -1
     where nothing blocks."""
-    if _bvh2(scene):
+    if uses_bvh2(scene):
         t, _, _, tri = bvh2_trace(scene.node_rows, scene.leaf_rows, ro, rd,
                                   t0, act, any_hit, scene.num_nodes,
                                   scene.stack_depth)

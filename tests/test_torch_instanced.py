@@ -33,7 +33,7 @@ from loupiote_tpu.scene.instanced import \
     build_instanced_buffers as ref_build_instanced
 from loupiote_tpu.scene.instanced import update_instance as ref_update
 from loupiote_tpu_torch import (Renderer, RenderConfig, build_scene_buffers,
-                                from_reference, trace_paths)
+                                from_reference, spans, trace_paths)
 from loupiote_tpu_torch.ops.intersect import (intersect_any, occluded,
                                               path_libraries)
 from loupiote_tpu_torch.scene import instanced
@@ -249,10 +249,10 @@ def test_forced_drain_matches_reference(builds, monkeypatch):
     from the drain, closest-hit and any-hit."""
     monkeypatch.setenv("LOUPIOTE_TLAS_C", "1")
     monkeypatch.setattr(instanced, "TLAS_C", 1)
-    instanced.reset_counters()
-    ref_hit, hit = _both("drain20", builds, ref_intersect, intersect_any)
+    with spans.recording() as rec:
+        ref_hit, hit = _both("drain20", builds, ref_intersect, intersect_any)
     assert_hits_match(ref_hit, hit)
-    assert instanced.drain_iterations > 1
+    assert rec.counts[("tlas", "drain")] > 1
     dist = np.full(512, 4.0, np.float32)
     a, b = _both("drain20", builds,
                  lambda s, o, d: ref_occluded(s, o, d, jnp.asarray(dist)),
