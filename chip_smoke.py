@@ -70,19 +70,31 @@ Phases, each timed:
                  props of two meshes (bench.py's section_instanced)
                  through build_instanced_buffers and Renderer at
                  1920x1080, 3 bounces, NEE, 1 spp, a warm-up and 5
-                 frames, beside the same scene flattened; K1's and K2's
-                 launches a frame held to the plan of the scene's mesh
-                 groups (K1 on the hall's BLAS once a traversal, K2 on
-                 each prop group TLAS_C times, plus the drain's
-                 iterations; no K3), the drain's iterations printed
-                 (counted by a recording of the untimed warm-up frame,
-                 the timed frames run with none on); the
-                 frame's device kernels under torch.profiler; every K1
-                 and K2 call of the primary and the first NEE traversal
-                 against its twin on the same object-space rays (tri
-                 bits equal, t within 2 ulp); an update_instance move
-                 re-rendered with every BLAS tensor where it was; a
-                 128x64 instanced frame against the CPU path;
+                 frames, beside the same scene flattened; K1's and the
+                 two-level kernel's launches a frame held to the plan of
+                 the scene's mesh groups (K1 on the hall's BLAS once a
+                 traversal, csrc/tlas_traverse.cu once a run of K2
+                 groups; no K2 or K3 launch), the kernel's BLAS walks
+                 printed (counted by a recording of the untimed warm-up
+                 frame, the timed frames run with none on); the frame's
+                 device kernels under torch.profiler; every K1 call of
+                 the primary and the first NEE traversal against its twin
+                 on the same object-space rays (tri bits equal, t within
+                 2 ulp); an update_instance move re-rendered with every
+                 BLAS tensor where it was; a 128x64 instanced frame
+                 against the CPU path;
+ 5c. TLAS      - csrc/tlas_traverse.cu against its plain twin (the torch
+                 loop on the card, a K2 launch a traversal): torch's
+                 three-term sum in the transform checked against the
+                 kernel's order; every wave of one frame of the two-level
+                 viewer flight (the cell's scene and camera) at TLAS_C
+                 12, 2 and 1 (the twin's drain runs), t, tri, inst, u, v
+                 bits (any-hit: tri, inst) in three kernel runs each, a
+                 wave's kernel and twin ms; the 1080p merged hall's
+                 mixed runs (K2 groups, then the K1 hall) on its primary
+                 and first NEE waves. "python3 chip_smoke.py tlas" runs
+                 phases 1, 2 (K1, K2 and the two-level kernel) and this
+                 phase alone;
   6. interactive - arch-40k in a 1920x1080 window with RenderConfig()
                  (960x540 internal, 3 bounces, NEE, A-SVGF) and
                  DENOISED_PATHTRACE, the camera moving every frame, with
@@ -198,6 +210,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -852,12 +865,14 @@ def instanced_phase(lt, dev, smi, frames, gu):
     the textured arch-260k hall merged into one BLAS with 200 props of two
     meshes, through build_instanced_buffers and Renderer at 1920x1080, 3
     bounces, NEE, 1 spp; the same scene flattened timed in the same
-    phase. Checks K1's and K2's launches a frame against the plan of the
-    scene's mesh groups, holds every K1 and K2 call of the frame's primary
-    and first NEE traversal to its plain twin on the same object-space
-    rays, a 128x64 instanced frame to the CPU path, and an
-    update_instance move to re-render with every BLAS tensor where it
-    was. Returns the numbers for the kernels line."""
+    phase. Checks K1's and the two-level kernel's launches a frame against
+    the plan of the scene's mesh groups (K1 a visit of the hall's BLAS,
+    csrc/tlas_traverse.cu once a run of K2 groups, K2 and K3 never),
+    holds every K1 call of the frame's primary and first NEE traversal to
+    its plain twin on the same object-space rays (the two-level kernel's
+    own check is tlas_phase's), a 128x64 instanced frame to the CPU path,
+    and an update_instance move to re-render with every BLAS tensor where
+    it was. Returns the numbers for the kernels line."""
     import torch
 
     from loupiote_tpu_torch import spans
@@ -877,23 +892,23 @@ def instanced_phase(lt, dev, smi, frames, gu):
     flat = lt.build_scene_buffers(scene)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    slots = np.asarray(inst.inst_mesh)
-    groups = []  # (slot, instances, kernel, launches a traversal)
-    for slot in sorted(set(inst.inst_mesh)):
-        n = int((slots == slot).sum())
-        kind = "K2" if uses_bvh2(inst.blas[slot]) else "K1"
-        waves = (n if len(slots) <= instanced.TLAS_UNROLL_MAX or n <= 2
-                 else min(instanced.TLAS_C, n))
-        groups.append((slot, n, kind, waves))
-    per_trav = {k: sum(g[3] for g in groups if g[2] == k)
-                for k in ("K1", "K2")}
+    on_bvh2 = [uses_bvh2(b) for b in inst.blas]
+    groups = [(slot, len(idx), "K2" if on_bvh2[slot] else "K1")
+              for _, idx, slot in inst.tlas.groups]
+    runs = instanced.plan_runs(inst.tlas.groups, on_bvh2)
+    # Launches a traversal: K1 a visit of a K1 group's instances (the
+    # hall's group holds one and is never a candidate group), the
+    # two-level kernel one a run of K2 groups.
+    per_trav = {"K1": sum(n for _, n, k in groups if k == "K1"),
+                "TLAS": sum(1 for r in runs if r[2])}
     print(f"instanced arch-260k + 200 props (merged hall): "
           f"{len(scene.instances)} instances; seconds: scene {t1 - t0:.2f}, "
           f"build_instanced_buffers {t2 - t1:.2f}, flattened buffers "
           f"{t3 - t2:.2f}; {inst.stats()}; BLASes "
           f"{[(b.num_tris, b.num_nodes) for b in inst.blas]} (triangles, "
-          f"BVH2 nodes); mesh groups (slot, instances, kernel, launches a "
-          f"traversal): {groups}; flattened BVH2 nodes {flat.num_nodes} "
+          f"BVH2 nodes); mesh groups (slot, instances, kernel of the "
+          f"traversal): {groups}, runs {runs} (launches a traversal "
+          f"{per_trav}); flattened BVH2 nodes {flat.num_nodes} "
           f"({smi})", flush=True)
     phase("instanced scene build", t0)
 
@@ -912,20 +927,21 @@ def instanced_phase(lt, dev, smi, frames, gu):
         r.accumulate = True
         wide.reset_counters()
         bvh2.reset_counters()
-        # The untimed first frame is recorded, for its count of drain
-        # waves; the timed frames run with no recording on.
+        instanced.launches = 0
+        # The untimed first frame is recorded, for its count of the
+        # kernel's BLAS walks; the timed frames run with no recording on.
         with spans.recording() as rec:
             r.raytrace(view)
         first = r.accum.clone()
-        k2_first = bvh2.launches_closest + bvh2.launches_anyhit
         ms = event_ms(lambda: r.raytrace(view), 5)
         img = r.blit()
         got = {"K1 closest": wide.launches_closest,
                "K1 any-hit": wide.launches_anyhit,
                "K2 closest": bvh2.launches_closest,
                "K2 any-hit": bvh2.launches_anyhit,
-               "K3": bvh2.launches_occluded}
-        drains = 0
+               "K3": bvh2.launches_occluded,
+               "TLAS": instanced.launches}
+        walks = rec.counts.get(("blas_walks", "k2"), 0)
         capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
         peak = torch.cuda.max_memory_allocated() / 2**30
         mean = float(np.mean(ms))
@@ -933,20 +949,9 @@ def instanced_phase(lt, dev, smi, frames, gu):
         if bufs is inst:
             want = {"K1 closest": nf * BOUNCES * per_trav["K1"],
                     "K1 any-hit": nf * (BOUNCES + 1) * per_trav["K1"],
-                    "K2 closest": nf * BOUNCES * per_trav["K2"],
-                    "K2 any-hit": nf * (BOUNCES + 1) * per_trav["K2"],
-                    "K3": 0}
-            # Each drain wave launches its group's kernel once (the hall's
-            # group holds one instance and never drains), so the K2
-            # launches past the plan are the drain waves: in the recorded
-            # frame as many as it counted, in the timed ones none fewer.
-            plan_k2 = want["K2 closest"] + want["K2 any-hit"]
-            drains = got["K2 closest"] + got["K2 any-hit"] - plan_k2
-            first_drains = k2_first - plan_k2 // nf
-            ok = (got["K1 closest"] == want["K1 closest"]
-                  and got["K1 any-hit"] == want["K1 any-hit"]
-                  and first_drains == rec.counts.get(("tlas", "drain"), 0)
-                  and drains >= first_drains and got["K3"] == 0)
+                    "K2 closest": 0, "K2 any-hit": 0, "K3": 0,
+                    "TLAS": nf * (2 * BOUNCES + 1) * per_trav["TLAS"]}
+            ok = got == want and walks > 0
         else:
             # Flattened: K1 past 8,192 BVH2 nodes (arch-260k), else K2 /
             # K3, 3 closest-hit and 4 shadow waves a frame.
@@ -955,7 +960,7 @@ def instanced_phase(lt, dev, smi, frames, gu):
                     "K1 any-hit": 0 if k2k3 else nf * (BOUNCES + 1),
                     "K2 closest": nf * BOUNCES if k2k3 else 0,
                     "K2 any-hit": 0,
-                    "K3": nf * (BOUNCES + 1) if k2k3 else 0}
+                    "K3": nf * (BOUNCES + 1) if k2k3 else 0, "TLAS": 0}
             ok = got == want
         rays = WIDTH * HEIGHT * BOUNCES * 2
         out[name] = {"ms_mean": mean, "ms_min": min(ms), "ms": ms,
@@ -965,12 +970,13 @@ def instanced_phase(lt, dev, smi, frames, gu):
                      "k1_launches_per_frame": {
                          "closest": got["K1 closest"] / nf,
                          "anyhit": got["K1 any-hit"] / nf},
-                     "drain_iterations": drains,
+                     "blas_walks_first_frame": walks,
                      "nonzero_pixel_frac": nonzero, "peak_gib": peak}
         print(f"{name} frame: ms (CUDA events) mean {mean:.3f}, min "
               f"{min(ms):.3f}, all {[round(x, 3) for x in ms]}; Mrays/s "
               f"{rays / mean / 1e3:.3f}; launches over {nf} frames {got} "
-              f"(want {want}, drain iterations {drains}); nonzero_pixel_frac "
+              f"(want {want}; the first frame's BLAS walks in the two-level "
+              f"kernel {walks}); nonzero_pixel_frac "
               f"{nonzero:.4f}; image mean {float(r.accum.mean()):.5f}; peak "
               f"memory {peak:.2f} GiB; rays stopped by a step bound "
               f"{capped} ({smi})", flush=True)
@@ -1005,26 +1011,27 @@ def instanced_phase(lt, dev, smi, frames, gu):
     busy = sum(by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
     split = {"K1": by.get("wide_traverse_kernel", 0.0),
-             "K2": sum(v for k, v in by.items() if "bvh2_trace" in k)}
+             "TLAS": sum(v for k, v in by.items() if "tlas_kernel" in k)}
     print(f"instanced frame under torch.profiler: {len(ks)} device "
-          f"kernels, busy {busy:.3f} ms (K1 {split['K1']:.3f}, K2 "
-          f"{split['K2']:.3f}, the rest {busy - sum(split.values()):.3f}); "
+          f"kernels, busy {busy:.3f} ms (K1 {split['K1']:.3f}, the two-level "
+          f"kernel {split['TLAS']:.3f}, the rest "
+          f"{busy - sum(split.values()):.3f}); "
           f"top by device ms: "
           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top), flush=True)
     out["instanced"]["device_busy_ms"] = busy
     out["instanced"]["device_ms_by_kernel"] = split
     phase("instanced frame's device kernels", t0)
 
-    # Every K1 and K2 call of the primary traversal (bounce 0 closest-hit)
-    # and of the first NEE traversal (the first any-hit one), recorded
-    # from one frame, against the plain twins: tri bits equal and t
-    # within 2 ulp on every ray (in practice bit-equal; K2 u, v too).
+    # Every K1 call of the primary traversal (bounce 0 closest-hit) and
+    # of the first NEE traversal (the first any-hit one), recorded from
+    # one frame, against the plain twin: tri bits equal and t within 2
+    # ulp on every ray (in practice bit-equal). No K2 call runs: the
+    # two-level kernel walks the K2 BLASes (tlas_phase checks it).
     t0 = time.perf_counter()
-    n_k2 = {False: per_trav["K2"], True: per_trav["K2"]}
     n_k1 = per_trav["K1"]
 
     def keep(kind, any_hit, i):
-        return i < (n_k1 if kind == "K1" else n_k2[any_hit])
+        return kind == "K1" and i < n_k1
 
     calls = blas_calls(lambda: r_inst.raytrace(view), keep)
     rows = ["| call | kernel, mode | rays | active | tri equal | t max ulp "
@@ -1050,16 +1057,16 @@ def instanced_phase(lt, dev, smi, frames, gu):
                     f" | {ro.shape[0]} | {int(act.sum())} | {tri_eq} | {ulp}"
                     f" | {int((ktri >= 0).sum())} | "
                     f"{'PASS' if good else 'FAIL'} |")
-    print(f"K1 / K2 against their twins on the instanced frame's primary "
-          f"and first NEE traversals ({len(calls)} calls):\n"
+    print(f"K1 against its twin on the instanced frame's primary and first "
+          f"NEE traversals ({len(calls)} calls):\n"
           + "\n".join(rows), flush=True)
     capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
-    if not ok or capped or len(calls) != 2 * (n_k1 + per_trav["K2"]):
-        raise SystemExit("chip_smoke: K1 or K2 disagrees with its plain "
-                         "version on the instanced frame's object-space "
-                         "rays, or rays reached a step bound")
+    if not ok or capped or len(calls) != 2 * n_k1:
+        raise SystemExit("chip_smoke: K1 disagrees with its plain version "
+                         "on the instanced frame's object-space rays, or "
+                         "rays reached a step bound")
     del calls
-    phase("K1/K2 on the instanced frame's waves", t0)
+    phase("K1 on the instanced frame's waves", t0)
 
     # update_instance: a prop moves; no BLAS tensor moves with it.
     t0 = time.perf_counter()
@@ -1107,7 +1114,195 @@ def instanced_phase(lt, dev, smi, frames, gu):
     phase("instanced frame vs CPU", t0)
     return {"launches": launches,
             "per_traversal": per_trav, "groups": groups, "errs": errs,
-            "calls_checked": 2 * (n_k1 + per_trav["K2"])}
+            "calls_checked": 2 * n_k1}
+
+
+def instance_loop_calls(fn):
+    """Run fn, keeping a copy of the arguments of every call of the
+    instance loop (``scene/instanced.py::intersect_instanced``) in call
+    order: [(ro, rd, tmax, active, any_hit)]. Launches nothing itself."""
+    from loupiote_tpu_torch.scene import instanced
+
+    orig = instanced.intersect_instanced
+    out = []
+
+    def call(bufs, ro, rd, tmax=None, active=None, any_hit=False):
+        out.append(tuple(None if x is None else x.clone()
+                         for x in (ro, rd, tmax, active)) + (any_hit,))
+        return orig(bufs, ro, rd, tmax=tmax, active=active, any_hit=any_hit)
+
+    instanced.intersect_instanced = call
+    try:
+        fn()
+    finally:
+        instanced.intersect_instanced = orig
+    return out
+
+
+def tlas_waves(name, bufs, calls, smi, repeats=3):
+    """csrc/tlas_traverse.cu (``intersect_instanced`` on the card) against
+    its plain twin (``intersect_instanced_plain``, the torch loop with a
+    BLAS kernel a traversal) on each recorded call: t, tri, inst, u, v
+    bits equal in closest-hit mode, tri and inst in any-hit mode, in
+    ``repeats`` kernel runs (no race checker runs on the card). Prints a
+    row a wave with the ms of a call of each path (CUDA events: the
+    kernel path's launch with its fills and any u, v ops). Returns (all
+    equal, [kernel path ms a wave], drain waves the twin ran)."""
+    import torch
+
+    from loupiote_tpu_torch import spans
+    from loupiote_tpu_torch.ops import bvh2
+    from loupiote_tpu_torch.scene import instanced
+
+    rows = ["| wave | mode | rays | active | hits | drain waves (twin) | "
+            "equal (runs) | kernel path ms | twin ms |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    ok, kms, drains = True, [], 0
+    for j, (ro, rd, tmax, act, any_hit) in enumerate(calls):
+        args = dict(tmax=tmax, active=act, any_hit=any_hit)
+        with spans.recording() as rec:
+            want = instanced.intersect_instanced_plain(bufs, ro, rd, **args)
+        torch.cuda.synchronize()
+        n_drain = rec.counts.get(("tlas", "drain"), 0)
+        drains += n_drain
+        fields = ((want.t, want.tri, want.inst) if not any_hit
+                  else (want.tri, want.inst))
+        same = []
+        for _ in range(repeats):
+            got = instanced.intersect_instanced(bufs, ro, rd, **args)
+            torch.cuda.synchronize()
+            g = ((got.t, got.tri, got.inst, got.u, got.v) if not any_hit
+                 else (got.tri, got.inst))
+            w = fields + ((want.u, want.v) if not any_hit else ())
+            same.append(all(bits_equal(a, b) for a, b in zip(g, w)))
+        k_ms = float(np.median(event_ms(lambda: instanced.intersect_instanced(
+            bufs, ro, rd, **args), 3)))
+        p_ms = event_ms(lambda: instanced.intersect_instanced_plain(
+            bufs, ro, rd, **args), 1)[0]
+        kms.append(k_ms)
+        ok &= all(same)
+        rows.append(f"| {j} | {'any-hit' if any_hit else 'closest'} | "
+                    f"{ro.shape[0]} | {int(act.sum()) if act is not None else ro.shape[0]}"
+                    f" | {int((want.tri >= 0).sum())} | {n_drain} | "
+                    f"{sum(same)}/{repeats} | {k_ms:.4f} | {p_ms:.3f} |")
+    capped = bvh2.capped_rays(bufs.device)
+    print(f"{name}: csrc/tlas_traverse.cu against its plain twin, TLAS_C "
+          f"{instanced.TLAS_C}, {len(calls)} waves, rays at K2's step bound "
+          f"{capped} ({smi}):\n" + "\n".join(rows), flush=True)
+    return ok and capped == 0, kms, drains
+
+
+def tlas_phase(lt, dev, smi):
+    """The two-level kernel (csrc/tlas_traverse.cu) on the card: the
+    transform's three-term sum against its two candidate orders; every
+    wave of one frame of the two-level viewer flight
+    (viewer720p-instanced-flythrough-pathtrace's scene and camera, seed
+    3000002202) against the plain twin, both modes, at TLAS_C 12, 2 and 1
+    (the drain runs); the mixed K1 / K2 runs of the 1080p merged hall
+    (one K1 BLAS, then two K2 prop groups) on its primary and first NEE
+    waves. Returns the numbers for the kernels line."""
+    import torch
+
+    from loupiote_tpu_torch.ops import bvh2, wide
+    from loupiote_tpu_torch.ops.intersect import uses_bvh2
+    from loupiote_tpu_torch.scene import instanced
+
+    out = {}
+    # _to_object's sum over three products on the card, at the waves'
+    # sizes: torch's order against (p0 + p2) + p1 and (p0 + p1) + p2.
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(7)
+    orders = {}
+    for R in (1, 1000, 230_400, 2_073_600):
+        m = torch.randn(R, 4, 4, device=dev, generator=g)
+        ro = torch.randn(R, 3, device=dev, generator=g) * 10
+        ro[:R // 8] = 0.0  # products of +-0: the sign of a zero sum
+        m[:R // 16, :3, :3] = -0.0
+        shared = instanced._to_object(m[0], ro, ro)[0]
+        gathered = instanced._to_object(m, ro, ro)[0]
+        for name, mm, got in (("shared", m[0].expand(R, 4, 4), shared),
+                              ("gathered", m, gathered)):
+            p = mm[:, :3, :3] * ro[:, None, :]
+            a = ((p[..., 0] + p[..., 2]) + p[..., 1]) + 0.0 + mm[:, :3, 3]
+            b = ((p[..., 0] + p[..., 1]) + p[..., 2]) + mm[:, :3, 3]
+            orders[f"{name} R={R}"] = (bits_equal(got, a), bits_equal(got, b))
+    print("_to_object's .sum(-1) on the card, bit-equal to "
+          "((p0 + p2) + p1) + 0 / ((p0 + p1) + p2): "
+          + "; ".join(f"{k} {v}" for k, v in orders.items()), flush=True)
+    if not all(v[0] for v in orders.values()):
+        raise SystemExit("chip_smoke: torch's three-term sum is not "
+                         "(p0 + p2) + p1 on this card")
+    phase("TLAS: the transform's sum order", t0)
+
+    # One frame of the two-level viewer flight, every wave recorded.
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from portbench.harness import program, runner
+    from portbench.harness.cells import find_cell
+
+    seed = 3000002202
+    cell = find_cell("viewer720p-instanced-flythrough-pathtrace")
+    scene, hdr = runner.make_inputs(cell, seed)
+    session = program.build(cell, scene, hdr, seed, dev)
+    bufs = session.driver.renderer.scene
+    for _ in range(int(cell.traffic["warmup_frames"])):
+        session.frame()
+    calls = instance_loop_calls(session.frame)
+    torch.cuda.synchronize()
+    groups = [(kind, len(idx), slot) for kind, idx, slot in bufs.tlas.groups]
+    print(f"viewer hall two-level: {len(bufs.inst_mesh)} instances, "
+          f"{len(bufs.blas)} BLASes (K2 {sum(map(uses_bvh2, bufs.blas))}), "
+          f"groups (kind, instances, slot) {groups}; {len(calls)} waves a "
+          f"frame", flush=True)
+    phase("TLAS: viewer two-level session and one frame's waves", t0)
+    res = {}
+    for C in (instanced.TLAS_C, 2, 1):
+        t0 = time.perf_counter()
+        old = instanced.TLAS_C
+        instanced.TLAS_C = C
+        try:
+            bvh2.reset_counters()
+            instanced.launches = 0
+            good, kms, drains = tlas_waves(f"viewer flight, TLAS_C {C}",
+                                           bufs, calls, smi)
+            res[C] = {"ok": good, "wave_ms": kms, "drain_waves": drains,
+                      "launches": instanced.launches}
+        finally:
+            instanced.TLAS_C = old
+        if not good or (C == 1 and drains == 0):
+            raise SystemExit(f"chip_smoke: the two-level kernel differs "
+                             f"from its twin at TLAS_C {C}, or the twin "
+                             f"did not drain at 1")
+        phase(f"TLAS: viewer flight waves at TLAS_C {C}", t0)
+    out["viewer"] = {"waves": len(calls), "by_c": res}
+    del session, bufs, calls
+    torch.cuda.empty_cache()
+
+    # Phase 5b's hall: a K1 BLAS (the merged hall) then two K2 groups.
+    t0 = time.perf_counter()
+    hall = instanced.build_instanced_buffers(lt.build_arch_scene(
+        260_000, textured=True, props=200, merged=True))
+    runs = instanced.plan_runs(hall.tlas.groups,
+                               [uses_bvh2(b) for b in hall.blas])
+    r = lt.Renderer((WIDTH, HEIGHT),
+                    lt.RenderConfig(downsample_factor=1.0, denoise=False))
+    r.set_resources(hall)
+    r.accumulate = True
+    view = lt.arch_camera()
+    r.raytrace(view)
+    calls = instance_loop_calls(lambda: r.raytrace(view))
+    first_nee = next(i for i, c in enumerate(calls) if c[4])
+    picked = [calls[0], calls[first_nee]]
+    wide.reset_counters()
+    instanced.launches = 0
+    good, kms, _ = tlas_waves("1080p merged hall: K1 / K2 runs "
+                              f"{runs}", hall, picked, smi)
+    out["mixed"] = {"ok": good, "runs": runs, "wave_ms": kms}
+    if not good:
+        raise SystemExit("chip_smoke: the two-level kernel's K2 runs "
+                         "between K1 visits differ from the twin")
+    phase("TLAS: mixed K1 / K2 runs on the 1080p hall", t0)
+    return out
 
 
 HALL_CAMERA = "0,5,34,0.15,-0.12,-1"  # arch_camera(): origin, direction
@@ -1729,6 +1924,7 @@ def asvgf_phase(lt, dev, scene, smi, interactive):
 
 def main():
     t_all = time.perf_counter()
+    only_tlas = sys.argv[1:] == ["tlas"]
     import torch
 
     t0 = time.perf_counter()
@@ -1770,7 +1966,9 @@ def main():
     t0 = time.perf_counter()
     kernels_src = ("wide_traverse", "bvh2_traverse", "slab_sort",
                    "treelet_traverse", "regroup", "kernel_probe",
-                   "lane_gather", "r3_probes", "asvgf")
+                   "lane_gather", "r3_probes", "asvgf", "tlas_traverse")
+    if only_tlas:
+        kernels_src = ("wide_traverse", "bvh2_traverse", "tlas_traverse")
     with ThreadPoolExecutor(len(kernels_src) + 1) as pool:
         futs = [pool.submit(_build.load, k) for k in kernels_src]
         t1 = time.perf_counter()
@@ -1785,6 +1983,17 @@ def main():
           f"{native.OPT_ROUNDS} insertion-optimizer rounds); all builds "
           f"done {time.perf_counter() - t1:.2f} s after start")
     phase("build", t0)
+
+    if only_tlas:
+        # The two-level kernel's phase alone (python3 chip_smoke.py tlas).
+        print(f"ptxas, tlas_traverse.cu:\n" + ptxas_lines("tlas_traverse"))
+        tlas_res = tlas_phase(lt, dev, smi)
+        print(json.dumps({"tlas": tlas_res}))
+        print(f"total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return
 
     # -- K1 against its plain twin ----------------------------------------
     # Every ray of each wave, exact: tri (ties included), t bits, blocked
@@ -2401,6 +2610,9 @@ def main():
 
     # -- Two-level instancing: the 1080p instanced frame ---------------------
     inst_res = instanced_phase(lt, dev, smi, frames, gu)
+    # -- The two-level kernel against its twin --------------------------------
+    print(f"ptxas, tlas_traverse.cu:\n" + ptxas_lines("tlas_traverse"))
+    tlas_res = tlas_phase(lt, dev, smi)
 
     # -- The interactive path: the app's default frame -----------------------
     t0 = time.perf_counter()
@@ -3683,6 +3895,19 @@ def main():
         "bound_ms": e4_bound[0], "bound_by": e4_bound[1],
         "library_ms": e4["torch.sort+gather"]})
     kernels.append(asvgf_entry)
+    kernels.append({
+        "name": "tlas_trace", "route": "cuda",
+        "source": "loupiote_tpu_torch/csrc/tlas_traverse.cu",
+        "replaces": None,
+        # A launch a run of K2 groups a wave: the viewer flight's frame
+        # (one run) and the 1080p hall's (K1, then one run).
+        "launches": inst_res["launches"]["TLAS"],
+        "max_abs_err": 0.0,
+        "ms": tlas_res["viewer"]["by_c"][12]["wave_ms"],
+        "drain_ms": tlas_res["viewer"]["by_c"][2]["wave_ms"],
+        "mixed_ms": tlas_res["mixed"]["wave_ms"],
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None})
     print(json.dumps({"kernels": kernels, "frames": frames, "app": app}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,5 +1,6 @@
 // min / max of the slab tests of K1 (wide_traverse.cu), K2 / K3
-// (bvh2_traverse.cu), E1 (kernel_probe.cu, its per-lane keys too), E2
+// (bvh2_traverse.cu, through bvh2_lane.cuh), the two-level traversal's box
+// tests (tlas_traverse.cu), E1 (kernel_probe.cu, its per-lane keys too), E2
 // (lane_gather.cu), E6 / E7 (treelet_traverse.cu) and of E3's segmin
 // (r3_probes.cu): PTX min.NaN / max.NaN return
 // NaN where either operand is NaN, as the twins' torch.minimum / maximum

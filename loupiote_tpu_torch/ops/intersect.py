@@ -11,8 +11,8 @@ matters and are not ported. A scene that carries treelet tables
 (``SceneBuffers.treelet``) sends ``intersect_any`` to the treelet
 traversal; ``occluded`` does not take it, as in the reference. A
 two-level instanced scene (``SceneBuffers.inst_w2o``) sends both to the
-instance loop (``scene/instanced.py``), which traverses each mesh's own
-table through this dispatch's kernels.
+instance loop (``scene/instanced.py``), which walks the meshes this
+dispatch sends to K2 inside its own kernel and the others through K1.
 """
 
 from __future__ import annotations
@@ -163,9 +163,11 @@ def _instanced(scene) -> bool:
 def path_libraries(scene) -> list:
     """The ``csrc/`` libraries that ``intersect_any`` and ``occluded`` load
     for ``scene`` on the card, as this dispatch picks them (an instanced
-    scene: its BLASes')."""
+    scene: the two-level kernel for its BLASes on K2, K1 for the
+    others)."""
     if _instanced(scene):
-        libs = [lib for b in scene.blas for lib in path_libraries(b)]
+        libs = ["tlas_traverse" if uses_bvh2(b) else "wide_traverse"
+                for b in scene.blas]
         return list(dict.fromkeys(libs))
     libs = ["bvh2_traverse" if uses_bvh2(scene) else "wide_traverse"]
     if scene.treelet is not None:

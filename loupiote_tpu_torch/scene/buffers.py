@@ -98,20 +98,24 @@ class SceneBuffers:
     inst_mesh: Optional[tuple] = None  # (K,) mesh slot of each instance
     inst_aabb_lo: Optional[torch.Tensor] = None  # (K, 3) world box
     inst_aabb_hi: Optional[torch.Tensor] = None  # (K, 3)
+    # The instance loop's plan and its device tables (instanced.TlasTables).
+    tlas: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
         return self.trav_rows.device
 
     def to(self, device) -> "SceneBuffers":
-        """A copy with every table on ``device``, each BLAS's too."""
-        return dataclasses.replace(self, **{
+        """A copy with every table on ``device``, each BLAS's too, and the
+        instance loop's tables built again over the moved BLASes."""
+        out = dataclasses.replace(self, **{
             name: getattr(self, name).to(device) for name in _TENSOR_FIELDS
             + _INSTANCE_FIELDS if getattr(self, name) is not None},
             treelet=None if self.treelet is None
             else self.treelet.to(device),
             blas=None if self.blas is None
             else tuple(b.to(device) for b in self.blas))
+        return _with_tlas(out) if self.tlas is not None else out
 
     def stats(self) -> dict:
         """Table sizes: BVH2 nodes, wide rows and, with treelets, the
@@ -402,7 +406,7 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
             top_fields=copy(td.top_fields), sub_fields=copy(td.sub_fields),
             sub_tri_base=copy(td.sub_tri_base), num_top=int(td.num_top),
             top_tiles=int(td.top_tiles), num_subtrees=int(td.num_subtrees))
-    return SceneBuffers(
+    out = SceneBuffers(
         **tensors,
         wide_end=int(ref.wide_end),
         wide_stack=int(ref.wide_stack),
@@ -416,3 +420,13 @@ def from_reference(ref, device="cuda") -> SceneBuffers:
         num_tris=int(ref.num_tris),
         treelet=treelet,
     )
+    return _with_tlas(out) if out.blas is not None else out
+
+
+def _with_tlas(bufs: SceneBuffers) -> SceneBuffers:
+    """``bufs`` with the instance loop's tables built over its BLASes."""
+    from .instanced import tlas_tables
+
+    return dataclasses.replace(bufs, tlas=tlas_tables(
+        bufs.blas, bufs.inst_mesh, bufs.inst_aabb_lo.cpu().numpy(),
+        bufs.inst_aabb_hi.cpu().numpy()))

@@ -2,12 +2,20 @@
 top (counterpart of ``loupiote_tpu/scene/instanced.py``).
 
 Moving an instance swaps its transform row and rebuilds no BVH
-(``update_instance``), and N instances of a mesh share one BLAS. There is
-no top-level traversal kernel: the TLAS is selection and gathers in plain
-torch, and each BLAS is walked by the kernel the dispatch picks for it
-(``ops/intersect.py``: K1 past 8,192 BVH2 nodes, else K2, in both modes),
-on object-space rays with a per-ray ``tmax`` carried from the instances
-visited before.
+(``update_instance``), and N instances of a mesh share one BLAS. The
+instance loop is planned once at upload (``TlasTables``): its groups in
+visit order, each with its kind, instance ids and BLAS slot, on the host
+and on the device. A call of the loop runs the groups in maximal runs by
+the kernel ``ops/intersect.py``'s dispatch picks for their BLASes (K1 past
+8,192 BVH2 nodes, else K2): on CUDA tensors a run of K2 groups is one
+launch of ``csrc/tlas_traverse.cu`` (the box culls, the candidate
+selection and waves, the drain and the BLAS walks, one thread a ray, no
+host sync), and a run of K1 groups runs the plain loop, one K1 launch a
+traversal; on CPU tensors every run runs the plain loop
+(``_groups_plain``), the kernel's twin, which walks each BLAS through the
+dispatch's kernels on object-space rays with a per-ray ``tmax`` carried
+from the instances visited before. ``intersect_instanced_plain`` runs the
+twin on any device, for the card's checks.
 
 Execution shapes, as the reference's (its ``LOUPIOTE_TLAS=scan`` debug
 mode is not ported):
@@ -25,11 +33,13 @@ mode is not ported):
 
 Spans and counts (``spans.py``): each call of the instance loop is a
 ``tlas`` span (inside ``intersect{N}``, or ``shadow`` through
-``occluded_instanced``), and each BLAS traversal in it a ``blas`` span,
-so that the loop's own work and its traversals time apart. A recording
-counts ``("tlas", "visit" | "wave" | "drain")`` by traversal kind,
+``occluded_instanced``) and counts ``("tlas_path", "cuda" | "plain")``;
+the kernel adds its ray-by-BLAS walks into the device count
+``("blas_walks", "k2")``. In the plain loop each BLAS traversal is a
+``blas`` span, so that the loop's own work and its traversals time apart,
+counted ``("tlas", "visit" | "wave" | "drain")`` by traversal kind and
 ``("blas", "k1" | "k2")`` by the kernel the dispatch picks, and the
-copies of a candidate group that wait for the device's queue as ``sync``
+copies of a candidate group that wait for the device's queue are ``sync``
 sites: ``tlas_ids`` (its instance ids uploaded), ``tlas_gather`` (the
 rays near the group), ``tlas_pending`` (whether any ray needs the drain)
 and ``tlas_drain`` (whether a drain wave found a box).
@@ -37,13 +47,14 @@ and ``tlas_drain`` (whether a drain wave found a box).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import spans
+from .. import _build, spans
 from .buffers import SceneBuffers, build_scene_buffers
 from .hdr import Probe
 from .types import INVALID_INDEX, Instance, Scene
@@ -57,6 +68,98 @@ TLAS_C = 12
 # changes no result: at the 1080p frame (2,073,600 rays x 100 boxes) one
 # chunk holds the whole wave.
 TLAS_CHUNK_ELEMS = 1 << 28
+# The most candidate waves a group takes on the card
+# (csrc/tlas_traverse.cu: kCMax).
+TLAS_C_MAX = 16
+
+# Group kinds of the plan: an instance visited with no cull (the unroll),
+# instances visited behind their box culls, a candidate-gather group.
+UNROLL, VISIT, CANDIDATE = 0, 1, 2
+
+# Launches of csrc/tlas_traverse.cu, one a run of K2 groups in a call.
+# chip_smoke.py zeroes it before a path and reads it after.
+launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TlasTables:
+    """The instance loop's plan, built once at upload: its groups in visit
+    order on the host, ``(kind, instance ids, BLAS slot)``, and the tables
+    ``csrc/tlas_traverse.cu`` reads on the device. ``update_instance``
+    replaces the union boxes only."""
+
+    groups: tuple
+    rows: torch.Tensor  # (G, 4) int32: kind, first id, count, BLAS slot
+    ids: torch.Tensor  # (K,) int32 instance ids, group after group
+    lo: torch.Tensor  # (G, 3) each group's union of its instance boxes
+    hi: torch.Tensor  # (G, 3)
+    blas: tuple  # the BLASes whose tables blas_ptrs points into
+    blas_ptrs: torch.Tensor  # (S, 2) int64 node_rows, leaf_rows pointers
+    blas_steps: torch.Tensor  # (S,) int32 K2's step bound a BLAS
+
+
+def plan_groups(inst_mesh) -> tuple:
+    """The instance loop's groups, ``(kind, instance ids, slot)`` in visit
+    order: at most ``TLAS_UNROLL_MAX`` instances, each one an ``UNROLL``
+    group in instance order; more, one group a mesh slot in slot order,
+    ``VISIT`` for at most two instances and ``CANDIDATE`` past that."""
+    if len(inst_mesh) <= TLAS_UNROLL_MAX:
+        return tuple((UNROLL, (k,), int(s)) for k, s in enumerate(inst_mesh))
+    slots = np.asarray(inst_mesh)
+    out = []
+    for slot in sorted(set(inst_mesh)):
+        idx = tuple(int(k) for k in np.nonzero(slots == slot)[0])
+        out.append((VISIT if len(idx) <= 2 else CANDIDATE, idx, int(slot)))
+    return tuple(out)
+
+
+def plan_runs(groups, on_bvh2) -> list:
+    """Maximal runs ``(first, stop, on_bvh2)`` of consecutive groups whose
+    BLASes (``on_bvh2[slot]``) all take K2, or all take K1."""
+    runs: list = []
+    for g, (_, _, slot) in enumerate(groups):
+        on = bool(on_bvh2[slot])
+        if runs and runs[-1][2] == on:
+            runs[-1] = (runs[-1][0], g + 1, on)
+        else:
+            runs.append((g, g + 1, on))
+    return runs
+
+
+def _group_boxes(groups, aabb_lo: np.ndarray, aabb_hi: np.ndarray):
+    """(G, 3) unions of each group's instance boxes (min and max are exact,
+    so they equal the plain loop's ``amin`` / ``amax``)."""
+    lo = np.stack([aabb_lo[list(idx)].min(0) for _, idx, _ in groups])
+    hi = np.stack([aabb_hi[list(idx)].max(0) for _, idx, _ in groups])
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
+def tlas_tables(blas: tuple, inst_mesh: tuple, aabb_lo: np.ndarray,
+                aabb_hi: np.ndarray) -> TlasTables:
+    """Plan the instance loop and upload its tables beside the BLASes."""
+    from ..ops.bvh2 import max_steps
+
+    groups = plan_groups(inst_mesh)
+    rows, ids = [], []
+    for kind, idx, slot in groups:
+        rows.append((kind, len(ids), len(idx), slot))
+        ids.extend(idx)
+    lo, hi = _group_boxes(groups, aabb_lo, aabb_hi)
+    for b in blas:
+        for t in (b.node_rows, b.leaf_rows):
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError("a BLAS table is not contiguous float32")
+    dev = blas[0].node_rows.device
+
+    def up(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return TlasTables(
+        groups=groups, rows=up(rows, torch.int32), ids=up(ids, torch.int32),
+        lo=up(lo, torch.float32), hi=up(hi, torch.float32), blas=blas,
+        blas_ptrs=up([(b.node_rows.data_ptr(), b.leaf_rows.data_ptr())
+                      for b in blas], torch.int64),
+        blas_steps=up([max_steps(b.num_nodes) for b in blas], torch.int32))
 
 
 def build_instanced_buffers(scene: Scene, probe: Optional[Probe] = None,
@@ -136,13 +239,15 @@ def build_instanced_buffers(scene: Scene, probe: Optional[Probe] = None,
     # The instances' world bounds feed the ray-sort keys and scene_exit_t
     # through node_min[0] / node_max[0] of the shell's tables.
     node_min, node_max = _bounds_rows(base, aabb_lo, aabb_hi)
+    blas = tuple(blas)
     return dataclasses.replace(
         base, tri_shade=tri_shade, tri_pack=tri_pack, node_min=node_min,
-        node_max=node_max, blas=tuple(blas), inst_w2o=dev(w2o),
+        node_max=node_max, blas=blas, inst_w2o=dev(w2o),
         inst_nmat=dev(nmat), inst_mat_id=dev(mat_id),
         inst_tri_base=dev(tri_base), inst_mesh=tuple(inst_mesh),
         inst_aabb_lo=dev(aabb_lo), inst_aabb_hi=dev(aabb_hi),
-        num_tris=int(total))
+        num_tris=int(total),
+        tlas=tlas_tables(blas, tuple(inst_mesh), aabb_lo, aabb_hi))
 
 
 def _root_box(blas: SceneBuffers):
@@ -171,9 +276,10 @@ def _bounds_rows(bufs: SceneBuffers, aabb_lo: np.ndarray,
 
 def update_instance(bufs: SceneBuffers, k: int,
                     model_to_world: np.ndarray) -> SceneBuffers:
-    """Move instance ``k``: new transform rows, cull box and world bounds;
-    no BVH rebuild and no geometry upload (the BLAS tuple is the same
-    object, its tensors untouched)."""
+    """Move instance ``k``: new transform rows, cull box, group union box
+    and world bounds; no BVH rebuild and no geometry upload (the BLAS
+    tuple is the same object, its tensors untouched, and the loop's plan
+    and its device group tables are kept)."""
     m = np.asarray(model_to_world, np.float32)
     w2o, nmat = bufs.inst_w2o.clone(), bufs.inst_nmat.clone()
     w2o[k] = torch.from_numpy(np.linalg.inv(m))
@@ -184,11 +290,14 @@ def update_instance(bufs: SceneBuffers, k: int,
         _root_box(bufs.blas[bufs.inst_mesh[k]]), m)
     node_min, node_max = _bounds_rows(bufs, aabb_lo, aabb_hi)
     dev = bufs.device
+    lo, hi = _group_boxes(bufs.tlas.groups, aabb_lo, aabb_hi)
+    tlas = dataclasses.replace(bufs.tlas, lo=torch.from_numpy(lo).to(dev),
+                               hi=torch.from_numpy(hi).to(dev))
     return dataclasses.replace(
         bufs, inst_w2o=w2o, inst_nmat=nmat,
         inst_aabb_lo=torch.from_numpy(aabb_lo).to(dev),
         inst_aabb_hi=torch.from_numpy(aabb_hi).to(dev),
-        node_min=node_min, node_max=node_max)
+        node_min=node_min, node_max=node_max, tlas=tlas)
 
 
 # -- Traversal ----------------------------------------------------------------
@@ -398,13 +507,28 @@ def intersect_instanced(bufs: SceneBuffers, ro, rd, tmax=None, active=None,
     only with a strictly nearer hit, so the first visited keeps a tie.
     u, v are replayed once, in the object space of each ray's winning
     instance (0 in any-hit mode, where only ``tri >= 0`` carries
-    meaning)."""
+    meaning). On CUDA tensors each run of K2 groups is one launch of
+    ``csrc/tlas_traverse.cu``, which also returns the winners' u, v where
+    it is the whole loop (the same bits as the replay); on CPU tensors
+    the plain loop runs."""
+    from ..ops.intersect import on_card
+
     with spans.span("tlas"):
-        return _instance_loop(bufs, ro, rd, tmax, active, any_hit)
+        return _instance_loop(bufs, ro, rd, tmax, active, any_hit,
+                              on_card(ro))
 
 
-def _instance_loop(bufs, ro, rd, tmax, active, any_hit):
-    from ..ops.intersect import T_FAR, Hit, recompute_uv
+def intersect_instanced_plain(bufs: SceneBuffers, ro, rd, tmax=None,
+                              active=None, any_hit: bool = False):
+    """``intersect_instanced`` through the plain loop on any device: the
+    kernel's twin, which on CUDA tensors launches a BLAS kernel a
+    traversal."""
+    with spans.span("tlas"):
+        return _instance_loop(bufs, ro, rd, tmax, active, any_hit, False)
+
+
+def _instance_loop(bufs, ro, rd, tmax, active, any_hit, kernel):
+    from ..ops.intersect import T_FAR, Hit, recompute_uv, uses_bvh2
 
     R = ro.shape[0]
     dev = ro.device
@@ -414,7 +538,35 @@ def _instance_loop(bufs, ro, rd, tmax, active, any_hit):
     best_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
     act = (torch.ones(R, dtype=torch.bool, device=dev) if active is None
            else active)
-    K = len(bufs.inst_mesh)
+    spans.count("tlas_path", "cuda" if kernel else "plain")
+    groups = bufs.tlas.groups
+    runs = plan_runs(groups, [uses_bvh2(b) for b in bufs.blas])
+    # A closest-hit loop that is one launch takes the kernel's u, v.
+    with_uv = kernel and not any_hit and len(runs) == 1 and runs[0][2]
+    carry = (best_t, best_tri, best_inst)
+    for g0, g1, on_bvh2 in runs:
+        if kernel and on_bvh2:
+            carry = _launch(bufs, g0, g1, carry, ro, rd, act, any_hit,
+                            with_uv)
+        else:
+            carry = _groups_plain(bufs, groups[g0:g1], carry, ro, rd, act,
+                                  any_hit)
+    if with_uv:
+        return Hit(*carry[:2], *carry[3:], inst=carry[2])
+    best_t, best_tri, best_inst = carry
+    if any_hit:
+        zero = torch.zeros_like(best_t)
+        return Hit(best_t, best_tri, zero, zero, inst=best_inst)
+    ro_w, rd_w = _to_object(bufs.inst_w2o[best_inst.clamp_min(0).long()],
+                            ro, rd)
+    u, v = recompute_uv(bufs, ro_w, rd_w, best_tri)
+    return Hit(best_t, best_tri, u, v, inst=best_inst)
+
+
+def _groups_plain(bufs, groups, carry, ro, rd, act, any_hit):
+    """The plain loop over ``groups`` from ``carry`` = (best_t, best_tri,
+    best_inst): the twin of ``csrc/tlas_traverse.cu``, a BLAS traversal
+    through ``ops/intersect.py``'s dispatch at a time."""
 
     def visit(carry, k, cull):
         best_t, best_tri, best_inst = carry
@@ -437,28 +589,89 @@ def _instance_loop(bufs, ro, rd, tmax, active, any_hit):
         best_inst = torch.where(win, k, best_inst)
         return best_t, best_tri, best_inst
 
-    carry = (best_t, best_tri, best_inst)
-    if K <= TLAS_UNROLL_MAX:
-        for k in range(K):
-            carry = visit(carry, k, cull=False)
-    else:
-        slots = np.asarray(bufs.inst_mesh)
-        for slot in sorted(set(bufs.inst_mesh)):
-            idx = np.nonzero(slots == slot)[0]
-            if len(idx) <= 2:
-                for k in idx:
-                    carry = visit(carry, int(k), cull=True)
-            else:
-                carry = _candidate_group(bufs, slot, idx, carry, ro, rd, act,
-                                         any_hit)
-    best_t, best_tri, best_inst = carry
-    if any_hit:
-        zero = torch.zeros_like(best_t)
-        return Hit(best_t, best_tri, zero, zero, inst=best_inst)
-    ro_w, rd_w = _to_object(bufs.inst_w2o[best_inst.clamp_min(0).long()],
-                            ro, rd)
-    u, v = recompute_uv(bufs, ro_w, rd_w, best_tri)
-    return Hit(best_t, best_tri, u, v, inst=best_inst)
+    for kind, idx, slot in groups:
+        if kind == CANDIDATE:
+            carry = _candidate_group(bufs, slot, idx, carry, ro, rd, act,
+                                     any_hit)
+        else:
+            for k in idx:
+                carry = visit(carry, k, cull=kind == VISIT)
+    return carry
+
+
+def _launch(bufs, g0, g1, carry, ro, rd, act, any_hit, with_uv=False):
+    """``csrc/tlas_traverse.cu`` over groups [g0, g1) of ``bufs.tlas``, all
+    on K2: the carry out (best_t, best_tri, best_inst), new tensors, and
+    with ``with_uv`` the u, v of this launch's hits after it."""
+    from ..ops import bvh2
+    from ..ops.intersect import check_args
+
+    tables = bufs.tlas
+    if tables.blas is not bufs.blas:
+        raise ValueError("the TLAS tables were built for other BLASes")
+    c_max = max(int(TLAS_C), 1)
+    if c_max > TLAS_C_MAX:
+        raise ValueError(f"TLAS_C {c_max}: the kernel keeps at most "
+                         f"{TLAS_C_MAX} candidates a ray")
+    for _, _, slot in tables.groups[g0:g1]:
+        if bufs.blas[slot].stack_depth > bvh2.STACK_MAX:
+            raise ValueError(f"BLAS {slot} needs a traversal stack of "
+                             f"{bufs.blas[slot].stack_depth} entries; the "
+                             f"kernel holds {bvh2.STACK_MAX}")
+    dev = ro.device
+    R = ro.shape[0]
+    K = len(bufs.inst_mesh)
+    G, S = len(tables.groups), len(bufs.blas)
+    ro, rd, act = ro.contiguous(), rd.contiguous(), act.contiguous()
+    t_in, tri_in, inst_in = (x.contiguous() for x in carry)
+    check_args(dev, (("ro", ro, torch.float32, (R, 3)),
+                     ("rd", rd, torch.float32, (R, 3)),
+                     ("active", act, torch.bool, (R,)),
+                     ("best_t", t_in, torch.float32, (R,)),
+                     ("best_tri", tri_in, torch.int32, (R,)),
+                     ("best_inst", inst_in, torch.int32, (R,)),
+                     ("rows", tables.rows, torch.int32, (G, 4)),
+                     ("ids", tables.ids, torch.int32, (K,)),
+                     ("lo", tables.lo, torch.float32, (G, 3)),
+                     ("hi", tables.hi, torch.float32, (G, 3)),
+                     ("blas_ptrs", tables.blas_ptrs, torch.int64, (S, 2)),
+                     ("blas_steps", tables.blas_steps, torch.int32, (S,)),
+                     ("inst_w2o", bufs.inst_w2o, torch.float32, (K, 4, 4)),
+                     ("inst_aabb_lo", bufs.inst_aabb_lo, torch.float32,
+                      (K, 3)),
+                     ("inst_aabb_hi", bufs.inst_aabb_hi, torch.float32,
+                      (K, 3)),
+                     ("inst_tri_base", bufs.inst_tri_base, torch.int32,
+                      (K,))))
+    fn = _build.load("tlas_traverse").tlas_trace
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    out = (torch.empty(R, dtype=torch.float32, device=dev),
+           torch.empty(R, dtype=torch.int32, device=dev),
+           torch.empty(R, dtype=torch.int32, device=dev))
+    if with_uv:
+        out += (torch.empty(R, dtype=torch.float32, device=dev),
+                torch.empty(R, dtype=torch.float32, device=dev))
+    walks = spans.device_count("blas_walks", "k2", dev)
+    err = fn(ro.data_ptr(), rd.data_ptr(), act.data_ptr(), t_in.data_ptr(),
+             tri_in.data_ptr(), inst_in.data_ptr(),
+             *(x.data_ptr() for x in out[:3]),
+             *((out[3].data_ptr(), out[4].data_ptr()) if with_uv
+               else (None, None)), tables.rows.data_ptr(),
+             tables.ids.data_ptr(), tables.lo.data_ptr(),
+             tables.hi.data_ptr(), tables.blas_ptrs.data_ptr(),
+             tables.blas_steps.data_ptr(), bufs.inst_w2o.data_ptr(),
+             bufs.inst_aabb_lo.data_ptr(), bufs.inst_aabb_hi.data_ptr(),
+             bufs.inst_tri_base.data_ptr(),
+             bvh2._capped.tensor(dev).data_ptr(),
+             None if walks is None else walks.data_ptr(), R, g0, g1, c_max,
+             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tlas_trace launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out
 
 
 def occluded_instanced(bufs: SceneBuffers, ro, rd, dist,

@@ -73,7 +73,8 @@ class Recording:
         self.spans: list = []
         # (name, key) -> count: ("sync", site), ("slots", path),
         # ("live", path), the last read from the device at the end, and
-        # the two-level traversal's ("tlas", kind) and ("blas", kernel).
+        # the two-level traversal's ("tlas_path", path), ("tlas", kind),
+        # ("blas", kernel) and, from the device, ("blas_walks", "k2").
         self.counts: dict = {}
         self.frame = 0  # the current frame's number; 0 before any frame
         self.clock = _clock_pair()
@@ -99,12 +100,17 @@ class Recording:
         self.counts[(name, key)] = self.counts.get((name, key), 0) + int(n)
 
     def count_device(self, name: str, key: str, value: torch.Tensor) -> None:
+        self.device_tensor(name, key, value.device).add_(value)
+
+    def device_tensor(self, name: str, key: str, device) -> torch.Tensor:
+        """The int64 one-element tensor on ``device`` that the count
+        ``(name, key)`` reads when the recording stops."""
         from .ops.intersect import DeviceCounter
 
         c = self._device.get((name, key))
         if c is None:
             c = self._device[(name, key)] = DeviceCounter(torch.int64)
-        c.tensor(value.device).add_(value)
+        return c.tensor(device)
 
     def open_path(self) -> str:
         return "/".join(self.spans[i].name for i in self._open)
@@ -219,6 +225,14 @@ def sync(site: str) -> span:
     if _active is not None:
         _active.count("sync", site)
     return span("sync")
+
+
+def device_count(name: str, key: str, device) -> Optional[torch.Tensor]:
+    """While recording, the int64 one-element tensor on ``device`` that a
+    kernel adds the count ``(name, key)`` into, read when the recording
+    stops; None with no recording on, so the kernel counts nothing."""
+    rec = _active
+    return None if rec is None else rec.device_tensor(name, key, device)
 
 
 def rays(active_mask: torch.Tensor) -> None:

@@ -206,6 +206,10 @@ def test_build_matches_reference(builds, name):
             a, b = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
         assert got.inst_mesh == tuple(ref.inst_mesh)
+        # The instance loop's plan and device tables, over its own BLASes.
+        assert got.tlas.groups == port.tlas.groups
+        assert torch.equal(got.tlas.rows, port.tlas.rows)
+        assert got.tlas.blas is got.blas
         assert got.num_tris == ref.num_tris and got.num_nodes == ref.num_nodes
         assert len(got.blas) == len(ref.blas)
         for rb, pb in zip(ref.blas, got.blas):
@@ -347,14 +351,15 @@ def test_update_instance_rebuilds_nothing(builds):
 
 
 def test_path_libraries_are_the_blases():
-    """reload_shaders and chip_smoke.py build what the BLASes launch: K2's
-    source for a small one, K1's past 8,192 BVH2 nodes, each once."""
+    """reload_shaders and chip_smoke.py build what the BLASes launch: the
+    two-level kernel's source, which walks the small ones as K2 does, and
+    K1's past 8,192 BVH2 nodes, each once."""
     def blas(nodes):
         return SimpleNamespace(num_nodes=nodes, treelet=None)
 
     scene = SimpleNamespace(inst_w2o=object(), treelet=None, num_nodes=1,
                             blas=(blas(9), blas(50_000), blas(25)))
-    assert path_libraries(scene) == ["bvh2_traverse", "wide_traverse"]
+    assert path_libraries(scene) == ["tlas_traverse", "wide_traverse"]
 
 
 def test_renderer_takes_instanced_buffers(builds):

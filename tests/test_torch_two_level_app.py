@@ -6,8 +6,10 @@ Standards: the frames of a small hall (about 5,000 triangles, 30 props:
 two candidate groups of 15 instances, over ``TLAS_C``) are judged exactly
 (``image_rel_l1`` and ``blit_mean_abs`` 0.0) by the benchmark's plain
 two-level reference (``portbench/reference/instanced.py``) in both frame
-modes, and with one candidate wave a group, where the drain runs;
-``instancing=False`` still builds the flattened buffers; a recorded
+modes, and with one candidate wave a group, where the drain runs, also
+with the dispatch threshold lowered so that K1 BLASes split the
+instance loop into runs; ``instancing=False`` still builds the
+flattened buffers; a recorded
 two-level frame holds the ``tlas`` and ``blas`` spans and the counts of
 visits, candidate waves, drain waves, traversals by kernel and the four
 sync sites, and a flattened frame none of them; ``--instancing`` reaches
@@ -75,6 +77,44 @@ def test_driver_frames_match_the_two_level_reference(mode, tlas_c):
     with spans.recording() as rec:
         session.captured_frame()
     window = list(session.captures)
+    if tlas_c == 1:
+        assert rec.counts.get(("tlas", "drain"), 0) > 0
+    scene, hdr = runner.make_inputs(cell, SEED)
+    ref = Reference(scene, hdr, cell.config, mode, False, SEED, "cpu",
+                    float(cell.traffic["dt"]))
+    out = judge.judge(ref, warm, window,
+                      inputs.CameraPath(cell.traffic["camera"], SEED))
+    assert out["worst"] == {"image_rel_l1": 0.0, "blit_mean_abs": 0.0}, \
+        out["frames"]
+
+
+@pytest.mark.parametrize("mode, tlas_c", [("pathtrace", 12),
+                                          ("denoised", 1)],
+                         indirect=["tlas_c"])
+def test_runs_split_at_k1_blases_match_the_reference(mode, tlas_c,
+                                                     monkeypatch):
+    """With the dispatch threshold at 40 BVH2 nodes on both sides the
+    larger BLASes take K1 and split the instance loop into runs: the loop
+    runs them one after another, the carry passed from run to run (on the
+    card the K2 runs are the two-level kernel's launches), and the frames
+    are still the reference's exactly, with the drain at TLAS_C 1."""
+    monkeypatch.setattr(port_intersect, "_WIDE_MIN_NODES", 40)
+    monkeypatch.setattr(ref_instanced, "WIDE_MIN_NODES", 40)
+    cell = small_cell(mode)
+    session = session_of(cell)
+    bufs = session.driver.renderer.scene
+    runs = port_instanced.plan_runs(
+        bufs.tlas.groups, [port_intersect.uses_bvh2(b) for b in bufs.blas])
+    assert len(runs) >= 3 and {r[2] for r in runs} == {False, True}
+    for _ in range(int(cell.traffic["warmup_frames"])):
+        session.captured_frame()
+    warm = list(session.captures)
+    session.captures.clear()
+    with spans.recording() as rec:
+        session.captured_frame()
+    window = list(session.captures)
+    assert rec.counts[("tlas_path", "plain")] == len(
+        [s for s in rec.spans if s.name == "tlas"])
     if tlas_c == 1:
         assert rec.counts.get(("tlas", "drain"), 0) > 0
     scene, hdr = runner.make_inputs(cell, SEED)
