@@ -255,8 +255,40 @@ ASVGF_BYTES_PX = (12 + 12 + 8 + 12 + 4 + 4 + 12 + 4 + 4 + 12 + 8 + 4
 ASVGF_OPS_TAP, ASVGF_OPS_ITER, ASVGF_OPS_TEMPORAL = 32, 38, 288
 
 
+# The kernels by the names this script prints, and their keys in
+# _build.launches: (entry point, mode).
+KERNELS = {"K1 closest": ("wide_traverse", "closest"),
+           "K1 any-hit": ("wide_traverse", "anyhit"),
+           "K2 closest": ("bvh2_trace", "closest"),
+           "K2 any-hit": ("bvh2_trace", "anyhit"),
+           "K3": ("bvh2_occluded", None),
+           "TLAS": ("tlas_trace", None),
+           "K4": ("slab_sort", None),
+           "K4 CUDA": ("slab_sort", "cuda_launches"),
+           "E5": ("regroup_blocks", None),
+           "E5 CUDA": ("regroup_blocks", "cuda_launches"),
+           "E5 runs": ("scatter_runs", None),
+           "E6": ("lane_top_pairs", None),
+           "E6 per ray": ("lane_top", None),
+           "E7 closest": ("lane_bottom", ("per_ray", "closest")),
+           "E7 any-hit": ("lane_bottom", ("per_ray", "anyhit")),
+           "E7 per pair": ("lane_bottom", ("per_pair", "closest")),
+           "E7 per pair any-hit": ("lane_bottom", ("per_pair", "anyhit")),
+           "A-SVGF temporal": ("asvgf_temporal", None),
+           "A-SVGF a-trous": ("asvgf_atrous", None),
+           "E2": ("lane_gather", None)}
+
+
 def phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def launch_count(name):
+    """Launches of kernel ``name`` (``KERNELS``) since the last
+    ``_build.reset_counters()``."""
+    from loupiote_tpu_torch import _build
+
+    return _build.launches[KERNELS[name]]
 
 
 def timed(fn, reps, warm=True):
@@ -617,9 +649,9 @@ def compare_slab_sort(name, key, cols, rows, slab_log=16, repeats=3):
     n_plan = len(ss.launch_plan(c_log, len(cols)))
     made = []
     for _ in range(repeats):
-        before = ss.cuda_launched
+        before = launch_count("K4 CUDA")
         k = ss.sort_matrix(mat.clone(), c_log)
-        made.append(ss.cuda_launched - before)
+        made.append(launch_count("K4 CUDA") - before)
         ks, kcols = ss.slab_sort(key, cols, slab_log)
         torch.cuda.synchronize()
         srt &= bool((k[0].view(-1, slab).diff(dim=1) >= 0).all())
@@ -875,7 +907,7 @@ def instanced_phase(lt, dev, smi, frames, gu):
     it was. Returns the numbers for the kernels line."""
     import torch
 
-    from loupiote_tpu_torch import spans
+    from loupiote_tpu_torch import _build, spans
     from loupiote_tpu_torch.ops import bvh2, wide
     from loupiote_tpu_torch.ops.intersect import uses_bvh2
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
@@ -925,9 +957,7 @@ def instanced_phase(lt, dev, smi, frames, gu):
         r = lt.Renderer((WIDTH, HEIGHT), cfg)
         r.set_resources(bufs)
         r.accumulate = True
-        wide.reset_counters()
-        bvh2.reset_counters()
-        instanced.launches = 0
+        _build.reset_counters()
         # The untimed first frame is recorded, for its count of the
         # kernel's BLAS walks; the timed frames run with no recording on.
         with spans.recording() as rec:
@@ -935,12 +965,9 @@ def instanced_phase(lt, dev, smi, frames, gu):
         first = r.accum.clone()
         ms = event_ms(lambda: r.raytrace(view), 5)
         img = r.blit()
-        got = {"K1 closest": wide.launches_closest,
-               "K1 any-hit": wide.launches_anyhit,
-               "K2 closest": bvh2.launches_closest,
-               "K2 any-hit": bvh2.launches_anyhit,
-               "K3": bvh2.launches_occluded,
-               "TLAS": instanced.launches}
+        got = {k: launch_count(k) for k in ("K1 closest", "K1 any-hit",
+                                        "K2 closest", "K2 any-hit", "K3",
+                                        "TLAS")}
         walks = rec.counts.get(("blas_walks", "k2"), 0)
         capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1203,7 +1230,7 @@ def tlas_phase(lt, dev, smi):
     waves. Returns the numbers for the kernels line."""
     import torch
 
-    from loupiote_tpu_torch.ops import bvh2, wide
+    from loupiote_tpu_torch import _build
     from loupiote_tpu_torch.ops.intersect import uses_bvh2
     from loupiote_tpu_torch.scene import instanced
 
@@ -1261,12 +1288,11 @@ def tlas_phase(lt, dev, smi):
         old = instanced.TLAS_C
         instanced.TLAS_C = C
         try:
-            bvh2.reset_counters()
-            instanced.launches = 0
+            _build.reset_counters()
             good, kms, drains = tlas_waves(f"viewer flight, TLAS_C {C}",
                                            bufs, calls, smi)
             res[C] = {"ok": good, "wave_ms": kms, "drain_waves": drains,
-                      "launches": instanced.launches}
+                      "launches": launch_count("TLAS")}
         finally:
             instanced.TLAS_C = old
         if not good or (C == 1 and drains == 0):
@@ -1293,8 +1319,6 @@ def tlas_phase(lt, dev, smi):
     calls = instance_loop_calls(lambda: r.raytrace(view))
     first_nee = next(i for i, c in enumerate(calls) if c[4])
     picked = [calls[0], calls[first_nee]]
-    wide.reset_counters()
-    instanced.launches = 0
     good, kms, _ = tlas_waves("1080p merged hall: K1 / K2 runs "
                               f"{runs}", hall, picked, smi)
     out["mixed"] = {"ok": good, "runs": runs, "wave_ms": kms}
@@ -1326,6 +1350,7 @@ def tiles_phase(lt, dev, arch, headline, smi):
     (b)."""
     import torch
 
+    from loupiote_tpu_torch import _build
     from loupiote_tpu_torch.ops import bvh2, wide
     from loupiote_tpu_torch.parallel import make_mesh, trace_paths_sharded
     from loupiote_tpu_torch.render.integrator import (draw_uniforms,
@@ -1368,20 +1393,19 @@ def tiles_phase(lt, dev, arch, headline, smi):
         r = lt.Renderer((WIDTH, HEIGHT), cfg, mesh=mesh)
         r.set_resources(arch)
         r.accumulate = True
-        wide.reset_counters()
-        bvh2.reset_counters()
+        _build.reset_counters()
         r.raytrace(view)  # warm-up frame; accum == its sample
         first = r.accum.clone()
         ms = timed_frames(r)
         img = r.blit()
-        got = {"closest": wide.launches_closest / 6,
-               "anyhit": wide.launches_anyhit / 6}
+        got = {"closest": launch_count("K1 closest") / 6,
+               "anyhit": launch_count("K1 any-hit") / 6}
         want = {"closest": BOUNCES * shards,
                 "anyhit": (BOUNCES + 1) * shards}
-        launches["closest"] += wide.launches_closest
-        launches["anyhit"] += wide.launches_anyhit
+        launches["closest"] += launch_count("K1 closest")
+        launches["anyhit"] += launch_count("K1 any-hit")
         capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
-        k23 = bvh2.launches_closest + bvh2.launches_occluded
+        k23 = launch_count("K2 closest") + launch_count("K3")
         nonzero = float((first.reshape(-1, 3).sum(1) > 0).float().mean())
         mean = float(np.mean(ms))
         frames[name] = {
@@ -1852,6 +1876,7 @@ def asvgf_phase(lt, dev, scene, smi, interactive):
     kernels' launches over the interactive path's frames. Returns the
     ``kernels`` entry (the 640x360 frame's numbers, the viewer's internal
     size, at the top)."""
+    from loupiote_tpu_torch import _build
     from loupiote_tpu_torch.denoise import asvgf
 
     sizes = {}
@@ -1873,9 +1898,10 @@ def asvgf_phase(lt, dev, scene, smi, interactive):
         want = (want[0], *want[1], want[2])
         same = bits_equal(r.state.denoised, want[0])
         for _ in range(3):
-            asvgf.reset_counters()
+            _build.reset_counters()
             got = asvgf.denoise(*d_in, iterations=4)
-            launches = (asvgf.launches_temporal, asvgf.launches_atrous)
+            launches = (launch_count("A-SVGF temporal"),
+                        launch_count("A-SVGF a-trous"))
             got = (got[0], *got[1], got[2])
             same &= all(bits_equal(a, b) for a, b in zip(got, want))
         if not same or launches != (1, 4):
@@ -1934,7 +1960,6 @@ def main():
     import loupiote_tpu_torch as lt
     from loupiote_tpu_torch import _build, image_codec
     from loupiote_tpu_torch.accel import native
-    from loupiote_tpu_torch.denoise import asvgf
     from loupiote_tpu_torch.experiments import (
         device_sort_bench, kernel_probe, lane_gather_bench,
         measure_traversal, r3_probes)
@@ -2305,8 +2330,7 @@ def main():
     renderer.set_resources(arch)
     renderer.accumulate = True
     view = lt.arch_camera()
-    wide.reset_counters()
-    bvh2.reset_counters()
+    _build.reset_counters()
     renderer.raytrace(view)  # warm-up frame; accum == its sample
     first = renderer.accum.clone()
     frame_ms = []
@@ -2319,11 +2343,11 @@ def main():
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
     img = renderer.blit()
-    k1_launches = {"closest": wide.launches_closest,
-                   "anyhit": wide.launches_anyhit}
+    k1_launches = {"closest": launch_count("K1 closest"),
+                   "anyhit": launch_count("K1 any-hit")}
     capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
     print(f"headline path: 6 frames; K1 launches {k1_launches}; K2/K3 "
-          f"launches {bvh2.launches_closest} / {bvh2.launches_occluded}; "
+          f"launches {launch_count('K2 closest')} / {launch_count('K3')}; "
           f"rays stopped by the step bound {capped}")
     if k1_launches["closest"] == 0 or k1_launches["anyhit"] == 0:
         raise SystemExit("chip_smoke: the headline path did not launch K1")
@@ -2419,22 +2443,20 @@ def main():
             r.use_noise_texture(True)
         r.accumulate = True
         view = lt.arch_camera()
-        wide.reset_counters()
-        bvh2.reset_counters()
+        _build.reset_counters()
         r.raytrace(view)  # warm-up frame; accum == its sample
         first = r.accum.clone()
         ms = event_ms(lambda: r.raytrace(view), 5)
         img = r.blit()
         nf = 6
-        got = {"closest": wide.launches_closest / nf,
-               "anyhit": wide.launches_anyhit / nf}
+        got = {"closest": launch_count("K1 closest") / nf,
+               "anyhit": launch_count("K1 any-hit") / nf}
         want = {"closest": BOUNCES,
                 "anyhit": BOUNCES + 1 + (BOUNCES if bufs.has_probe else 0)}
         capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
         spp = cfg.samples_per_frame
         record_frame(name, ms, first.reshape(-1, 3), got, want, capped, spp,
-                     bvh2.launches_closest + bvh2.launches_occluded, img,
-                     r.accum)
+                     launch_count("K2 closest") + launch_count("K3"), img, r.accum)
         return r
 
     def record_frame(name, ms, sample, got, want, capped, spp, k23, img,
@@ -2523,19 +2545,17 @@ def main():
                       ("spp 4 (trace_paths)", 4)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        wide.reset_counters()
-        bvh2.reset_counters()
+        _build.reset_counters()
         sample = trace_paths(arch, cam, WIDTH, HEIGHT, g_spp,
                              bounces=BOUNCES, spp=spp)[0]
         ms = event_ms(lambda: trace_paths(arch, cam, WIDTH, HEIGHT, g_spp,
                                           bounces=BOUNCES, spp=spp), 5)
-        got = {"closest": wide.launches_closest / 6,
-               "anyhit": wide.launches_anyhit / 6}
+        got = {"closest": launch_count("K1 closest") / 6,
+               "anyhit": launch_count("K1 any-hit") / 6}
         record_frame(name, ms, sample, got,
                      {"closest": BOUNCES, "anyhit": BOUNCES + 1},
                      wide.capped_rays(dev) + bvh2.capped_rays(dev), spp,
-                     bvh2.launches_closest + bvh2.launches_occluded, None,
-                     sample)
+                     launch_count("K2 closest") + launch_count("K3"), None, sample)
     phase("spp frame (c) beside the 1-spp frame: 6 + 6 calls", t0)
 
     # spp=2 in one wave equals the mean of its two 1-spp frames under blue
@@ -2622,9 +2642,7 @@ def main():
     inter.set_resources(arch40)
     inter.set_blit_mode(lt.BlitMode.DENOISED_PATHTRACE)
     view = lt.arch_camera()
-    wide.reset_counters()
-    bvh2.reset_counters()
-    asvgf.reset_counters()
+    _build.reset_counters()
     inter.raytrace(view)  # warm-up
     frame_ms = []
     for _ in range(10):
@@ -2641,15 +2659,12 @@ def main():
     inter.raytrace(view)
     img = inter.blit()
     host_ms = (time.perf_counter() - t1) * 1e3
-    launches = {"K1 closest": wide.launches_closest,
-                "K1 any-hit": wide.launches_anyhit,
-                "K2 closest": bvh2.launches_closest,
-                "K2 any-hit": bvh2.launches_anyhit,
-                "K3": bvh2.launches_occluded}
+    launches = {k: launch_count(k) for k in ("K1 closest", "K1 any-hit",
+                                         "K2 closest", "K2 any-hit", "K3")}
     # A-SVGF's kernels, as the renderer's 12 frames launched them.
     n_iter = inter.config.atrous_iterations
-    inter_asvgf = {"frames": 12, "temporal": asvgf.launches_temporal,
-                   "atrous": asvgf.launches_atrous}
+    inter_asvgf = {"frames": 12, "temporal": launch_count("A-SVGF temporal"),
+                   "atrous": launch_count("A-SVGF a-trous")}
     capped = wide.capped_rays(dev) + bvh2.capped_rays(dev)
     peak = torch.cuda.max_memory_allocated() / 2**30
     iw, ih = inter.get_size()
@@ -2685,10 +2700,10 @@ def main():
 
     def next_frame():
         view[0, 3] += 1e-3
-        k2, k3 = bvh2.launches_closest, bvh2.launches_occluded
+        k2, k3 = launch_count("K2 closest"), launch_count("K3")
         inter.raytrace(view)
-        frame_launches["K2"] = bvh2.launches_closest - k2
-        frame_launches["K3"] = bvh2.launches_occluded - k3
+        frame_launches["K2"] = launch_count("K2 closest") - k2
+        frame_launches["K3"] = launch_count("K3") - k3
 
     def frame_complete(ks):
         return all(sum(w in n for n, _ in ks) == frame_launches[k]
@@ -3200,7 +3215,7 @@ def main():
     ok = True
     for name, (wro, wrd, wact) in (("primary 1080p", prim),
                                    ("diffuse 1080p, sorted", diff260)):
-        pipeline.reset_counters()
+        _build.reset_counters()
         th = pipeline.treelet_intersect(archT, wro, wrd, active=wact)
         n_fb = pipeline.fallback_rays(dev)
         kh = wide.intersect_wide(archT, wro, wrd, active=wact)
@@ -3213,7 +3228,7 @@ def main():
                     f"{max_ulp} | {n_fb} ({n_fb / n_act:.4%}) | "
                     f"{'PASS' if ok_w else 'FAIL'} |")
     nro, nrd, ndist, nact = nee
-    pipeline.reset_counters()
+    _build.reset_counters()
     blocked = pipeline.treelet_occluded(archT, nro, nrd, ndist, active=nact)
     n_fb = pipeline.fallback_rays(dev)
     want = wide.occluded_wide(archT, nro, nrd, ndist * (1.0 - 1e-3),
@@ -3275,8 +3290,7 @@ def main():
     rt.set_resources(archT)
     rt.accumulate = True
     view = lt.arch_camera()
-    for m in (wide, bvh2, ss, regroup, lane_top, lane_bottom, pipeline):
-        m.reset_counters()
+    _build.reset_counters()
     rt.raytrace(view)  # warm-up frame; accum == its sample
     first = rt.accum.clone()
     frame_ms = []
@@ -3290,21 +3304,12 @@ def main():
         frame_ms.append(start.elapsed_time(end))
     img = rt.blit()
     n_frames = 6
-    k4_cuda, e5_cuda = ss.cuda_launched, regroup.cuda_launched
-    t_launches = {"E6": lane_top.launches["pairs"],
-                  "E6 per ray": lane_top.launches["per_ray"],
-                  "K4": ss.launches,
-                  "E5": regroup.launches["blocks"],
-                  "E5 runs": regroup.launches["runs"],
-                  "E7 closest": lane_bottom.launches[("per_ray", "closest")],
-                  "E7 any-hit": lane_bottom.launches[("per_ray", "anyhit")],
-                  "E7 per pair": lane_bottom.launches[("per_pair",
-                                                       "closest")],
-                  "E7 per pair any-hit": lane_bottom.launches[("per_pair",
-                                                               "anyhit")],
-                  "K1 closest": wide.launches_closest,
-                  "K1 any-hit": wide.launches_anyhit,
-                  "K2": bvh2.launches_closest, "K3": bvh2.launches_occluded}
+    k4_cuda, e5_cuda = launch_count("K4 CUDA"), launch_count("E5 CUDA")
+    t_launches = {k: launch_count(k) for k in (
+        "E6", "E6 per ray", "K4", "E5", "E5 runs", "E7 closest",
+        "E7 any-hit", "E7 per pair", "E7 per pair any-hit", "K1 closest",
+        "K1 any-hit")}
+    t_launches.update(K2=launch_count("K2 closest"), K3=launch_count("K3"))
     capped = (wide.capped_rays(dev) + bvh2.capped_rays(dev)
               + lane_top.capped_rays(dev) + lane_bottom.capped_pairs(dev))
     n_fb = pipeline.fallback_rays(dev)
@@ -3379,12 +3384,11 @@ def main():
     t0 = time.perf_counter()
     del rt, archT, td
     torch.cuda.empty_cache()
-    kernel_probe.reset_counters()
-    wide.reset_counters()
+    _build.reset_counters()
     e1 = kernel_probe.main(bufs=arch, cam=cam)
-    e1_launches = dict(kernel_probe.launches)
-    e1_path = {"K1 closest": wide.launches_closest,
-               "K1 any-hit": wide.launches_anyhit}
+    e1_launches = {p: _build.launches["kernel_probe", p]
+                   for p in kernel_probe.PROBES}
+    e1_path = {k: launch_count(k) for k in ("K1 closest", "K1 any-hit")}
     print(f"E1 path launches {e1_launches}; on the way to it {e1_path}",
           flush=True)
     if not (all(e1_launches.values()) and e1_path["K1 closest"]):
@@ -3464,9 +3468,9 @@ def main():
 
     # -- E2: the lane-gather probe's path ----------------------------------
     t0 = time.perf_counter()
-    lane_gather_bench.reset_counters()
+    _build.reset_counters()
     e2 = lane_gather_bench.main()
-    e2_launches = lane_gather_bench.launches
+    e2_launches = launch_count("E2")
     if not e2_launches:
         raise SystemExit("chip_smoke: the E2 path did not launch E2")
     e2_args = [torch.from_numpy(a).to(dev)
@@ -3521,9 +3525,10 @@ def main():
 
     # -- E3: the op-latency probes' path -----------------------------------
     t0 = time.perf_counter()
-    r3_probes.reset_counters()
+    _build.reset_counters()
     e3 = r3_probes.main(["all"])
-    e3_launches = dict(r3_probes.launches)
+    e3_launches = {p: _build.launches["r3_probe", p]
+                   for p in r3_probes.PROBES}
     if not all(e3_launches.values()):
         raise SystemExit("chip_smoke: the E3 path did not launch every probe")
     x3 = r3_probes.tile(dev)
@@ -3631,10 +3636,10 @@ def main():
 
     # -- E4: the global sort's path ----------------------------------------
     t0 = time.perf_counter()
-    ss.reset_counters()
+    _build.reset_counters()
     e4 = device_sort_bench.main()
-    e4_launches = ss.launches
-    e4_cuda = ss.cuda_launched
+    e4_launches = launch_count("K4")
+    e4_cuda = launch_count("K4 CUDA")
     if not (e4_launches and e4["correct"]):
         raise SystemExit("chip_smoke: the E4 path did not launch K4 or "
                          "sorted wrongly")

@@ -15,13 +15,12 @@ eager torch ops on the card the twins take ~7,900 launches a frame.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from .. import _build, spans
-from ..ops.intersect import check_args
+from .._build import check_args
 
 # Temporal blend floor: history is capped so fresh samples always count.
 ALPHA_MIN = 0.05
@@ -30,18 +29,6 @@ MAX_HISTORY = 32.0
 SIGMA_NORMAL = 64.0
 SIGMA_DEPTH = 1.0
 SIGMA_LUM = 4.0
-
-# Kernel launches: each call of the temporal kernel adds one to
-# ``launches_temporal``, each a-trous iteration on the card one to
-# ``launches_atrous``.
-launches_temporal = 0
-launches_atrous = 0
-
-
-def reset_counters() -> None:
-    global launches_temporal, launches_atrous
-    launches_temporal = 0
-    launches_atrous = 0
 
 
 class TemporalOut(NamedTuple):
@@ -236,21 +223,9 @@ def _on_card(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernels), False for a CPU tensor (the
     twins); raises for any other device. Counts the path taken,
     ``("asvgf", "cuda" | "plain")``, while a recording is on."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no A-SVGF for device {x.device}")
-    card = x.device.type == "cuda"
-    rec = spans.active()
-    if rec is not None:
-        rec.count("asvgf", "cuda" if card else "plain")
+    card = _build.on_card(x, "A-SVGF")
+    spans.count("asvgf", "cuda" if card else "plain")
     return card
-
-
-def _kernel(name: str, n_ptr: int, n_int: int):
-    fn = getattr(_build.load("asvgf"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    return fn
 
 
 def _temporal_cuda(radiance, albedo, motion, normal, depth, mesh,
@@ -281,14 +256,8 @@ def _temporal_cuda(radiance, albedo, motion, normal, depth, mesh,
                     torch.empty((h, w), dtype=f32, device=dev),
                     torch.empty((h, w), dtype=f32, device=dev))
     rgb = torch.empty((h, w, 3), dtype=f32, device=dev)
-    err = _kernel("asvgf_temporal", 17, 2)(
-        *(x.data_ptr() for _, x, _, _ in args),
-        *(x.data_ptr() for x in t), rgb.data_ptr(), h, w,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"asvgf_temporal launch failed: CUDA error {err}")
-    global launches_temporal
-    launches_temporal += 1
+    _build.launch("asvgf", "asvgf_temporal", "17p2is",
+                  *(x for _, x, _, _ in args), *t, rgb, h, w)
     return t, rgb
 
 
@@ -309,16 +278,8 @@ def _atrous_step(illum, variance, normal, depth, mesh, step: int,
         check_args(dev, (("albedo", albedo, f32, (h, w, 3)),))
     out_i = torch.empty_like(illum)
     out_v = None if albedo is not None else torch.empty_like(variance)
-    err = _kernel("asvgf_atrous", 8, 3)(
-        illum.data_ptr(), variance.data_ptr(), normal.data_ptr(),
-        depth.data_ptr(), mesh.data_ptr(),
-        None if albedo is None else albedo.data_ptr(), out_i.data_ptr(),
-        None if out_v is None else out_v.data_ptr(), h, w, step,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"asvgf_atrous launch failed: CUDA error {err}")
-    global launches_atrous
-    launches_atrous += 1
+    _build.launch("asvgf", "asvgf_atrous", "8p3is", illum, variance, normal,
+                  depth, mesh, albedo, out_i, out_v, h, w, step)
     return out_i, out_v
 
 

@@ -23,14 +23,12 @@ Run on the card: ``python -m loupiote_tpu_torch.experiments.kernel_probe``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
+from .._build import check_args, on_card
 from ..accel.wide import LEAF_MASK
-from ..ops.intersect import (T_MIN, DeviceCounter, check_args,
-                             moller_trumbore, on_card)
+from ..ops.intersect import T_MIN, moller_trumbore
 from ..ops.sort import ray_sort_key, sort_order
 from ..ops.wide import _safe_inv
 from . import require_card, time_probe
@@ -46,25 +44,16 @@ PROBES = ("full", "nomt", "noorder", "nostack", "nofetch")
 NOFETCH_STEPS = 600
 REPS = 3  # timed calls of each variant, after one warm-up
 
-# Launches of E1 by variant; each call that launches the kernel adds one.
-launches = {p: 0 for p in PROBES}
-
 # Stack pushes at or beyond stack_size (dropped, as the reference's one-hot
 # scatter drops them), per device.
-_dropped = DeviceCounter()
+_dropped = _build.kernel_counter("kernel_probe.dropped")
 
 
 def dropped_pushes(device) -> int:
-    """Pushes dropped on ``device`` since the last ``reset_counters()``:
-    0 for every variant but ``nofetch``, whose packets push the same
-    children of row 0 every step."""
+    """Pushes dropped on ``device`` since the last
+    ``_build.reset_counters()``: 0 for every variant but ``nofetch``, whose
+    packets push the same children of row 0 every step."""
     return _dropped.read(device)
-
-
-def reset_counters() -> None:
-    for p in PROBES:
-        launches[p] = 0
-    _dropped.reset()
 
 
 def max_steps_of(probe: str, wide_end: int) -> int:
@@ -244,11 +233,6 @@ def _launch(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *, end_index: int,
     if not 1 <= stack_size <= STACK_MAX:
         raise ValueError(f"kernel_probe: stack_size {stack_size} outside "
                          f"1..{STACK_MAX}")
-    lib = _build.load("kernel_probe")
-    fn = lib.kernel_probe
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
@@ -256,16 +240,11 @@ def _launch(trav_rows, ox, oy, oz, dx, dy, dz, t0, act, *, end_index: int,
     steps = torch.empty(shape[:2], dtype=torch.int32, device=dev)
     # The persistent grid's packet counter.
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = fn(trav_rows.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
-             dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), t0.data_ptr(),
-             act.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-             tri.data_ptr(), steps.data_ptr(), _dropped.tensor(dev).data_ptr(),
-             nxt.data_ptr(), shape[0] * SUB, int(end_index), int(max_steps), int(leaf_cap),
-             int(stack_size), PROBES.index(probe),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"kernel_probe launch failed: CUDA error {err}")
-    launches[probe] += 1
+    _build.launch("kernel_probe", "kernel_probe", "16p6is", trav_rows, ox, oy,
+                  oz, dx, dy, dz, t0, act, t, u, v, tri, steps,
+                  _dropped.tensor(dev), nxt, shape[0] * SUB, int(end_index),
+                  int(max_steps), int(leaf_cap), int(stack_size),
+                  PROBES.index(probe), mode=probe)
     return t, u, v, tri, steps
 
 

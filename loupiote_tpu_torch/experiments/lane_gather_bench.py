@@ -18,14 +18,11 @@ Run on the card:
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from .. import _build
-from ..ops.intersect import check_args, on_card
+from .._build import check_args, on_card
 from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
@@ -34,14 +31,6 @@ STEPS = (64, 512, 4096)
 BLOCKS = 128  # the reference's grid: 128 blocks of 1,024 lanes
 SEED = 3
 REPS = 4  # timed calls at each step count, after one warm-up
-
-# Launches of E2 on the card; each call that launches the kernel adds one.
-launches = 0
-
-
-def reset_counters() -> None:
-    global launches
-    launches = 0
 
 
 def _inv(d: torch.Tensor) -> torch.Tensor:
@@ -77,16 +66,6 @@ def lane_gather_plain(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     return acc.view(shape)
 
 
-@functools.cache
-def _lib():
-    """The built library with its entry point typed, built at first use."""
-    lib = _build.load("lane_gather")
-    lib.lane_gather.restype = ctypes.c_int
-    lib.lane_gather.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib
-
-
 def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
     dev = ox.device
     shape = tuple(ox.shape)
@@ -96,16 +75,9 @@ def _launch(tab, ox, oy, oz, dx, dy, dz, *, steps: int):
                + [(nm, x, torch.float32, shape) for nm, x in
                   (("ox", ox), ("oy", oy), ("oz", oz), ("dx", dx), ("dy", dy),
                    ("dz", dz))])
-    lib = _lib()
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    err = lib.lane_gather(
-        tab.data_ptr(), ox.data_ptr(), oy.data_ptr(), oz.data_ptr(),
-        dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(),
-        shape[0], int(steps), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_gather launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    _build.launch("lane_gather", "lane_gather", "8p2is", tab, ox, oy, oz, dx,
+                  dy, dz, out, shape[0], int(steps))
     return out
 
 

@@ -15,14 +15,13 @@ Run on the card: ``python -m loupiote_tpu_torch.experiments.r3_probes
 
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..ops.intersect import check_args, on_card
+from .._build import check_args, on_card
 from . import require_card, time_probe
 
 SUB, SUBP = 8, 128
@@ -48,14 +47,6 @@ OPS_PER_STEP = {"repeat": 32 * 2 + 1024, "bdim": 32 * 2 + 1024,
                 "selmerge": 8 * (56 + 3 * 112) + 1024 * 5,
                 "cgather28": 32 * 28 + 1024 * 5, "roll": 1024 * 2,
                 "segmin": 32 * 31 + 1024 * 3}
-
-# Launches of E3 by probe; each call that launches the kernel adds one.
-launches = {p: 0 for p in PROBES}
-
-
-def reset_counters() -> None:
-    for p in PROBES:
-        launches[p] = 0
 
 
 def _f32(x: float) -> float:
@@ -131,17 +122,9 @@ def _launch(name: str, x: torch.Tensor, steps: int) -> torch.Tensor:
     if name not in PROBES:
         raise ValueError(f"unknown probe {name!r}")
     check_args(x.device, (("x", x, torch.float32, (1, SUB, SUBP)),))
-    lib = _build.load("r3_probes")
-    fn = lib.r3_probe
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
     out = torch.empty_like(x)
-    err = fn(x.data_ptr(), out.data_ptr(), int(steps), PROBES.index(name),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"r3_probe launch failed: CUDA error {err}")
-    launches[name] += 1
+    _build.launch("r3_probes", "r3_probe", "2p2is", x, out, int(steps),
+                  PROBES.index(name), mode=name)
     return out
 
 

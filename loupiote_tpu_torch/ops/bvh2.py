@@ -18,38 +18,26 @@ walks the pre-order with the ``miss`` links and no stack.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
-                        moller_trumbore, on_card, ray_args)
+from .._build import check_args, on_card
+from .intersect import T_MIN, Hit, moller_trumbore, ray_args
 from .wide import _safe_inv
 
 STACK_MAX = 128  # csrc/bvh2_traverse.cu: kStackMax
 LEAF_CAP = 14
 
-# Launches by kernel and mode: each wrapper call that launches a kernel
-# adds one. chip_smoke.py zeroes them before a path and reads them after.
-launches_closest = 0  # K2, closest-hit
-launches_anyhit = 0  # K2, any-hit
-launches_occluded = 0  # K3
-
-# Rays stopped by the step bound, per device.
-_capped = DeviceCounter()
+# Rays stopped by the step bound, per device (K2, K3 and the two-level
+# kernel's K2 walks).
+_capped = _build.kernel_counter("bvh2_traverse.capped")
 
 
 def capped_rays(device) -> int:
     """Rays that reached the step bound ``4 * num_nodes + 64`` on
-    ``device`` since the last ``reset_counters()``; 0 on a sound tree."""
+    ``device`` since the last ``_build.reset_counters()``; 0 on a sound
+    tree."""
     return _capped.read(device)
-
-
-def reset_counters() -> None:
-    global launches_closest, launches_anyhit, launches_occluded
-    launches_closest = launches_anyhit = launches_occluded = 0
-    _capped.reset()
 
 
 def max_steps(num_nodes: int) -> int:
@@ -256,24 +244,12 @@ def _launch_trace(node_rows, leaf_rows, ro, rd, tmax, active, any_hit,
         raise ValueError(f"scene needs a traversal stack of {stack_depth} "
                          f"entries; the kernel holds {STACK_MAX}")
     _check(dev, R, node_rows, leaf_rows, ro, rd, tmax, active)
-    fn = _build.load("bvh2_traverse").bvh2_trace
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
     out = [torch.empty(R, dtype=torch.float32, device=dev) for _ in range(3)]
     tri = torch.empty(R, dtype=torch.int32, device=dev)
-    err = fn(node_rows.data_ptr(), leaf_rows.data_ptr(), ro.data_ptr(),
-             rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
-             *(x.data_ptr() for x in out), tri.data_ptr(),
-             _capped.tensor(dev).data_ptr(), R, max_steps(num_nodes),
-             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bvh2_trace launch failed: CUDA error {err}")
-    global launches_closest, launches_anyhit
-    if any_hit:
-        launches_anyhit += 1
-    else:
-        launches_closest += 1
+    _build.launch("bvh2_traverse", "bvh2_trace", "11p3is", node_rows,
+                  leaf_rows, ro, rd, tmax, active, *out, tri,
+                  _capped.tensor(dev), R, max_steps(num_nodes), int(any_hit),
+                  mode="anyhit" if any_hit else "closest")
     return (*out, tri)
 
 
@@ -282,20 +258,11 @@ def _launch_occluded(node_rows, leaf_rows, ro, rd, tmax, active, end_index,
     dev = ro.device
     R = ro.shape[0]
     _check(dev, R, node_rows, leaf_rows, ro, rd, tmax, active)
-    fn = _build.load("bvh2_traverse").bvh2_occluded
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
     blocked = torch.empty(R, dtype=torch.int32, device=dev)
-    err = fn(node_rows.data_ptr(), leaf_rows.data_ptr(), ro.data_ptr(),
-             rd.data_ptr(), tmax.data_ptr(), active.data_ptr(),
-             blocked.data_ptr(), _capped.tensor(dev).data_ptr(), R,
-             max_steps(num_nodes), int(end_index),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bvh2_occluded launch failed: CUDA error {err}")
-    global launches_occluded
-    launches_occluded += 1
+    _build.launch("bvh2_traverse", "bvh2_occluded", "8p3is", node_rows,
+                  leaf_rows, ro, rd, tmax, active, blocked,
+                  _capped.tensor(dev), R, max_steps(num_nodes),
+                  int(end_index))
     return blocked
 
 

@@ -79,66 +79,6 @@ def recompute_uv(scene, ro, rd, tri):
     return torch.where(miss, 0.0, u), torch.where(miss, 0.0, v)
 
 
-def on_card(ro: torch.Tensor) -> bool:
-    """True where a traversal wrapper launches its CUDA kernel (a CUDA
-    tensor), False where it runs its plain twin (a CPU tensor); raises for
-    any other device."""
-    if ro.device.type == "cpu":
-        return False
-    if ro.device.type != "cuda":
-        raise ValueError(f"no traversal for device {ro.device}")
-    return True
-
-
-def full_device(device) -> torch.device:
-    """The device with its index: "cuda" is the current card, as
-    ``tensor.device`` names it ("cuda:0")."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
-class DeviceCounter:
-    """A count kept as a one-element tensor on each device, so kernels
-    (``atomicAdd``) and tensor code add to it without a host sync. "cuda"
-    and "cuda:0" name the same card, hence the same counter."""
-
-    def __init__(self, dtype=torch.int32):
-        self.dtype = dtype
-        self._by_device: dict = {}
-
-    def tensor(self, device) -> torch.Tensor:
-        d = full_device(device)
-        if d not in self._by_device:
-            self._by_device[d] = torch.zeros(1, dtype=self.dtype, device=d)
-        return self._by_device[d]
-
-    def read(self, device) -> int:
-        return int(self.tensor(device).item())
-
-    def total(self) -> int:
-        """The counts of every device summed (one read each)."""
-        return sum(int(c.item()) for c in self._by_device.values())
-
-    def reset(self) -> None:
-        for c in self._by_device.values():
-            c.zero_()
-
-
-def check_args(dev, specs) -> None:
-    """Raise unless each (name, tensor, dtype, shape or None) is a
-    contiguous tensor of that dtype and shape on ``dev``: what a kernel
-    launch reads through raw pointers."""
-    for name, x, dtype, shape in specs:
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{dev}, got {x.dtype} on {x.device}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name}: need shape {shape}, got "
-                             f"{tuple(x.shape)}")
-
-
 def ray_args(ro, rd, tmax, active):
     """Contiguous (ro, rd, tmax, active) with the defaults filled in:
     tmax T_FAR, every ray active."""

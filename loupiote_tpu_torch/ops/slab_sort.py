@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .intersect import on_card
+from .._build import on_card
 
 I32_MAX = 2**31 - 1
 MAX_PAYLOAD = 4  # csrc/slab_sort.cu: kMaxPayload
@@ -44,17 +44,6 @@ CLUSTER_LOG = 3
 # Data registers a thread of a global pass may hold (half of the 255 a
 # thread may use; csrc/slab_sort.cu: global_stages).
 PASS_REGISTERS = 128
-
-# Sorts launched on the card, and the CUDA launches their plans made, as
-# the C entry point counts them. chip_smoke.py zeroes both before the main
-# path and reads them after.
-launches = 0
-cuda_launched = 0
-
-
-def reset_counters() -> None:
-    global launches, cuda_launched
-    launches = cuda_launched = 0
 
 
 def slab_log_of(n: int, slab_log: int = 16) -> int:
@@ -142,20 +131,6 @@ def slab_sort_plain(mat: torch.Tensor, c_log: int) -> torch.Tensor:
     return mat
 
 
-def _lib():
-    lib = _build.load("slab_sort")
-    lib.slab_sort.restype = ctypes.c_int
-    lib.slab_sort.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    lib.slab_sort_max_clusters.restype = ctypes.c_int
-    lib.slab_sort_max_clusters.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int)]
-    return lib
-
-
 def _shape(c_log: int, n_payload: int):
     """(span, b): keys a cluster and a block hold, log2. A cluster has as
     many blocks as it may (8 blocks of 2**13 keys measured faster than 4 of
@@ -170,17 +145,16 @@ def max_active_clusters(c_log: int, n_payload: int) -> int:
     """``cudaOccupancyMaxActiveClusters`` for the cluster launch of a sort
     of ``2**c_log``-key slabs on the current card."""
     out = ctypes.c_int(0)
-    err = _lib().slab_sort_max_clusters(
-        n_payload, *_shape(c_log, n_payload), ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"slab_sort occupancy query: CUDA error {err}")
+    _build.call("slab_sort", "slab_sort_max_clusters", "3in", n_payload,
+                *_shape(c_log, n_payload), ctypes.byref(out),
+                what="slab_sort occupancy query")
     return out.value
 
 
-def _run_plan(mat: torch.Tensor, c_log: int, plan) -> int:
+def _run_plan(mat: torch.Tensor, c_log: int, plan) -> None:
     """Launch the steps of ``plan`` on a CUDA matrix, in place, through the
-    C entry point; returns the CUDA launches it made. Raises on a refused
-    launch."""
+    C entry point, counted with the CUDA launches it made. Raises on a
+    refused launch."""
     rows, n = mat.shape
     if mat.dtype != torch.int32 or not mat.is_contiguous():
         raise ValueError("slab_sort: need a contiguous int32 matrix")
@@ -189,23 +163,11 @@ def _run_plan(mat: torch.Tensor, c_log: int, plan) -> int:
     codes = [x for step in plan
              for x in ((0 if step[0] == "cluster" else 1), *step[1:])]
     made = ctypes.c_int(0)
-    err = _lib().slab_sort(
-        mat.data_ptr(), rows - 1, n, c_log, *_shape(c_log, rows - 1),
-        (ctypes.c_int * len(codes))(*codes), len(plan),
-        torch.cuda.current_stream(mat.device).cuda_stream,
-        ctypes.byref(made))
-    if err != 0:
-        raise RuntimeError(f"slab_sort launch failed: CUDA error {err}")
-    return made.value
-
-
-def _launch(mat: torch.Tensor, c_log: int) -> torch.Tensor:
-    """K4 on a CUDA matrix, in place: its launch plan, counted."""
-    made = _run_plan(mat, c_log, launch_plan(c_log, mat.shape[0] - 1))
-    global launches, cuda_launched
-    launches += 1
-    cuda_launched += made
-    return mat
+    _build.launch("slab_sort", "slab_sort", "pi q 3i n i s n", mat, rows - 1,
+                  n, c_log, *_shape(c_log, rows - 1),
+                  (ctypes.c_int * len(codes))(*codes), len(plan),
+                  ctypes.byref(made))
+    _build.launches["slab_sort", "cuda_launches"] += made.value
 
 
 def pack(key: torch.Tensor, payload: list, slab_log: int = 16):
@@ -258,9 +220,14 @@ def unpack(mat: torch.Tensor, key: torch.Tensor, payload: list):
 
 
 def sort_matrix(mat: torch.Tensor, c_log: int) -> torch.Tensor:
-    """K4 on a CUDA matrix, the plain twin on a CPU matrix; in place."""
-    if mat.shape[1]:
-        (_launch if on_card(mat) else slab_sort_plain)(mat, c_log)
+    """K4 on a CUDA matrix (its launch plan), the plain twin on a CPU
+    matrix; in place."""
+    if not mat.shape[1]:
+        return mat
+    if on_card(mat):
+        _run_plan(mat, c_log, launch_plan(c_log, mat.shape[0] - 1))
+    else:
+        slab_sort_plain(mat, c_log)
     return mat
 
 

@@ -14,40 +14,28 @@ which ``table_depth`` computes on the host.
 
 from __future__ import annotations
 
-import ctypes
 import weakref
 
 import numpy as np
 import torch
 
 from .. import _build
+from .._build import check_args, on_card
 from ..accel.wide import LEAF_MASK, LEAF_TAG
-from .intersect import (T_MIN, DeviceCounter, Hit, check_args,
-                        moller_trumbore, on_card, ray_args, recompute_uv)
+from .intersect import T_MIN, Hit, moller_trumbore, ray_args, recompute_uv
 
 DEPTH_MAX = 32  # csrc/wide_traverse.cu: kDepthMax
 ROWS_MAX = 1 << 24  # a stack entry holds a row index in 24 bits
 
-# Launches of K1 by mode: each wrapper call that launches the kernel adds
-# one. chip_smoke.py zeroes them before the main path and reads them after.
-launches_closest = 0
-launches_anyhit = 0
-
 # Rays stopped by the step bound, per device.
-_capped = DeviceCounter()
+_capped = _build.kernel_counter("wide_traverse.capped")
 
 
 def capped_rays(device) -> int:
     """Rays that reached the step bound ``4 * wide_end + 64`` on ``device``
-    since the last ``reset_counters()``; 0 on a well-formed table."""
+    since the last ``_build.reset_counters()``; 0 on a well-formed
+    table."""
     return _capped.read(device)
-
-
-def reset_counters() -> None:
-    global launches_closest, launches_anyhit
-    launches_closest = 0
-    launches_anyhit = 0
-    _capped.reset()
 
 
 def max_steps(wide_end: int) -> int:
@@ -244,23 +232,12 @@ def _launch(trav_rows, ro, rd, tmax, active, any_hit, wide_end, wide_stack):
                      ("rd", rd, torch.float32, (R, 3)),
                      ("tmax", tmax, torch.float32, (R,)),
                      ("active", active, torch.bool, (R,))))
-    fn = _build.load("wide_traverse").wide_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
     t = torch.empty(R, dtype=torch.float32, device=dev)
     tri = torch.empty(R, dtype=torch.int32, device=dev)
-    err = fn(trav_rows.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-             tmax.data_ptr(), active.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             _capped.tensor(dev).data_ptr(), R, max_steps(wide_end), depth,
-             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wide_traverse launch failed: CUDA error {err}")
-    global launches_closest, launches_anyhit
-    if any_hit:
-        launches_anyhit += 1
-    else:
-        launches_closest += 1
+    _build.launch("wide_traverse", "wide_traverse", "8p4is", trav_rows, ro,
+                  rd, tmax, active, t, tri, _capped.tensor(dev), R,
+                  max_steps(wide_end), depth, int(any_hit),
+                  mode="anyhit" if any_hit else "closest")
     return t, tri
 
 

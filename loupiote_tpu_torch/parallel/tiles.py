@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.intersect import full_device
+from .._build import full_device
 from ..render.integrator import GBuffer, trace_paths
 
 GBUFFER_PLANES = ("normal", "depth", "mesh_id", "albedo", "world_pos")

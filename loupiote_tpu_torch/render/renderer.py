@@ -474,10 +474,10 @@ class Renderer:
     # binds their functions with from-imports.
     _RELOADABLE = tuple("loupiote_tpu_torch." + m for m in (
         "ops.intersect", "ops.raygen", "ops.sampling", "ops.env",
-        "ops.texture", "ops.sort", "ops.wide", "ops.bvh2", "ops.slab_sort",
-        "treelet.lane_top", "treelet.lane_bottom", "treelet.regroup",
-        "treelet.pipeline", "ops.shade", "ops.tonemap", "ops.lightmap",
-        "denoise.asvgf"))
+        "ops.texture", "ops.sort", "ops.wide", "ops.bvh2", "scene.instanced",
+        "ops.slab_sort", "treelet.lane_top", "treelet.lane_bottom",
+        "treelet.regroup", "treelet.pipeline", "ops.shade", "ops.tonemap",
+        "ops.lightmap", "denoise.asvgf"))
     _REBINDERS = ("loupiote_tpu_torch.render.integrator",)
 
     def reload_shaders(self) -> None:
@@ -491,15 +491,18 @@ class Renderer:
         of the path are dropped and loaded again: a source whose hash
         changed is rebuilt under a new name (ctypes cannot reload a path
         that is already open, so each build has its own hashed name), an
-        unchanged one loads the same library. ``_build`` itself is not
-        reloaded: it holds the locks and the cache.
+        unchanged one loads the same library, and an entry point's C
+        signature is declared again on the library that replaces it.
+        ``_build`` itself is not reloaded: it holds the locks, the cache
+        and the launch counts.
 
         Validation builds every library of the path and renders a
         one-bounce 32x16 frame on the renderer's device from a generator
         of its own. On any error the old state is kept: the module dicts,
-        the bindings and ``_build``'s libraries are restored, the error is
-        kept in ``last_reload_error``, and the session renders on with the
-        old pipeline.
+        the bindings and ``_build``'s libraries (with the signatures
+        declared on them) are restored, the error is kept in
+        ``last_reload_error``, and the session renders on with the old
+        pipeline.
         """
         import importlib
         import sys

@@ -47,7 +47,6 @@ and ``tlas_drain`` (whether a drain wave found a box).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
@@ -75,10 +74,6 @@ TLAS_C_MAX = 16
 # Group kinds of the plan: an instance visited with no cull (the unroll),
 # instances visited behind their box culls, a candidate-gather group.
 UNROLL, VISIT, CANDIDATE = 0, 1, 2
-
-# Launches of csrc/tlas_traverse.cu, one a run of K2 groups in a call.
-# chip_smoke.py zeroes it before a path and reads it after.
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -511,11 +506,9 @@ def intersect_instanced(bufs: SceneBuffers, ro, rd, tmax=None, active=None,
     ``csrc/tlas_traverse.cu``, which also returns the winners' u, v where
     it is the whole loop (the same bits as the replay); on CPU tensors
     the plain loop runs."""
-    from ..ops.intersect import on_card
-
     with spans.span("tlas"):
         return _instance_loop(bufs, ro, rd, tmax, active, any_hit,
-                              on_card(ro))
+                              _build.on_card(ro))
 
 
 def intersect_instanced_plain(bufs: SceneBuffers, ro, rd, tmax=None,
@@ -604,7 +597,6 @@ def _launch(bufs, g0, g1, carry, ro, rd, act, any_hit, with_uv=False):
     on K2: the carry out (best_t, best_tri, best_inst), new tensors, and
     with ``with_uv`` the u, v of this launch's hits after it."""
     from ..ops import bvh2
-    from ..ops.intersect import check_args
 
     tables = bufs.tlas
     if tables.blas is not bufs.blas:
@@ -624,7 +616,7 @@ def _launch(bufs, g0, g1, carry, ro, rd, act, any_hit, with_uv=False):
     G, S = len(tables.groups), len(bufs.blas)
     ro, rd, act = ro.contiguous(), rd.contiguous(), act.contiguous()
     t_in, tri_in, inst_in = (x.contiguous() for x in carry)
-    check_args(dev, (("ro", ro, torch.float32, (R, 3)),
+    _build.check_args(dev, (("ro", ro, torch.float32, (R, 3)),
                      ("rd", rd, torch.float32, (R, 3)),
                      ("active", act, torch.bool, (R,)),
                      ("best_t", t_in, torch.float32, (R,)),
@@ -643,10 +635,6 @@ def _launch(bufs, g0, g1, carry, ro, rd, act, any_hit, with_uv=False):
                       (K, 3)),
                      ("inst_tri_base", bufs.inst_tri_base, torch.int32,
                       (K,))))
-    fn = _build.load("tlas_traverse").tlas_trace
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
     out = (torch.empty(R, dtype=torch.float32, device=dev),
            torch.empty(R, dtype=torch.int32, device=dev),
            torch.empty(R, dtype=torch.int32, device=dev))
@@ -654,23 +642,14 @@ def _launch(bufs, g0, g1, carry, ro, rd, act, any_hit, with_uv=False):
         out += (torch.empty(R, dtype=torch.float32, device=dev),
                 torch.empty(R, dtype=torch.float32, device=dev))
     walks = spans.device_count("blas_walks", "k2", dev)
-    err = fn(ro.data_ptr(), rd.data_ptr(), act.data_ptr(), t_in.data_ptr(),
-             tri_in.data_ptr(), inst_in.data_ptr(),
-             *(x.data_ptr() for x in out[:3]),
-             *((out[3].data_ptr(), out[4].data_ptr()) if with_uv
-               else (None, None)), tables.rows.data_ptr(),
-             tables.ids.data_ptr(), tables.lo.data_ptr(),
-             tables.hi.data_ptr(), tables.blas_ptrs.data_ptr(),
-             tables.blas_steps.data_ptr(), bufs.inst_w2o.data_ptr(),
-             bufs.inst_aabb_lo.data_ptr(), bufs.inst_aabb_hi.data_ptr(),
-             bufs.inst_tri_base.data_ptr(),
-             bvh2._capped.tensor(dev).data_ptr(),
-             None if walks is None else walks.data_ptr(), R, g0, g1, c_max,
-             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tlas_trace launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    _build.launch("tlas_traverse", "tlas_trace", "23p5is", ro, rd, act, t_in,
+                  tri_in, inst_in, *out[:3],
+                  *(out[3:] if with_uv else (None, None)), tables.rows,
+                  tables.ids, tables.lo, tables.hi, tables.blas_ptrs,
+                  tables.blas_steps, bufs.inst_w2o, bufs.inst_aabb_lo,
+                  bufs.inst_aabb_hi, bufs.inst_tri_base,
+                  bvh2._capped.tensor(dev), walks, R, g0, g1, c_max,
+                  int(any_hit))
     return out
 
 

@@ -39,6 +39,8 @@ from typing import Iterator, Optional
 import torch
 from torch.profiler import record_function
 
+from ._build import DeviceCounter
+
 
 @dataclass
 class Span:
@@ -105,8 +107,6 @@ class Recording:
     def device_tensor(self, name: str, key: str, device) -> torch.Tensor:
         """The int64 one-element tensor on ``device`` that the count
         ``(name, key)`` reads when the recording stops."""
-        from .ops.intersect import DeviceCounter
-
         c = self._device.get((name, key))
         if c is None:
             c = self._device[(name, key)] = DeviceCounter(torch.int64)

@@ -20,13 +20,11 @@ equal t, the largest global triangle id (``pack_hits``; the kernel's
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from ..ops.intersect import (T_MIN, DeviceCounter, check_args,
-                             moller_trumbore, on_card)
+from .._build import check_args, on_card
+from ..ops.intersect import T_MIN, moller_trumbore
 from ..ops.wide import _safe_inv
 from .build import SUB_END, TILE
 
@@ -34,25 +32,14 @@ MAX_STEPS = 2048
 WALK_FIELDS = 10  # f0..f9; f10 (the global id) is host-side only
 NO_HIT = (1 << 63) - 1  # a ray's packed word before any pair hits
 
-# Launches of E7 on the card by (epilogue, mode): epilogue "per_ray" or
-# "per_pair", mode "closest" or "anyhit". chip_smoke.py zeroes them before
-# the main path and reads them after.
-launches = {(e, m): 0 for e in ("per_ray", "per_pair")
-            for m in ("closest", "anyhit")}
-
-_capped = DeviceCounter()  # pairs stopped by the step bound, per device
+# Pairs stopped by the step bound, per device.
+_capped = _build.kernel_counter("lane_bottom.capped")
 
 
 def capped_pairs(device) -> int:
     """Pairs that reached the step bound on ``device`` since the last
-    ``reset_counters()``."""
+    ``_build.reset_counters()``."""
     return _capped.read(device)
-
-
-def reset_counters() -> None:
-    for k in launches:
-        launches[k] = 0
-    _capped.reset()
 
 
 def lane_bottom_plain(sid_blocks, sub_fields, ro, rd, tmax, active,
@@ -171,20 +158,12 @@ def _call(sid_blocks, sub_fields, ray_args, outs, any_hit: bool,
     tab = sub_fields.reshape(sub_fields.shape[0], -1)
     if tab.data_ptr() % 16:
         raise ValueError("sub_fields: need a 16-byte aligned table")
-    fn = _build.load("treelet_traverse").lane_bottom
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    ptrs = [0 if x is None else x.data_ptr() for x in (*ray_args, *outs)]
-    err = fn(sid_blocks.data_ptr(), sid_blocks.shape[0],
-             tab.shape[1] // TILE - 1, tab.data_ptr(), tab.shape[1],
-             *ptrs, _capped.tensor(dev).data_ptr(), MAX_STEPS, int(any_hit),
-             int(per_ray), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_bottom launch failed: CUDA error {err}")
-    launches[("per_ray" if per_ray else "per_pair",
-              "anyhit" if any_hit else "closest")] += 1
+    _build.launch("treelet_traverse", "lane_bottom", "p2ipi10p3is",
+                  sid_blocks, sid_blocks.shape[0], tab.shape[1] // TILE - 1,
+                  tab, tab.shape[1], *ray_args, *outs, _capped.tensor(dev),
+                  MAX_STEPS, int(any_hit), int(per_ray),
+                  mode=("per_ray" if per_ray else "per_pair",
+                        "anyhit" if any_hit else "closest"))
 
 
 def _launch(sid_blocks, sub_fields, ro, rd, tmax, active, any_hit: bool):

@@ -21,12 +21,10 @@ with the rays that fall back flagged; its plain version is
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from ..ops.intersect import DeviceCounter, check_args, on_card
+from .._build import check_args, on_card
 from ..ops.wide import _safe_inv
 from .build import ID_MASK, PEND_CAP, TOP_ID_BITS
 
@@ -37,24 +35,14 @@ PAIR_BUDGET = 4
 # compacting epilogue keeps one scan word a tile of this many rays.
 TILE_RAYS = 256
 
-# Launches of E6 on the card by epilogue, "per_ray" or "pairs" (the
-# compacting one); chip_smoke.py zeroes them before the main path and reads
-# them after.
-launches = {"per_ray": 0, "pairs": 0}
-
-_capped = DeviceCounter()  # rays stopped by the step bound, per device
+# Rays stopped by the step bound, per device.
+_capped = _build.kernel_counter("lane_top.capped")
 
 
 def capped_rays(device) -> int:
     """Rays that reached the step bound on ``device`` since the last
-    ``reset_counters()``."""
+    ``_build.reset_counters()``."""
     return _capped.read(device)
-
-
-def reset_counters() -> None:
-    for k in launches:
-        launches[k] = 0
-    _capped.reset()
 
 
 def max_steps(num_top: int) -> int:
@@ -148,15 +136,6 @@ def lane_top_pairs_plain(top_fields, ro, rd, tmax, active, num_top: int,
     return compact_pairs(pend, npend, active, S=S)
 
 
-def _entry(name, n_ptrs, n_ints):
-    fn = getattr(_build.load("treelet_traverse"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    return fn
-
-
 def _check(top_fields, ro, rd, tmax, active):
     dev = ro.device
     R = ro.shape[0]
@@ -179,14 +158,9 @@ def _launch(top_fields, ro, rd, tmax, active, num_top: int):
     dev, R, tab = _check(top_fields, ro, rd, tmax, active)
     pend = torch.empty((R, PEND_CAP), dtype=torch.int32, device=dev)
     npend = torch.empty(R, dtype=torch.int32, device=dev)
-    err = _entry("lane_top", 7, 2)(
-        tab.data_ptr(), tab.shape[1], ro.data_ptr(), rd.data_ptr(),
-        tmax.data_ptr(), active.data_ptr(), pend.data_ptr(),
-        npend.data_ptr(), _capped.tensor(dev).data_ptr(), R,
-        max_steps(num_top), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_top launch failed: CUDA error {err}")
-    launches["per_ray"] += 1
+    _build.launch("treelet_traverse", "lane_top", "pi7p2is", tab,
+                  tab.shape[1], ro, rd, tmax, active, pend, npend,
+                  _capped.tensor(dev), R, max_steps(num_top))
     return pend, npend
 
 
@@ -200,15 +174,10 @@ def _launch_pairs(top_fields, ro, rd, tmax, active, num_top: int, S: int):
     # at every launch.
     state = torch.zeros(-(-R // TILE_RAYS) + 1, dtype=torch.int64,
                         device=dev)
-    err = _entry("lane_top_pairs", 9, 4)(
-        tab.data_ptr(), tab.shape[1], ro.data_ptr(), rd.data_ptr(),
-        tmax.data_ptr(), active.data_ptr(), key.data_ptr(),
-        ray_of.data_ptr(), fallback.data_ptr(), state.data_ptr(),
-        _capped.tensor(dev).data_ptr(), R, max_steps(num_top), int(S),
-        P_pad, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lane_top_pairs launch failed: CUDA error {err}")
-    launches["pairs"] += 1
+    _build.launch("treelet_traverse", "lane_top_pairs", "pi9p4is", tab,
+                  tab.shape[1], ro, rd, tmax, active, key, ray_of, fallback,
+                  state, _capped.tensor(dev), R, max_steps(num_top), int(S),
+                  P_pad)
     return key, ray_of, fallback
 
 

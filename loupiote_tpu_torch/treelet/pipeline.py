@@ -35,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..ops.bvh2 import bvh2_trace
-from ..ops.intersect import (DeviceCounter, Hit, ray_args, recompute_uv,
-                             uses_bvh2)
+from ..ops.intersect import Hit, ray_args, recompute_uv, uses_bvh2
 from ..ops.wide import wide_trace
 from .build import TILE
 from .lane_bottom import lane_bottom_rays, unpack_hits
@@ -48,17 +48,14 @@ from .regroup import _no_mark, block_regroup
 # E7, K4 and E5 (the "count" binning).
 LIBRARIES = ("treelet_traverse", "slab_sort", "regroup")
 
-_fallback = DeviceCounter(torch.int64)  # fallback rays, per device
+# Fallback rays, per device.
+_fallback = _build.kernel_counter("treelet.fallback", torch.int64)
 
 
 def fallback_rays(device) -> int:
     """Rays traced again by the non-treelet dispatch on ``device`` since
-    the last ``reset_counters()``."""
+    the last ``_build.reset_counters()``."""
     return _fallback.read(device)
-
-
-def reset_counters() -> None:
-    _fallback.reset()
 
 
 def _bin_pairs_sort(key, ray_of, fallback, *, R: int, S: int):

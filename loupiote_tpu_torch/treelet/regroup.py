@@ -36,24 +36,10 @@ import ctypes
 import torch
 
 from .. import _build
-from ..ops.intersect import check_args, on_card
+from .._build import check_args, on_card
 from ..ops.slab_sort import pack, sort_matrix
 
 CHUNK = 256  # the reference's copy granule; also its per-key gap size
-
-# Launches of E5 on the card by entry ("runs": scatter_runs, "blocks":
-# regroup_blocks), and the CUDA launches regroup_blocks' C entry point
-# made (three a call); chip_smoke.py zeroes them before the main path and
-# reads them after. E5 has no step bound, so no capped-lane counter.
-launches = {"runs": 0, "blocks": 0}
-cuda_launched = 0
-
-
-def reset_counters() -> None:
-    global cuda_launched
-    for k in launches:
-        launches[k] = 0
-    cuda_launched = 0
 
 
 def scatter_runs_plain(data2, nruns, src, dst, lens, out_rows: int):
@@ -89,17 +75,8 @@ def _launch(data2, nruns, src, dst, lens, out_rows: int):
                      ("dst", dst, torch.int32, (G, MAXR)),
                      ("lens", lens, torch.int32, (G, MAXR))))
     out = torch.zeros(out_rows, dtype=torch.int32, device=dev)
-    lib = _build.load("regroup")
-    fn = lib.scatter_runs
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    err = fn(data2.data_ptr(), nruns.data_ptr(), src.data_ptr(),
-             dst.data_ptr(), lens.data_ptr(), out.data_ptr(), G, SP, MAXR,
-             out_rows, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_runs launch failed: CUDA error {err}")
-    launches["runs"] += 1
+    _build.launch("regroup", "scatter_runs", "6p4is", data2, nruns, src, dst,
+                  lens, out, G, SP, MAXR, out_rows)
     return out
 
 
@@ -259,22 +236,11 @@ def _launch_blocks(mat, c_log: int, R: int, n_keys: int, tile: int,
     ray_out = torch.empty(out_rows, dtype=torch.int32, device=dev)
     on = torch.empty(out_rows, dtype=torch.int32, device=dev)
     mark("binning")
-    lib = _build.load("regroup")
-    fn = lib.regroup_blocks
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     made = ctypes.c_int(0)
-    err = fn(mat.data_ptr(), first.data_ptr(), pre.data_ptr(),
-             counts.data_ptr(), starts.data_ptr(), sid_blocks.data_ptr(),
-             ray_out.data_ptr(), on.data_ptr(), G, K, c_log, tile, chunk, B,
-             R, torch.cuda.current_stream(dev).cuda_stream,
-             ctypes.byref(made))
-    global cuda_launched
-    cuda_launched += made.value
-    if err != 0:
-        raise RuntimeError(f"regroup_blocks launch failed: CUDA error {err}")
-    launches["blocks"] += 1
+    _build.launch("regroup", "regroup_blocks", "8p7isn", mat, first, pre,
+                  counts, starts, sid_blocks, ray_out, on, G, K, c_log, tile,
+                  chunk, B, R, ctypes.byref(made))
+    _build.launches["regroup_blocks", "cuda_launches"] += made.value
     return ray_out, sid_blocks, on
 
 

@@ -28,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def main() -> int:
     import loupiote_tpu_torch as lt
-    from loupiote_tpu_torch.ops import bvh2, wide
+    from loupiote_tpu_torch import _build
     from loupiote_tpu_torch.ops import slab_sort as ss
     from loupiote_tpu_torch.ops.intersect import intersect_any
     from loupiote_tpu_torch.ops.raygen import generate_rays
@@ -54,10 +54,11 @@ def main() -> int:
                              any_hit=any_hit)
         same = torch.equal(got.tri.cpu() >= 0, want.tri >= 0) and (
             any_hit or torch.equal(got.tri.cpu(), want.tri))
+        n = {e: sum(v for (k, _), v in _build.launches.items() if k == e)
+             for e in ("wide_traverse", "tlas_trace")}
         print(f"instanced wave {w}x{h} {'any-hit' if any_hit else 'closest'}"
-              f": K1 launches {wide.launches_closest + wide.launches_anyhit}"
-              f", K2 {bvh2.launches_closest + bvh2.launches_anyhit}; equal "
-              f"to the CPU path {same}", flush=True)
+              f": K1 launches {n['wide_traverse']}, two-level kernel "
+              f"{n['tlas_trace']}; equal to the CPU path {same}", flush=True)
         ok &= same
     rng = np.random.default_rng(1)
     for n in (1 << 16, 1 << 20):

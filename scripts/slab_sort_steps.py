@@ -28,6 +28,8 @@ PEAK_BYTES_S = 3.35e12
 def report(ss, time_probe, name, mat, c_log):
     import torch
 
+    from loupiote_tpu_torch import _build
+
     span, b = ss._shape(c_log, mat.shape[0] - 1)
     plan = ss.launch_plan(c_log, mat.shape[0] - 1)
     io_ms = 2 * mat.numel() * 4 / PEAK_BYTES_S * 1e3
@@ -43,7 +45,9 @@ def report(ss, time_probe, name, mat, c_log):
         print(f"  {step}: {ms:.4f} ms", flush=True)
     whole = time_probe(lambda: ss._run_plan(work, c_log, plan), REPS)[0]
     check = mat.clone()
-    made = ss._run_plan(check, c_log, plan)
+    before = _build.launches["slab_sort", "cuda_launches"]
+    ss._run_plan(check, c_log, plan)
+    made = _build.launches["slab_sort", "cuda_launches"] - before
     same = bool(torch.equal(check, ss.slab_sort_plain(mat.clone(), c_log)))
     print(f"  steps summed {total:.4f} ms; the plan in one call {whole:.4f} "
           f"ms ({made} CUDA launches made); equal to slab_sort_plain "

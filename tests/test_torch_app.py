@@ -469,6 +469,32 @@ def test_frame_after_reload_equals_frame_before(small_renderer):
     r.enable_aot_cache()  # kept as API, does nothing
 
 
+def test_reload_with_a_two_level_scene_reimports_it():
+    """With a two-level scene bound, ``reload_shaders`` re-imports
+    ``scene/instanced.py``, which launches the TLAS kernel, rebinds its
+    importers, and the next frame equals the frame before the reload."""
+    from loupiote_tpu_torch.scene import instanced
+
+    r = lt.Renderer((32, 16), lt.RenderConfig(downsample_factor=1.0,
+                                              denoise=False), device="cpu")
+    r.set_resources(instanced.build_instanced_buffers(
+        lt.build_arch_scene(4_000, props=20, merged=True), device="cpu"))
+    old_loop = instanced._instance_loop
+    view = lt.arch_camera()
+    gs, st = r.generator.get_state(), r.state
+    r.raytrace(view)
+    a = r.state.accum.clone()
+    r.reload_shaders()
+    assert r.last_reload_error is None
+    assert instanced._instance_loop is not old_loop
+    assert sys.modules["loupiote_tpu_torch.app.driver"] \
+        .build_instanced_buffers is instanced.build_instanced_buffers
+    r.generator.set_state(gs)
+    r.state = st
+    r.raytrace(view)
+    assert torch.equal(a, r.state.accum)
+
+
 @pytest.mark.parametrize("nodes, treelet, want", [
     (8191, False, ["bvh2_traverse"]),
     (8192, False, ["wide_traverse"]),

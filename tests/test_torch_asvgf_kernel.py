@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from loupiote_tpu_torch import spans
+from loupiote_tpu_torch import _build
 from loupiote_tpu_torch.denoise import asvgf
 from torch_port_helpers import asvgf_frame
 
@@ -49,6 +50,12 @@ def _bits_equal(name, got, want):
                              f"{diff!r}")
 
 
+def _launched():
+    """(temporal, a-trous) launches since the last reset_counters()."""
+    return (_build.launches["asvgf_temporal", None],
+            _build.launches["asvgf_atrous", None])
+
+
 def _frame_equal(got, want):
     out, t, rgb = got
     w_out, w_t, w_rgb = want
@@ -64,9 +71,9 @@ def _frame_equal(got, want):
 @pytest.mark.parametrize("h,w", SIZES)
 def test_temporal_kernel_equals_twin(card, h, w):
     args = _args(asvgf_frame(h, w), card)
-    asvgf.reset_counters()
+    _build.reset_counters()
     t, rgb = asvgf.temporal(*args)
-    assert (asvgf.launches_temporal, asvgf.launches_atrous) == (1, 0)
+    assert _launched() == (1, 0)
     want_t, want_rgb = asvgf.temporal_plain(*args)
     for name, a, b in zip(asvgf.TemporalOut._fields, t, want_t):
         _bits_equal(name, a, b)
@@ -83,7 +90,7 @@ def test_atrous_kernel_equals_twin(card, h, w, step):
     illum, var, normal, depth, mesh, albedo = (
         torch.from_numpy(f[k]).to(card) for k in
         ("prev_illum", "variance", "normal", "depth", "mesh", "albedo"))
-    asvgf.reset_counters()
+    _build.reset_counters()
     got_i, got_v = asvgf._atrous_step(illum, var, normal, depth, mesh, step)
     want_i, want_v = asvgf.atrous_iteration(illum, var, normal, depth, mesh,
                                             step=step)
@@ -91,7 +98,7 @@ def test_atrous_kernel_equals_twin(card, h, w, step):
     _bits_equal("variance", got_v, want_v)
     rgb, none = asvgf._atrous_step(illum, var, normal, depth, mesh, step,
                                    albedo=albedo)
-    assert none is None and asvgf.launches_atrous == 2
+    assert none is None and _build.launches["asvgf_atrous", None] == 2
     _bits_equal("rgb", rgb, asvgf.modulate(want_i, albedo))
 
 
@@ -100,12 +107,11 @@ def test_atrous_kernel_equals_twin(card, h, w, step):
 @pytest.mark.parametrize("iterations", [0, 2, 4])
 def test_denoise_kernels_equal_twin(card, h, w, iterations):
     args = _args(asvgf_frame(h, w), card)
-    asvgf.reset_counters()
+    _build.reset_counters()
     with spans.recording() as rec:
         got = asvgf.denoise(*args, iterations=iterations)
     assert rec.counts == {("asvgf", "cuda"): 1}
-    assert (asvgf.launches_temporal,
-            asvgf.launches_atrous) == (1, iterations)
+    assert _launched() == (1, iterations)
     _frame_equal(got, asvgf.denoise_plain(*args, iterations=iterations))
     # The twins on CPU tensors of the same frame, which
     # tests/test_torch_denoise.py holds to the reference at this tolerance:
@@ -132,10 +138,9 @@ def test_viewer_hall_frames_equal_twin(card, monkeypatch):
     calls = []
 
     def recorded(*args, iterations):
-        asvgf.reset_counters()
+        _build.reset_counters()
         out = asvgf.denoise(*args, iterations=iterations)
-        calls.append((args, iterations, out, asvgf.launches_temporal,
-                      asvgf.launches_atrous))
+        calls.append((args, iterations, out, *_launched()))
         return out
 
     monkeypatch.setattr(rmod, "denoise", recorded)
@@ -161,7 +166,7 @@ def test_viewer_hall_frames_equal_twin(card, monkeypatch):
 @pytest.mark.card
 def test_kernel_wrappers_check_inputs(card):
     args = list(_args(asvgf_frame(24, 40), card))
-    asvgf.reset_counters()
+    _build.reset_counters()
     bad = [
         (1, args[1].transpose(0, 1).contiguous().transpose(0, 1)),  # strides
         (1, args[1].double()),
@@ -179,7 +184,7 @@ def test_kernel_wrappers_check_inputs(card):
     with pytest.raises(ValueError):
         asvgf._atrous_step(args[9], args[11].double(), args[3], args[4],
                            args[5], 1)
-    assert (asvgf.launches_temporal, asvgf.launches_atrous) == (0, 0)
+    assert _launched() == (0, 0)
 
 
 # -- on the CPU ---------------------------------------------------------------
@@ -187,12 +192,12 @@ def test_kernel_wrappers_check_inputs(card):
 @pytest.mark.parametrize("iterations", [0, 2, 4])
 def test_cpu_tensors_take_the_twins(iterations):
     args = _args(asvgf_frame(24, 40), "cpu")
-    asvgf.reset_counters()
+    _build.reset_counters()
     with spans.recording() as rec:
         got = asvgf.denoise(*args, iterations=iterations)
         t, rgb = asvgf.temporal(*args)
     assert rec.counts == {("asvgf", "plain"): 2}
-    assert (asvgf.launches_temporal, asvgf.launches_atrous) == (0, 0)
+    assert _launched() == (0, 0)
     want = asvgf.denoise_plain(*args, iterations=iterations)
     _frame_equal(got, want)
     for name, a, b in zip(asvgf.TemporalOut._fields, t, want[1]):
@@ -209,10 +214,10 @@ def test_cpu_tensors_take_the_twins(iterations):
 @pytest.mark.parametrize("iterations", [1, 3, 5])
 def test_odd_iteration_count_raises(iterations):
     args = _args(asvgf_frame(24, 40), "cpu")
-    asvgf.reset_counters()
+    _build.reset_counters()
     with pytest.raises(ValueError, match="even iteration count"):
         asvgf.denoise(*args, iterations=iterations)
-    assert (asvgf.launches_temporal, asvgf.launches_atrous) == (0, 0)
+    assert _launched() == (0, 0)
 
 
 def test_other_devices_raise():

@@ -26,7 +26,7 @@ from loupiote_tpu.ops.raygen import generate_rays as ref_generate_rays
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
 import loupiote_tpu_torch.scene.types as port_types
-from loupiote_tpu_torch import build_scene_buffers, from_reference
+from loupiote_tpu_torch import _build, build_scene_buffers, from_reference
 from loupiote_tpu_torch.accel.bvh import bvh_max_depth
 from loupiote_tpu_torch.ops import bvh2, intersect, wide
 from loupiote_tpu_torch.ops.intersect import T_MIN, moller_trumbore
@@ -272,17 +272,20 @@ def test_k2_counts_launches_by_mode(soup, monkeypatch, any_hit):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: SimpleNamespace(cuda_stream=0))
     x, t0 = torch.zeros((5, 3)), torch.zeros(5)
-    bvh2.reset_counters()
+    _build.reset_counters()
     for _ in range(2):
         t, u, v, tri = bvh2._launch_trace(
             port.node_rows, port.leaf_rows, x, x, t0, t0 > 0, any_hit,
             port.num_nodes, port.stack_depth)
         assert t.shape == u.shape == v.shape == tri.shape == (5,)
     assert calls == [(5, bvh2.max_steps(port.num_nodes), int(any_hit))] * 2
-    assert (bvh2.launches_closest, bvh2.launches_anyhit,
-            bvh2.launches_occluded) == ((0, 2, 0) if any_hit else (2, 0, 0))
-    bvh2.reset_counters()
-    assert bvh2.launches_closest == bvh2.launches_anyhit == 0
+    launches = _build.launches
+    assert (launches["bvh2_trace", "closest"],
+            launches["bvh2_trace", "anyhit"],
+            launches["bvh2_occluded", None]) == ((0, 2, 0) if any_hit
+                                                 else (2, 0, 0))
+    _build.reset_counters()
+    assert not launches
 
 
 def test_step_bound_stops_and_counts_rays(soup):
@@ -292,7 +295,7 @@ def test_step_bound_stops_and_counts_rays(soup):
     ro, rd = (_t(x) for x in random_rays(tris, 256, seed=86))
     t0 = torch.full((256,), 1e30)
     on = torch.ones(256, dtype=torch.bool)
-    bvh2.reset_counters()
+    _build.reset_counters()
     # num_nodes -15 -> a bound of 4 * -15 + 64 = 4 node visits.
     bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
                           False, -15, port.stack_depth)
@@ -301,7 +304,7 @@ def test_step_bound_stops_and_counts_rays(soup):
     bvh2.bvh2_occluded_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
                              port.end_index, -15)
     assert capped < bvh2.capped_rays("cpu") <= 512
-    bvh2.reset_counters()
+    _build.reset_counters()
     assert bvh2.capped_rays("cpu") == 0
     stats = {}
     bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd, t0, on,
@@ -375,7 +378,7 @@ def test_k3_waiting_leaf_rows_keep_the_twins_bits_and_counts(soup, bound):
                             .astype(np.float32))
     active = torch.from_numpy(rng.random(1000) < 0.9)
     num_nodes = port.num_nodes if bound == "sound" else -15
-    bvh2.reset_counters()
+    _build.reset_counters()
     stats = {}
     want = bvh2.bvh2_occluded_plain(port.node_rows, port.leaf_rows, ro, rd,
                                     tmax, active, port.end_index, num_nodes,
@@ -525,7 +528,7 @@ def test_k2_waiting_leaf_rows_keep_the_twins_bits_and_counts(soup, name,
     num_nodes = port.num_nodes if bound == "sound" else -15
     ints = port.node_rows.view(torch.int32)[:port.num_nodes].numpy()
     depth = bvh_max_depth(ints[:, 6], ints[:, 7])
-    bvh2.reset_counters()
+    _build.reset_counters()
     stats = {}
     want = bvh2.bvh2_trace_plain(port.node_rows, port.leaf_rows, ro, rd,
                                  tmax, active, any_hit, num_nodes,

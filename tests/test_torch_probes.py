@@ -49,6 +49,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 import kernel_probe as ref_kp  # noqa: E402
 import lane_gather_bench as ref_lg  # noqa: E402
 import r3_probes as ref_r3  # noqa: E402
+from loupiote_tpu_torch import _build  # noqa: E402
 from loupiote_tpu_torch.accel.wide import LEAF_TAG  # noqa: E402
 from loupiote_tpu_torch.experiments import (  # noqa: E402
     device_sort_bench, kernel_probe as kp, lane_gather_bench as lg,
@@ -119,7 +120,7 @@ def test_probe_matches_reference(request, probe, edge):
     fixture = "arch_nonfinite" if edge else "arch"
     bufs, (dro, drd, *_), args = request.getfixturevalue(fixture)
     kw = _kwargs(bufs, probe)
-    kp.reset_counters()
+    _build.reset_counters()
     t, u, v, tri, steps = kp.probe_trace(*args, **kw)
     dropped = kp.dropped_pushes("cpu")
     rt, ru, rv, rtri = _ref_probe(_untagged(bufs.trav_rows), args, kw)

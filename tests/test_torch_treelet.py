@@ -38,6 +38,7 @@ from experiments.treelet.regroup import scatter_runs as ref_scatter  # noqa: E40
 from loupiote_tpu.accel.bvh import build_bvh as ref_build_bvh  # noqa: E402
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers  # noqa: E402
 from loupiote_tpu.scene.procedural import build_arch_scene as ref_arch  # noqa: E402
+from loupiote_tpu_torch import _build  # noqa: E402
 from loupiote_tpu_torch import build_arch_scene as port_arch  # noqa: E402
 from loupiote_tpu_torch import build_scene_buffers, from_reference  # noqa: E402
 from loupiote_tpu_torch.accel.bvh import build_bvh  # noqa: E402
@@ -152,7 +153,7 @@ def test_lane_top_matches_reference_exactly(soup, cap, edge):
         ref_t = ref_treelets(ref_build_bvh(*tris, use_native=False), tri9,
                              cap=cap)
         port_t = tb.build_treelets(bvh, tri9, cap=cap)
-    lane_top.reset_counters()
+    _build.reset_counters()
     ro, rd, tmax, active = _rays(tris, 2048, seed=3)
     if edge:
         ro, rd = (x.numpy() for x in nonfinite_rays(
@@ -295,7 +296,7 @@ def test_lane_top_counts_launches_by_epilogue(monkeypatch, epilogue):
     ray = torch.zeros((R, 3), dtype=torch.float32)
     t0 = torch.zeros(R, dtype=torch.float32)
     act = torch.ones(R, dtype=torch.bool)
-    lane_top.reset_counters()
+    _build.reset_counters()
     for _ in range(3):
         if epilogue == "per_ray":
             pend, npend = lane_top._launch(top, ray, ray, t0, act, 5)
@@ -305,13 +306,12 @@ def test_lane_top_counts_launches_by_epilogue(monkeypatch, epilogue):
                                                      5, 9)
             assert key.shape == ray_of.shape == (lane_top.PAIR_BUDGET * R,)
             assert fb.shape == (R,) and fb.dtype == torch.bool
-    assert lane_top.launches == {k: 3 * (k == epilogue)
-                                 for k in lane_top.launches}
     name = "lane_top" if epilogue == "per_ray" else "lane_top_pairs"
+    assert _build.launches == {(name, None): 3}
     assert [c[0] for c in calls] == [name] * 3
     assert all(lane_top.max_steps(5) in c[1] for c in calls)
-    lane_top.reset_counters()
-    assert not any(lane_top.launches.values())
+    _build.reset_counters()
+    assert not _build.launches
     with pytest.raises(ValueError, match="top_fields"):
         lane_top._launch(top[:, :1000].contiguous(), ray, ray, t0, act, 5)
 
@@ -357,7 +357,7 @@ def test_lane_bottom_matches_reference(soup, any_hit, edge):
                                jnp.asarray(pro), jnp.asarray(prd),
                                jnp.asarray(pt0), jnp.asarray(on),
                                any_hit=any_hit, interpret=True)
-    lane_bottom.reset_counters()
+    _build.reset_counters()
     stats = {}
     pt, ptri = lane_bottom.lane_bottom_plain(
         torch.from_numpy(sid), torch.from_numpy(sub), torch.from_numpy(pro),
@@ -445,17 +445,16 @@ def test_lane_bottom_counts_launches_by_epilogue(monkeypatch, per_ray,
     sid = torch.zeros(1, dtype=torch.int32)
     sub = torch.zeros((11, 2 * tb.TILE), dtype=torch.float32)
     ray = torch.zeros((tb.TILE, 3), dtype=torch.float32)
-    lane_bottom.reset_counters()
+    _build.reset_counters()
     for _ in range(2):
         lane_bottom._call(sid, sub, (None, ray, ray, ray[:, 0], sid, None),
                           (None, None, None), any_hit, per_ray)
     key = ("per_ray" if per_ray else "per_pair",
            "anyhit" if any_hit else "closest")
-    assert lane_bottom.launches == {k: 2 * (k == key)
-                                    for k in lane_bottom.launches}
+    assert _build.launches == {("lane_bottom", key): 2}
     assert calls == [(lane_bottom.MAX_STEPS, int(any_hit), int(per_ray))] * 2
-    lane_bottom.reset_counters()
-    assert not any(lane_bottom.launches.values())
+    _build.reset_counters()
+    assert not _build.launches
 
 
 def _slab_runs(seed, G=3, slab=1024, K=9):
@@ -486,10 +485,10 @@ def test_scatter_runs_matches_reference_inside_regions():
     ref = np.asarray(ref_scatter(*(jnp.asarray(x.numpy()) for x in
                                    (data2, nruns, src, dst, lens)),
                                  out_rows=out_rows, interpret=True))
-    regroup.reset_counters()
+    _build.reset_counters()
     out = regroup.scatter_runs(data2, nruns, src, dst, lens, out_rows).numpy()
     # CPU tensors: the twin, no launch of either entry
-    assert not any(regroup.launches.values())
+    assert not _build.launches
     inside = np.zeros(out_rows, bool)
     for s, h in zip(starts.tolist(), H.tolist()):
         inside[s:s + h] = True
@@ -618,9 +617,9 @@ def test_regroup_blocks_plain_is_the_composition_and_the_reference(case):
     block_regroup (interpret mode) on sid_blocks, on and the rays of every
     live slot; every live pair lands once, in a block of its key."""
     keys, ray, mat, c_log, R, K = _e5_input(case)
-    regroup.reset_counters()
+    _build.reset_counters()
     got = regroup.regroup_blocks(mat, c_log, R, K)
-    assert not any(regroup.launches.values()) and regroup.cuda_launched == 0
+    assert not _build.launches
     args, (starts, counts) = regroup.block_runs(mat, c_log, R, K)
     want = regroup.block_layout(regroup.scatter_runs_plain(*args), starts,
                                 counts, R)
@@ -678,7 +677,7 @@ def test_e5_counts_launches_by_entry(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: SimpleNamespace(cuda_stream=0))
     _, _, mat, c_log, R, K = _e5_input("spans")
-    regroup.reset_counters()
+    _build.reset_counters()
     for _ in range(2):
         if entry == "runs":
             z = torch.zeros((3, 4), dtype=torch.int32)
@@ -690,13 +689,14 @@ def test_e5_counts_launches_by_entry(monkeypatch, entry):
             B = regroup.out_rows_of(R, K) // 1024
             assert ray_out.shape == on.shape == (B * 1024,)
             assert sid.shape == (B,)
-    assert regroup.launches == {k: 2 * (k == entry) for k in regroup.launches}
-    assert regroup.cuda_launched == (6 if entry == "blocks" else 0)
+    name = "scatter_runs" if entry == "runs" else "regroup_blocks"
+    assert _build.launches == ({(name, None): 2} if entry == "runs" else
+                               {(name, None): 2, (name, "cuda_launches"): 6})
     G = mat.shape[1] >> c_log
     assert calls == [(entry, (3, 4, 4, 50) if entry == "runs" else
                       (G, K, c_log, 1024, regroup.CHUNK,
                        regroup.out_rows_of(R, K) // 1024, R))] * 2
-    regroup.reset_counters()
-    assert not any(regroup.launches.values()) and regroup.cuda_launched == 0
+    _build.reset_counters()
+    assert not _build.launches
     with pytest.raises(ValueError, match="tile"):
         regroup._launch_blocks(mat, c_log, R, K, 1022, regroup.CHUNK)

@@ -28,12 +28,12 @@ import loupiote_tpu.scene.types as ref_types  # noqa: E402
 from experiments.treelet.pipeline import \
     treelet_intersect as ref_treelet_intersect  # noqa: E402
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers  # noqa: E402
-from loupiote_tpu_torch import (arch_camera, build_arch_scene,  # noqa: E402
-                                build_scene_buffers, from_reference,
-                                trace_paths)
+from loupiote_tpu_torch import (_build, arch_camera,  # noqa: E402
+                                build_arch_scene, build_scene_buffers,
+                                from_reference, trace_paths)
+from loupiote_tpu_torch._build import DeviceCounter, full_device  # noqa: E402
 from loupiote_tpu_torch.ops import bvh2  # noqa: E402
-from loupiote_tpu_torch.ops.intersect import (DeviceCounter,  # noqa: E402
-                                              full_device, intersect_any)
+from loupiote_tpu_torch.ops.intersect import intersect_any  # noqa: E402
 from loupiote_tpu_torch.render.integrator import draw_uniforms  # noqa: E402
 from loupiote_tpu_torch.treelet import lane_top, pipeline  # noqa: E402
 from loupiote_tpu_torch.treelet.pipeline import (treelet_intersect,  # noqa: E402
@@ -116,7 +116,7 @@ def test_starved_budget_falls_back_and_matches(scene, monkeypatch):
     ref, port, rays = scene
     want = _reference(scene, monkeypatch, "xla", False)
     monkeypatch.setattr(lane_top, "PAIR_BUDGET", 1)
-    pipeline.reset_counters()
+    _build.reset_counters()
     for regroup in ("count", "sort"):
         _check(ref, rays, want, _port(port, rays, False, regroup), False)
     assert pipeline.fallback_rays("cpu") > 50

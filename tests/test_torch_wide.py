@@ -23,7 +23,7 @@ from loupiote_tpu.ops.pallas_wide import intersect_wide as ref_intersect_wide
 from loupiote_tpu.ops.raygen import generate_rays as ref_generate_rays
 from loupiote_tpu.scene import build_scene_buffers as ref_buffers
 from loupiote_tpu.scene.procedural import arch_camera, build_arch_scene
-from loupiote_tpu_torch import from_reference
+from loupiote_tpu_torch import _build, from_reference
 from loupiote_tpu_torch.ops import wide
 from torch_port_helpers import (assert_same_hits, nonfinite_rays, numpy_bvh,
                                 random_rays, random_tris, soup_scene, t_of)
@@ -431,12 +431,12 @@ def test_step_bound_stops_and_counts_rays(soup):
     as the kernel's capped counter does."""
     _, port, tris = soup
     ro, rd = random_rays(tris, 256, seed=83)
-    wide.reset_counters()
+    _build.reset_counters()
     wide.wide_trace_plain(port.trav_rows, torch.from_numpy(ro),
                           torch.from_numpy(rd), torch.full((256,), 1e30),
                           torch.ones(256, dtype=torch.bool), False, -15,
                           port.wide_stack)
     # wide_end -15 -> a bound of 4 * -15 + 64 = 4 row visits.
     assert 0 < wide.capped_rays("cpu") <= 256
-    wide.reset_counters()
+    _build.reset_counters()
     assert wide.capped_rays("cpu") == 0
